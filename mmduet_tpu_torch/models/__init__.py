@@ -9,5 +9,9 @@ from .mmduet import (
     spatial_pool,
     project,
     StepOutput,
+    train_forward,
+    masked_ce,
+    TrainOutput,
 )
-from .params import init_mmduet_params, params_from_numpy
+from .lora import init_lora, lora_scale, fold_lora_scale, merge_lora
+from .params import init_mmduet_params, params_from_numpy, train_state_from_numpy

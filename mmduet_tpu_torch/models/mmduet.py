@@ -1,7 +1,7 @@
 """The MMDuet model assembly in PyTorch: tower + projector + pooling +
 decoder + score heads.
 
-Port of `mmduet_tpu/models/mmduet.py` (inference functions):
+Port of `mmduet_tpu/models/mmduet.py`:
 
 - ``visual_embed``  — SigLIP patches -> projector MLP -> bilinear 27->7
   spatial pooling -> 49 tokens per frame;
@@ -11,9 +11,11 @@ Port of `mmduet_tpu/models/mmduet.py` (inference functions):
   the preallocated KV cache, returning the score-head probabilities (and
   last-position LM logits);
 - ``decode_loop``   — prompt prefill + greedy decode into a scratch cache,
-  then one commit into the big cache.
+  then one commit into the big cache;
+- ``train_forward``  — the full-sequence training forward with the LM and
+  video (score-head) losses.
 
-The CLIP tower and the training forward are not ported yet.
+The CLIP tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -102,11 +104,14 @@ def spatial_pool(features: torch.Tensor, cfg: MMDuetConfig) -> torch.Tensor:
 
 
 def project(params: Params, features: torch.Tensor) -> torch.Tensor:
-    """2-layer MLP projector (LLaVA mm_projector) with exact GELU."""
+    """2-layer MLP projector (LLaVA mm_projector) with exact GELU, in the
+    features' dtype (f32 features over bf16 weights compute in f32, as the
+    JAX einsum promotes them)."""
     p = params["projector"]
-    x = siglip._linear(features, p["fc1"], p["fc1_bias"])
-    x = F.gelu(x.float(), approximate="none").to(features.dtype)
-    return siglip._linear(x, p["fc2"], p["fc2_bias"])
+    dt = features.dtype
+    x = siglip._linear(features, p["fc1"].to(dt), p["fc1_bias"])
+    x = F.gelu(x.float(), approximate="none").to(dt)
+    return siglip._linear(x, p["fc2"].to(dt), p["fc2_bias"])
 
 
 def normalize_pixels(cfg: MMDuetConfig, frames_uint8: torch.Tensor) -> torch.Tensor:
@@ -161,6 +166,66 @@ def _head(w: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
     return matmul_f32(hidden, w)
 
 
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean cross-entropy over labels != -100. Returns (loss, count); the
+    loss is 0 when no label counts."""
+    mask = labels != -100
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    count = mask.sum()
+    loss = (nll * mask).sum() / count.clamp(min=1)
+    return torch.where(count > 0, loss, torch.zeros_like(loss)), count
+
+
+class TrainOutput(NamedTuple):
+    loss: torch.Tensor
+    lm_loss: torch.Tensor
+    video_loss: torch.Tensor
+    lm_logits: torch.Tensor
+    informative_logits: torch.Tensor
+    relevance_logits: torch.Tensor
+
+
+def train_forward(
+    params: Params,
+    cfg: MMDuetConfig,
+    input_ids: torch.Tensor,  # (B, T)
+    attn_mask: torch.Tensor,  # (B, T) bool
+    frame_embeds: Optional[torch.Tensor],  # (N, frame_tokens, H) pre-computed
+    labels: torch.Tensor,  # (B, T) pre-shifted LM labels
+    informative_labels: torch.Tensor,  # (B, T)
+    relevance_labels: torch.Tensor,  # (B, T)
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+    remat: bool = True,
+    use_flash: Optional[bool] = None,  # None = auto (kernel C on CUDA)
+) -> TrainOutput:
+    """Full-sequence training forward. Labels are pre-shifted by the
+    collator; positions are ``cumsum(attn_mask) - 1``. The loss is
+    ``lm_loss_weight * lm_loss + video_loss_weight * video_loss``, the
+    video loss one cross-entropy over both score heads' labels."""
+    embeds = joint_embed(params, cfg, input_ids, frame_embeds)
+    positions = torch.cumsum(attn_mask.int(), dim=1) - 1
+    hidden, _ = qwen2.qwen2_forward(
+        params["decoder"], cfg.text, embeds, positions,
+        attn_mask=attn_mask, lora=lora, lora_scale=lora_scale, remat=remat,
+        use_flash=use_flash,
+    )
+    head_hidden = hidden.detach() if cfg.video_head_stop_grad else hidden
+    lm = qwen2.lm_logits(params["lm_head"], hidden)
+    inf = _head(params["informative_head"], head_hidden)
+    rel = _head(params["relevance_head"], head_hidden)
+
+    lm_loss, _ = masked_ce(lm, labels)
+    video_loss, _ = masked_ce(
+        torch.cat([inf, rel], dim=0),
+        torch.cat([informative_labels, relevance_labels], dim=0),
+    )
+    loss = cfg.lm_loss_weight * lm_loss + cfg.video_loss_weight * video_loss
+    return TrainOutput(loss, lm_loss, video_loss, lm, inf, rel)
+
+
 class StepOutput(NamedTuple):
     last_logits: Optional[torch.Tensor]  # (B, V) f32, None in score-only steps
     informative_prob: torch.Tensor  # (B,) P(informative)
@@ -190,7 +255,8 @@ def step_forward(
     kv_cache: KVCache,
     cache_len: Lanes,  # per-lane cursors (or one for all)
     t_real: Lanes,  # real (unpadded) tokens in each lane's chunk
-    lora: Optional[Params] = None,  # not ported yet: raises
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
     compute_lm_logits: bool = True,
 ) -> StepOutput:
     """One streaming step: write the chunk into the cache (in place) and
@@ -200,7 +266,7 @@ def step_forward(
     tr = lane_list(t_real, B)
     hidden, kv_cache = qwen2.qwen2_forward(
         params["decoder"], cfg.text, embeds, _positions(cl, T, embeds.device),
-        kv_cache=kv_cache, cache_len=cl, lora=lora, t_real=tr,
+        kv_cache=kv_cache, cache_len=cl, lora=lora, lora_scale=lora_scale, t_real=tr,
     )
     last = torch.stack([hidden[b, t - 1] for b, t in enumerate(tr)])[:, None]
     return _score_output(params, last, kv_cache, compute_lm_logits)
@@ -212,7 +278,8 @@ def frames_block_forward(
     frames: torch.Tensor,  # (K, frame_num_tokens, H) — K whole frames
     kv_cache: KVCache,
     cache_len: int,
-    lora: Optional[Params] = None,  # not ported yet: raises
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Score K consecutive frames in ONE chunk forward: attention is
     causal, so the heads read at each frame's last position (ft-1,
@@ -225,7 +292,8 @@ def frames_block_forward(
     hidden, kv_cache = qwen2.qwen2_forward(
         params["decoder"], cfg.text, embeds,
         _positions([cache_len], K * ft, frames.device),
-        kv_cache=kv_cache, cache_len=cache_len, lora=lora, t_real=K * ft,
+        kv_cache=kv_cache, cache_len=cache_len, lora=lora, lora_scale=lora_scale,
+        t_real=K * ft,
     )
     last = hidden.reshape(K, ft, H)[None, :, ft - 1, :]  # (1, K, H)
     inf = torch.softmax(_head(params["informative_head"], last)[0], dim=-1)[:, 1]
@@ -246,7 +314,8 @@ def decode_loop(
     max_new: int,
     eos_id: int,
     rep: Optional[float] = None,
-    lora: Optional[Params] = None,  # not ported yet: raises
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Prompt prefill + greedy decode (with the repetition penalty as a
     token bitmask), the port of the JAX device-side `lax.while_loop` as a
@@ -283,7 +352,7 @@ def decode_loop(
             pen_mask[b, tok] = True
 
     out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
-                       compute_lm_logits=True)
+                       lora_scale=lora_scale, compute_lm_logits=True)
     cache = out.kv_cache  # prompt committed; read-only until the commit
     base = [c + t if a else c for c, t, a in zip(cl, tr, act)]
 
@@ -313,7 +382,7 @@ def decode_loop(
         ).to(embeds.dtype)
         hidden, scratch = qwen2.qwen2_forward(
             dec, cfg.text, emb, ints_to(cursor, dev)[:, None],
-            kv_cache=cache, cache_len=base, lora=lora,
+            kv_cache=cache, cache_len=base, lora=lora, lora_scale=lora_scale,
             t_real=1, scratch=scratch, scratch_len=i - 1,
         )
         logits = qwen2.lm_logits(params["lm_head"], hidden[:, :1])[:, 0]

@@ -23,7 +23,8 @@ Params = Dict[str, Any]
 def params_from_numpy(tree: Params, device, dtype: Optional[torch.dtype] = None) -> Params:
     """The JAX param tree with numpy leaves (``jax.tree.map(np.asarray,
     params)``) as tensors on ``device``, cast to ``dtype`` (None keeps
-    each leaf's dtype). Quantized leaves raise `NotImplementedError`."""
+    each leaf's dtype). A LoRA tree (``{proj: {"a", "b"}}``) converts the
+    same way. Quantized leaves raise `NotImplementedError`."""
     out: Params = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
@@ -136,3 +137,34 @@ def init_mmduet_params(cfg: MMDuetConfig, generator: torch.Generator, device,
         },
         "vision": _siglip(ini, cfg.vision),
     }
+
+
+def _adam_state(opt_state):
+    """optax's ``ScaleByAdamState`` (count, mu, nu) inside a chain state."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, tuple):
+        for sub in opt_state:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_numpy(state, device, dtype: Optional[torch.dtype] = None):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) as the port's `train.step.TrainState` on ``device``: the
+    trainable tree cast to ``dtype`` (None keeps each leaf's), and optax's
+    Adam count and moments (f32, as the port keeps them)."""
+    from ..train.step import TrainState
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+    return TrainState(
+        step=int(state.step),
+        trainable=params_from_numpy(state.trainable, device, dtype),
+        opt_state={"count": int(adam.count),
+                   "mu": params_from_numpy(adam.mu, device, torch.float32),
+                   "nu": params_from_numpy(adam.nu, device, torch.float32)},
+    )

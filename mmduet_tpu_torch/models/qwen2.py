@@ -1,4 +1,5 @@
-"""Qwen2 decoder in PyTorch: streaming and scratch-decode modes.
+"""Qwen2 decoder in PyTorch: full (training), streaming and scratch-decode
+modes, with runtime LoRA.
 
 Port of `mmduet_tpu/models/qwen2.py` for bf16 and f32 parameter leaves.
 Parameters are the JAX package's tree as tensors (`models.params`):
@@ -14,8 +15,12 @@ place (`commit_lanes`). Padded tail tokens of a bucket produce outputs
 that are never read, and their cache slots are overwritten by the next
 chunk.
 
-Not ported yet: full (training) mode, LoRA, int8/int4 leaves and the int8
-KV cache; each raises `NotImplementedError`.
+Full mode (``kv_cache=None``): causal attention over the chunk with
+``attn_mask`` for padding, through `ops.attention.flash_full_attention`
+(kernel C on CUDA, forward and backward) or the masked plain attention.
+
+Not ported yet: int8/int4 leaves and the int8 KV cache; each raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -25,10 +30,12 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmduet_tpu.config import Qwen2Config
 
-from ..ops.attention import flash_decode_attention
+from ..ops.attention import (KernelRefused, attend, flash_decode_attention,
+                             flash_full_attention)
 
 Params = Dict[str, Any]
 Lanes = Union[int, Sequence[int], torch.Tensor]
@@ -89,13 +96,33 @@ def ints_to(values: Sequence[int], device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class _MatmulF32(torch.autograd.Function):
+    """bf16 ``(N, H) @ (H, O)`` on cuBLAS with an f32 output (f32
+    accumulation, no f32 copy of either operand). The backward rounds the
+    f32 cotangent to bf16 for its two products; the gradients come out in
+    the operands' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(w.dtype)
+        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``(..., H) @ (H, O)`` accumulated and returned in f32, as the JAX
-    einsum with ``preferred_element_type=float32``. A bf16 product on
-    CUDA goes to cuBLAS with an f32 output (no f32 copy of ``w``);
-    otherwise both operands are upcast."""
+    einsum with ``preferred_element_type=float32``. Two bf16 operands on
+    CUDA go to cuBLAS as they are (`_MatmulF32`); otherwise both are
+    upcast to f32."""
     if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -129,10 +156,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
 
 
-def _proj(y: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def _proj(y: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+          lora_ab: Optional[Params] = None, lora_scale: float = 0.0) -> torch.Tensor:
     """``y @ w`` in the activation dtype (f32 accumulation, one rounding,
-    as the JAX einsum + astype), plus the bias in that dtype."""
-    out = torch.matmul(y, w)
+    as the JAX einsum + astype), plus the bias in that dtype.
+
+    With an adapter ``{"a": (in, r), "b": (r, out)}`` the low-rank term
+    ``lora_scale * (y @ a) @ b`` is added to the f32 base product before
+    the rounding, as the JAX projection does."""
+    if lora_ab is None:
+        out = torch.matmul(y, w)
+    else:
+        delta = torch.matmul(torch.matmul(y.float(), lora_ab["a"].float()),
+                             lora_ab["b"].float())
+        out = (matmul_f32(y, w) + lora_scale * delta).to(y.dtype)
     if bias is not None:
         out = out + bias.to(y.dtype)
     return out
@@ -146,6 +183,38 @@ def _check_dense(tree: Params, where: str) -> None:
             )
 
 
+def _layer_lora(lora: Optional[Params], i: int) -> Params:
+    """Layer ``i`` of the stacked adapter tree ({} without adapters)."""
+    return {name: {"a": ab["a"][i], "b": ab["b"][i]} for name, ab in (lora or {}).items()}
+
+
+def _qkv(x: torch.Tensor, p: Params, lo: Params, lora_scale: float,
+         cfg: Qwen2Config, cos: torch.Tensor, sin: torch.Tensor):
+    """Input norm, the q/k/v projections (with their adapters) and RoPE:
+    q (B, T, nh, hd), k and v (B, T, kh, hd)."""
+    B, T, _ = x.shape
+    nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    y = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
+    q = _proj(y, p["q_proj"], p.get("q_bias"), lo.get("q_proj"), lora_scale)
+    k = _proj(y, p["k_proj"], p.get("k_bias"), lo.get("k_proj"), lora_scale)
+    v = _proj(y, p["v_proj"], p.get("v_bias"), lo.get("v_proj"), lora_scale)
+    q = apply_rope(q.reshape(B, T, nh, hd), cos, sin)
+    k = apply_rope(k.reshape(B, T, kh, hd), cos, sin)
+    return q, k, v.reshape(B, T, kh, hd)
+
+
+def _out_mlp(x: torch.Tensor, attn: torch.Tensor, p: Params, lo: Params,
+             lora_scale: float, cfg: Qwen2Config) -> torch.Tensor:
+    """The attention output projection and the MLP block, with residuals."""
+    B, T, _ = x.shape
+    x = x + _proj(attn.reshape(B, T, -1), p["o_proj"], None, lo.get("o_proj"), lora_scale)
+    y = rms_norm(x, p["post_attn_norm"], cfg.rms_norm_eps)
+    gate = _proj(y, p["gate_proj"], None, lo.get("gate_proj"), lora_scale)
+    up = _proj(y, p["up_proj"], None, lo.get("up_proj"), lora_scale)
+    act = F.silu(gate.float()).to(x.dtype) * up
+    return x + _proj(act, p["down_proj"], None, lo.get("down_proj"), lora_scale)
+
+
 # ---------------------------------------------------------------------------
 # Decoder forward
 # ---------------------------------------------------------------------------
@@ -155,32 +224,52 @@ def qwen2_forward(
     params: Params,
     cfg: Qwen2Config,
     embeds: torch.Tensor,  # (B, T, H) input embeddings (already joint-embedded)
-    positions: torch.Tensor,  # (B, T) global positions (RoPE)
+    positions: torch.Tensor,  # (B, T) global positions (RoPE; masking in full mode)
     kv_cache: Optional[KVCache] = None,
     cache_len: Optional[Lanes] = None,  # per-lane tokens already in cache
-    attn_mask: Optional[torch.Tensor] = None,  # full (training) mode only
-    lora: Optional[Params] = None,  # not ported yet: raises
+    attn_mask: Optional[torch.Tensor] = None,  # (B, T) bool, full mode only
+    lora: Optional[Params] = None,  # {proj: {"a": (L,in,r), "b": (L,r,out)}}
+    lora_scale: float = 0.0,
+    remat: bool = False,  # full mode: recompute each layer in the backward
     t_real: Optional[Lanes] = None,  # per-lane real tokens in the chunk
+    use_flash: Optional[bool] = None,  # full mode: None = auto (kernel C on CUDA)
     scratch: Optional[KVCache] = None,  # (L, B, kh, M, hd) decode scratch
     scratch_len: Optional[int] = None,  # tokens already in the scratch
-) -> Tuple[torch.Tensor, KVCache]:
-    """Run the decoder in **streaming** mode: split attention over
-    [committed cache history] + [the chunk, causal], then the chunk's K/V
-    committed into ``kv_cache`` in place at each lane's ``cache_len``.
+) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """Run the decoder. Three modes:
 
-    **Scratch decode** (``scratch`` given): the big cache is read-only;
-    the chunk's K/V go into ``scratch`` at ``scratch_len`` (in place)
-    and attention runs over [cache slots < cache_len] + [scratch tokens
-    + the chunk, causal at chunk position ``scratch_len`` + t]. Returns
-    the scratch; the caller commits it into the big cache once, after the
-    decode loop (`mmduet.decode_loop`).
+    - **full** (``kv_cache`` None): causal self-attention over the chunk,
+      ``attn_mask`` masking padding; the training forward. CUDA tensors
+      take `flash_full_attention`, kernel C (``use_flash`` None or True;
+      False raises, and so does the kernel for what it refuses, e.g. a
+      ``head_dim`` other than 128). CPU tensors take the masked plain
+      attention (position-causal) for False and None, and kernel C's plain
+      version for True. Under None (auto) on CUDA the hidden states turn
+      to NaN if real positions do not strictly increase along the
+      sequence (the index-causal kernel would silently differ from
+      position-causality). ``remat`` checkpoints
+      each layer (`torch.utils.checkpoint`, non-reentrant): its forward,
+      kernel C's included, runs again inside the backward.
+    - **streaming** (``kv_cache`` given): split attention over [committed
+      cache history] + [the chunk, causal], then the chunk's K/V
+      committed into ``kv_cache`` in place at each lane's ``cache_len``.
+    - **scratch decode** (streaming + ``scratch``): the big cache is
+      read-only; the chunk's K/V go into ``scratch`` at ``scratch_len``
+      (in place) and attention runs over [cache slots < cache_len] +
+      [scratch tokens + the chunk, causal at chunk position
+      ``scratch_len`` + t]. Returns the scratch; the caller commits it
+      into the big cache once, after the decode loop
+      (`mmduet.decode_loop`).
 
-    Returns (hidden_states (B, T, H), the updated cache or scratch)."""
+    LoRA (every mode): ``lora_scale * (y @ a) @ b`` added to each adapted
+    projection. Returns (hidden_states (B, T, H), the updated cache, the
+    scratch, or None in full mode)."""
+    layers = params["layers"]
+    _check_dense(layers, "decoder.layers")
+    cos, sin = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if kv_cache is None:
-        raise NotImplementedError(
-            "qwen2_forward: full (training) mode is not ported yet; "
-            "pass kv_cache for streaming"
-        )
+        return _full_forward(params, cfg, embeds, positions, cos, sin, attn_mask,
+                             lora, lora_scale, remat, use_flash), None
     if attn_mask is not None:
         # Streaming handles right-padding via t_real only; a mask with
         # interior holes would be silently dropped here. Fail loudly.
@@ -188,15 +277,8 @@ def qwen2_forward(
             "attn_mask is a full-mode (training) argument; streaming "
             "masks padding via t_real (right-padded chunks only)"
         )
-    if lora is not None:
-        raise NotImplementedError("qwen2_forward: LoRA is not ported yet")
-    layers = params["layers"]
-    _check_dense(layers, "decoder.layers")
     B, T, _ = embeds.shape
     dev = embeds.device
-    nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    eps = cfg.rms_norm_eps
-    cos, sin = _rope_angles(positions, hd, cfg.rope_theta)
 
     cache_len_b = lane_list(cache_len, B)
     t_real_b = lane_list(T if t_real is None else t_real, B)
@@ -213,12 +295,8 @@ def qwen2_forward(
     new_v: List[torch.Tensor] = []
     for i in range(kv_cache.k.shape[0]):
         p = {name: w[i] for name, w in layers.items()}
-        y = rms_norm(x, p["input_norm"], eps)
-        q = _proj(y, p["q_proj"], p.get("q_bias")).reshape(B, T, nh, hd)
-        k = _proj(y, p["k_proj"], p.get("k_bias")).reshape(B, T, kh, hd)
-        v = _proj(y, p["v_proj"], p.get("v_bias")).reshape(B, T, kh, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        lo = _layer_lora(lora, i)
+        q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
         # chunk (B, T, kh, hd) -> head-major (B, kh, T, hd)
         k_hm = k.transpose(1, 2).to(kv_cache.k.dtype).contiguous()
         v_hm = v.transpose(1, 2).to(kv_cache.v.dtype).contiguous()
@@ -237,14 +315,9 @@ def qwen2_forward(
             q, kv_cache.k, kv_cache.v, ck.to(q.dtype), cv.to(q.dtype),
             cl_dev, tr_dev, i, q_offset=qo_dev,
         )
-        x = x + _proj(attn.reshape(B, T, nh * hd), p["o_proj"])
+        x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
-        y = rms_norm(x, p["post_attn_norm"], eps)
-        gate = _proj(y, p["gate_proj"])
-        up = _proj(y, p["up_proj"])
-        x = x + _proj(F.silu(gate.float()).to(x.dtype) * up, p["down_proj"])
-
-    hidden = rms_norm(x, params["final_norm"], eps)
+    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     if scratch is not None:
         return hidden, scratch
     # every layer's chunk K/V into the cache, in place; padded tail slots
@@ -252,6 +325,51 @@ def qwen2_forward(
     return hidden, commit_lanes(
         kv_cache, torch.stack(new_k), torch.stack(new_v), cache_len_b
     )
+
+
+def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
+                  positions: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                  attn_mask: Optional[torch.Tensor], lora: Optional[Params],
+                  lora_scale: float, remat: bool,
+                  use_flash: Optional[bool]) -> torch.Tensor:
+    """Full mode of `qwen2_forward`: the final-normed hidden states."""
+    B, T, _ = embeds.shape
+    if embeds.is_cuda and use_flash is False:
+        raise KernelRefused("qwen2_forward: full mode on CUDA tensors runs kernel C "
+                             "(use_flash None or True); the plain attention is for CPU tensors")
+    auto = use_flash is None
+    use_flash = embeds.is_cuda or bool(use_flash)
+    mono_ok = None
+    if auto and use_flash:
+        # the kernel is index-causal; it equals the position-causal mask
+        # only while real positions strictly increase
+        real = (attn_mask if attn_mask is not None
+                else torch.ones((B, T), dtype=torch.bool, device=embeds.device))
+        both = real[:, :-1] & real[:, 1:]
+        mono_ok = torch.where(both, positions[:, 1:] > positions[:, :-1], True).all()
+    mask = None
+    if not use_flash:
+        mask = positions[:, :, None] >= positions[:, None, :]
+        if attn_mask is not None:  # padding neither attends nor is attended
+            mask = mask & attn_mask[:, None, :] & attn_mask[:, :, None]
+
+    def layer(x, p, lo):
+        q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
+        if use_flash:
+            attn = flash_full_attention(q, k, v, attn_mask)
+        else:
+            attn = attend(q, k, v, mask)
+        return _out_mlp(x, attn, p, lo, lora_scale, cfg)
+
+    x = embeds
+    layers = params["layers"]
+    for i in range(layers["q_proj"].shape[0]):
+        p = {name: w[i] for name, w in layers.items()}
+        lo = _layer_lora(lora, i)
+        x = checkpoint(layer, x, p, lo, use_reentrant=False) if remat else layer(x, p, lo)
+    if mono_ok is not None:
+        x = torch.where(mono_ok, x, torch.full_like(x, float("nan")))
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,

@@ -42,21 +42,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if its library is missing, then load it
-    (the caller keeps the handle).
+def build(*names: str) -> None:
+    """Build the libraries of ``csrc/<name>.cu`` that are missing, one
+    ``nvcc`` per source, all started together (every source when no name
+    is given).
 
-    Raises ``RuntimeError`` with the compiler's output if the build fails."""
-    lib_path = library_path(name)
-    if not lib_path.exists():
+    Raises ``RuntimeError`` with the compiler's output if a build fails."""
+    names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+    jobs = []
+    for name in names:
+        lib_path = library_path(name)
+        if lib_path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, cmd, proc, tmp, lib_path))
+    failed = []
+    for name, cmd, proc, tmp, lib_path in jobs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"building {name}.cu failed ({' '.join(cmd)}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
-    return ctypes.CDLL(str(lib_path))
+            failed.append(f"building {name}.cu failed ({' '.join(cmd)}):\n{out}")
+        else:
+            os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build ``csrc/<name>.cu`` if its library is missing, then load it
+    (the caller keeps the handle)."""
+    build(name)
+    return ctypes.CDLL(str(library_path(name)))

@@ -1,7 +1,7 @@
-"""Streaming split attention over the stacked KV cache: the hand-written
-Hopper kernel and its plain PyTorch version.
+"""The port's attention kernels, each beside its plain PyTorch version.
 
-Port of `mmduet_tpu/ops/attention.py::flash_decode_attention`. Per lane,
+**Kernel A**, streaming split attention over the stacked KV cache: port of
+`mmduet_tpu/ops/attention.py::flash_decode_attention`. Per lane,
 one softmax over [that lane's committed cache history (slots <
 cache_len[b]) of layer ``layer``] + [the chunk itself, causal at chunk
 position q_offset[b] + t, masked to columns < t_real[b]]. The cache is
@@ -10,8 +10,19 @@ read-only: the caller commits the chunk's K/V afterwards
 
 `flash_decode_attention` chooses by device: tensors on the CPU take the
 plain version (`flash_decode_attention_ref`); tensors on a CUDA device
-launch the kernel in ``csrc/flash_decode.cu`` or raise. There is no
-fallback from the kernel to the plain version.
+launch the kernel in ``csrc/flash_decode.cu`` or raise.
+
+**Kernel C**, causal GQA attention over a padded batch, forward and
+backward (the decoder's training attention): port of
+`mmduet_tpu/ops/attention.py::flash_full_attention`. `flash_full_attention`
+runs the plain version (`flash_full_attention_ref`, differentiable through
+autograd) for CPU tensors and the kernels of ``csrc/flash_full.cu``
+(forward; backward preprocess, dK/dV and dQ) for CUDA tensors.
+
+There is no fallback from a kernel to its plain version. Kernel C's
+refusals and failed launches raise a `KernelError` (a `KernelRefused`
+ValueError or a `KernelLaunchFailed` RuntimeError), which the training
+loop's skip-a-bad-batch guard lets through.
 """
 
 from __future__ import annotations
@@ -29,8 +40,27 @@ NEG_INF = -1e30
 # Kernel launches since the last reset to 0. Only the CUDA branch of
 # `flash_decode_attention` adds to it, once per launch.
 LAUNCHES = 0
+# Kernel C: forward launches, and backward launches (a backward launches
+# the preprocess, dK/dV and dQ kernels, one count each). Only the CUDA
+# branch adds to them.
+FULL_FWD_LAUNCHES = 0
+FULL_BWD_LAUNCHES = 0
+
+
+class KernelError(Exception):
+    """A kernel refused its operands or failed to launch: a fault of the
+    run, never of one batch."""
+
+
+class KernelRefused(KernelError, ValueError):
+    pass
+
+
+class KernelLaunchFailed(KernelError, RuntimeError):
+    pass
 
 _lib: Optional[ctypes.CDLL] = None
+_full_lib: Optional[ctypes.CDLL] = None
 
 
 def _lanes(x: Optional[torch.Tensor], name: str, batch: int, device) -> torch.Tensor:
@@ -199,3 +229,173 @@ def flash_decode_attention(
         )
     LAUNCHES += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: full-sequence (training) attention, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _segments(attn_mask: Optional[torch.Tensor], B: int, T: int, device) -> torch.Tensor:
+    """(B, T) int32 segment ids: 1 for real tokens, 0 for pads (all real
+    when ``attn_mask`` is None)."""
+    if attn_mask is None:
+        return torch.ones((B, T), dtype=torch.int32, device=device)
+    if tuple(attn_mask.shape) != (B, T):
+        raise ValueError(f"attn_mask: want ({B}, {T}), got {tuple(attn_mask.shape)}")
+    return attn_mask.to(device=device, dtype=torch.int32).contiguous()
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    """Port of `qwen2._attend`: grouped-query attention with an f32 softmax
+    over a (B, T, S) mask (True = may attend); q (B, T, nh, hd), k/v (B, S,
+    kh, hd). Scores are f32 products of the stored values (the (B, kh, g,
+    T, S) tensor is materialized); the probabilities are rounded to the
+    value dtype and the value product accumulates in f32, as the JAX
+    einsums with ``preferred_element_type=float32`` do."""
+    B, T, nh, hd = q.shape
+    kh = k.shape[2]
+    qr = q.reshape(B, T, kh, nh // kh, hd).float()
+    scores = torch.einsum("btkgh,bskh->bkgts", qr, k.float()) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
+    out = torch.einsum("bkgts,bskh->btkgh", probs, v.float())
+    return out.reshape(B, T, nh, hd).to(q.dtype)
+
+
+def flash_full_attention_ref(
+    q: torch.Tensor,  # (B, T, nh, hd)
+    k: torch.Tensor,  # (B, T, kh, hd)
+    v: torch.Tensor,  # (B, T, kh, hd)
+    attn_mask: Optional[torch.Tensor] = None,  # (B, T) bool; None = no padding
+) -> torch.Tensor:
+    """The plain PyTorch version of `flash_full_attention`: `attend` with
+    key s visible to query t iff s <= t and ``attn_mask[s] ==
+    attn_mask[t]``; differentiable through autograd."""
+    B, T = q.shape[:2]
+    seg = _segments(attn_mask, B, T, q.device)
+    idx = torch.arange(T, device=q.device)
+    vis = (idx[:, None] >= idx[None, :])[None] & (seg[:, :, None] == seg[:, None, :])
+    return attend(q, k, v, vis)
+
+
+def _full_kernel_lib() -> ctypes.CDLL:
+    global _full_lib
+    if _full_lib is None:
+        lib = _build.load("flash_full")
+        ptrs, ints = ctypes.c_void_p, ctypes.c_int
+        for name, n_ptr in (("fwd", 6), ("bwd_dkdv", 9), ("bwd_dq", 8)):
+            fn = getattr(lib, f"flash_full_{name}_bf16")
+            fn.argtypes = [ptrs] * n_ptr + [ints] * 4 + [ctypes.c_float, ptrs]
+            fn.restype = ints
+        lib.flash_full_bwd_pre_bf16.argtypes = [ptrs] * 3 + [ints] * 3 + [ptrs]
+        lib.flash_full_bwd_pre_bf16.restype = ints
+        lib.flash_full_error_string.argtypes = [ints]
+        lib.flash_full_error_string.restype = ctypes.c_char_p
+        _full_lib = lib
+    return _full_lib
+
+
+def _full_launch(what: str, *args) -> None:
+    """Launches kernel C's ``what`` kernel (fwd, bwd_pre, bwd_dkdv, bwd_dq)
+    and counts it; a refused launch raises."""
+    global FULL_FWD_LAUNCHES, FULL_BWD_LAUNCHES
+    lib = _full_kernel_lib()
+    err = getattr(lib, f"flash_full_{what}_bf16")(*args)
+    if err:
+        raise KernelLaunchFailed(
+            f"flash_full_attention: {what} launch failed: "
+            + lib.flash_full_error_string(err).decode()
+        )
+    if what == "fwd":
+        FULL_FWD_LAUNCHES += 1
+    else:
+        FULL_BWD_LAUNCHES += 1
+
+
+def _full_check(**tensors: torch.Tensor) -> None:
+    """The kernel takes bf16, contiguous, 16-byte aligned operands on one
+    CUDA device."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise KernelRefused(f"flash_full_attention: {name} on {t.device}, q on {dev}")
+        if t.dtype != torch.bfloat16:
+            raise KernelRefused(
+                f"flash_full_attention: {name} is {t.dtype}, the kernel takes bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise KernelRefused(
+                f"flash_full_attention: {name} must be contiguous and 16-byte aligned")
+
+
+class _FlashFull(torch.autograd.Function):
+    """Kernel C as an autograd function: the forward kernel saves O and the
+    row log-sum-exp; the backward recomputes P from them and launches the
+    preprocess, dK/dV and dQ kernels. Under activation checkpointing the
+    forward runs again inside the backward (and counts again)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg):
+        B, T, nh, hd = q.shape
+        kh = k.shape[2]
+        out = torch.empty_like(q)
+        lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        _full_launch("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), B, T, nh, kh, 1.0 / math.sqrt(hd), stream)
+        ctx.save_for_backward(q, k, v, seg, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seg, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        _full_check(dout=dout)
+        B, T, nh, hd = q.shape
+        kh = k.shape[2]
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty_like(lse)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr())
+        dims = (B, T, nh, kh, 1.0 / math.sqrt(hd), stream)
+        _full_launch("bwd_pre", out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
+                     B, T, nh, stream)
+        _full_launch("bwd_dkdv", *inputs, dk.data_ptr(), dv.data_ptr(), *dims)
+        _full_launch("bwd_dq", *inputs, dq.data_ptr(), *dims)
+        return dq, dk, dv, None
+
+
+def flash_full_attention(
+    q: torch.Tensor,  # (B, T, nh, hd)
+    k: torch.Tensor,  # (B, T, kh, hd)
+    v: torch.Tensor,  # (B, T, kh, hd)
+    attn_mask: Optional[torch.Tensor] = None,  # (B, T) bool; None = no padding
+) -> torch.Tensor:
+    """Causal GQA self-attention over a (left- or right-)padded batch,
+    differentiable in q, k and v. Key s is visible to query t iff s <= t
+    and ``attn_mask[s] == attn_mask[t]`` (the JAX wrapper's segment ids):
+    real rows equal `qwen2._attend` with ``causal & mask[s] & mask[t]`` when
+    real positions increase along the sequence; pad rows attend only
+    earlier pads and are never read by the loss.
+
+    CPU tensors: the plain version. CUDA tensors: kernel C, which takes
+    bf16, hd = 128 and contiguous operands; anything else raises
+    `KernelRefused`, a refused launch `KernelLaunchFailed`."""
+    if q.device.type == "cpu":
+        return flash_full_attention_ref(q, k, v, attn_mask)
+    if q.device.type != "cuda":
+        raise KernelRefused(f"flash_full_attention: no kernel for device {q.device}")
+    B, T, nh, hd = q.shape
+    kh = k.shape[2]
+    if hd != 128:
+        raise KernelRefused(f"flash_full_attention: head_dim {hd} (the kernel takes 128)")
+    if (nh % kh or tuple(k.shape) != (B, T, kh, hd)
+            or tuple(v.shape) != (B, T, kh, hd)):
+        raise KernelRefused(
+            f"flash_full_attention: inconsistent shapes q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}, v {tuple(v.shape)}"
+        )
+    _full_check(q=q, k=k, v=v)
+    return _FlashFull.apply(q, k, v, _segments(attn_mask, B, T, q.device))

@@ -10,12 +10,17 @@ profiles four calls of the main path:
 - an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`);
 - a 32-frame block at cursor 2000;
 - a greedy decode of 8 tokens (EOS off) after an 8-token prompt at
-  cursor 3000 (`mmduet.decode_loop`).
+  cursor 3000 (`mmduet.decode_loop`);
+- one training step (`train.make_train_step`: A=2 micro-batches of one
+  collated duet sample each, 48 pixel frames at 384 px, padded to the
+  2944-token bucket, LoRA r 16, gradient checkpointing on), with the
+  batches of `chip_smoke.py`'s training phase (`train.duet.duet_batches`).
 
 For each call: the wall time (host clock around a device sync, median of
 3 after one warm-up, profiler off), the summed time of the device's own
 events under `torch.profiler` (one more call), the device's idle share
-(1 - device / wall), the flash_decode kernel's share, and the costliest
+(1 - device / wall), the shares of kernel A (flash_decode) and kernel C
+(flash_full: forward, backward preprocess, dK/dV, dQ), and the costliest
 device kernels. Lines go to stdout and, with ``--out``, to FILE.
 """
 
@@ -31,10 +36,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mmduet_tpu.config import MMDuetConfig
-from mmduet_tpu_torch.models import init_kv_cache, init_mmduet_params, mmduet
+from mmduet_tpu.config import MMDuetConfig, TrainArgs
+from mmduet_tpu.stream import CharTokenizer
+from mmduet_tpu_torch.models import init_kv_cache, init_lora, init_mmduet_params, mmduet
+from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
+from mmduet_tpu_torch.train.duet import duet_batches
 
-ATTENTION_KERNEL = "flash_decode_kernel"
+KERNELS = {"kernel A": "flash_decode_kernel", "kernel C": "flash_full_"}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -77,7 +85,9 @@ def main() -> None:
         print(msg, flush=True)
 
     dev = torch.device("cuda")
-    cfg = MMDuetConfig().replace(v_placeholder_id=152063, eos_token_id=2)
+    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
+    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
+                                 eos_token_id=tok.eos_token_id)
     params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                 dev, torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -101,17 +111,33 @@ def main() -> None:
         "greedy decode, 8 tokens at cursor 3000": lambda: mmduet.decode_loop(
             params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
     }
+
+    def report(name, fn):
+        wall = _wall_ms(fn)
+        rows = _device_events(fn)
+        device = sum(r[2] for r in rows)
+        shares = ", ".join(
+            f"{label} {ms:.3f} ms ({100 * ms / wall:.1f} % of wall)"
+            for label, ms in ((label, sum(r[2] for r in rows if pat in r[0]))
+                              for label, pat in KERNELS.items()) if ms)
+        log(f"== {name}: wall {wall:.3f} ms (median of 3), device {device:.3f} ms, "
+            f"idle {100 * (1 - device / wall):.1f} %{', ' + shares if shares else ''}")
+        for key, count, ms in rows[:8]:
+            log(f"   {ms:9.3f} ms  n={count:5d}  {key[:90]}")
+
     with torch.inference_mode():
         for name, fn in calls.items():
-            wall = _wall_ms(fn)
-            rows = _device_events(fn)
-            device = sum(r[2] for r in rows)
-            attn = sum(r[2] for r in rows if ATTENTION_KERNEL in r[0])
-            log(f"== {name}: wall {wall:.3f} ms (median of 3), device {device:.3f} ms, "
-                f"idle {100 * (1 - device / wall):.1f} %, {ATTENTION_KERNEL} "
-                f"{attn:.3f} ms ({100 * attn / wall:.1f} % of wall)")
-            for key, count, ms in rows[:8]:
-                log(f"   {ms:9.3f} ms  n={count:5d}  {key[:90]}")
+            report(name, fn)
+
+    train_args = TrainArgs()
+    tx, sched = make_optimizer(train_args, 10)
+    lora = init_lora(torch.Generator(device=dev).manual_seed(1), cfg.text,
+                     rank=train_args.lora_r, device=dev)
+    state = init_train_state(params, lora, tx)
+    step = make_train_step(cfg, train_args, tx, sched)
+    (batch,) = duet_batches(tok, cfg, 1, 2, dev)
+    report("training step, A=2 x 2944-token bucket, 48 frames",
+           lambda: step(state, params, batch))
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")
