@@ -1,16 +1,21 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases (any failure ends the run with a nonzero exit):
 
 1. the card's name and power limit, from nvidia-smi;
-2. every CUDA kernel of the two paths, built from the sources in this
-   checkout (one nvcc per source, all at once), held against its plain
-   PyTorch version on the card at the shapes the paths give it, and timed
-   beside it: kernel A (streaming attention) and kernel C (training
-   attention, forward and the three input gradients); plain versions that
-   lose one tile must fail kernel C's bounds;
+2. every CUDA kernel of the paths, built from the sources in this checkout
+   (one nvcc per source, all at once), held against its plain PyTorch
+   version on the card at the shapes the paths give it, and timed beside
+   it and beside its roofline bound (`ops/bounds.py`): kernel A (streaming
+   attention) with a bf16 and with an int8 cache, kernel B (the int4
+   matrix product) at the five weight shapes of the 7B decoder and six row
+   counts, and kernel C (training attention, forward and the three input
+   gradients, beside `scaled_dot_product_attention` as the library's
+   yardstick). Plain versions with one fault (a lost tile for kernel C; a
+   dropped group scale or swapped nibble halves for kernel B) must fail
+   the bounds. ``--kernels-only`` stops here (no result line);
 3. the serving path at the full width of the default model (Qwen2-7B
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
@@ -22,10 +27,17 @@ Phases (any failure ends the run with a nonzero exit):
    projections, gradient checkpointing on; kernel C's launches must equal
    what 28 layers x A x steps predict (two forwards per layer under remat,
    three backward kernels);
-5. small-model checks, card (bf16, kernels) against CPU (f32, plain
-   versions): grounding scores of the engine, and one train step's loss
-   and gradient norm;
-6. one JSON line for the kernels, then the result line
+5. the quantized serving path at the same width: the decoder, embedding
+   and LM head quantized to group-128 int4 on the card
+   (`quantize_params(bits=4)`), `LiveInferEngine(kv_cache_quant="int8")`,
+   the same two passes as in 3; kernel B's launches must equal seven per
+   layer and decoder forward plus one per generated token (the LM head),
+   and every attention launch must be of the int8 variant;
+6. small-model checks, card (bf16, kernels) against CPU (f32, plain
+   versions): grounding scores of the engine, dense and quantized (int4
+   weights, int8 cache, a LoRA adapter), and one train step's loss and
+   gradient norm;
+7. one JSON line for the kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -33,6 +45,7 @@ It needs `torch` with CUDA; it never falls back to the CPU.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -43,11 +56,12 @@ from typing import List
 import numpy as np
 import torch
 
-from mmduet_tpu.config import MMDuetConfig, TestArgs, TrainArgs, tiny_config
-from mmduet_tpu.stream import CharTokenizer
+from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs, tiny_config
+from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import LiveInferEngine
-from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet
-from mmduet_tpu_torch.ops import _build, attention, bounds
+from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant
+from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
+from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
 
@@ -86,9 +100,10 @@ CACHE_LENS = (0, 1, 2047, 2048, 9999, 24000)
 TIMED_CACHE_LEN = 2048
 
 
-def check_attention_kernel(log) -> dict:
+def check_attention_kernel(log) -> List[dict]:
     """flash_decode_attention (CUDA) vs flash_decode_attention_ref on the
-    card; returns the kernel's JSON entry (without launches)."""
+    card, with a bf16 cache and with the int8 cache that `quantize_kv_rows`
+    makes of it; returns the two kernels' JSON entries (without launches)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     nh, kh, hd, L, S = 28, 4, 128, 4, 24576
@@ -96,7 +111,7 @@ def check_attention_kernel(log) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
-    worst = worst_ratio = 0.0
+    worst = {"bf16": [0.0, 0.0], "int8": [0.0, 0.0]}  # max|diff|, max ratio
     timed = {}
     cases = [(shape, cl, 1) for shape in ATTN_SHAPES for cl in CACHE_LENS]
     cases.append((ATTN_SHAPES[1], (2047, 9999), 2))  # B=2, two cursors
@@ -106,44 +121,154 @@ def check_attention_kernel(log) -> dict:
         k_cache, v_cache = randn(L, B, kh, S, hd), randn(L, B, kh, S, hd)
         ck, cv = randn(B, kh, Tc, hd), randn(B, kh, Tc, hd)
         cl = cache_len if isinstance(cache_len, tuple) else (cache_len,) * B
-        args = (q, k_cache, v_cache, ck, cv,
-                torch.tensor(cl, dtype=torch.int32, device=dev),
-                torch.tensor((t_real,) * B, dtype=torch.int32, device=dev),
-                layer, torch.tensor((q_off,) * B, dtype=torch.int32, device=dev))
-        got = attention.flash_decode_attention(*args)
-        # the plain version on the same values in f32: the kernel's only
-        # rounding is then its bf16 output
-        want = attention.flash_decode_attention_ref(
-            *(a.float() if torch.is_tensor(a) and a.is_floating_point() else a
-              for a in args))
-        torch.cuda.synchronize()
-        err = (got[:, :t_real].float() - want[:, :t_real]).abs().max().item()
-        ratio = bounds.row_ratio(got[:, :t_real], want[:, :t_real])
-        if not math.isfinite(ratio) or ratio > 1.0:
-            raise AssertionError(
-                f"flash_decode kernel vs plain: {name} B={B} cache_len={cl} "
-                f"layer={layer}: max|diff| {err}, {ratio} times the row bound "
-                f"{bounds.ROW_REL} * max|row| + {bounds.ROW_ABS}"
-            )
-        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-        if B == 1 and cache_len == TIMED_CACHE_LEN:
-            ms = _time_ms(lambda: attention.flash_decode_attention(*args), 20)
-            plain_ms = _time_ms(lambda: attention.flash_decode_attention_ref(*args), 3)
-            timed[name] = (ms, plain_ms)
-            log(f"flash_decode {name}: T={T} Tc={Tc} cache_len={cache_len} "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        del q, k_cache, v_cache, ck, cv, args, got, want
-    log(f"flash_decode: {len(cases)} cases within {bounds.ROW_REL} * max|row| + {bounds.ROW_ABS} "
-        f"(max|diff| {worst}, at most {worst_ratio} of the row bound)")
-    ms, plain_ms = timed["8-frame block"]
+        cursors = (torch.tensor(cl, dtype=torch.int32, device=dev),
+                   torch.tensor((t_real,) * B, dtype=torch.int32, device=dev),
+                   layer, torch.tensor((q_off,) * B, dtype=torch.int32, device=dev))
+        (kq, ks), (vq, vs) = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
+        variants = {"bf16": ((q, k_cache, v_cache, ck, cv) + cursors, {}),
+                    "int8": ((q, kq, vq, ck, cv) + cursors, dict(k_scale=ks, v_scale=vs))}
+        for variant, (args, scales) in variants.items():
+            got = attention.flash_decode_attention(*args, **scales)
+            # the plain version on the same values in f32: the kernel's only
+            # rounding is then its bf16 output
+            want = attention.flash_decode_attention_ref(
+                *(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+                  for a in args), **scales)
+            torch.cuda.synchronize()
+            err = (got[:, :t_real].float() - want[:, :t_real]).abs().max().item()
+            ratio = bounds.row_ratio(got[:, :t_real], want[:, :t_real])
+            if not math.isfinite(ratio) or ratio > 1.0:
+                raise AssertionError(
+                    f"flash_decode kernel ({variant} cache) vs plain: {name} B={B} "
+                    f"cache_len={cl} layer={layer}: max|diff| {err}, {ratio} times the row "
+                    f"bound {bounds.ROW_REL} * max|row| + {bounds.ROW_ABS}")
+            worst[variant] = [max(worst[variant][0], err), max(worst[variant][1], ratio)]
+            if B == 1 and cache_len == TIMED_CACHE_LEN:
+                ms = _time_ms(lambda: attention.flash_decode_attention(*args, **scales), 20)
+                plain_ms = _time_ms(
+                    lambda: attention.flash_decode_attention_ref(*args, **scales), 3)
+                bound_ms, bound_by = bounds.decode_attention_bound(
+                    B, T, nh, kh, hd, cache_len, t_real, q_off, int8=variant == "int8")
+                timed[variant, name] = (ms, plain_ms, bound_ms, bound_by)
+                log(f"flash_decode {name}, {variant} cache: T={T} Tc={Tc} cache_len={cache_len} "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                    f"({bound_by})")
+            del got, want
+        del q, k_cache, v_cache, ck, cv, kq, ks, vq, vs, variants
+    entries = []
+    for variant, label in (("bf16", "flash_decode_attention"),
+                           ("int8", "flash_decode_attention (int8 cache)")):
+        log(f"flash_decode, {variant} cache: {len(cases)} cases within {bounds.ROW_REL} * "
+            f"max|row| + {bounds.ROW_ABS} (max|diff| {worst[variant][0]}, at most "
+            f"{worst[variant][1]} of the row bound)")
+        ms, plain_ms, bound_ms, bound_by = timed[variant, "8-frame block"]
+        entries.append({
+            "name": label,
+            "route": "cuda",
+            "source": "mmduet_tpu_torch/ops/csrc/flash_decode.cu",
+            "replaces": "mmduet_tpu/ops/attention.py:218",
+            "max_abs_err": worst[variant][0],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None,  # no single PyTorch call attends a cursor-bounded cache + chunk
+        })
+    return entries
+
+
+# Kernel B at the 7B decoder's weight shapes (H, O): q/o projections, k/v
+# projections, gate/up, down, and the LM head; group 128. Rows: a decode
+# step, a small chunk, a joiner + frame step, the 8- and 32-frame blocks,
+# and one row past 2048 (where the TPU kernel's wrapper chunks its rows).
+INT4_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 152064))
+INT4_ROWS = (1, 8, 53, 392, 1568, 2049)
+INT4_TIMED_ROWS = (1, 392, 1568)
+INT4_ENTRY = ((3584, 18944), 392)  # the shape and rows of the kernels line
+
+
+def check_int4_kernel(log) -> dict:
+    """int4_matmul (CUDA) vs int4_matmul_ref on the card; returns kernel
+    B's JSON entry (without launches)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = worst_ratio = 0.0
+    entry_times = None
+    for H, O in INT4_SHAPES:
+        w = torch.randn((H, O), generator=gen, device=dev, dtype=torch.bfloat16) / math.sqrt(H)
+        leaf = quant.quantize_weight_int4(w, 0)
+        leaf8 = quant.quantize_weight(w, 0)
+        qw4, qs = leaf["qw4"], leaf["qs"]
+        # copies to rotate through while timing, so that a launch finds its
+        # weight in device memory, not in the 50 MB L2, as a layer's does
+        n_copies = max(1, min(8, -(-(120 << 20) // qw4.numel())))
+        copies = [(qw4.clone(), qs.clone()) for _ in range(n_copies)]
+        for R in INT4_ROWS:
+            y = torch.randn((R, H), generator=gen, device=dev, dtype=torch.bfloat16)
+            got = quant_matmul.int4_matmul(y, qw4, qs)
+            want = quant_matmul.int4_matmul_ref(y, qw4, qs)
+            mag = bounds.int4_matmul_magnitude(y, qw4, qs)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            ratio = bounds.int4_matmul_ratio(got, want, mag)
+            if not math.isfinite(ratio) or ratio > 1.0:
+                raise AssertionError(
+                    f"int4_matmul kernel vs plain: R={R} H={H} O={O}: max|diff| {err}, {ratio} "
+                    f"times the bound {bounds.B_REL} * sum|y||w| + {bounds.B_ABS}")
+            worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+            if (H, O) == INT4_SHAPES[3] and R in (1, 392):
+                # the bound is tight: plain versions with one fault fail it
+                factors = {kind: bounds.int4_matmul_ratio(
+                    got, bounds.int4_matmul_mutated(y, qw4, qs, kind), mag)
+                    for kind in ("scale", "halves")}
+                if not all(f > 1.0 for f in factors.values()):
+                    raise AssertionError(f"int4_matmul check: a mutated plain version passes "
+                                         f"the bound at R={R}: {factors}")
+                log(f"int4_matmul R={R} H={H} O={O}: plain versions with one group's scale "
+                    f"dropped / the nibble halves swapped fail the bound by "
+                    f"{factors['scale']:.0f}x / {factors['halves']:.0f}x")
+            if R in INT4_TIMED_ROWS:
+                turn = iter(range(10 ** 9))
+
+                def launch():
+                    a, b = copies[next(turn) % n_copies]
+                    return quant_matmul.int4_matmul(y, a, b)
+
+                ms = _time_ms(launch, 20 if R == 1 else 8)
+                plain_ms = _time_ms(lambda: quant_matmul.int4_matmul_ref(y, qw4, qs), 2, warmup=1)
+                bound_ms, bound_by = bounds.int4_matmul_bound(R, H, O)
+                log(f"int4_matmul R={R} H={H} O={O}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, bound {bound_ms:.5f} ms ({bound_by}); packed weight "
+                    f"{qw4.numel() / 1e6:.1f} MB at {qw4.numel() / ms / 1e6:.1f} GB/s, "
+                    f"{2e-9 * R * H * O / ms:.2f} TFLOP/s")
+                # beside it, on the same activations: the dense bf16 weight on
+                # cuBLAS, and the int8 leaf's route (a bf16 copy of the weight per
+                # call, cuBLAS, one row of scales), which has no kernel
+                dense_ms = _time_ms(lambda: quant.matmul_f32(y, w), 8)
+                int8_ms = _time_ms(lambda: quant.quantized_matmul(y, leaf8), 8)
+                log(f"int4_matmul R={R} H={H} O={O}: the dense bf16 weight on cuBLAS "
+                    f"{dense_ms:.4f} ms, the int8 leaf's plain route {int8_ms:.4f} ms (one "
+                    f"weight every launch: {2 * H * O / 1e6:.1f} MB of bf16, in L2 if under 50 MB)")
+                if ((H, O), R) == INT4_ENTRY:
+                    entry_times = (ms, plain_ms, bound_ms, bound_by)
+            del y, got, want, mag
+        del w, leaf, leaf8, qw4, qs, copies
+        torch.cuda.empty_cache()
+    n_cases = len(INT4_SHAPES) * len(INT4_ROWS)
+    log(f"int4_matmul: {n_cases} cases within {bounds.B_REL} * sum|y||w| + {bounds.B_ABS} "
+        f"(max|diff| {worst}, at most {worst_ratio:.4f} of the bound)")
+    ms, plain_ms, bound_ms, bound_by = entry_times
     return {
-        "name": "flash_decode_attention",
+        "name": "int4_matmul",
         "route": "cuda",
-        "source": "mmduet_tpu_torch/ops/csrc/flash_decode.cu",
-        "replaces": "mmduet_tpu/ops/attention.py:218",
+        "source": "mmduet_tpu_torch/ops/csrc/int4_matmul.cu",
+        "replaces": "mmduet_tpu/ops/quant_matmul.py:108",
         "max_abs_err": worst,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no PyTorch call multiplies by nibble-packed grouped int4
     }
 
 
@@ -203,10 +328,13 @@ def check_full_attention_kernel(log) -> List[dict]:
         if T == TIMED_T and side == "right":
             _check_bound_is_tight(q, k, v, mask, dout, outputs, rms, log)
             timed = _time_full(q, k, v, mask, dout)
+            library = _time_sdpa(q, k, v, dout)
             log(f"flash_full T={T} (nh 28, kh 4, hd 128, bf16): forward kernel "
                 f"{timed['fwd'][0]:.4f} ms, plain {timed['fwd'][1]:.4f} ms; backward kernel "
                 f"{timed['bwd'][0]:.4f} ms, plain {timed['bwd'][1]:.4f} ms; forward+backward "
-                f"kernel {timed['fwd+bwd'][0]:.4f} ms, plain {timed['fwd+bwd'][1]:.4f} ms")
+                f"kernel {timed['fwd+bwd'][0]:.4f} ms, plain {timed['fwd+bwd'][1]:.4f} ms; "
+                f"scaled_dot_product_attention (causal, no padding mask) forward "
+                f"{library['fwd']:.4f} ms, backward {library['bwd']:.4f} ms")
         elif T != 40:
             t = _time_full(q, k, v, mask, dout)
             log(f"flash_full T={T} ({side}-padded): forward kernel {t['fwd'][0]:.4f} ms, "
@@ -219,13 +347,17 @@ def check_full_attention_kernel(log) -> List[dict]:
         f"{worst['bwd'][1]:.3f} of it (max|diff| {worst['bwd'][0]})")
     entry = {"route": "cuda", "source": "mmduet_tpu_torch/ops/csrc/flash_full.cu",
              "replaces": "mmduet_tpu/ops/attention.py:569"}
-    return [
-        dict(entry, name="flash_full_attention (forward)", max_abs_err=worst["fwd"][0],
-             ms=timed["fwd"][0], plain_ms=timed["fwd"][1]),
-        dict(entry, name="flash_full_attention (backward: preprocess, dK/dV, dQ; "
-             "launches count each of the three)",
-             max_abs_err=worst["bwd"][0], ms=timed["bwd"][0], plain_ms=timed["bwd"][1]),
-    ]
+    entries = []
+    for key, name in (("fwd", "flash_full_attention (forward)"),
+                      ("bwd", "flash_full_attention (backward: preprocess, dK/dV, dQ; "
+                              "launches count each of the three)")):
+        bound_ms, bound_by = bounds.full_attention_bound(1, TIMED_T, nh, kh, hd,
+                                                         backward=key == "bwd")
+        log(f"flash_full T={TIMED_T} {key}: bound {bound_ms:.5f} ms ({bound_by})")
+        entries.append(dict(entry, name=name, max_abs_err=worst[key][0], ms=timed[key][0],
+                            plain_ms=timed[key][1], bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library[key]))
+    return entries
 
 
 def _check_bound_is_tight(q, k, v, mask, dout, outputs, rms, log) -> None:
@@ -261,6 +393,28 @@ def _time_full(q, k, v, mask, dout) -> dict:
     return out
 
 
+def _time_sdpa(q, k, v, dout) -> dict:
+    """The library's yardstick for kernel C, timed here and called nowhere
+    in the port: `scaled_dot_product_attention` on the same q, k, v, causal
+    and without the padding mask (it takes one or the other; the real rows
+    of a right-padded batch see the same keys). {"fwd" | "bwd": ms}."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, T, hd)
+    try:
+        sdpa(qh, kh_, vh, is_causal=True, enable_gqa=True)
+        kw = dict(is_causal=True, enable_gqa=True)
+    except TypeError:  # an older PyTorch: the kv heads repeated beforehand
+        rep = q.shape[2] // k.shape[2]
+        kh_, vh = (x.repeat_interleave(rep, dim=1) for x in (kh_, vh))
+        kw = dict(is_causal=True)
+    fwd = _time_ms(lambda: sdpa(qh, kh_, vh, **kw), 10, warmup=1)
+    leaves = [x.detach().requires_grad_(True) for x in (qh, kh_, vh)]
+    res = sdpa(*leaves, **kw)
+    g = dout.transpose(1, 2)
+    bwd = _time_ms(lambda: res.backward(g, retain_graph=True), 10, warmup=1)
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def _args(**kw) -> TestArgs:
     return TestArgs(frame_fps=2.0, max_new_tokens=32, **kw)
 
@@ -275,27 +429,52 @@ def _grounding_scores(engine, frames, query) -> List[float]:
 
 SMALL_TOL = 3e-2  # score probabilities through 2 layers with bf16
 # activations (8-bit mantissa) on the card vs f32 on the CPU, on the
-# same bf16-valued weights
+# same bf16-valued weights (quantized: the same int4 values and scales;
+# an int8 cache row may round across one int8 step between the two)
 
 
-def check_small_input(log) -> float:
-    """The card's bf16 engine (attention through the kernel) against the
-    same engine on the CPU in f32 (the plain attention), on a small
-    model whose head_dim is 128: grounding scores agree."""
+def check_small_input(log, quantized: bool = False) -> float:
+    """The card's bf16 engine (kernels) against the same engine on the CPU
+    in f32 (plain versions), on a small model whose head_dim is 128:
+    grounding scores agree. ``quantized``: int4 weights (kernel B), an
+    int8 cache (kernel A's int8 variant) and a LoRA adapter at scale 1, on
+    the same quantized tree on both sides."""
     cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
     tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
     cpu = torch.device("cpu")
     params = init_mmduet_params(cfg, torch.Generator(device=cpu).manual_seed(1), cpu)
     params = _tree_map(lambda t: t.to(torch.bfloat16).float(), params)
+    engine_kw = {}
+    if quantized:
+        params = quant.quantize_params(params, bits=4)
+        gen = torch.Generator(device=cpu).manual_seed(4)
+        lora = _tree_map(  # a trained adapter has a nonzero b
+            lambda t: (0.02 * torch.randn(t.shape, generator=gen)).to(torch.bfloat16).float(),
+            init_lora(torch.Generator(device=cpu).manual_seed(3), cfg.text, rank=8))
+        engine_kw = dict(lora=lora, lora_scale=1.0, kv_cache_quant="int8")
     frames = np.random.RandomState(1).randint(0, 256, (12, 32, 32, 3), dtype=np.uint8)
     args = _args(stream_end_prob_threshold=1.0, grounding_mode=True, max_num_frames=16)
-    want = _grounding_scores(LiveInferEngine(params, cfg, tok, args), frames, "Q?")
-    on_card = _tree_map(lambda t: t.to("cuda", torch.bfloat16), params)
-    got = _grounding_scores(LiveInferEngine(on_card, cfg, tok, args), frames, "Q?")
+    want = _grounding_scores(LiveInferEngine(params, cfg, tok, args, **engine_kw), frames, "Q?")
+
+    def to_card(t):  # dense f32 leaves to bf16; int8 values and bf16 scales as they are
+        return t.to("cuda", torch.bfloat16) if t.dtype == torch.float32 else t.to("cuda")
+
+    if quantized:
+        engine_kw["lora"] = _tree_map(to_card, engine_kw["lora"])
+    before = attention.LAUNCHES, attention.INT8_LAUNCHES, quant_matmul.B_LAUNCHES
+    got = _grounding_scores(
+        LiveInferEngine(_tree_map(to_card, params), cfg, tok, args, **engine_kw), frames, "Q?")
+    ran = (attention.LAUNCHES - before[0], attention.INT8_LAUNCHES - before[1],
+           quant_matmul.B_LAUNCHES - before[2])
+    if ran[0] <= 0 or ran[1:] != ((ran[0], 7 * ran[0]) if quantized else (0, 0)):
+        raise AssertionError(f"small input (quantized: {quantized}): launches of kernel A, "
+                             f"its int8 variant and kernel B {ran}")
     err = float(np.abs(np.array(got) - np.array(want)).max())
+    what = "int4 weights, int8 cache, LoRA; " if quantized else ""
     if len(got) != len(want) or not err <= SMALL_TOL:
-        raise AssertionError(f"small input: card vs CPU scores max|diff| {err} > {SMALL_TOL}")
-    log(f"small input (hd=128, 2 layers, 12 frames): card bf16 vs CPU f32 "
+        raise AssertionError(f"small input ({what}hd=128): card vs CPU scores max|diff| {err} "
+                             f"> {SMALL_TOL}")
+    log(f"small input ({what}hd=128, 2 layers, 12 frames): card bf16 vs CPU f32 "
         f"scores max|diff| {err} <= {SMALL_TOL}")
     return err
 
@@ -372,23 +551,26 @@ def full_width_model(log):
     return cfg, tok, params
 
 
-def run_main_path(cfg, tok, params, log) -> int:
+def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
     """The 7B-width serving path: generation pass, then grounding pass.
-    Returns the attention kernel's launches over both passes."""
+    Every kernel count of the path is set to 0 just before the passes and
+    read just after them; returns the counts and the passes' numbers."""
     frames = np.random.RandomState(0).randint(
         0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
 
-    gen = LiveInferEngine(params, cfg, tok, _args(stream_end_score_sum_threshold=1.0))
+    gen = LiveInferEngine(params, cfg, tok, _args(stream_end_score_sum_threshold=1.0),
+                          kv_cache_quant=kv_cache_quant)
     ground = LiveInferEngine(params, cfg, tok, _args(
-        stream_end_score_sum_threshold=1.0, grounding_mode=True))
+        stream_end_score_sum_threshold=1.0, grounding_mode=True), kv_cache_quant=kv_cache_quant)
     gen.input_video_stream(frames[:32])  # warm-up (cuBLAS handles, allocator)
     torch.cuda.synchronize()
     gen.reset()
     torch.cuda.reset_peak_memory_stats()
 
     stats = {}
-    attention.LAUNCHES = 0  # the main path starts here
+    # the main path starts here
+    attention.LAUNCHES = attention.INT8_LAUNCHES = quant_matmul.B_LAUNCHES = 0
     for name, engine in (("generation", gen), ("grounding", ground)):
         before = attention.LAUNCHES
         t0 = time.perf_counter()
@@ -405,7 +587,10 @@ def run_main_path(cfg, tok, params, log) -> int:
             p50_ms=float(np.percentile(engine.frame_latencies_ms, 50)),
         )
         _check_pass(engine, name, stats[name]["launches"], responses, QUERY)
-    launches = attention.LAUNCHES  # the main path ends here
+    counts = dict(attention=attention.LAUNCHES, attention_int8=attention.INT8_LAUNCHES,
+                  int4_matmul=quant_matmul.B_LAUNCHES)  # the main path ends here
+    _check_counts(params, cfg, counts, gen.tokens_generated + ground.tokens_generated,
+                  kv_cache_quant)
 
     for (name, s), engine in zip(stats.items(), (gen, ground)):
         log(f"{name} pass: block {engine.block_frames}, "
@@ -413,10 +598,34 @@ def run_main_path(cfg, tok, params, log) -> int:
             f"{s['stream_s']:.3f} s, vision {N_FRAMES / s['vision_s']:.2f} frames/s, "
             f"{s['launches']} attention launches, "
             f"{sum(r['role'] == 'assistant' for r in s['responses'])} responses")
-    log(f"peak device memory (streaming passes): "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    _time_decode(gen, cfg, log)
-    return launches
+    log(f"kernel launches over the two passes: {counts}; {gen.tokens_generated} tokens "
+        f"generated")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"peak device memory (streaming passes): {peak_gib:.2f} GiB")
+    return dict(counts, p50_ms=stats["generation"]["p50_ms"],
+                grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib,
+                decode_tokens_per_s=_time_decode(gen, cfg, log))
+
+
+def _check_counts(params, cfg, counts: dict, tokens_generated: int, kv_cache_quant) -> None:
+    """The kernels the weights and the cache call for were the ones
+    launched. A decoder forward launches the attention once per layer;
+    through int4 leaves it launches kernel B seven times per layer (the
+    projections), and the LM head launches it once per generated token
+    (the prompt's prefill gives the first token, every decode step one
+    more; streaming chunks take no logits)."""
+    int4 = "qw4" in params["lm_head"] if isinstance(params["lm_head"], dict) else False
+    want_int8 = counts["attention"] if kv_cache_quant == "int8" else 0
+    forwards, rest = divmod(counts["attention"], cfg.text.num_layers)
+    want_b = 7 * counts["attention"] + tokens_generated if int4 else 0
+    if (counts["attention"] <= 0 or rest or counts["attention_int8"] != want_int8
+            or counts["int4_matmul"] != want_b):
+        raise AssertionError(
+            f"main path (int4 weights: {int4}, cache: {kv_cache_quant}): launches {counts}; "
+            f"want the attention a multiple of {cfg.text.num_layers} layers, {want_int8} of "
+            f"them on the int8 variant, and {want_b} of kernel B ({forwards} decoder "
+            f"forwards x {cfg.text.num_layers} layers x 7 projections + {tokens_generated} "
+            f"LM-head calls)")
 
 
 def _leaves(tree):
@@ -454,17 +663,22 @@ def _check_pass(engine, name: str, launches: int, responses, query: str) -> None
             f"generation pass: cursor {cursor}, fed {fed}, {len(answers)} answers")
     # every committed slot holds a K row; nothing lies past the cursor
     # beyond one rolled-back block plus bucket padding
-    k = engine.state.kv_cache.k
+    k = kv_arr(engine.state.kv_cache.k)  # int8 values under an int8 cache
     margin = engine.block_frames * engine.cfg.frame_num_tokens + 256
     if not bool((k[:, 0, :, :cursor].abs().amax(dim=-1) > 0).all()):
         raise AssertionError(f"{name} pass: a committed cache slot is empty")
+    if kv_quantized(engine.state.kv_cache):
+        scales = engine.state.kv_cache.k["qs"]
+        if not bool((scales[:, 0, :, :cursor] > 0).all()) or not bool(
+                torch.isfinite(scales).all()):
+            raise AssertionError(f"{name} pass: a committed slot's int8 scale is not positive")
     if bool((k[:, 0, :, cursor + margin:] != 0).any()):
         raise AssertionError(f"{name} pass: cache written past the cursor")
 
 
-def _time_decode(engine, cfg, log) -> None:
+def _time_decode(engine, cfg, log) -> float:
     """Greedy decode of 32 tokens (EOS disabled) at the cache length the
-    generation pass left, timed with a device sync."""
+    generation pass left, timed with a device sync; tokens per second."""
     n_new = 32
     embeds = engine._embed_ids(engine._gen_prompt_ids)[None]
     pen = torch.zeros((1, cfg.text.vocab_size), dtype=torch.bool, device="cuda")
@@ -483,6 +697,7 @@ def _time_decode(engine, cfg, log) -> None:
         raise AssertionError(f"decode: {n} tokens, want {n_new}")
     log(f"decode: {n} tokens at cache length {engine.state.cursor} in {dt:.3f} s "
         f"= {n / dt:.2f} tokens/s (prompt prefill included)")
+    return n / dt
 
 
 TRAIN_STEPS, TRAIN_ACCUM = 3, 2
@@ -569,7 +784,32 @@ def run_training(cfg, tok, params, log) -> tuple:
         f"kernel C launches {launches[0]} forward / {launches[1]} backward")
     return launches
 
-def main() -> int:
+def quantize_on_card(params, log):
+    """The 7B-width tree's decoder, embedding and LM head to group-128 int4
+    on the card, leaf by leaf (``donate``: each bf16 leaf is freed as it is
+    converted, so the dense tree is gone afterwards)."""
+    dense = quant.param_bytes(params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = quant.quantize_params(params, bits=4, donate=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    served = sum(quant.param_bytes(params[k]) for k in ("decoder", "lm_head"))
+    log(f"quantize_params(bits=4) on the card in {dt:.1f} s: decoder + embedding + LM head "
+        f"{served / 1e9:.3f} GB, the whole tree {quant.param_bytes(params) / 1e9:.3f} GB "
+        f"(bf16: {dense / 1e9:.3f} GB); {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"allocated")
+    if not 3.5e9 < served < 4.5e9:
+        raise AssertionError(f"int4 decoder + embedding + LM head take {served} bytes")
+    return params
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build and check the kernels, then stop (no result line)")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -580,19 +820,35 @@ def main() -> int:
     def log(msg):
         print(f"[{card}] {msg}", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = time.perf_counter()
     _build.build()
-    log(f"kernels built from csrc/ in {time.perf_counter() - t0:.1f} s")
-    entry = check_attention_kernel(log)
+    log(f"kernels built from csrc/ in {time.perf_counter() - t_start:.1f} s")
+    dec, dec_int8 = check_attention_kernel(log)
+    int4 = check_int4_kernel(log)
     full_fwd, full_bwd = check_full_attention_kernel(log)
+    if opts.kernels_only:
+        log(f"kernels checked in {time.perf_counter() - t_start:.1f} s")
+        return 0
     cfg, tok, params = full_width_model(log)
-    entry["launches"] = run_main_path(cfg, tok, params, log)
+    dense = run_main_path(cfg, tok, params, log)
+    dec["launches"] = dense["attention"]
     full_fwd["launches"], full_bwd["launches"] = run_training(cfg, tok, params, log)
+    params = quantize_on_card(params, log)
+    quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
+    dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
+    for key, what in (("p50_ms", "generation pass p50 per-frame ms"),
+                      ("grounding_p50_ms", "grounding pass p50 per-frame ms"),
+                      ("decode_tokens_per_s", "decode tokens/s"),
+                      ("peak_gib", "peak device memory GiB")):
+        log(f"int4 weights + int8 cache vs bf16, {what}: {quantized[key]:.3f} vs "
+            f"{dense[key]:.3f}")
     del params
     torch.cuda.empty_cache()
     check_small_input(log)
+    check_small_input(log, quantized=True)
     check_small_train(log)
-    print(json.dumps({"kernels": [entry, full_fwd, full_bwd]}))
+    log(f"all phases in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [dec, dec_int8, int4, full_fwd, full_bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -13,15 +13,19 @@ the reference `LiveInferForBenchmark` (`test/inference.py:20-313`):
   scratch cache with the repetition penalty as a token bitmask;
 - ``remove_assistant_turns`` is a cursor rewind;
 - all three threshold policies (`state.ThresholdPolicy`);
-- a per-frame latency record.
+- a per-frame latency record;
+- quantized serving: int8 / int4 weight leaves in ``params``
+  (`models.quant`), ``kv_cache_quant="int8"`` (a per-token int8 KV cache),
+  and a runtime LoRA adapter (``lora``, ``lora_scale``) passed to every
+  forward.
 
 Protocol-parity quirks kept (they define the published numbers): the
 first stream chunk is ``[system tokens] + frames`` with no stream header,
 and after a kept assistant turn the next frame is joined with ``[last
 generated token] + stream header`` (`inference.py:229-234`).
 
-Not ported yet: ``mesh``, ``kv_cache_quant`` and ``lora`` (each raises
-`NotImplementedError`), and `prewarm`, `stream_video`, `append_frames`.
+Not ported yet: ``mesh`` (raises `NotImplementedError`), and `prewarm`,
+`stream_video`, `append_frames`.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from mmduet_tpu.config import MMDuetConfig, TestArgs
+from ..config import MMDuetConfig, TestArgs
 
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
@@ -62,27 +66,27 @@ class LiveInferEngine:
         tokenizer,
         args: TestArgs,
         lora=None,
+        lora_scale: float = 0.0,
         kv_cache_size: Optional[int] = None,
         dtype: Optional[torch.dtype] = None,
         block_frames: Optional[int] = None,
         mesh=None,
-        kv_cache_quant: Optional[str] = None,
+        kv_cache_quant: Optional[str] = None,  # "int8": per-token int8 KV
+        # cache ({"qw", "qs"} leaves, `qwen2.init_kv_cache`)
     ):
         if mesh is not None:
             raise NotImplementedError("LiveInferEngine: mesh serving is not ported yet")
-        if kv_cache_quant is not None:
-            raise NotImplementedError(
-                f"LiveInferEngine: kv_cache_quant={kv_cache_quant!r} is not ported yet"
-            )
-        if lora is not None:
-            raise NotImplementedError("LiveInferEngine: LoRA is not ported yet")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
+        self.lora = lora
+        self.lora_scale = lora_scale
         final_norm = params["decoder"]["final_norm"]
         self.device = final_norm.device
-        # activation dtype: that of a norm leaf
+        # activation dtype: that of a norm leaf (the weight leaves may be
+        # quantized)
         self.dtype = dtype or final_norm.dtype
+        self.kv_cache_quant = kv_cache_quant
 
         validate_threshold_args(args)
         self.args = args
@@ -127,7 +131,8 @@ class LiveInferEngine:
     @torch.inference_mode()
     def reset(self):
         self.state = StreamState(init_kv_cache(
-            self.cfg.text, 1, self._cache_size, self.dtype, self.device
+            self.cfg.text, 1, self._cache_size, self.dtype, self.device,
+            quant=self.kv_cache_quant,
         ))
         self.query_queue = collections.deque()
         self.frame_embeds: Optional[torch.Tensor] = None  # (T, ft, H)
@@ -139,6 +144,7 @@ class LiveInferEngine:
         self._pending_ids: List[int] = []
         self.debug_data_list: List[Dict[str, Any]] = []
         self.frame_latencies_ms: List[float] = []
+        self.tokens_generated = 0  # over every response since the reset
         self._policy = ThresholdPolicy(self.args)
         self._pen_mask = torch.zeros(
             (self.cfg.text.vocab_size,), dtype=torch.bool, device=self.device
@@ -203,6 +209,7 @@ class LiveInferEngine:
         out = mmduet.step_forward(
             self.params, self.cfg, pad_chunk(embeds, bucket)[None],
             self.state.kv_cache, self.state.cursor, t_real,
+            lora=self.lora, lora_scale=self.lora_scale,
             compute_lm_logits=compute_lm,
         )
         # both score probs in ONE tensor: one device->host copy per frame
@@ -255,6 +262,7 @@ class LiveInferEngine:
         inf, rel, _ = mmduet.frames_block_forward(
             self.params, self.cfg, self.frame_embeds[idx : idx + n],
             self.state.kv_cache, self.state.cursor,
+            lora=self.lora, lora_scale=self.lora_scale,
         )
         self.state.cursor += n * ft
         self._next_frame += n
@@ -309,10 +317,12 @@ class LiveInferEngine:
             max_new=self.args.max_new_tokens,
             eos_id=self.tokenizer.eos_token_id,
             rep=self.args.repetition_penalty,
+            lora=self.lora, lora_scale=self.lora_scale,
         )
         self._pen_mask = pen_mask[0]
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor
         n, cursor = packed[-2], packed[-1]
+        self.tokens_generated += n
         token_ids = packed[:n]
         if self.args.remove_assistant_turns:
             # rewind: keep the pre-response stream context only

@@ -3,7 +3,7 @@
 Port of `mmduet_tpu/models/io.py`. A checkpoint directory is
 
     <dir>/config.json  the shared `MMDuetConfig` as a nested dict (the JAX
-                       package's file, read by either package)
+                       package's file format, read by either package)
     <dir>/params.pt    ``{"params": tree, "lora": tree or None}``, one
                        `torch.save` file
 
@@ -20,7 +20,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from mmduet_tpu.config import MMDuetConfig, Qwen2Config, SiglipConfig
+from ..config import MMDuetConfig, Qwen2Config, SiglipConfig
 
 PARAMS_FILE = "params.pt"
 
@@ -33,9 +33,13 @@ def save_config(cfg: MMDuetConfig, path: str) -> None:
 
 def load_config(path: str) -> MMDuetConfig:
     with open(path) as f:
-        d = json.load(f)
-    d["text"] = Qwen2Config(**d["text"])
-    d["vision"] = SiglipConfig(**d["vision"])
+        return config_from_dict(json.load(f))
+
+
+def config_from_dict(d: dict) -> MMDuetConfig:
+    """The port's config from the ``config.json`` dict (``dataclasses.asdict``
+    of either package's `MMDuetConfig`)."""
+    d = dict(d, text=Qwen2Config(**d["text"]), vision=SiglipConfig(**d["vision"]))
     return MMDuetConfig(**d)
 
 

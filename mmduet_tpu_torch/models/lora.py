@@ -14,7 +14,7 @@ from typing import Dict, Sequence
 
 import torch
 
-from mmduet_tpu.config import Qwen2Config
+from ..config import Qwen2Config
 
 DEFAULT_TARGETS = (
     "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj"

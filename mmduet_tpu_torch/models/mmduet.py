@@ -26,10 +26,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mmduet_tpu.config import MMDuetConfig
+from ..config import MMDuetConfig
 
 from . import qwen2, siglip
-from .qwen2 import KVCache, Lanes, ints_to, lane_list, matmul_f32
+from .quant import matmul_f32
+from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
 
 Params = Dict[str, Any]
 
@@ -327,7 +328,9 @@ def decode_loop(
     into a (L, B, kh, W, hd) scratch, ``W = max(max_new - 1, 1)`` wide
     (the last sampled token is never fed back). Frozen (``active=False``)
     lanes run the forwards but commit nothing of their own: their
-    scratch rows land at their frozen cursor. Capacity: for every active
+    scratch rows land at their frozen cursor. The scratch is in the
+    activation dtype also under an int8 cache: the one commit after the
+    loop quantizes its rows. Capacity: for every active
     lane ``cache_len[b] + t + W <= S``; for a frozen one
     ``cache_len[b] + max(t, W) <= S`` (`commit_lanes` raises otherwise).
 
@@ -367,7 +370,7 @@ def decode_loop(
         n.append(1 if act[b] else 0)
 
     W = max(max_new - 1, 1)
-    L, _, kh, _, hd = cache.k.shape
+    L, _, kh, _, hd = kv_arr(cache.k).shape
     scratch = KVCache(
         torch.zeros((L, B, kh, W, hd), dtype=embeds.dtype, device=dev),
         torch.zeros((L, B, kh, W, hd), dtype=embeds.dtype, device=dev),

@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from mmduet_tpu.config import MMDuetConfig, Qwen2Config, SiglipConfig
+from ..config import MMDuetConfig, Qwen2Config, SiglipConfig
 
 Params = Dict[str, Any]
 
@@ -24,21 +24,32 @@ def params_from_numpy(tree: Params, device, dtype: Optional[torch.dtype] = None)
     """The JAX param tree with numpy leaves (``jax.tree.map(np.asarray,
     params)``) as tensors on ``device``, cast to ``dtype`` (None keeps
     each leaf's dtype). A LoRA tree (``{proj: {"a", "b"}}``) converts the
-    same way. Quantized leaves raise `NotImplementedError`."""
+    same way. Quantized leaves (``{"qw" | "qw4", "qs"}``, weights or an
+    int8 KV cache) cross as they are: int8 stays int8 and ``qs`` keeps
+    its own dtype (bf16 for weights, f32 for a cache), whatever ``dtype``
+    says."""
     out: Params = {}
     for name, leaf in tree.items():
         if isinstance(leaf, dict):
-            if {"qw", "qs"} <= set(leaf) or "qw4" in leaf:
-                raise NotImplementedError(
-                    f"{name}: quantized (int8/int4) leaves are not ported yet"
-                )
-            out[name] = params_from_numpy(leaf, device, dtype)
+            if "qs" in leaf and ("qw" in leaf or "qw4" in leaf):
+                out[name] = {k: _as_is(v, device) for k, v in leaf.items()}
+            else:
+                out[name] = params_from_numpy(leaf, device, dtype)
             continue
         arr = np.asarray(leaf)
         if arr.dtype.name == "bfloat16":  # ml_dtypes: torch cannot read it
             arr = arr.astype(np.float32)
         out[name] = torch.tensor(arr, device=device, dtype=dtype)
     return out
+
+
+def _as_is(leaf, device) -> torch.Tensor:
+    """A numpy leaf as a tensor of the same dtype (bf16 through f32: torch
+    cannot read the ml_dtypes array)."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32), device=device, dtype=torch.bfloat16)
+    return torch.tensor(arr, device=device)
 
 
 class _Init:

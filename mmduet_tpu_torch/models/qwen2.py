@@ -1,8 +1,10 @@
 """Qwen2 decoder in PyTorch: full (training), streaming and scratch-decode
 modes, with runtime LoRA.
 
-Port of `mmduet_tpu/models/qwen2.py` for bf16 and f32 parameter leaves.
-Parameters are the JAX package's tree as tensors (`models.params`):
+Port of `mmduet_tpu/models/qwen2.py`. Matmul weights, the embedding and
+the LM head may be dense tensors or the quantized leaves of
+`models.quant` (int8 per channel, group-wise int4); every projection goes
+through `quant.quantized_matmul`, which dispatches on the leaf. Parameters are the JAX package's tree as tensors (`models.params`):
 per-layer weights stacked on a leading layer axis, matmul weights in the
 (in, out) layout, so ``y @ W`` is the JAX einsum. The layer stack runs as
 a Python loop over per-layer views of the stacked weights.
@@ -11,16 +13,16 @@ Streaming contract: attention runs over [the lane's committed cache
 history] + [the chunk itself, causal] with the cache read-only
 (`ops.attention.flash_decode_attention`, a CUDA kernel for CUDA tensors);
 the chunk's K/V are written into the cache after the layer loop, in
-place (`commit_lanes`). Padded tail tokens of a bucket produce outputs
+place (`commit_lanes`). With an int8 cache (`init_kv_cache(quant="int8")`)
+the chunk and the decode scratch stay in the activation dtype, the rows
+are quantized at the commit, and attention reads the int8 cache with its
+per-token scales. Padded tail tokens of a bucket produce outputs
 that are never read, and their cache slots are overwritten by the next
 chunk.
 
 Full mode (``kv_cache=None``): causal attention over the chunk with
 ``attn_mask`` for padding, through `ops.attention.flash_full_attention`
 (kernel C on CUDA, forward and backward) or the masked plain attention.
-
-Not ported yet: int8/int4 leaves and the int8 KV cache; each raises
-`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -32,10 +34,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from mmduet_tpu.config import Qwen2Config
+from ..config import Qwen2Config
 
 from ..ops.attention import (KernelRefused, attend, flash_decode_attention,
                              flash_full_attention)
+from .quant import is_quantized, layer_view, quantized_matmul, unpack_int4
 
 Params = Dict[str, Any]
 Lanes = Union[int, Sequence[int], torch.Tensor]
@@ -43,14 +46,46 @@ Lanes = Union[int, Sequence[int], torch.Tensor]
 
 class KVCache(NamedTuple):
     """Preallocated KV cache: k/v of shape (L, B, kv_heads, S_max, head_dim),
-    head-major so each head's (S, hd) slab is contiguous."""
+    head-major so each head's (S, hd) slab is contiguous.
 
-    k: torch.Tensor
-    v: torch.Tensor
+    int8 cache (``init_kv_cache(quant="int8")``): each of k/v is a
+    ``{"qw": int8 (L, B, kh, S, hd), "qs": f32 (L, B, kh, S)}`` dict, the
+    leaf convention of the int8 weights. Rows are quantized symmetrically
+    per (layer, lane, head, slot) at commit time (`commit_lanes`); the
+    attention kernel applies the scales as column scalings."""
+
+    k: Any
+    v: Any
 
     @property
     def max_len(self) -> int:
-        return self.k.shape[3]
+        return kv_arr(self.k).shape[3]
+
+
+def kv_arr(leaf) -> torch.Tensor:
+    """The cache's value tensor for either layout (a tensor, or the int8
+    ``{"qw", "qs"}`` dict)."""
+    return leaf["qw"] if isinstance(leaf, dict) else leaf
+
+
+def kv_quantized(cache: KVCache) -> bool:
+    return isinstance(cache.k, dict)
+
+
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-token int8 over the trailing head_dim: (..., hd) ->
+    ((..., hd) int8, (...) f32 scale)."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp(min=1e-20) / 127.0
+    qw = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return qw, scale
+
+
+def dequantize_kv(leaf, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """{"qw", "qs"} -> dense (..., hd) values (tests)."""
+    if not isinstance(leaf, dict):
+        return leaf.to(dtype)
+    return (leaf["qw"].float() * leaf["qs"].float()[..., None]).to(dtype)
 
 
 def init_kv_cache(
@@ -58,9 +93,15 @@ def init_kv_cache(
     dtype: torch.dtype = torch.bfloat16, device=None,
     quant: Optional[str] = None,
 ) -> KVCache:
-    if quant is not None:
-        raise NotImplementedError(f"KV cache quant {quant!r} is not ported yet")
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    if quant == "int8":
+        def leaf():
+            return {"qw": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "qs": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+
+        return KVCache(k=leaf(), v=leaf())
+    if quant is not None:
+        raise ValueError(f"unknown KV cache quant: {quant!r} (use 'int8')")
     return KVCache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
@@ -96,37 +137,6 @@ def ints_to(values: Sequence[int], device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class _MatmulF32(torch.autograd.Function):
-    """bf16 ``(N, H) @ (H, O)`` on cuBLAS with an f32 output (f32
-    accumulation, no f32 copy of either operand). The backward rounds the
-    f32 cotangent to bf16 for its two products; the gradients come out in
-    the operands' dtype."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(w.dtype)
-        gx = torch.mm(g, w.t()) if ctx.needs_input_grad[0] else None
-        gw = torch.mm(x.t(), g) if ctx.needs_input_grad[1] else None
-        return gx, gw
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(..., H) @ (H, O)`` accumulated and returned in f32, as the JAX
-    einsum with ``preferred_element_type=float32``. Two bf16 operands on
-    CUDA go to cuBLAS as they are (`_MatmulF32`); otherwise both are
-    upcast to f32."""
-    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
-        out = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.float(), w.float())
-
-
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -156,31 +166,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(dt)
 
 
-def _proj(y: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+def _proj(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor] = None,
           lora_ab: Optional[Params] = None, lora_scale: float = 0.0) -> torch.Tensor:
     """``y @ w`` in the activation dtype (f32 accumulation, one rounding,
-    as the JAX einsum + astype), plus the bias in that dtype.
+    as the JAX einsum + astype), plus the bias in that dtype; ``w`` is a
+    dense tensor or a quantized leaf (`quant.quantized_matmul`).
 
     With an adapter ``{"a": (in, r), "b": (r, out)}`` the low-rank term
     ``lora_scale * (y @ a) @ b`` is added to the f32 base product before
     the rounding, as the JAX projection does."""
-    if lora_ab is None:
+    if lora_ab is None and not is_quantized(w):
         out = torch.matmul(y, w)
     else:
-        delta = torch.matmul(torch.matmul(y.float(), lora_ab["a"].float()),
-                             lora_ab["b"].float())
-        out = (matmul_f32(y, w) + lora_scale * delta).to(y.dtype)
+        out = quantized_matmul(y, w)
+        if lora_ab is not None:
+            delta = torch.matmul(torch.matmul(y.float(), lora_ab["a"].float()),
+                                 lora_ab["b"].float())
+            out = out + lora_scale * delta
+        out = out.to(y.dtype)
     if bias is not None:
         out = out + bias.to(y.dtype)
     return out
-
-
-def _check_dense(tree: Params, where: str) -> None:
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            raise NotImplementedError(
-                f"{where}.{name}: quantized (int8/int4) leaves are not ported yet"
-            )
 
 
 def _layer_lora(lora: Optional[Params], i: int) -> Params:
@@ -265,7 +271,6 @@ def qwen2_forward(
     projection. Returns (hidden_states (B, T, H), the updated cache, the
     scratch, or None in full mode)."""
     layers = params["layers"]
-    _check_dense(layers, "decoder.layers")
     cos, sin = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if kv_cache is None:
         return _full_forward(params, cfg, embeds, positions, cos, sin, attn_mask,
@@ -293,13 +298,19 @@ def qwen2_forward(
     x = embeds
     new_k: List[torch.Tensor] = []
     new_v: List[torch.Tensor] = []
-    for i in range(kv_cache.k.shape[0]):
-        p = {name: w[i] for name, w in layers.items()}
+    kc_arr, vc_arr = kv_arr(kv_cache.k), kv_arr(kv_cache.v)
+    kv_q = kv_quantized(kv_cache)
+    scales = (dict(k_scale=kv_cache.k["qs"], v_scale=kv_cache.v["qs"]) if kv_q else {})
+    # the chunk stays in the activation dtype under an int8 cache
+    # (quantization happens at the commit)
+    el_dtype = embeds.dtype if kv_q else kc_arr.dtype
+    for i in range(kc_arr.shape[0]):
+        p = layer_view(layers, i)
         lo = _layer_lora(lora, i)
         q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
         # chunk (B, T, kh, hd) -> head-major (B, kh, T, hd)
-        k_hm = k.transpose(1, 2).to(kv_cache.k.dtype).contiguous()
-        v_hm = v.transpose(1, 2).to(kv_cache.v.dtype).contiguous()
+        k_hm = k.transpose(1, 2).to(el_dtype).contiguous()
+        v_hm = v.transpose(1, 2).to(el_dtype).contiguous()
         if scratch is not None:
             # the chunk operand is this layer's scratch [generated tokens'
             # K/V ++ this chunk], written in place at s_len (the JAX code
@@ -312,8 +323,8 @@ def qwen2_forward(
             new_k.append(k_hm)
             new_v.append(v_hm)
         attn = flash_decode_attention(
-            q, kv_cache.k, kv_cache.v, ck.to(q.dtype), cv.to(q.dtype),
-            cl_dev, tr_dev, i, q_offset=qo_dev,
+            q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
+            cl_dev, tr_dev, i, q_offset=qo_dev, **scales,
         )
         x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
@@ -363,8 +374,8 @@ def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
 
     x = embeds
     layers = params["layers"]
-    for i in range(layers["q_proj"].shape[0]):
-        p = {name: w[i] for name, w in layers.items()}
+    for i in range(layers["input_norm"].shape[0]):
+        p = layer_view(layers, i)
         lo = _layer_lora(lora, i)
         x = checkpoint(layer, x, p, lo, use_reentrant=False) if remat else layer(x, p, lo)
     if mono_ok is not None:
@@ -377,16 +388,26 @@ def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
     """Write (L, B, kh, t, hd) K/V rows into the (L, B, kh, S, hd) cache
     at per-lane slot ``starts[b]``, in place, one slice write per lane
     (the JAX code chains per-lane `dynamic_update_slice` on a donated
-    buffer). A write past the cache's end raises instead of clamping."""
+    buffer). A write past the cache's end raises instead of clamping.
+
+    int8 cache: the rows are quantized here (per-token symmetric,
+    `quantize_kv_rows`) and both the int8 values and the f32 scales are
+    written in place."""
     B, t = new_k.shape[1], new_k.shape[3]
+    if kv_quantized(cache):
+        new_k, k_s = quantize_kv_rows(new_k)
+        new_v, v_s = quantize_kv_rows(new_v)
     for b, s in enumerate(lane_list(starts, B)):
         if s < 0 or s + t > cache.max_len:
             raise RuntimeError(
                 f"commit_lanes: lane {b} rows [{s}, {s + t}) outside the "
                 f"cache of {cache.max_len} slots"
             )
-        cache.k[:, b, :, s:s + t] = new_k[:, b]
-        cache.v[:, b, :, s:s + t] = new_v[:, b]
+        kv_arr(cache.k)[:, b, :, s:s + t] = new_k[:, b]
+        kv_arr(cache.v)[:, b, :, s:s + t] = new_v[:, b]
+        if kv_quantized(cache):
+            cache.k["qs"][:, b, :, s:s + t] = k_s[:, b]
+            cache.v["qs"][:, b, :, s:s + t] = v_s[:, b]
     return cache
 
 
@@ -394,14 +415,21 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, vocab_size: int) -> to
     """Token embedding with the reference's clamp trick: the `<image>`
     placeholder id may be >= the embedding rows and gets clamped; its
     embedding is always overwritten by visual features."""
+    ids = input_ids.clamp(0, vocab_size - 1)
     emb = params["embed"]
-    if isinstance(emb, dict):
-        raise NotImplementedError("quantized embedding is not ported yet")
-    return emb[input_ids.clamp(0, vocab_size - 1)]
+    if isinstance(emb, dict) and "qw4" in emb:
+        # int4 per row group: qw4 packed (V, G, g/2), qs (V, G, 1). Gather
+        # the packed rows, then unpack the nibbles of the gathered rows only.
+        rows = unpack_int4(emb["qw4"][ids], -1).float()  # (..., G, g)
+        out = rows * emb["qs"][ids].float()
+        return out.reshape(*out.shape[:-2], -1).to(emb["qs"].dtype)
+    if isinstance(emb, dict):  # int8 per row: gather rows, then scale
+        rows = emb["qw"][ids].float()
+        return (rows * emb["qs"][:, 0][ids].float()[..., None]).to(emb["qs"].dtype)
+    return emb[ids]
 
 
-def lm_logits(lm_head: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
-    """(B, T, H) @ (H, V) -> f32 logits."""
-    if isinstance(lm_head, dict):
-        raise NotImplementedError("quantized lm_head is not ported yet")
-    return matmul_f32(hidden, lm_head)
+def lm_logits(lm_head: Any, hidden: torch.Tensor) -> torch.Tensor:
+    """(B, T, H) @ (H, V) -> f32 logits, for a dense, int8 or grouped int4
+    LM head (`quant.quantized_matmul`)."""
+    return quantized_matmul(hidden, lm_head)

@@ -15,7 +15,8 @@ from typing import Any, Dict
 import torch
 import torch.nn.functional as F
 
-from mmduet_tpu.config import SiglipConfig
+from ..config import SiglipConfig
+from .quant import is_quantized, layer_view, quantized_matmul
 
 Params = Dict[str, Any]
 
@@ -30,11 +31,14 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (out * scale.float() + bias.float()).to(dt)
 
 
-def _linear(y: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def _linear(y: torch.Tensor, w: Any, bias: torch.Tensor) -> torch.Tensor:
     """``y @ w + bias`` in the activation dtype (f32 accumulation, one
-    rounding, then the bias), as the JAX einsum + astype + bias."""
-    if isinstance(w, dict):
-        raise NotImplementedError("quantized vision weights are not ported yet")
+    rounding, then the bias), as the JAX einsum + astype + bias. An int8
+    leaf ``{"qw", "qs"}`` (`quant.quantize_vision`) is the product with
+    the int8 values cast to the activation dtype, scaled per output
+    channel in f32 before the rounding."""
+    if is_quantized(w):
+        return quantized_matmul(y, w).to(y.dtype) + bias.to(y.dtype)
     return torch.matmul(y, w) + bias.to(y.dtype)
 
 
@@ -95,7 +99,7 @@ def siglip_encode(
     )
     layers = params["layers"]
     for i in range(num_layers):
-        x = encoder_layer(x, {name: w[i] for name, w in layers.items()}, cfg)
+        x = encoder_layer(x, layer_view(layers, i), cfg)
     return x
 
 

@@ -12,6 +12,16 @@ read-only: the caller commits the chunk's K/V afterwards
 plain version (`flash_decode_attention_ref`); tensors on a CUDA device
 launch the kernel in ``csrc/flash_decode.cu`` or raise.
 
+**Kernel A, int8 cache** (``k_scale`` / ``v_scale`` given; the Pallas
+kernel's ``quantized=True``): the cache holds int8 rows with one f32
+scale per (layer, lane, head, slot). The K scale multiplies the scores
+as a column scaling, the V scale is folded into the softmax numerators,
+and the denominator sums the unscaled numerators; the chunk stays in the
+activation dtype. The plain version does these column scalings in f32
+on the int8 values. (The JAX package's jnp fallback instead dequantizes
+the cache to the activation dtype first, which rounds differently in
+bf16; in f32 the two agree to rounding.)
+
 **Kernel C**, causal GQA attention over a padded batch, forward and
 backward (the decoder's training attention): port of
 `mmduet_tpu/ops/attention.py::flash_full_attention`. `flash_full_attention`
@@ -40,6 +50,8 @@ NEG_INF = -1e30
 # Kernel launches since the last reset to 0. Only the CUDA branch of
 # `flash_decode_attention` adds to it, once per launch.
 LAUNCHES = 0
+# Those of them that went to the int8-cache variant.
+INT8_LAUNCHES = 0
 # Kernel C: forward launches, and backward launches (a backward launches
 # the preprocess, dK/dV and dQ kernels, one count each). Only the CUDA
 # branch adds to them.
@@ -86,12 +98,19 @@ def attend_split(
     t_real: torch.Tensor,  # (B,) int32 real tokens in each lane's chunk
     q_offset: Optional[torch.Tensor] = None,  # (B,) int32 chunk position of
     # query row 0; None = 0
+    k_scale: Optional[torch.Tensor] = None,  # (B, kh, S) f32: kc / vc are int8
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Port of `qwen2._attend_split`: per lane, one f32 softmax over
     [cache slots < cache_len[b]] + [the chunk, causal: query row t sees
     chunk cols <= q_offset[b] + t and < t_real[b]]. Scores and both
     value products accumulate in f32 from the stored dtype's values, as
-    the JAX einsums with ``preferred_element_type=float32`` do."""
+    the JAX einsums with ``preferred_element_type=float32`` do.
+
+    With scales the cache is int8: the cache scores are multiplied by
+    ``k_scale`` per column, the cache numerators by ``v_scale`` before the
+    value product (in f32, not rounded), and the softmax denominator
+    keeps the unscaled numerators."""
     B, T, nh, hd = q.shape
     kh, S = kc.shape[1], kc.shape[2]
     Tc = ck.shape[2]
@@ -103,6 +122,8 @@ def attend_split(
     scale = math.sqrt(hd)
     s_cache = torch.einsum("btkgh,bksh->bkgts", qr, kc.float()) / scale
     s_chunk = torch.einsum("btkgh,bkch->bkgtc", qr, ck.float()) / scale
+    if k_scale is not None:
+        s_cache = s_cache * k_scale.float()[:, :, None, None, :]
     slot = torch.arange(S, device=dev)
     s_cache.masked_fill_(
         (slot[None, :] >= cl[:, None])[:, None, None, None, :], NEG_INF
@@ -113,9 +134,11 @@ def attend_split(
     s_chunk.masked_fill_(~cmask[:, None, None], NEG_INF)
     probs = torch.softmax(torch.cat([s_cache, s_chunk], dim=-1), dim=-1)
     p_cache, p_chunk = probs[..., :S], probs[..., S:]
-    out = torch.einsum(
-        "bkgts,bksh->btkgh", p_cache.to(vc.dtype).float(), vc.float()
-    ) + torch.einsum(
+    if v_scale is not None:
+        p_cache = p_cache * v_scale.float()[:, :, None, None, :]
+    else:
+        p_cache = p_cache.to(vc.dtype).float()
+    out = torch.einsum("bkgts,bksh->btkgh", p_cache, vc.float()) + torch.einsum(
         "bkgtc,bkch->btkgh", p_chunk.to(cv.dtype).float(), cv.float()
     )
     return out.reshape(B, T, nh, hd).to(q.dtype)
@@ -131,12 +154,19 @@ def flash_decode_attention_ref(
     t_real: torch.Tensor,
     layer: int,
     q_offset: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain PyTorch version of `flash_decode_attention`: layer
-    ``layer`` of the stacked cache through `attend_split`."""
+    ``layer`` of the stacked cache (and of its scales, for an int8 cache)
+    through `attend_split`."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("flash_decode_attention: k_scale and v_scale go together")
     return attend_split(
         q, k_cache[layer], v_cache[layer], chunk_k, chunk_v,
         cache_len, t_real, q_offset,
+        None if k_scale is None else k_scale[layer],
+        None if v_scale is None else v_scale[layer],
     )
 
 
@@ -149,6 +179,11 @@ def _kernel_lib() -> ctypes.CDLL:
             + [ctypes.c_float, ctypes.c_void_p]
         )
         lib.flash_decode_bf16.restype = ctypes.c_int
+        lib.flash_decode_int8.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.flash_decode_int8.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -167,18 +202,23 @@ def flash_decode_attention(
     q_offset: Optional[torch.Tensor] = None,  # (B,) int32 chunk position of
     # query row 0 (scratch decode: generated tokens' K/V fill chunk slots
     # 0..q_offset-1 and the queries sit after them); None = 0
+    k_scale: Optional[torch.Tensor] = None,  # (L, B, kh, S) f32 per-token
+    # scales of an int8 cache; None = the cache is in the activation dtype
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns the attention output (B, T, nh, hd). Rows t >= t_real[b]
     hold values that are never read.
 
-    CPU tensors: the plain version. CUDA tensors: the bf16 kernel, which
-    takes hd = 128 and contiguous, 16-byte aligned operands on one device;
-    anything else raises, as does a refused launch."""
-    global LAUNCHES
+    CPU tensors: the plain version. CUDA tensors: the kernel (its int8
+    variant when the scales are given), which takes bf16 queries and
+    chunk, a bf16 or int8 cache, hd = 128 and contiguous, 16-byte aligned
+    operands on one device; anything else raises (`KernelRefused` for
+    what concerns the int8 variant), as does a refused launch."""
+    global LAUNCHES, INT8_LAUNCHES
     if q.device.type == "cpu":
         return flash_decode_attention_ref(
             q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
-            q_offset,
+            q_offset, k_scale, v_scale,
         )
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: no kernel for device {q.device}")
@@ -201,33 +241,55 @@ def flash_decode_attention(
         )
     if not 0 <= int(layer) < L:
         raise ValueError(f"flash_decode_attention: layer {layer} of {L}")
+    if (k_scale is None) != (v_scale is None):
+        raise KernelRefused("flash_decode_attention: k_scale and v_scale go together")
+    quantized = k_scale is not None
     operands = dict(q=q, k_cache=k_cache, v_cache=v_cache,
                     chunk_k=chunk_k, chunk_v=chunk_v)
     for name, t in operands.items():
         if t.device != q.device:
             raise ValueError(f"flash_decode_attention: {name} on {t.device}, q on {q.device}")
-        if t.dtype != torch.bfloat16:
+        if quantized and name.endswith("_cache"):
+            if t.dtype != torch.int8:
+                raise KernelRefused(
+                    f"flash_decode_attention: {name} is {t.dtype}; with scales the "
+                    "kernel takes an int8 cache")
+        elif t.dtype != torch.bfloat16:
+            if t.dtype == torch.int8 and name.endswith("_cache"):
+                raise KernelRefused(
+                    f"flash_decode_attention: {name} is int8 and no scales were given")
             raise TypeError(f"flash_decode_attention: {name} is {t.dtype}, the kernel takes bfloat16")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_decode_attention: {name} must be contiguous and 16-byte aligned")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)) if quantized else ():
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (L, B, kh, S) or not t.is_contiguous()):
+            raise KernelRefused(
+                f"flash_decode_attention: {name} must be a contiguous f32 ({L}, {B}, {kh}, "
+                f"{S}) tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     cl = _lanes(cache_len, "cache_len", B, q.device)
     tr = _lanes(t_real, "t_real", B, q.device)
     qo = _lanes(q_offset, "q_offset", B, q.device)
     out = torch.empty_like(q)
     lib = _kernel_lib()
-    err = lib.flash_decode_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        chunk_k.data_ptr(), chunk_v.data_ptr(),
-        cl.data_ptr(), tr.data_ptr(), qo.data_ptr(), out.data_ptr(),
-        B, T, nh, kh, S, Tc, int(layer), 1.0 / math.sqrt(hd),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    tail = (chunk_k.data_ptr(), chunk_v.data_ptr(),
+            cl.data_ptr(), tr.data_ptr(), qo.data_ptr(), out.data_ptr(),
+            B, T, nh, kh, S, Tc, int(layer), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if quantized:
+        err = lib.flash_decode_int8(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+    else:
+        err = lib.flash_decode_bf16(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail)
     if err:
-        raise RuntimeError(
+        raise KernelLaunchFailed(
             "flash_decode_attention: kernel launch failed: "
             + lib.flash_decode_error_string(err).decode()
         )
     LAUNCHES += 1
+    INT8_LAUNCHES += quantized
     return out
 
 

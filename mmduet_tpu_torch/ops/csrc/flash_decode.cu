@@ -25,6 +25,16 @@
 // first so that every real row has a finite running max before any fully
 // masked cache tile (masked scores are a finite -1e30, as in the JAX code).
 //
+// int8 cache (`flash_decode_int8`, the Pallas kernel's `quantized=True`
+// variant): the cache holds int8 K/V rows with one f32 scale per (layer,
+// lane, head, slot). A tile arrives as int8 (half the bytes, 16 values per
+// 16-byte load) and is widened to bf16 in shared memory, exactly; a block
+// loads the scales of its own head's slots. The algebra is the reference's:
+// the K scale multiplies the score as a column scaling, s = (q . k_int) *
+// scale * ks[col]; the V scale is folded into the numerator, acc += (p *
+// vs[col]) * v_int; the denominator sums the unscaled p. The chunk stays
+// bf16 and goes first.
+//
 // Later work: a B = 1 decode step launches only 4 (lane, kv-head) programs
 // against the H100's 132 SMs. A split over cache blocks with a second
 // reduction pass (flash-decoding), and wgmma / TMA for the block-scoring
@@ -51,6 +61,8 @@ struct __align__(16) Smem {
   __nv_bfloat16 k[KT][KPAD];
   __nv_bfloat16 v[KT][HD];
   float p[WARPS][RPW][KT];           // softmax numerators of the tile
+  float ks[KT];                      // int8 cache: the tile's K and V scales
+  float vs[KT];
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -89,8 +101,54 @@ __device__ __forceinline__ void load_tile(Smem& sm, const __nv_bfloat16* kb,
   }
 }
 
+// 16 int8 values -> 16 bf16 values (exact), as 8 packed pairs
+__device__ __forceinline__ void widen16(const uint4& raw, uint32_t (&out)[8]) {
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn((float)b[2 * i], (float)b[2 * i + 1]);
+    out[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+}
+
+// The int8 cache's form of `load_tile`: keys [j0, j0 + KT) of one head's
+// int8 rows widened to bf16, and their f32 scales (rows at or past n: zeros).
+__device__ __forceinline__ void load_tile_int8(Smem& sm, const int8_t* kb, const int8_t* vb,
+                                               const float* ksb, const float* vsb,
+                                               int j0, int n) {
+  constexpr int CHUNKS = HD / 16;    // 16-byte pieces per int8 row
+  for (int c = threadIdx.x; c < KT * CHUNKS; c += THREADS) {
+    const int row = c / CHUNKS;
+    const int col = (c % CHUNKS) * 16;
+    uint4 kv = make_uint4(0u, 0u, 0u, 0u);
+    uint4 vv = make_uint4(0u, 0u, 0u, 0u);
+    if (j0 + row < n) {
+      const size_t off = (size_t)(j0 + row) * HD + col;
+      kv = *reinterpret_cast<const uint4*>(kb + off);
+      vv = *reinterpret_cast<const uint4*>(vb + off);
+    }
+    uint32_t kw[8], vw[8];
+    widen16(kv, kw);
+    widen16(vv, vw);
+    uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[row][col]);
+    uint32_t* vd = reinterpret_cast<uint32_t*>(&sm.v[row][col]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      kd[i] = kw[i];
+      vd[i] = vw[i];
+    }
+  }
+  if (threadIdx.x < KT) {
+    const int j = j0 + threadIdx.x;
+    sm.ks[threadIdx.x] = j < n ? ksb[j] : 0.f;
+    sm.vs[threadIdx.x] = j < n ? vsb[j] : 0.f;
+  }
+}
+
 // One staged tile into the warp's online-softmax state. `limit[r]` is the
 // last key index row r may see (exclusive), `n` the source's valid keys.
+// SCALED: the tile is an int8 cache tile, with its scales in sm.ks / sm.vs.
+template <bool SCALED>
 __device__ __forceinline__ void attend_tile(const Smem& sm, int j0, int n,
                                             const int (&limit)[RPW], float scale,
                                             float (&m)[RPW], float (&l)[RPW],
@@ -119,8 +177,14 @@ __device__ __forceinline__ void attend_tile(const Smem& sm, int j0, int n,
   const int c1 = j0 + lane + 32;
 #pragma unroll
   for (int r = 0; r < RPW; ++r) {
-    const float x0 = (c0 < n && c0 < limit[r]) ? s[r][0] * scale : NEG;
-    const float x1 = (c1 < n && c1 < limit[r]) ? s[r][1] * scale : NEG;
+    float x0 = s[r][0] * scale;
+    float x1 = s[r][1] * scale;
+    if (SCALED) {                    // K's per-token scale: a column scaling
+      x0 *= sm.ks[lane];
+      x1 *= sm.ks[lane + 32];
+    }
+    if (!(c0 < n && c0 < limit[r])) x0 = NEG;
+    if (!(c1 < n && c1 < limit[r])) x1 = NEG;
     const float mn = fmaxf(m[r], warp_max(fmaxf(x0, x1)));
     const float alpha = expf(m[r] - mn);
     const float p0 = expf(x0 - mn);
@@ -129,8 +193,9 @@ __device__ __forceinline__ void attend_tile(const Smem& sm, int j0, int n,
     m[r] = mn;
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
-    pbuf[r][lane] = p0;
-    pbuf[r][lane + 32] = p1;
+    // V's per-token scale rides on the numerator; l keeps the unscaled p
+    pbuf[r][lane] = SCALED ? p0 * sm.vs[lane] : p0;
+    pbuf[r][lane + 32] = SCALED ? p1 * sm.vs[lane + 32] : p1;
   }
   __syncwarp();
 
@@ -151,10 +216,15 @@ __device__ __forceinline__ void attend_tile(const Smem& sm, int j0, int n,
   __syncwarp();
 }
 
+// INT8: the cache is int8 with f32 scales (L, B, kh, S); else bf16, and the
+// scale pointers are not read.
+template <bool INT8>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_cache,
-                    const __nv_bfloat16* __restrict__ v_cache,
+                    const void* __restrict__ k_cache,
+                    const void* __restrict__ v_cache,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const __nv_bfloat16* __restrict__ chunk_k,
                     const __nv_bfloat16* __restrict__ chunk_v,
                     const int* __restrict__ cache_len,
@@ -221,21 +291,26 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     load_tile(sm, ckb, cvb, j0, chunk_end);
     __syncthreads();
-    attend_tile(sm, j0, chunk_end, limit, scale, m, l, acc, sm.p[warp]);
+    attend_tile<false>(sm, j0, chunk_end, limit, scale, m, l, acc, sm.p[warp]);
   }
 
   // cache history: every query row sits after it, so only cache_len masks
   const size_t lay = ((size_t)layer * B + b) * kh + h;
-  const __nv_bfloat16* kcb = k_cache + lay * S * HD;
-  const __nv_bfloat16* vcb = v_cache + lay * S * HD;
   int no_limit[RPW];
 #pragma unroll
   for (int r = 0; r < RPW; ++r) no_limit[r] = clen;
   for (int j0 = 0; j0 < clen; j0 += KT) {
     __syncthreads();
-    load_tile(sm, kcb, vcb, j0, clen);
+    if constexpr (INT8) {
+      load_tile_int8(sm, static_cast<const int8_t*>(k_cache) + lay * S * HD,
+                     static_cast<const int8_t*>(v_cache) + lay * S * HD,
+                     k_scale + lay * S, v_scale + lay * S, j0, clen);
+    } else {
+      load_tile(sm, static_cast<const __nv_bfloat16*>(k_cache) + lay * S * HD,
+                static_cast<const __nv_bfloat16*>(v_cache) + lay * S * HD, j0, clen);
+    }
     __syncthreads();
-    attend_tile(sm, j0, clen, no_limit, scale, m, l, acc, sm.p[warp]);
+    attend_tile<INT8>(sm, j0, clen, no_limit, scale, m, l, acc, sm.p[warp]);
   }
 
 #pragma unroll
@@ -270,9 +345,30 @@ int flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                       float scale, void* stream) {
   const int rows = (nh / kh) * T;
   const dim3 grid((rows + ROWS - 1) / ROWS, kh, B);
-  flash_decode_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), static_cast<const __nv_bfloat16*>(chunk_k),
+  flash_decode_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
+      static_cast<const __nv_bfloat16*>(chunk_k),
+      static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
+      static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
+      static_cast<__nv_bfloat16*>(out), B, T, nh, kh, S, Tc, layer, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8-cache variant: k_cache / v_cache are int8 (L, B, kh, S, hd),
+// k_scale / v_scale f32 (L, B, kh, S); everything else as above.
+int flash_decode_int8(const void* q, const void* k_cache, const void* v_cache,
+                      const void* k_scale, const void* v_scale,
+                      const void* chunk_k, const void* chunk_v,
+                      const void* cache_len, const void* t_real,
+                      const void* q_offset, void* out,
+                      int B, int T, int nh, int kh, int S, int Tc, int layer,
+                      float scale, void* stream) {
+  const int rows = (nh / kh) * T;
+  const dim3 grid((rows + ROWS - 1) / ROWS, kh, B);
+  flash_decode_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const __nv_bfloat16*>(chunk_k),
       static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
       static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
       static_cast<__nv_bfloat16*>(out), B, T, nh, kh, S, Tc, layer, scale);

@@ -16,9 +16,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from mmduet_tpu.config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
-from mmduet_tpu.data.collator import Collator, stack_accum
-from mmduet_tpu.stream.labels import get_informative_labels, get_relevance_labels
+from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
+from ..data.collator import Collator, stack_accum
+from ..stream.labels import get_informative_labels, get_relevance_labels
 
 from .loop import parse_length_buckets
 

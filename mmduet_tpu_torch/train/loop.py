@@ -147,7 +147,7 @@ def real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 4,
     single video."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from mmduet_tpu.data.collator import stack_accum
+    from ..data.collator import stack_accum
 
     order = list(range(len(dataset)))
     rng = random.Random(seed)
@@ -248,8 +248,8 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: torch.cuda.is_available() is false")
 
-    from mmduet_tpu.config import TrainArgs, tiny_config
-    from mmduet_tpu.stream import CharTokenizer, HFTokenizerAdapter
+    from ..config import TrainArgs, tiny_config
+    from ..stream import CharTokenizer, HFTokenizerAdapter
 
     from ..models import init_mmduet_params
     from ..models.io import load_checkpoint, save_checkpoint
@@ -323,8 +323,8 @@ def main(argv=None):
             cfg, min(seq_len, 64), args.max_num_frames, B, A, total_steps, args.seed,
         )
     else:
-        from mmduet_tpu.data.collator import Collator
-        from mmduet_tpu.data.stream_dataset import build_concat_train_dataset
+        from ..data.collator import Collator
+        from ..data.stream_dataset import build_concat_train_dataset
 
         dataset = build_concat_train_dataset(
             args.dataset_config, tokenizer,

@@ -28,7 +28,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from mmduet_tpu.config import TrainArgs
+from ..config import TrainArgs
 
 FINETUNE_KEYS = ("projector", "informative_head", "relevance_head")
 MAX_GRAD_NORM = 1.0

@@ -25,7 +25,7 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from mmduet_tpu.config import MMDuetConfig, TrainArgs
+from ..config import MMDuetConfig, TrainArgs
 
 from ..models import mmduet, siglip
 from ..models.lora import lora_scale

@@ -4,7 +4,7 @@
 
 At the default `MMDuetConfig` (Qwen2-7B decoder, SigLIP-so400m at 384 px,
 random bf16 weights from seed 0, the engine's 24576-slot KV cache) it
-profiles four calls of the main path:
+profiles these calls of the main paths:
 
 - vision encode of 32 frames (`mmduet.visual_embed`, one engine batch);
 - an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`);
@@ -14,12 +14,16 @@ profiles four calls of the main path:
 - one training step (`train.make_train_step`: A=2 micro-batches of one
   collated duet sample each, 48 pixel frames at 384 px, padded to the
   2944-token bucket, LoRA r 16, gradient checkpointing on), with the
-  batches of `chip_smoke.py`'s training phase (`train.duet.duet_batches`).
+  batches of `chip_smoke.py`'s training phase (`train.duet.duet_batches`);
+- the two blocks and the decode again on the quantized tree
+  (`quantize_params(bits=4)` on the card: int4 decoder, embedding and LM
+  head through kernel B) with an int8 KV cache (kernel A's int8 variant).
 
 For each call: the wall time (host clock around a device sync, median of
 3 after one warm-up, profiler off), the summed time of the device's own
 events under `torch.profiler` (one more call), the device's idle share
-(1 - device / wall), the shares of kernel A (flash_decode) and kernel C
+(1 - device / wall), the shares of kernel A (flash_decode), kernel B
+(int4_: the product and the sum of its partial outputs) and kernel C
 (flash_full: forward, backward preprocess, dK/dV, dQ), and the costliest
 device kernels. Lines go to stdout and, with ``--out``, to FILE.
 """
@@ -36,13 +40,14 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from mmduet_tpu.config import MMDuetConfig, TrainArgs
-from mmduet_tpu.stream import CharTokenizer
-from mmduet_tpu_torch.models import init_kv_cache, init_lora, init_mmduet_params, mmduet
+from mmduet_tpu_torch.config import MMDuetConfig, TrainArgs
+from mmduet_tpu_torch.stream import CharTokenizer
+from mmduet_tpu_torch.models import (init_kv_cache, init_lora, init_mmduet_params, mmduet,
+                                     quant)
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import duet_batches
 
-KERNELS = {"kernel A": "flash_decode_kernel", "kernel C": "flash_full_"}
+KERNELS = {"kernel A": "flash_decode_kernel", "kernel B": "int4_", "kernel C": "flash_full_"}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -101,15 +106,21 @@ def main() -> None:
 
     frames8, frames32, prompt = embeds(8, ft, H), embeds(32, ft, H), embeds(1, 8, H)
     pen = torch.zeros((1, cfg.text.vocab_size), dtype=torch.bool, device=dev)
+
+    def decoder_calls(params, cache, tag=""):
+        return {
+            f"8-frame block at cursor 2000{tag}": lambda: mmduet.frames_block_forward(
+                params, cfg, frames8, cache, 2000),
+            f"32-frame block at cursor 2000{tag}": lambda: mmduet.frames_block_forward(
+                params, cfg, frames32, cache, 2000),
+            f"greedy decode, 8 tokens at cursor 3000{tag}": lambda: mmduet.decode_loop(
+                params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
+        }
+
     calls = {
         "vision encode, 32 frames": lambda: mmduet.visual_embed(
             params, cfg, mmduet.normalize_pixels(cfg, pixels).to(torch.bfloat16)),
-        "8-frame block at cursor 2000": lambda: mmduet.frames_block_forward(
-            params, cfg, frames8, cache, 2000),
-        "32-frame block at cursor 2000": lambda: mmduet.frames_block_forward(
-            params, cfg, frames32, cache, 2000),
-        "greedy decode, 8 tokens at cursor 3000": lambda: mmduet.decode_loop(
-            params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
+        **decoder_calls(params, cache),
     }
 
     def report(name, fn):
@@ -138,6 +149,14 @@ def main() -> None:
     (batch,) = duet_batches(tok, cfg, 1, 2, dev)
     report("training step, A=2 x 2944-token bucket, 48 frames",
            lambda: step(state, params, batch))
+
+    del state, step, batch, lora, cache, calls
+    params = quant.quantize_params(params, bits=4, donate=True)
+    torch.cuda.empty_cache()
+    cache = init_kv_cache(cfg.text, 1, 24576, torch.bfloat16, dev, quant="int8")
+    with torch.inference_mode():
+        for name, fn in decoder_calls(params, cache, ", int4 weights, int8 cache").items():
+            report(name, fn)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

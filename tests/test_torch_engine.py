@@ -4,9 +4,12 @@ JAX package's, on the same numpy parameters, frames and queries.
 f32 on both sides: per-frame debug scores agree to atol=1e-4 (summation
 order only); response times, texts and cursors are identical. One case
 runs at hidden_size=512 (hd=128) with the JAX side's Pallas kernel in
-interpret mode. Also here: the port imports no jax, and its copy of the
-JAX engines' host policy code equals the original."""
+interpret mode. The two packages' config classes are different classes:
+the port's engine gets the port's config and arguments, built from the
+JAX ones through the shared ``config.json`` dict. Also here: a run of the
+port's engine loads neither jax nor the JAX package."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -17,15 +20,15 @@ import jax
 import numpy as np
 import pytest
 
-import mmduet_tpu.infer.state as jstate
 import mmduet_tpu.ops.attention as jattention
 from mmduet_tpu.config import TestArgs as InferArgs, tiny_config
 from mmduet_tpu.infer import LiveInferEngine as JaxEngine
 from mmduet_tpu.models import init_mmduet_params as jax_init
 from mmduet_tpu.stream import CharTokenizer
+from mmduet_tpu_torch.config import TestArgs as PortInferArgs
 from mmduet_tpu_torch.infer import LiveInferEngine
-from mmduet_tpu_torch.infer import state as tstate
 from mmduet_tpu_torch.models import params_from_numpy
+from mmduet_tpu_torch.models.io import config_from_dict
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 1e-4
@@ -44,6 +47,15 @@ def make_args(**kw) -> InferArgs:
     return InferArgs(**base)
 
 
+def port_cfg(cfg):
+    """The port's config class from the JAX one, through the config.json dict."""
+    return config_from_dict(dataclasses.asdict(cfg))
+
+
+def port_args(args: InferArgs) -> PortInferArgs:
+    return PortInferArgs(**dataclasses.asdict(args))
+
+
 def run(engine, frames=FRAMES, queries=((1.0, "what now?"),)):
     engine.input_video_stream(frames)
     engine.input_query_stream(
@@ -54,7 +66,7 @@ def run(engine, frames=FRAMES, queries=((1.0, "what now?"),)):
 def assert_same_run(cfg, jp, tp, args, engine_kw=None, **run_kw):
     engine_kw = dict(kv_cache_size=512, **(engine_kw or {}))
     je = JaxEngine(jp, cfg, TOK, args, **engine_kw)
-    te = LiveInferEngine(tp, cfg, TOK, args, **engine_kw)
+    te = LiveInferEngine(tp, port_cfg(cfg), TOK, port_args(args), **engine_kw)
     j_resp, t_resp = run(je, **run_kw), run(te, **run_kw)
     assert t_resp == j_resp
     assert [d["time"] for d in te.debug_data_list] == [d["time"] for d in je.debug_data_list]
@@ -102,7 +114,7 @@ def test_engine_cache_overflow_raises_in_both():
     big = np.random.RandomState(1).randint(0, 256, (600, 32, 32, 3), dtype=np.uint8)
     args = make_args(stream_end_prob_threshold=1.0, grounding_mode=True, max_num_frames=600)
     for engine in (JaxEngine(JP, CFG, TOK, args, kv_cache_size=40),
-                   LiveInferEngine(TP, CFG, TOK, args, kv_cache_size=40)):
+                   LiveInferEngine(TP, port_cfg(CFG), TOK, port_args(args), kv_cache_size=40)):
         assert engine.state.capacity == 2048  # rounded up to 2048 in both
         with pytest.raises(RuntimeError, match="overflow"):
             run(engine, frames=big, queries=())
@@ -125,7 +137,8 @@ def test_engine_input_vision_feats_matches_jax():
     args = make_args(stream_end_prob_threshold=0.5, grounding_mode=True)
     out = []
     for engine in (JaxEngine(JP, CFG, TOK, args, kv_cache_size=512),
-                   LiveInferEngine(TP, CFG, TOK, args, kv_cache_size=512)):
+                   LiveInferEngine(TP, port_cfg(CFG), TOK, port_args(args),
+                                   kv_cache_size=512)):
         engine.input_vision_feats(feats)
         engine.inference()
         out.append((np.asarray(engine.frame_embeds),
@@ -135,10 +148,11 @@ def test_engine_input_vision_feats_matches_jax():
 
 
 def test_engine_unported_options_raise():
-    args = make_args(stream_end_prob_threshold=0.5)
-    for kw in (dict(mesh=object()), dict(kv_cache_quant="int8"), dict(lora={})):
-        with pytest.raises(NotImplementedError):
-            LiveInferEngine(TP, CFG, TOK, args, **kw)
+    args = port_args(make_args(stream_end_prob_threshold=0.5))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        LiveInferEngine(TP, port_cfg(CFG), TOK, args, mesh=object())
+    with pytest.raises(ValueError, match="unknown KV cache quant"):
+        LiveInferEngine(TP, port_cfg(CFG), TOK, args, kv_cache_quant="int4")
 
 
 # ---------------------------------------------------------------------------
@@ -190,9 +204,8 @@ def test_cli_jsonl_has_the_jax_cli_schema(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--checkpoint", "ckpt"], ["--batch_streams", "2"], ["--mesh_model", "2"],
-    ["--mesh_data", "2"], ["--kv_cache_quant", "int8"], ["--is_online_model", "false"],
-    ["--prewarm"], ["--profile_dir", "prof"],
+    ["--batch_streams", "2"], ["--mesh_model", "2"], ["--mesh_data", "2"],
+    ["--is_online_model", "false"], ["--prewarm"], ["--profile_dir", "prof"],
 ])
 def test_cli_unported_flags_raise(tmp_path, flag):
     from mmduet_tpu_torch.eval.inference import main as torch_main
@@ -204,7 +217,7 @@ def test_cli_unported_flags_raise(tmp_path, flag):
 
 
 # ---------------------------------------------------------------------------
-# no jax in the port; the copied host policy equals the original
+# no jax, and nothing of the JAX package, in a run of the port
 # ---------------------------------------------------------------------------
 
 JAX_FREE = """
@@ -213,57 +226,32 @@ import numpy as np, torch
 import mmduet_tpu_torch, chip_smoke
 for m in pkgutil.walk_packages(mmduet_tpu_torch.__path__, "mmduet_tpu_torch."):
     importlib.import_module(m.name)
-from mmduet_tpu.config import TestArgs, tiny_config
-from mmduet_tpu.stream import CharTokenizer
+from mmduet_tpu_torch.config import TestArgs, tiny_config
+from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import LiveInferEngine
 from mmduet_tpu_torch.models import init_mmduet_params
+from mmduet_tpu_torch.models.quant import quantize_params
 cfg = tiny_config().replace(v_placeholder_id=511, eos_token_id=257)
 params = init_mmduet_params(cfg, torch.Generator().manual_seed(0), "cpu")
+params = quantize_params(params, bits=4)
 eng = LiveInferEngine(params, cfg, CharTokenizer(frame_num_tokens=4), TestArgs(
-    system_prompt="s", max_new_tokens=4, max_num_frames=8, stream_end_prob_threshold=0.5))
+    system_prompt="s", max_new_tokens=4, max_num_frames=8, stream_end_prob_threshold=0.5),
+    kv_cache_quant="int8")
 eng.input_video_stream(np.zeros((5, 32, 32, 3), np.uint8))
 eng.input_query_stream([{"role": "user", "content": "q", "time": 0.0}])
 eng.inference()
 assert len(eng.debug_data_list) == 5
-print(sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "mmduet_tpu")))
 """
 
 
 def test_port_never_imports_jax():
+    """A fresh interpreter imports every module of the port and
+    `chip_smoke`, runs the quantized engine, and holds neither `jax` nor
+    any module of `mmduet_tpu`."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", JAX_FREE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
-
-
-def test_copied_host_code_equals_the_jax_engines():
-    assert tstate.DEFAULT_BUCKETS == jstate.DEFAULT_BUCKETS
-    for n in range(1, 3000):
-        assert tstate.pick_bucket(n) == jstate.pick_bucket(n)
-    rng = np.random.RandomState(0)
-    start, opener = [1, 2, 3], [9, 8]
-    for _ in range(200):
-        call = (int(rng.randint(0, 3)), str(rng.choice(["system", "stream", "user", "assistant"])),
-                list(rng.randint(0, 500, rng.randint(0, 3))), bool(rng.randint(2)), start, opener)
-        assert tstate.frame_joiner_ids(*call) == jstate.frame_joiner_ids(*call)
-    assert (tstate.build_prompt_fragments(TOK, "sys prompt")
-            == jstate.build_prompt_fragments(TOK, "sys prompt"))
-    for _ in range(60):
-        mode = rng.randint(3)
-        args = make_args(
-            stream_end_prob_threshold=float(rng.uniform(0.2, 0.9)) if mode == 0 else None,
-            stream_end_score_sum_threshold=float(rng.uniform(0.5, 3)) if mode == 1 else None,
-            threshold_z=float(rng.uniform(-1, 2)) if mode == 2 else None,
-            first_n_frames_no_generate=int(rng.randint(0, 5)),
-            running_list_length=int(rng.randint(0, 8)),
-        )
-        tp, jp = tstate.ThresholdPolicy(args), jstate.ThresholdPolicy(args)
-        for s in rng.uniform(0, 1.2, 40):
-            assert tp.triggered(float(s)) == jp.triggered(float(s))
-            assert tp.prob_list == jp.prob_list and tp.score_sum == jp.score_sum
-    for bad in (make_args(), make_args(threshold_z=1.0, stream_end_prob_threshold=0.5)):
-        with pytest.raises(ValueError):
-            tstate.validate_threshold_args(bad)
-        with pytest.raises(ValueError):
-            jstate.validate_threshold_args(bad)

@@ -124,19 +124,15 @@ def test_qwen2_unported_modes_raise():
     emb = torch.zeros((1, 4, CFG.text.hidden_size))
     pos = torch.arange(4)[None]
     k, v = _cache(8)
-    # full mode and LoRA are ported (tests/test_torch_train.py); quantized
-    # leaves are not, in either mode
-    quant = dict(TP["decoder"], layers=dict(TP["decoder"]["layers"], q_proj={"qw": 0, "qs": 1}))
-    for kw in (dict(), dict(kv_cache=_tcache(k, v), cache_len=0)):
-        with pytest.raises(NotImplementedError, match="quantized"):
-            tq.qwen2_forward(quant, CFG.text, emb, pos, **kw)
+    # quantized leaves and the int8 cache are ported (tests/test_torch_quant.py,
+    # tests/test_torch_kv_quant.py); what still raises:
     with pytest.raises(ValueError, match="attn_mask"):
         tq.qwen2_forward(TP["decoder"], CFG.text, emb, pos, kv_cache=_tcache(k, v),
                          cache_len=0, attn_mask=torch.ones((1, 4), dtype=torch.bool))
-    with pytest.raises(NotImplementedError):
-        tq.init_kv_cache(CFG.text, 1, 8, quant="int8")
-    with pytest.raises(NotImplementedError):
-        params_from_numpy({"w": {"qw": np.zeros(2, np.int8), "qs": np.ones(1)}}, "cpu")
+    with pytest.raises(ValueError, match="unknown KV cache quant"):
+        tq.init_kv_cache(CFG.text, 1, 8, quant="int4")
+    with pytest.raises(NotImplementedError, match="CLIP"):
+        init_mmduet_params(CFG.replace(vision_arch="clip"), torch.Generator(), "cpu")
 
 
 def test_embed_tokens_clamps_placeholder_and_lm_logits():

@@ -9,11 +9,11 @@ attention outputs agree to 1e-4 absolute, losses and gradient norms to
 lr 1e-2 (Adam divides by sqrt(nu), so an update is about lr in size and
 inherits the gradients' relative error)."""
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +23,6 @@ import pytest
 import torch
 
 from mmduet_tpu.config import TrainArgs, tiny_config
-from mmduet_tpu.data import collator as jcollator
 from mmduet_tpu.models import init_mmduet_params as jax_init
 from mmduet_tpu.models import io as jio
 from mmduet_tpu.models import lora as jlora
@@ -431,7 +430,8 @@ def test_cli_tiny_random_writes_the_jax_clis_log_keys_and_a_final_checkpoint(tmp
         (jrow,) = [json.loads(line) for line in f]
     assert set(rows[0]) == set(jrow)
     cfg, params, lo = tio.load_checkpoint(str(tmp_path / "torch" / "final"))
-    assert cfg == jio.load_config(str(tmp_path / "torch" / "final" / "config.json"))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jio.load_config(str(tmp_path / "torch" / "final" / "config.json")))
     assert set(params) == set(TP) and set(lo) == set(tlora.DEFAULT_TARGETS)
 
 
@@ -457,7 +457,8 @@ from mmduet_tpu_torch.train import checkpoint, loop, optimizer, step
 from mmduet_tpu_torch.models import io, lora
 loop.main(["--tiny_random", "--synthetic_steps", "1", "--grad_accum_steps", "1",
            "--device", "cpu", "--output_dir", sys.argv[1]])
-print(sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "optax", "orbax"))))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "orbax", "mmduet_tpu")))
 """
 
 
@@ -473,58 +474,6 @@ def test_cli_refuses_a_mesh():
     for argv in (["--mesh_data", "2"], ["--mesh_model", "2"], ["--param_mode", "fsdp"]):
         with pytest.raises(SystemExit, match="not yet ported"):
             tloop.main(["--tiny_random", "--device", "cpu"] + argv)
-
-
-def test_copied_loop_helpers_equal_the_jax_ones(tmp_path):
-    for spec, cap, quantum in (("auto", 5924, 128), ("auto", 800, 8), ("none", 99, 128),
-                               ("1536,2560,5924", 5924, 128), ("AUTO", 300, 128)):
-        assert (tloop.parse_length_buckets(spec, cap, quantum)
-                == jloop.parse_length_buckets(spec, cap, quantum))
-    for a, b in zip(tloop.synthetic_batches(CFG, 48, 4, 2, 3, 2, seed=5),
-                    jloop.synthetic_batches(CFG, 48, 4, 2, 3, 2, seed=5)):
-        assert set(a) == set(b)
-        for k in a:
-            np.testing.assert_array_equal(a[k], b[k])
-    with ThreadPoolExecutor(2) as pool:
-        assert (list(tloop._prefetch_map(pool, lambda x: x * x, range(9), 2))
-                == list(jloop._prefetch_map(pool, lambda x: x * x, range(9), 2)))
-
-    def collate(samples):  # two lengths -> two bucket keys
-        n = 4 if sum(samples) % 2 else 6
-        return {"input_ids": np.full((len(samples), n), sum(samples))}
-
-    samples = list(range(17))
-    got = list(tloop._accumulate(iter(samples), collate, 2, 2, jcollator.stack_accum))
-    want = list(jloop._accumulate(iter(samples), collate, 2, 2, jcollator.stack_accum))
-    assert len(got) == len(want) > 0
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a["input_ids"], b["input_ids"])
-
-    class Data:
-        def __init__(self):
-            self.epochs = []
-
-        def __len__(self):
-            return 11
-
-        def set_epoch(self, e):
-            self.epochs.append(e)
-
-        def __getitem__(self, i):
-            return i
-
-    for workers, skip in ((0, 0), (2, 3)):
-        dt, dj = Data(), Data()
-        got = list(tloop.real_batches(dt, collate, 2, 2, 3, 7, workers, skip))
-        want = list(jloop.real_batches(dj, collate, 2, 2, 3, 7, workers, skip))
-        assert dt.epochs == dj.epochs
-        assert [g["input_ids"].tolist() for g in got] == [w["input_ids"].tolist() for w in want]
-
-    cfg = CFG.replace(frame_token_pooled=(7, 7))
-    tio.save_config(cfg, str(tmp_path / "t.json"))
-    jio.save_config(cfg, str(tmp_path / "j.json"))
-    assert open(tmp_path / "t.json").read() == open(tmp_path / "j.json").read()
-    assert tio.load_config(str(tmp_path / "j.json")) == jio.load_config(str(tmp_path / "t.json"))
 
 
 @pytest.mark.parametrize("error", ["kernel", "other"])
