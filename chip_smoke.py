@@ -11,11 +11,17 @@ Phases (any failure ends the run with a nonzero exit):
    it and beside its roofline bound (`ops/bounds.py`): kernel A (streaming
    attention) with a bf16 and with an int8 cache, kernel B (the int4
    matrix product) at the five weight shapes of the 7B decoder and six row
-   counts, and kernel C (training attention, forward and the three input
+   counts, kernel C (training attention, forward and the three input
    gradients, beside `scaled_dot_product_attention` as the library's
-   yardstick). Plain versions with one fault (a lost tile for kernel C; a
-   dropped group scale or swapped nibble halves for kernel B) must fail
-   the bounds. ``--kernels-only`` stops here (no result line);
+   yardstick), kernel A' (kernel A per shard of a one-device mesh: for four
+   mesh shapes, both caches and three chunk shapes at 8 lanes, bit-equal to
+   one launch) and kernel D (the ViT tower's attention at 32 frames x 729
+   patches x 16 heads of 72 and at small ragged shapes, beside
+   `scaled_dot_product_attention`). Plain versions with one fault (a lost
+   tile for kernels C and D; a dropped group scale or swapped nibble halves
+   for kernel B) must fail the bounds, and so must shards of kernel A' that
+   read another shard's cursors or kv heads. ``--kernels-only`` stops here
+   (no result line);
 3. the serving path at the full width of the default model (Qwen2-7B
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
@@ -27,17 +33,30 @@ Phases (any failure ends the run with a nonzero exit):
    projections, gradient checkpointing on; kernel C's launches must equal
    what 28 layers x A x steps predict (two forwards per layer under remat,
    three backward kernels);
-5. the quantized serving path at the same width: the decoder, embedding
+5. the vision tower with kernel D (asked for and by auto) and, for the
+   comparison, with the plain version put in the kernel's place from here
+   (frames/s each; the package refuses that route for CUDA tensors), then
+   the batched serving path at the same width:
+   `BatchedStreamEngine.serve()` streams 12 sessions of 40-64 frames
+   through 8 lanes (generation mode, 8-frame blocks, lanes retiring and
+   admitting, batched decodes), and `BatchedStreamScorer` scores 8 sessions
+   in lockstep 32-frame blocks; once without a mesh, once under a (2, 2)
+   mesh laid on the one card, whose responses, times and scores must equal
+   the first run's exactly, and once (generation mode) with an int8 cache.
+   The launches of kernels A, A' and D must equal what the layers, the
+   mesh's shards, the decoder forwards and the vision batches predict;
+6. the quantized serving path at the same width: the decoder, embedding
    and LM head quantized to group-128 int4 on the card
    (`quantize_params(bits=4)`), `LiveInferEngine(kv_cache_quant="int8")`,
    the same two passes as in 3; kernel B's launches must equal seven per
    layer and decoder forward plus one per generated token (the LM head),
    and every attention launch must be of the int8 variant;
-6. small-model checks, card (bf16, kernels) against CPU (f32, plain
+7. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
-   weights, int8 cache, a LoRA adapter), and one train step's loss and
+   weights, int8 cache, a LoRA adapter), of the batched engine (also
+   against single-stream runs on the card), and one train step's loss and
    gradient norm;
-7. one JSON line for the kernels, then the result line
+8. one JSON line for the seven kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -58,10 +77,11 @@ import torch
 
 from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs, tiny_config
 from mmduet_tpu_torch.stream import CharTokenizer
-from mmduet_tpu_torch.infer import LiveInferEngine
-from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant
+from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, LiveInferEngine
+from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, siglip
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
+from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
 
@@ -175,6 +195,189 @@ def check_attention_kernel(log) -> List[dict]:
             "library_ms": None,  # no single PyTorch call attends a cursor-bounded cache + chunk
         })
     return entries
+
+
+# Kernel A' at B = 8 lanes with a cursor of its own each; (data, model) mesh
+# shapes whose shards divide 8 lanes, 28 heads and 4 kv heads.
+SHARD_LANES = (0, 1, 63, 700, 2047, 2048, 4999, 6000)
+SHARD_MESHES = ((2, 2), (1, 4), (4, 1), (8, 1))
+
+
+def check_sharded_attention_kernel(log) -> dict:
+    """flash_decode_attention_sharded on the card: for every mesh shape, bf16
+    and int8 cache, decode-step, frame and 8-frame-block shapes, the sharded
+    output is bit-equal to one unsharded launch of kernel A, which is within
+    kernel A's row bound of the plain version; a lane shard fed another
+    shard's cursors, or a head shard fed its neighbour's kv heads, is not.
+    Returns kernel A' JSON entry (without launches)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    nh, kh, hd, L, S, B = 28, 4, 128, 2, 24576, len(SHARD_LANES)
+    live = 6016  # the plain version attends the slots below this; none is live past it
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    k_cache, v_cache = randn(L, B, kh, S, hd), randn(L, B, kh, S, hd)
+    (kq, ks), (vq, vs) = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
+    cl = torch.tensor(SHARD_LANES, dtype=torch.int32, device=dev)
+    ctxs = {shape: attention.ShardCtx(
+        make_mesh(shape, devices=[dev] * (shape[0] * shape[1])),
+        lane_axis=DATA_AXIS if shape[0] > 1 else None,
+        head_axis=MODEL_AXIS if shape[1] > 1 else None) for shape in SHARD_MESHES}
+    worst, n_equal, timed = 0.0, 0, None
+    for name, T, Tc, t_real, q_off in ATTN_SHAPES[:3]:
+        layer = 1 if T == 64 else 0
+        q, ck, cv = randn(B, T, nh, hd), randn(B, kh, Tc, hd), randn(B, kh, Tc, hd)
+        tr = torch.tensor([max(1, t_real - 3 * b) for b in range(B)], dtype=torch.int32,
+                          device=dev)
+        qo = torch.full((B,), q_off, dtype=torch.int32, device=dev)
+        for variant, (kc, vc, scales) in {
+                "bf16": (k_cache, v_cache, {}),
+                "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}.items():
+            one = attention.flash_decode_attention(q, kc, vc, ck, cv, cl, tr, layer,
+                                                   q_offset=qo, **scales)
+            cut = {k_: v_[..., :live] for k_, v_ in scales.items()}
+            want = attention.flash_decode_attention_ref(
+                q.float(), kc[..., :live, :] if scales else kc[..., :live, :].float(),
+                vc[..., :live, :] if scales else vc[..., :live, :].float(),
+                ck.float(), cv.float(), cl, tr, layer, q_offset=qo, **cut)
+            rows = [(one[b, :int(tr[b])], want[b, :int(tr[b])]) for b in range(B)]
+            ratio = max(bounds.row_ratio(g, w) for g, w in rows)
+            worst = max(worst, max((g.float() - w).abs().max().item() for g, w in rows))
+            if not math.isfinite(ratio) or ratio > 1.0:
+                raise AssertionError(f"flash_decode kernel at B={B} ({variant} cache, {name}) "
+                                     f"vs plain: {ratio} times the row bound")
+            del want, rows
+            for shape, ctx in ctxs.items():
+                before = attention.SHARDED_LAUNCHES
+                got = attention.flash_decode_attention_sharded(
+                    q, kc, vc, ck, cv, cl, tr, layer, ctx, q_offset=qo, **scales)
+                torch.cuda.synchronize()
+                if attention.SHARDED_LAUNCHES - before != shape[0] * shape[1]:
+                    raise AssertionError(f"sharded attention, mesh {shape}: "
+                                         f"{attention.SHARDED_LAUNCHES - before} launches")
+                if not torch.equal(got, one):
+                    raise AssertionError(
+                        f"sharded attention, mesh {shape}, {variant} cache, {name}: not "
+                        f"bit-equal to one launch (max|diff| "
+                        f"{(got.float() - one.float()).abs().max().item()})")
+                n_equal += 1
+            # the check is tight: shards that read what is not theirs differ
+            ctx = ctxs[2, 2]
+            half = B // 2
+            wrong_lanes = attention.flash_decode_attention_sharded(
+                q, kc, vc, ck, cv, cl[:half].repeat(2), tr, layer, ctx, q_offset=qo, **scales)
+            rolled = {k_: v_.roll(kh // 2, dims=2) for k_, v_ in scales.items()}
+            wrong_heads = attention.flash_decode_attention_sharded(
+                q, kc.roll(kh // 2, dims=2), vc.roll(kh // 2, dims=2), ck, cv, cl, tr, layer,
+                ctx, q_offset=qo, **rolled)
+            for what, bad in (("the first lane shard's cursors on every shard", wrong_lanes),
+                              ("each head shard on its neighbour's kv heads", wrong_heads)):
+                r = bounds.row_ratio(bad[half:, :1], one[half:, :1].float())
+                if torch.equal(bad, one) or not r > 1.0:
+                    raise AssertionError(f"sharded attention check ({variant}, {name}): {what} "
+                                         f"passes ({r} of the row bound)")
+            del wrong_lanes, wrong_heads, rolled
+            if name == "8-frame block" and variant == "bf16":
+                args = (q, kc, vc, ck, cv, cl, tr, layer)
+                one_ms = _time_ms(lambda: attention.flash_decode_attention(
+                    *args, q_offset=qo), 20)
+                ms = _time_ms(lambda: attention.flash_decode_attention_sharded(
+                    *args, ctx, q_offset=qo), 20)
+                plain_ms = _time_ms(lambda: attention.flash_decode_attention_ref(
+                    q, kc[..., :live, :], vc[..., :live, :], ck, cv, cl, tr, layer,
+                    q_offset=qo), 2, warmup=1)
+                parts = [bounds.decode_attention_bound(1, T, nh, kh, hd, c, int(t), q_off)
+                         for c, t in zip(SHARD_LANES, tr.tolist())]
+                bound_ms = sum(p[0] for p in parts)
+                timed = (ms, plain_ms, bound_ms, parts[-1][1])
+                log(f"flash_decode sharded, {name}, B={B} lanes at cursors {SHARD_LANES}: the "
+                    f"(2, 2) mesh's four launches {ms:.4f} ms, one launch {one_ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({parts[-1][1]})")
+        del q, ck, cv
+    log(f"flash_decode sharded: {n_equal} (mesh, cache, shape) cases bit-equal to one launch, "
+        f"which is within the row bound of the plain version (max|diff| {worst}); wrong "
+        f"cursors and wrong kv heads both fail")
+    ms, plain_ms, bound_ms, bound_by = timed
+    return {
+        "name": "flash_decode_attention_sharded ((2, 2) mesh on one device: four launches)",
+        "route": "cuda",
+        "source": "mmduet_tpu_torch/ops/csrc/flash_decode.cu",
+        "replaces": "mmduet_tpu/ops/attention.py:421",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # as kernel A: no single PyTorch call computes it
+    }
+
+
+# Kernel D: (N, T, nh, hd). The serving shape (VISION_BATCH frames of 729
+# patches through SigLIP-so400m's 16 heads of 72), then small ragged ones.
+VISION_SHAPES = ((32, 729, 16, 72), (1, 50, 16, 64), (2, 129, 3, 128), (3, 64, 2, 8),
+                 (1, 1, 1, 40))
+VISION_DROP = slice(64 * 5, 64 * 6)  # the key tile of the mutated plain version
+
+
+def check_vision_attention_kernel(log) -> dict:
+    """flash_vision_attention (CUDA) vs flash_vision_attention_ref on the
+    card; returns kernel D's JSON entry (without launches)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst = worst_ratio = 0.0
+    for i, shape in enumerate(VISION_SHAPES):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+                   for _ in range(3))
+        got = attention.flash_vision_attention(q, k, v)
+        want = attention.flash_vision_attention_ref(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        rms = bounds.vision_attention_rms(q, k, v)
+        ratio = bounds.full_attention_ratio(got, want, rms)
+        err = (got.float() - want).abs().max().item()
+        if not math.isfinite(ratio) or ratio > 1.0:
+            raise AssertionError(
+                f"flash_vision kernel vs plain at {shape}: max|diff| {err}, {ratio} times the "
+                f"bound 2^-8 |plain| + 2^-9 {bounds.SIGMAS} rms + {bounds.FULL_ABS}")
+        worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
+        if i == 0:
+            N, T, nh, hd = shape
+            dropped = bounds.vision_attention_dropped(q, k, v, VISION_DROP)
+            factor = bounds.full_attention_ratio(got, dropped, rms)
+            if not factor > 1.0:
+                raise AssertionError(f"flash_vision check: the plain version without one key "
+                                     f"tile passes the bound ({factor} of it)")
+            log(f"flash_vision: the plain version without the keys [{VISION_DROP.start}, "
+                f"{VISION_DROP.stop}) fails the bound by {factor:.1f}x")
+            del dropped
+            ms = _time_ms(lambda: attention.flash_vision_attention(q, k, v), 20)
+            plain_ms = _time_ms(lambda: attention.flash_vision_attention_ref(q, k, v), 3)
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))  # (N, nh, T, hd)
+            # the library's yardstick, timed here and called nowhere in the port
+            library_ms = _time_ms(lambda: sdpa(qh, kh_, vh), 20)
+            bound_ms, bound_by = bounds.vision_attention_bound(N, T, nh, hd)
+            log(f"flash_vision N={N} T={T} nh={nh} hd={hd} bf16: kernel {ms:.4f} ms "
+                f"({4e-9 * N * nh * T * T * hd / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                f"({bound_by})")
+        del q, k, v, got, want, rms
+        torch.cuda.empty_cache()
+    log(f"flash_vision: {len(VISION_SHAPES)} shapes within 2^-8 |plain| + 2^-9 {bounds.SIGMAS} "
+        f"rms + {bounds.FULL_ABS} (max|diff| {worst}, at most {worst_ratio:.3f} of the bound)")
+    return {
+        "name": "flash_vision_attention",
+        "route": "cuda",
+        "source": "mmduet_tpu_torch/ops/csrc/flash_vision.cu",
+        "replaces": "mmduet_tpu/ops/attention.py:520",
+        "max_abs_err": worst,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
 
 
 # Kernel B at the 7B decoder's weight shapes (H, O): q/o projections, k/v
@@ -415,8 +618,8 @@ def _time_sdpa(q, k, v, dout) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def _args(**kw) -> TestArgs:
-    return TestArgs(frame_fps=2.0, max_new_tokens=32, **kw)
+def _args(max_new_tokens: int = 32, **kw) -> TestArgs:
+    return TestArgs(frame_fps=2.0, max_new_tokens=max_new_tokens, **kw)
 
 
 def _grounding_scores(engine, frames, query) -> List[float]:
@@ -700,6 +903,295 @@ def _time_decode(engine, cfg, log) -> float:
     return n / dt
 
 
+# The batched path: 12 sessions of 40-64 frames through 8 lanes, so that
+# lanes retire and admit; answers of at most 16 tokens.
+BATCH_LANES, BATCH_SESSIONS, BATCH_MAX_NEW = 8, 12, 16
+BATCH_LENGTHS = tuple(int(n) for n in np.random.RandomState(7).randint(40, 65, BATCH_SESSIONS))
+
+
+def _batch_session(cfg, i: int) -> dict:
+    """Session ``i``: random 384 x 384 frames from a seed, one query at t = 0."""
+    frames = np.random.RandomState(100 + i).randint(
+        0, 256, (BATCH_LENGTHS[i], cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
+    return {"frames": frames, "fps": 2.0,
+            "conversation": [{"role": "user", "content": QUERY, "time": 0.0}]}
+
+
+def _vision_batches(n_frames: int) -> int:
+    """Launches of the tower's attention per layer for one
+    `staged_visual_encode` of ``n_frames``: 32-frame encodes."""
+    return -(-n_frames // 32)
+
+
+def _timed(engine, name: str, acc: dict, sync: bool = False) -> None:
+    """Wrap ``engine.<name>`` to add its seconds to ``acc[name]``. ``sync``:
+    wait for the device first (the dispatchers end in a fetch from the
+    device and need none)."""
+    fn = getattr(engine, name)
+
+    def wrapped(*args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if sync:
+            torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(engine, name, wrapped)
+
+
+def _attention_counts() -> dict:
+    return dict(attention=attention.LAUNCHES, attention_int8=attention.INT8_LAUNCHES,
+                attention_sharded=attention.SHARDED_LAUNCHES, vision=attention.VISION_LAUNCHES)
+
+
+def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
+                     grounding: bool = True) -> dict:
+    """The 7B-width batched path: `BatchedStreamEngine.serve()` streams
+    BATCH_SESSIONS sessions through BATCH_LANES lanes in generation mode
+    (8-frame blocks, continuous admission), then, with ``grounding``,
+    `BatchedStreamScorer` scores the first BATCH_LANES sessions in lockstep
+    32-frame blocks. Every kernel count of the path is set to 0 just before
+    and read just after; the counts must equal what the dispatches, the
+    mesh and the vision batches predict. Returns outputs and numbers."""
+    shards = mesh.size if mesh is not None else 1
+    layers, v_layers = cfg.text.num_layers, cfg.vision.num_layers - 1
+    what = f"mesh {dict(mesh.shape) if mesh is not None else None}, cache {kv_cache_quant or 'bf16'}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    engine = BatchedStreamEngine(
+        params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
+        n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1,
+        kv_cache_quant=kv_cache_quant)
+    acc, fed = {}, []
+    _timed(engine, "_dispatch_sched", acc)
+    _timed(engine, "_generate_batch", acc)
+    _timed(engine, "_admit", acc, sync=True)
+    sched = engine._dispatch_sched
+    engine._dispatch_sched = lambda chunks: (fed.append(sum(c[2] for c in chunks.values()))
+                                             or sched(chunks))
+    # the main path starts here
+    attention.LAUNCHES = attention.INT8_LAUNCHES = attention.SHARDED_LAUNCHES = 0
+    attention.VISION_LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = {i: (resp, debug) for i, resp, debug in engine.serve(
+        _batch_session(cfg, i) for i in range(BATCH_SESSIONS))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _attention_counts()  # the generation pass ends here
+    n_frames = sum(BATCH_LENGTHS)
+    if sorted(results) != list(range(BATCH_SESSIONS)):
+        raise AssertionError(f"batched serve ({what}): sessions retired {sorted(results)}")
+    for i, (resp, debug) in results.items():
+        scores = [d[k] for d in debug for k in ("informative_score", "relevance_score")]
+        if len(debug) != BATCH_LENGTHS[i] or not all(
+                math.isfinite(x) and 0.0 <= x <= 1.0 for x in scores):
+            raise AssertionError(f"batched serve ({what}): session {i} has {len(debug)} score "
+                                 f"rows for {BATCH_LENGTHS[i]} frames, or a score that is no "
+                                 "finite probability")
+    n_answers = sum(r["role"] == "assistant" for resp, _ in results.values() for r in resp)
+    gens = len(engine.gen_lanes)
+    forwards, rest = divmod(counts["attention"], layers * shards)
+    full = engine.tokens_generated == BATCH_MAX_NEW * sum(engine.gen_lanes)
+    lo, hi = engine.dispatches + gens, engine.dispatches + gens * BATCH_MAX_NEW
+    want_vision = v_layers * sum(_vision_batches(n) for n in BATCH_LENGTHS)
+    if (n_answers < 1 or rest or not lo <= forwards <= hi or (full and forwards != hi)
+            or counts["attention_int8"] != (counts["attention"] if kv_cache_quant else 0)
+            or counts["attention_sharded"] != (counts["attention"] if mesh is not None else 0)
+            or counts["vision"] != want_vision):
+        raise AssertionError(
+            f"batched serve ({what}): {n_answers} answers, launches {counts}; want the "
+            f"attention = {layers} layers x {shards} shards x decoder forwards, the forwards "
+            f"in [{lo}, {hi}] ({engine.dispatches} dispatches + {gens} batched decodes of a "
+            f"prefill and at most {BATCH_MAX_NEW - 1} steps; {hi} when every answer has "
+            f"{BATCH_MAX_NEW} tokens: {full}), all of them int8 / sharded under an int8 cache / "
+            f"a mesh, and the vision attention {want_vision} = {v_layers} layers x vision "
+            f"batches")
+    t_sched, t_gen = acc["_dispatch_sched"], acc["_generate_batch"]
+    frames_fed = sum(fed)  # frames rolled back by a trigger are fed again
+    log(f"batched generation pass ({what}): {BATCH_SESSIONS} sessions, {n_frames} frames "
+        f"through {BATCH_LANES} lanes in {wall:.3f} s = {n_frames / wall:.2f} frames/s "
+        f"aggregate (admission with vision {acc['_admit']:.3f} s = "
+        f"{n_frames / acc['_admit']:.2f} frames/s, {engine.dispatches} dispatches "
+        f"{t_sched:.3f} s = {1e3 * t_sched / engine.dispatches:.3f} ms each, "
+        f"{1e3 * t_sched / frames_fed:.3f} ms per frame fed ({frames_fed} fed, a trigger's "
+        f"rolled-back frames twice), {gens} batched decodes {t_gen:.3f} s); {n_answers} answers, "
+        f"{engine.tokens_generated} tokens = {engine.tokens_generated / t_gen:.2f} tokens/s "
+        f"with {np.mean(engine.gen_lanes):.2f} lanes decoding together on average")
+    log(f"batched generation pass ({what}): launches {counts} = {layers} x {shards} x "
+        f"{forwards} decoder forwards ({engine.dispatches} dispatches + {gens} decodes x "
+        f"{BATCH_MAX_NEW}: {full}); vision {v_layers} x "
+        f"{want_vision // v_layers} batches")
+    out.update(results=results, counts=counts, frames_per_s=n_frames / wall,
+               dispatch_ms_per_frame=1e3 * t_sched / frames_fed,
+               decode_tokens_per_s=engine.tokens_generated / t_gen,
+               vision_frames_per_s=n_frames / acc["_admit"])
+    # the wrappers hold the engine and the engine holds them: without them
+    # its cache is freed here, before the next engine allocates its own
+    for name in ("_dispatch_sched", "_generate_batch", "_admit"):
+        delattr(engine, name)
+    del engine, sched
+    torch.cuda.empty_cache()
+
+    if grounding:
+        scorer = BatchedStreamScorer(
+            params, cfg, tok, n_streams=BATCH_LANES, frame_fps=2.0, block_frames=32,
+            mesh=mesh, kv_cache_quant=kv_cache_quant)
+        videos = [_batch_session(cfg, i)["frames"] for i in range(BATCH_LANES)]
+        lengths = BATCH_LENGTHS[:BATCH_LANES]
+        before = attention.LAUNCHES, attention.VISION_LAUNCHES
+        t0 = time.perf_counter()
+        scorer.input_video_streams(videos)
+        torch.cuda.synchronize()
+        t_vision = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scorer.start_sessions([QUERY] * BATCH_LANES)
+        rows = scorer.score_all()
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        launches = attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]
+        blocks = -(-max(lengths) // 32)
+        want = (layers * shards * (1 + blocks),
+                v_layers * _vision_batches(BATCH_LANES * max(lengths)))
+        ok = all(len(r) == n and all(math.isfinite(d["informative_score"]) for d in r)
+                 for r, n in zip(rows, lengths))
+        if launches != want or not ok:
+            raise AssertionError(
+                f"batched grounding pass ({what}): launches (attention, vision) {launches}, "
+                f"want {want} = {layers} layers x {shards} shards x (1 prefix + {blocks} "
+                f"blocks) and {v_layers} layers x vision batches; rows complete and finite: {ok}")
+        n = sum(lengths)
+        log(f"batched grounding pass ({what}): {BATCH_LANES} lanes in lockstep 32-frame "
+            f"blocks, {n} frames in {t_stream:.3f} s = {1e3 * t_stream / n:.3f} ms per frame, "
+            f"{n / t_stream:.2f} frames/s aggregate (the padded lockstep blocks hold "
+            f"{BATCH_LANES * max(lengths)} frames); vision {BATCH_LANES * max(lengths)} frames "
+            f"in {t_vision:.3f} s = {BATCH_LANES * max(lengths) / t_vision:.2f} frames/s; "
+            f"launches (attention, vision) {launches} = {want}")
+        out.update(rows=rows, grounding_ms_per_frame=1e3 * t_stream / n)
+        out["counts"] = _attention_counts()  # both passes; the path ends here
+        del scorer, videos
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    lane_gb = (2 * layers * cfg.text.num_kv_heads * 24576
+               * (cfg.text.head_dim + 4 if kv_cache_quant else 2 * cfg.text.head_dim) / 1e9)
+    log(f"batched path ({what}): peak device memory {out['peak_gib']:.2f} GiB (the cache "
+        f"holds {BATCH_LANES} lanes x {lane_gb:.3f} GB of 24576 slots)")
+    return out
+
+
+def time_vision_routes(cfg, params, log) -> None:
+    """The vision tower on 64 frames with kernel D (True and auto, which
+    must take kernel D on the card) and, for the comparison only, with the
+    plain version put in the kernel's place from here: the package itself
+    refuses the matmul route for CUDA tensors (False)."""
+    px = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (64, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)).cuda()
+    px = mmduet.normalize_pixels(cfg, px).to(torch.bfloat16)
+    per_encode = 2 * (cfg.vision.num_layers - 1)
+    rates, outs = {}, {}
+
+    def tower(use_flash):
+        return lambda: torch.cat([mmduet.visual_embed(params, cfg, px[i:i + 32],
+                                                      vision_use_flash=use_flash)
+                                  for i in (0, 32)])
+
+    with torch.inference_mode():
+        for use_flash in (True, None):
+            before = attention.VISION_LAUNCHES
+            outs[use_flash] = tower(use_flash)()
+            if attention.VISION_LAUNCHES - before != per_encode:
+                raise AssertionError(f"vision_use_flash={use_flash}: "
+                                     f"{attention.VISION_LAUNCHES - before} launches of kernel D")
+            rates[use_flash] = 64 / (_time_ms(tower(use_flash), 2, warmup=1) / 1e3)
+        before = attention.VISION_LAUNCHES
+        try:
+            tower(False)()
+        except attention.KernelRefused:
+            pass
+        else:
+            raise AssertionError("vision_use_flash=False ran on CUDA tensors")
+        kernel = siglip.flash_vision_attention
+        siglip.flash_vision_attention = attention.flash_vision_attention_ref
+        try:
+            outs["plain"] = tower(True)()
+            rates["plain"] = 64 / (_time_ms(tower(True), 2, warmup=1) / 1e3)
+        finally:
+            siglip.flash_vision_attention = kernel
+        if attention.VISION_LAUNCHES != before:
+            raise AssertionError("the refused and the plain tower launched kernel D")
+    diff = (outs[True].float() - outs["plain"].float()).abs().max().item()
+    scale = outs["plain"].float().abs().max().item()
+    if not torch.equal(outs[None], outs[True]) or not diff <= 0.05 * scale:
+        raise AssertionError(f"vision routes: kernel D vs its plain version max|diff| {diff} "
+                             f"(max|embedding| {scale}); auto equals kernel D: "
+                             f"{torch.equal(outs[None], outs[True])}")
+    log(f"vision tower + projector + pooling, 64 frames in batches of 32: "
+        f"{rates[True]:.2f} frames/s with vision_use_flash=True (kernel D), {rates[None]:.2f} "
+        f"with None (auto = kernel D), {rates['plain']:.2f} with the plain version in the "
+        f"kernel's place (the matmul route; vision_use_flash=False is refused on the card); "
+        f"embeddings max|diff| {diff:.4f} of max {scale:.2f}")
+
+
+def check_small_batched(log) -> float:
+    """A small model (hd = 128) through the batched engine on the card (bf16,
+    kernels A and D) against the same engine on the CPU (f32, plain
+    versions), grounding mode so that no trigger can diverge; and each lane
+    of the card's batched run against a `LiveInferEngine` run of its session
+    on the card. Scores within SMALL_TOL (bf16 products at other row counts
+    round differently, so the lanes are not bit-equal to single streams)."""
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
+    cpu = torch.device("cpu")
+    params = init_mmduet_params(cfg, torch.Generator(device=cpu).manual_seed(5), cpu)
+    params = _tree_map(lambda t: t.to(torch.bfloat16).float(), params)
+    card = _tree_map(lambda t: t.to("cuda", torch.bfloat16), params)
+    r = np.random.RandomState(8)
+    lengths = (12, 7, 9, 10, 5)
+    sessions = [{"frames": r.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8), "fps": 2.0,
+                 "conversation": [{"role": "user", "content": f"Q{i}?", "time": 0.5 * i}]}
+                for i, n in enumerate(lengths)]
+    args = _args(stream_end_prob_threshold=1.0, grounding_mode=True, max_num_frames=16)
+
+    def serve(p):
+        engine = BatchedStreamEngine(p, cfg, tok, args, n_streams=3, block_frames=4)
+        return {i: [d["informative_score"] for d in debug]
+                for i, _, debug in engine.serve(iter(sessions))}
+
+    want = serve(params)
+    before = attention.LAUNCHES, attention.VISION_LAUNCHES
+    got = serve(card)
+    if attention.LAUNCHES <= before[0] or attention.VISION_LAUNCHES <= before[1]:
+        raise AssertionError("small batched input: kernels A and D were not both launched")
+    err = max(float(np.abs(np.array(got[i]) - np.array(want[i])).max()) for i in want)
+    single = LiveInferEngine(card, cfg, tok, args)
+    err_single = 0.0
+    for i, sess in enumerate(sessions):
+        single.reset()
+        single.input_video_stream(sess["frames"])
+        single.input_query_stream(sess["conversation"])
+        single.inference()
+        scores = [d["informative_score"] for d in single.debug_data_list]
+        if len(scores) != len(got[i]):
+            raise AssertionError(f"small batched input: session {i} has {len(got[i])} rows, its "
+                                 f"single-stream run {len(scores)}")
+        err_single = max(err_single, float(np.abs(np.array(scores) - np.array(got[i])).max()))
+    if sorted(got) != list(range(len(lengths))) or not max(err, err_single) <= SMALL_TOL:
+        raise AssertionError(f"small batched input: card vs CPU scores max|diff| {err}, card "
+                             f"batched vs card single-stream {err_single} > {SMALL_TOL}")
+    log(f"small batched input (hd=128, 2 layers, 5 sessions through 3 lanes): card bf16 vs CPU "
+        f"f32 scores max|diff| {err}; batched lanes vs single-stream runs on the card "
+        f"max|diff| {err_single}; both <= {SMALL_TOL}")
+    return err
+
+
+def check_same_outputs(a: dict, b: dict, what: str) -> None:
+    """Two batched runs gave the same responses, times and scores, exactly."""
+    if a["results"] != b["results"] or a.get("rows") != b.get("rows"):
+        raise AssertionError(f"batched path: {what} changed an output")
+
+
 TRAIN_STEPS, TRAIN_ACCUM = 3, 2
 
 
@@ -826,6 +1318,8 @@ def main(argv=None) -> int:
     dec, dec_int8 = check_attention_kernel(log)
     int4 = check_int4_kernel(log)
     full_fwd, full_bwd = check_full_attention_kernel(log)
+    sharded = check_sharded_attention_kernel(log)
+    vision = check_vision_attention_kernel(log)
     if opts.kernels_only:
         log(f"kernels checked in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -833,6 +1327,28 @@ def main(argv=None) -> int:
     dense = run_main_path(cfg, tok, params, log)
     dec["launches"] = dense["attention"]
     full_fwd["launches"], full_bwd["launches"] = run_training(cfg, tok, params, log)
+    time_vision_routes(cfg, params, log)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batched = run_batched_path(cfg, tok, params, log)
+    meshed = run_batched_path(cfg, tok, params, log, mesh=make_mesh((2, 2), devices=[dev] * 4))
+    check_same_outputs(batched, meshed, "the (2, 2) one-device mesh")
+    log("batched path: the (2, 2) one-device mesh gave the same responses, times and scores "
+        "as no mesh, exactly")
+    batched_int8 = run_batched_path(cfg, tok, params, log, kv_cache_quant="int8",
+                                    grounding=False)
+    sharded["launches"] = meshed["counts"]["attention_sharded"]
+    vision["launches"] = batched["counts"]["vision"]
+    for key, what_ in (("frames_per_s", "generation pass aggregate frames/s"),
+                       ("dispatch_ms_per_frame", "frame dispatches, ms per frame fed"),
+                       ("decode_tokens_per_s", "decode tokens/s"),
+                       ("peak_gib", "peak device memory GiB")):
+        log(f"batched B={BATCH_LANES}, {what_}: no mesh {batched[key]:.3f}, (2, 2) mesh "
+            f"{meshed[key]:.3f}, int8 cache {batched_int8[key]:.3f}")
+    log(f"B={BATCH_LANES} against B=1 of this run: generation-mode ms per frame "
+        f"{batched['dispatch_ms_per_frame']:.3f} vs p50 {dense['p50_ms']:.3f}; grounding-mode "
+        f"{batched['grounding_ms_per_frame']:.3f} vs p50 {dense['grounding_p50_ms']:.3f}; decode "
+        f"tokens/s {batched['decode_tokens_per_s']:.2f} vs {dense['decode_tokens_per_s']:.2f}")
+    del batched, meshed, batched_int8
     params = quantize_on_card(params, log)
     quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
     dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
@@ -846,9 +1362,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     check_small_input(log)
     check_small_input(log, quantized=True)
+    check_small_batched(log)
     check_small_train(log)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [dec, dec_int8, int4, full_fwd, full_bwd]}))
+    print(json.dumps({"kernels": [dec, dec_int8, sharded, int4, full_fwd, full_bwd, vision]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
-"""Single-stream streaming-inference CLI of the PyTorch port.
+"""Streaming-inference CLI of the PyTorch port, single-stream and batched.
 
-Port of the single-stream path of `python -m mmduet_tpu.eval.inference`:
-the same flags (plus ``--device``) and the same JSONL schema, so the
+Port of the online paths of `python -m mmduet_tpu.eval.inference`: the
+same flags (plus ``--device``) and the same JSONL schema, so the
 evaluation stack scores the output unchanged::
 
     {"question_id": ..., "model_response_list": [...],
@@ -21,11 +21,15 @@ quantized weights, with its scale-folded adapter if it has one) that also
 holds the HF tokenizer's files. ``--tiny_random`` instead builds a tiny
 random-weight model with the char tokenizer (2 layers, hidden 512,
 head_dim 128; bf16 on a GPU, f32 on the CPU). ``--kv_cache_quant int8``
-keeps the KV cache as per-token int8.
+keeps the KV cache as per-token int8. ``--batch_streams B`` (> 1) streams
+B samples at a time through `BatchedStreamEngine.serve()` (continuous
+admission; ``--gen_coalesce_rounds`` merges staggered answers into one
+batched decode): the same rows per sample, written as samples finish, the
+``latency`` block holding the run's aggregate per-frame time.
 
 ``--device`` defaults to ``cuda``; nothing switches to the CPU on its
-own. Not ported yet (each raises): ``--batch_streams`` > 1,
-``--mesh_model`` / ``--mesh_data`` > 1, ``--is_online_model false``,
+own. Not ported yet (each raises): ``--mesh_model`` / ``--mesh_data`` > 1
+(serving over several cards), ``--is_online_model false``,
 ``--prewarm`` and ``--profile_dir``; nor is the conversion of HF
 safetensors into a checkpoint directory.
 
@@ -181,7 +185,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def _not_ported(args) -> None:
     unported = {
-        "--batch_streams > 1": args.batch_streams > 1,
         "--mesh_model > 1": args.mesh_model > 1,
         "--mesh_data > 1": args.mesh_data > 1,
         "--is_online_model false": not args.is_online_model,
@@ -241,11 +244,91 @@ def build_engine(args):
     )
 
 
+def _run_batched(args) -> None:
+    """Continuous-batched serving: stream the samples through
+    `BatchedStreamEngine.serve()`, ``--batch_streams`` at a time — per-sample
+    JSONL lines equal to the sequential path's, with the ``latency`` block
+    reporting the aggregate per-frame wall time (individual frame
+    latencies are not observable when B streams share one dispatch)."""
+    from ..infer import BatchedStreamEngine
+
+    cfg, params, lora, tokenizer = _load_model(args)
+    B = args.batch_streams
+    engine = BatchedStreamEngine(
+        params, cfg, tokenizer, _test_args(args, cfg), n_streams=B,
+        gen_coalesce_rounds=args.gen_coalesce_rounds,
+        kv_cache_quant=args.kv_cache_quant,
+        lora=lora, lora_scale=1.0 if lora is not None else 0.0,
+        # same block policy as the single engine: grounding never
+        # generates, so a trigger never rolls frames back and a big
+        # fused block is a pure win
+        block_frames=32 if args.grounding_mode else 8,
+    )
+    dataset = _make_dataset(args, cfg.frame_resolution)
+
+    n_done = 0
+    t_start = time.perf_counter()
+    samples = dataset if args.no_prefetch else dataset.prefetch()
+
+    # sessions are admitted into lanes the moment one frees up: a short
+    # video does not hold its lane idle while long ones drain, and at
+    # most B decoded videos are resident (serve() pulls lazily)
+    meta: dict = {}
+
+    def session_iter():
+        for sample in samples:
+            if sample.frames is None:
+                print(f"skipping {sample.question_id}: {sample.error}",
+                      file=sys.stderr)
+                continue
+            meta[len(meta)] = (
+                sample.question_id, sample.video_duration, len(sample.frames)
+            )
+            yield {
+                "frames": sample.frames,
+                "conversation": sample.conversation,
+                "fps": sample.fps,
+            }
+
+    t0 = time.perf_counter()
+    n_frames_total = 0
+    # write + flush each session's line the moment it retires (completion
+    # order; consumers key on question_id). Each line reports the
+    # run-aggregate per-frame wall over all frames served SO FAR (the
+    # final line's value is the whole-run aggregate).
+    with open(args.output_fname, "w") as f_out:
+        for idx, responses, debug in engine.serve(session_iter()):
+            n_frames_total += len(debug)
+            dt_ms = (time.perf_counter() - t0) * 1000
+            per_frame = round(dt_ms / max(n_frames_total, 1), 2)
+            qid, duration, _ = meta[idx]
+            res = {
+                "question_id": qid,
+                "model_response_list": responses,
+                "video_duration": duration,
+                "debug_data": round_floats(debug, 3),
+                "latency": {
+                    "p50_ms": per_frame,
+                    "p90_ms": per_frame,
+                    "frames": len(debug),
+                    "aggregate": True,
+                },
+            }
+            f_out.write(json.dumps(res) + "\n")
+            f_out.flush()
+            n_done += 1
+    dt = time.perf_counter() - t_start
+    print(f"done (batched x{B}, continuous admission): {n_done} samples "
+          f"in {dt:.1f}s -> {args.output_fname}")
+
+
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     _not_ported(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.batch_streams > 1:
+        return _run_batched(args)
     engine = build_engine(args)
     dataset = _make_dataset(args, engine.cfg.frame_resolution)
 

@@ -1,0 +1,872 @@
+"""Multi-stream batched serving: B concurrent videos on one device.
+
+Port of `mmduet_tpu/infer/batch_engine.py`. One forward over a (B, T)
+chunk reads the weights once and serves B independent streams: each lane
+keeps its own slice of the (L, B, kh, S, hd) KV cache, its own cursor and
+its own (different-length) query prefix, so its scores and answers equal
+those of a `LiveInferEngine` session of its own (pinned by
+`tests/test_torch_batch_engine.py`, against the JAX engines too).
+
+Two surfaces:
+
+- `BatchedStreamScorer` — lockstep score streaming (the grounding
+  protocol: scores only, no generation). Streams shorter than the batch's
+  longest simply stop consuming scores; their lanes keep receiving the
+  shared block shape, which is wasted but correct work.
+- `BatchedStreamEngine` — the full streaming loop (continuous batching):
+  per-stream query queues, threshold policies, triggered greedy
+  generation with frozen lanes, joiners and `remove_assistant_turns`
+  rollbacks, and `serve()` with admission of new sessions into lanes
+  that finish.
+
+What differs from the JAX engines: the forwards update the cache in
+place (no jit, donation or sharding constraints); the lanes a dispatch
+does not feed, and the frozen lanes of a batched decode, are not written
+at all (the JAX package writes their rows past the lane's cursor, where
+nothing reads them) while the overflow guards raise at the same points
+with the same messages; the vision tower's attention is kernel D on a
+CUDA device, also under a mesh; a ``mesh`` lies on one device
+(`parallel.make_mesh`) and only cuts the streaming attention into shards
+(`ops.attention.flash_decode_attention_sharded`, bit-equal to the
+unsharded kernel). `prewarm` is not ported (nothing is compiled per
+shape here).
+"""
+
+from __future__ import annotations
+
+import collections
+import sys
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
+from ..models import mmduet
+from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..parallel import serving_shard_ctx
+from .state import (
+    DEFAULT_BUCKETS,
+    ThresholdPolicy,
+    build_prompt_fragments,
+    frame_joiner_ids,
+    pad_chunk,
+    pick_bucket,
+    staged_visual_encode,
+    validate_threshold_args,
+)
+
+VISION_BATCH = 32
+
+
+class BatchedStreamScorer:
+    """Score ``n_streams`` videos in lockstep blocks of ``block_frames``."""
+
+    def __init__(
+        self,
+        params,
+        cfg: MMDuetConfig,
+        tokenizer,
+        n_streams: int,
+        frame_fps: float = 2.0,
+        max_num_frames: int = 400,
+        block_frames: int = 32,
+        system_prompt: Optional[str] = None,
+        kv_cache_size: Optional[int] = None,
+        dtype: Optional[torch.dtype] = None,
+        mesh=None,
+        kv_cache_quant: Optional[str] = None,  # "int8": per-token int8
+        # KV caches (`qwen2.init_kv_cache`): half the bytes of the largest
+        # consumer of device memory at batched scale
+        lora=None,  # runtime LoRA tree: ONE adapter applied to all lanes
+        lora_scale: float = 0.0,
+    ):
+        """``mesh``: a (data, model) `parallel.Mesh` on the parameters'
+        device. The parameters stay whole; the streaming attention runs
+        per shard: kv heads (with their query heads) over ``model`` and,
+        when ``data`` divides ``n_streams``, lanes over ``data``."""
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.B = n_streams
+        self.mesh = mesh
+        final_norm = params["decoder"]["final_norm"]
+        self.device = final_norm.device
+        self._shard_ctx = serving_shard_ctx(
+            mesh, cfg.text.num_heads, cfg.text.num_kv_heads, n_streams, self.device)
+        # non-positive = the CLI's auto sentinel (real per-stream rates
+        # then arrive via set_stream_fps, defined below)
+        self.frame_fps = frame_fps if frame_fps > 0 else 1.0
+        self.block_frames = block_frames
+        self.dtype = dtype or final_norm.dtype
+        self.kv_cache_quant = kv_cache_quant
+        self.lora = lora
+        self.lora_scale = lora_scale
+        self.system_prompt = system_prompt or DEFAULT_SYSTEM_PROMPT
+        size = kv_cache_size or (max_num_frames * cfg.frame_num_tokens + 4096)
+        # rounded up to 2048 slots as the JAX engines round (to their
+        # kernel's KV block), so all engines overflow at the same point
+        self._cache_size = -(-size // 2048) * 2048
+        self._cache = None
+        self.reset()
+
+    # ------------------------------------------------------------------
+
+    def _visual(self, pixels_u8: torch.Tensor) -> torch.Tensor:
+        px = mmduet.normalize_pixels(self.cfg, pixels_u8).to(self.dtype)
+        return mmduet.visual_embed(self.params, self.cfg, px)
+
+    def _embed_ids(self, ids: Sequence[int]) -> torch.Tensor:
+        return embed_tokens(
+            self.params["decoder"], ints_to(ids, self.device),
+            self.cfg.text.vocab_size,
+        ).to(self.dtype)
+
+    @torch.inference_mode()
+    def reset(self):
+        # one (L, B, kh, S, hd) cache with the lane dim on the model's
+        # batch axis, the layout of B = 1 serving. The old buffers go
+        # FIRST: at protocol scale old and new caches beside the weights
+        # would not fit the card together
+        self._cache = None
+        self._cache = init_kv_cache(
+            self.cfg.text, self.B, self._cache_size, self.dtype, self.device,
+            quant=self.kv_cache_quant,
+        )
+        self._cursor = np.zeros((self.B,), np.int64)  # host-authoritative
+        self._frame_embeds: Optional[torch.Tensor] = None
+        self._lengths: Optional[np.ndarray] = None
+        self._next = 0
+        # per-stream clocks (every fps-dependent quantity is host-side
+        # scalar math); real rates arrive via set_stream_fps
+        self._fps = np.full((self.B,), float(self.frame_fps))
+        # host-side upper bound on the per-stream cursors, for capacity
+        # checks
+        self._max_cursor = 0
+
+    def set_stream_fps(self, fps: Sequence[float]) -> None:
+        """Per-stream frame rates. Call after `reset()`, before feeding."""
+        fps = np.asarray(fps, float)
+        if fps.shape != (self.B,) or not (fps > 0).all():
+            raise ValueError(f"want {self.B} positive frame rates, got {fps}")
+        self._fps = fps
+
+    @torch.inference_mode()
+    def start_sessions(self, queries: Sequence[Optional[str]]) -> None:
+        """Feed each stream's prefix — the exact token stream
+        `LiveInferEngine` produces at the start of a grounding run: a
+        time-0 user query is encoded BEFORE the first frame, which
+        advances the cursor past 0, so the system turn is never fed — a
+        reference quirk (`test/inference.py:230,281-282`) that must be
+        mirrored for score parity. Streams WITHOUT a query get the system
+        turn via the first-frame joiner instead."""
+        self._check_lanes(queries, "queries")
+        per_stream = []
+        for q in queries:
+            if q is None:
+                ids = list(self.tokenizer.apply_chat_template(
+                    [{"role": "system", "content": self.system_prompt}],
+                    tokenize=True,
+                ))
+            else:
+                ids = list(self.tokenizer.apply_chat_template(
+                    [{"role": "user", "content": q}],
+                    tokenize=True,
+                    add_stream_query_prompt=False,  # stream not open at t=0
+                    add_stream_prompt=True,
+                ))
+            per_stream.append(ids)
+        bucket = pick_bucket(max(len(ids) for ids in per_stream))
+        embeds = torch.stack([
+            pad_chunk(self._embed_ids(ids), bucket) for ids in per_stream
+        ])
+        t_real = [len(ids) for ids in per_stream]
+        self._max_cursor += bucket  # bucket-wide writes: the overflow bound
+        if self._max_cursor > self._cache_size:
+            raise RuntimeError(
+                f"KV cache overflow: prefixes need {self._max_cursor} slots "
+                f"> capacity {self._cache_size}. Raise kv_cache_size."
+            )
+        mmduet.step_forward(
+            self.params, self.cfg, embeds, self._cache, self._cursor.tolist(), t_real,
+            lora=self.lora, lora_scale=self.lora_scale, compute_lm_logits=False,
+            shard_ctx=self._shard_ctx,
+        )
+        self._cursor += np.array(t_real)
+
+    @torch.inference_mode()
+    def input_video_streams(self, videos: Sequence[np.ndarray]) -> None:
+        """Encode every stream's pixels (uint8 (T_b,H,W,3); lengths may
+        differ) into frame embeddings in one shared-weights pass."""
+        self._check_lanes(videos, "videos")
+        lengths = np.array([len(v) for v in videos])
+        T = int(lengths.max())
+        all_px = np.zeros(
+            (self.B * T, *videos[0].shape[1:]), dtype=np.uint8
+        )
+        for b, vframes in enumerate(videos):
+            all_px[b * T : b * T + len(vframes)] = vframes
+        flat = staged_visual_encode(self._visual, all_px, self.device, VISION_BATCH)
+        # routed through input_frame_embeds so the engine subclass can
+        # intercept into its preallocated per-lane buffer
+        self.input_frame_embeds(
+            flat.reshape(self.B, T, self.cfg.frame_num_tokens, -1),
+            lengths=lengths,
+        )
+
+    @torch.inference_mode()
+    def input_frame_embeds(self, embeds, lengths=None) -> None:
+        """(B, T, ft, H) pre-computed frame embeddings (tests/feeds).
+        ``lengths``: optional per-stream real frame counts (trailing
+        frames of shorter streams are padding)."""
+        self._frame_embeds, self._lengths = self._checked_embeds(embeds, lengths)
+        self._next = 0
+
+    def _check_lanes(self, per_lane, what: str) -> None:
+        if len(per_lane) != self.B:
+            raise ValueError(f"{len(per_lane)} {what} for {self.B} streams")
+
+    def _checked_embeds(self, embeds, lengths) -> Tuple[torch.Tensor, np.ndarray]:
+        """(B, T, ft, H) embeddings on the device in the activation dtype,
+        and the (B,) int64 real frame counts (all T without ``lengths``)."""
+        embeds = torch.as_tensor(embeds).to(device=self.device, dtype=self.dtype)
+        self._check_lanes(embeds, "rows of frame embeddings")
+        if lengths is None:
+            return embeds, np.full((self.B,), embeds.shape[1], np.int64)
+        lengths = np.asarray(lengths)
+        if lengths.shape != (self.B,) or lengths.max() > embeds.shape[1]:
+            raise ValueError(f"lengths {lengths} do not fit {self.B} streams of "
+                             f"{embeds.shape[1]} frames")
+        return embeds, lengths.astype(np.int64)
+
+    @torch.inference_mode()
+    def score_all(self) -> List[List[Dict[str, float]]]:
+        """Stream every frame; returns per-stream debug rows
+        ``{time, informative_score, relevance_score}`` (same schema as
+        `LiveInferEngine.debug_data_list`).
+
+        One-deep block pipelining: block i+1 is enqueued before block
+        i's scores are fetched, hiding the host round trip behind the
+        device's work (scores-only streaming never rolls back, same
+        argument as `LiveInferEngine._inference_grounding`)."""
+        if self._frame_embeds is None:
+            raise RuntimeError("input video streams first")
+        T = self._frame_embeds.shape[1]
+        out: List[List[Dict[str, float]]] = [[] for _ in range(self.B)]
+        pending = None  # (dev_scores, first_frame_idx, n)
+
+        def drain():
+            nonlocal pending
+            if pending is None:
+                return
+            dev, first, n = pending
+            pending = None
+            scores = dev.cpu().numpy()  # ONE host sync for B*2*n scores
+            inf, rel = scores[:, 0], scores[:, 1]
+            for b in range(self.B):
+                for j in range(n):
+                    t_idx = first + j
+                    if t_idx >= self._lengths[b]:
+                        continue  # stream b already ended: padded garbage
+                    out[b].append({
+                        "time": t_idx / self._fps[b],
+                        "informative_score": float(inf[b, j]),
+                        "relevance_score": float(rel[b, j]),
+                    })
+
+        ft = self.cfg.frame_num_tokens
+        while self._next < T:
+            n = min(self.block_frames, T - self._next)
+            self._max_cursor += n * ft
+            if self._max_cursor > self._cache_size:
+                raise RuntimeError(
+                    f"KV cache overflow: cursor bound {self._max_cursor} > "
+                    f"capacity {self._cache_size}. Raise kv_cache_size."
+                )
+            frames = self._frame_embeds[:, self._next : self._next + n]
+            # a lockstep (B, n, ft, H) frame block: probs (B, 2, n)
+            dev, _ = mmduet.chunk_scores_forward(
+                self.params, self.cfg, frames.reshape(self.B, n * ft, -1), self._cache,
+                self._cursor.tolist(), n * ft, [(j + 1) * ft - 1 for j in range(n)],
+                lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+            )
+            self._cursor += n * ft
+            drain()  # previous block: its round trip hides behind this dispatch
+            pending = (dev, self._next, n)
+            self._next += n
+        drain()
+        return out
+
+
+class BatchedStreamEngine(BatchedStreamScorer):
+    """Continuous-batched streaming serving for B concurrent sessions,
+    INCLUDING triggered generation — the full `LiveInferEngine.inference()`
+    semantics (reference `test/inference.py:276-313`) per stream, batched:
+
+    - every forward (query turns, frame scoring, fused blocks, greedy
+      decode steps) is ONE dispatch over all B streams, so the weights
+      are read once per step instead of once per stream;
+    - streams keep independent caches, cursors, video clocks, query
+      queues, threshold policies, repetition-penalty token sets and
+      `remove_assistant_turns` rollbacks, so per-stream outputs are
+      identical to B separate `LiveInferEngine` runs;
+    - generation is a single batched greedy decode: lanes that finished
+      (EOS) or never triggered are frozen and commit nothing.
+
+    Scheduling: a round mirrors one iteration of the single-stream loop
+    for every live stream — (one due query?) then (a per-lane chunk of
+    joiner + 1..K frames). Block boundaries do not affect results (block
+    scoring equals stepping, with mid-block triggers rolled back per
+    stream), so lanes may run blocks at different frame offsets once
+    their clocks diverge.
+    """
+
+    def __init__(
+        self,
+        params,
+        cfg: MMDuetConfig,
+        tokenizer,
+        args,
+        n_streams: int,
+        block_frames: int = 8,
+        system_prompt: Optional[str] = None,
+        kv_cache_size: Optional[int] = None,
+        dtype: Optional[torch.dtype] = None,
+        mesh=None,
+        gen_coalesce_rounds: int = 0,
+        kv_cache_quant: Optional[str] = None,
+        lora=None,
+        lora_scale: float = 0.0,
+    ):
+        validate_threshold_args(args)
+        self.args = args
+        self.score_heads = args.score_heads.split(",")
+        self.grounding_mode = args.grounding_mode
+        # generation COALESCING (throughput knob, default off): a
+        # triggered lane may wait up to this many scheduling rounds —
+        # its own stream stalled at the trigger point, others streaming
+        # on — so staggered triggers merge into ONE batched decode. Each
+        # lane's token stream is identical either way (the decode runs at
+        # the same cursor and clock state); only wall-clock order changes.
+        self.gen_coalesce_rounds = gen_coalesce_rounds
+        # chunk buckets: the per-lane scheduler's common shapes are a full
+        # joiner-free K-frame block (K*ft exactly) and mixed rounds with
+        # small joiners/queries on some lanes (K*ft + headroom); adding
+        # both keeps the hot block dispatch UNPADDED while query-heavy
+        # rounds bucket tightly instead of doubling to the next power
+        ft = cfg.frame_num_tokens
+        self._buckets = tuple(sorted(
+            set(DEFAULT_BUCKETS) | {block_frames * ft, block_frames * ft + 64}
+        ))
+        super().__init__(
+            params, cfg, tokenizer,
+            n_streams=n_streams,
+            frame_fps=args.frame_fps,
+            max_num_frames=args.max_num_frames,
+            block_frames=block_frames,
+            system_prompt=system_prompt or args.system_prompt,
+            kv_cache_size=kv_cache_size,
+            dtype=dtype,
+            mesh=mesh,
+            kv_cache_quant=kv_cache_quant,
+            lora=lora,
+            lora_scale=lora_scale,
+        )
+        # pre-tokenized incremental fragments (reference inference.py:61-63)
+        self._start_ids, self._stream_open_ids, self._gen_prompt_ids = (
+            build_prompt_fragments(tokenizer, self.system_prompt)
+        )
+
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def reset(self):
+        super().reset()
+        B = self.B
+        # authoritative HOST cursors (device calls take them as operands)
+        self._cur = np.zeros((B,), np.int64)
+        self._next_b = np.zeros((B,), np.int64)
+        self._vt = [0.0] * B
+        self._last_role = ["system"] * B
+        self._pending_ids: List[List[int]] = [[] for _ in range(B)]
+        self._queues: List[collections.deque] = [
+            collections.deque() for _ in range(B)
+        ]
+        self._pen_mask = torch.zeros(
+            (B, self.cfg.text.vocab_size), dtype=torch.bool, device=self.device
+        )
+        # lane -> rounds waited for a coalesced generation (see __init__)
+        self._pending_gen: Dict[int, int] = {}
+        self._policies = [ThresholdPolicy(self.args) for _ in range(B)]
+        self.debug_data_lists: List[List[Dict[str, float]]] = [
+            [] for _ in range(B)
+        ]
+        # all lanes idle: zero-length streams until fed/admitted
+        self._lengths = np.zeros((B,), np.int64)
+        self._lane_sess: List[Optional[int]] = [None] * B
+        self._responses: List[List[Dict[str, Any]]] = [[] for _ in range(B)]
+        # counts since the reset: batched dispatches, tokens over every
+        # response, and the lanes of each batched decode
+        self.dispatches = 0
+        self.tokens_generated = 0
+        self.gen_lanes: List[int] = []
+
+    def start_sessions(self, queries):  # pragma: no cover - guard
+        raise NotImplementedError(
+            "BatchedStreamEngine tracks host-side cursors; time-0 queries "
+            "go through input_query_streams + stream_all (the inherited "
+            "device-cursor API would silently desync)"
+        )
+
+    def score_all(self):  # pragma: no cover - guard
+        raise NotImplementedError(
+            "BatchedStreamEngine streams via stream_all(); score_all is "
+            "the lockstep BatchedStreamScorer API"
+        )
+
+    def input_query_streams(self, conversations: Sequence[Sequence[dict]]) -> None:
+        """Per-stream conversations; user turns become timed queries
+        (engine `input_query_stream` per lane)."""
+        self._check_lanes(conversations, "conversations")
+        for b, conv in enumerate(conversations):
+            for turn in conv or ():
+                if turn["role"] == "user":
+                    self._queues[b].append((turn["time"], turn["content"]))
+
+    # ------------------------------------------------------------------
+    # frame feeding (preallocated per-lane buffer — admission-capable)
+    # ------------------------------------------------------------------
+
+    def _ensure_frame_buffer(self, H: int) -> None:
+        """(B, max_num_frames, ft, H) zeros buffer; lanes own rows, so a
+        session can be admitted into one lane without touching others."""
+        cap = self.args.max_num_frames
+        ft = self.cfg.frame_num_tokens
+        if (
+            self._frame_embeds is None
+            or self._frame_embeds.shape[1] != cap
+            or self._frame_embeds.shape[-1] != H
+        ):
+            self._frame_embeds = torch.zeros(
+                (self.B, cap, ft, H), dtype=self.dtype, device=self.device
+            )
+
+    @torch.inference_mode()
+    def input_frame_embeds(self, embeds, lengths=None) -> None:
+        """(B, T, ft, H) pre-computed frame embeddings, written into the
+        preallocated per-lane buffer in place."""
+        embeds, lengths = self._checked_embeds(embeds, lengths)
+        cap = self.args.max_num_frames
+        if embeds.shape[1] > cap:
+            raise ValueError(
+                f"{embeds.shape[1]} frames exceed max_num_frames {cap}"
+            )
+        self._ensure_frame_buffer(embeds.shape[-1])
+        self._frame_embeds[:, : embeds.shape[1]] = embeds
+        self._lengths = lengths
+        self._next = 0
+
+    # ------------------------------------------------------------------
+    # dynamic session admission (continuous batching, literal)
+    # ------------------------------------------------------------------
+
+    def _admit(self, lane: int, sess: Dict[str, Any]) -> None:
+        """Admit one session into a finished/idle lane: fresh cursor,
+        clock, policy, penalty-mask row and query queue; frames written
+        into the lane's buffer row (rows past the session's length keep
+        what they held and are never read). Other lanes are untouched —
+        their caches/cursors never see the admission."""
+        frames = sess.get("frame_embeds")
+        if frames is None:
+            frames = staged_visual_encode(
+                self._visual, sess["frames"], self.device, VISION_BATCH
+            )
+        frames = torch.as_tensor(frames).to(device=self.device, dtype=self.dtype)
+        T = frames.shape[0]
+        cap = self.args.max_num_frames
+        if T > cap:
+            raise ValueError(f"session has {T} frames > max_num_frames {cap}")
+        self._ensure_frame_buffer(frames.shape[-1])
+        self._frame_embeds[lane, :T] = frames
+        self._lengths[lane] = T
+        self._cur[lane] = 0
+        self._next_b[lane] = 0
+        self._vt[lane] = 0.0
+        self._last_role[lane] = "system"
+        self._pending_ids[lane] = []
+        self._fps[lane] = float(sess.get("fps") or self.frame_fps)
+        self._queues[lane] = collections.deque(
+            (t["time"], t["content"])
+            for t in sess.get("conversation") or ()
+            if t["role"] == "user"
+        )
+        self._policies[lane] = ThresholdPolicy(self.args)
+        self.debug_data_lists[lane] = []
+        self._responses[lane] = [
+            {"time": t, "content": q, "role": "user"}
+            for t, q in self._queues[lane]
+        ]
+        # fresh repetition-penalty token set for the new session
+        self._pen_mask[lane] = False
+
+    @torch.inference_mode()
+    def serve(self, sessions):
+        """Continuous-batched serving with DYNAMIC session admission:
+        stream any number of sessions through the B lanes; the moment a
+        lane's stream ends, the next queued session is admitted into that
+        lane (fresh cursor/clock/policy/frames) while the other lanes
+        stream on undisturbed.
+
+        ``sessions``: iterable of dicts with
+          - ``"frames"`` (uint8 (T,H,W,3) pixels) OR ``"frame_embeds"``
+            ((T, ft, H) post-projector embeddings);
+          - ``"conversation"``: reference-schema turns (user turns become
+            timed queries);
+          - ``"fps"``: per-session stream rate (defaults to engine fps).
+        Pulled lazily — at most B sessions' frames are resident.
+
+        Yields ``(session_index, responses, debug_data)`` in COMPLETION
+        order as sessions finish. Per-session outputs are identical to
+        running each session through its own engine. Call `reset()`
+        before starting a new serve run."""
+        it = iter(enumerate(sessions))
+        exhausted = False
+        while True:
+            while not exhausted:
+                idle = [b for b in range(self.B) if self._lane_sess[b] is None]
+                if not idle:
+                    break
+                nxt = next(it, None)
+                if nxt is None:
+                    exhausted = True
+                    break
+                idx, sess = nxt
+                self._admit(idle[0], sess)
+                self._lane_sess[idle[0]] = idx
+            # a zero-frame session (nothing to stream, no pending
+            # generation) never enters `live` — retire it NOW, not when
+            # every other lane drains: under continuous admission a
+            # long-stream round would otherwise wedge its lane for
+            # effectively the whole run. Flagged on stderr so downstream
+            # eval can tell "no frames decoded" apart from "streamed with
+            # no triggers" — the yielded tuples look alike.
+            drained = [
+                b for b in range(self.B)
+                if self._lane_sess[b] is not None
+                and self._remaining(b) == 0 and b not in self._pending_gen
+            ]
+            if drained:
+                for b in drained:
+                    if self._lengths[b] == 0:
+                        print(
+                            f"serve: session {self._lane_sess[b]} admitted "
+                            "with zero frames (decode failure upstream?) — "
+                            "retiring with no scores", file=sys.stderr,
+                        )
+                    yield self._retire(b)
+                continue  # freed lanes: admit before the next round
+            live = [
+                b for b in range(self.B)
+                if self._lane_sess[b] is not None
+                and (self._remaining(b) > 0 or b in self._pending_gen)
+            ]
+            if not live:
+                # every lane idle (drained lanes were retired above)
+                if exhausted:
+                    return
+                continue
+            self._run_round(live)
+            for b in live:
+                if self._remaining(b) == 0 and b not in self._pending_gen:
+                    yield self._retire(b)
+
+    def _retire(self, lane: int):
+        idx = self._lane_sess[lane]
+        self._lane_sess[lane] = None
+        self._lengths[lane] = 0
+        self._next_b[lane] = 0
+        return (
+            idx,
+            sorted(self._responses[lane], key=lambda x: x["time"]),
+            self.debug_data_lists[lane],
+        )
+
+    # ------------------------------------------------------------------
+
+    def _check_fits(self, b: int, n: int) -> None:
+        if self._cur[b] + n > self._cache_size:
+            raise RuntimeError(
+                f"KV cache overflow on stream {b}: cursor {self._cur[b]} + "
+                f"chunk {n} > capacity {self._cache_size}. Raise kv_cache_size."
+            )
+
+    def _guard_frozen_writes(self, width: int, fed) -> None:
+        """The JAX engine's batched dispatches write ``width`` K/V slots
+        into EVERY lane at its cursor, frozen lanes included, and it
+        raises here for a frozen lane within ``width`` of capacity, whose
+        clamped write would overwrite committed slots. This engine writes
+        no frozen lane, but raises under the same conditions with the
+        same message, so that both packages accept and refuse the same
+        runs. Finished streams are exempt — UNLESS a coalesced
+        generation is still pending on the lane (it triggered on its
+        final frame)."""
+        for b in range(self.B):
+            if b in fed:
+                continue  # fed lanes carry their own (>=) _check_fits
+            if (
+                self._lengths is not None
+                and self._next_b[b] >= self._lengths[b]
+                and b not in self._pending_gen
+            ):
+                continue
+            if self._cur[b] + width > self._cache_size:
+                raise RuntimeError(
+                    f"KV cache overflow on frozen stream {b}: cursor "
+                    f"{self._cur[b]} + dispatch width {width} > capacity "
+                    f"{self._cache_size}; a clamped write would corrupt its "
+                    "committed cache. Raise kv_cache_size."
+                )
+
+    def _frame_joiner_ids(self, b: int) -> List[int]:
+        ids = frame_joiner_ids(
+            int(self._cur[b]), self._last_role[b], self._pending_ids[b],
+            self.args.remove_assistant_turns,
+            self._start_ids, self._stream_open_ids,
+        )
+        if self._cur[b] != 0 and ids:
+            self._pending_ids[b] = []
+        return ids
+
+    @torch.inference_mode()
+    def _dispatch_sched(
+        self, chunks: Dict[int, Tuple[List[int], int, int]]
+    ) -> np.ndarray:
+        """Feed per-lane ``[token ids + n <= K frames]`` chunks in ONE
+        batched dispatch — lanes may carry different joiners, different
+        frame counts, or no frames at all (query turns), so one chatty
+        lane never degrades the others' block rate.
+
+        ``chunks``: lane -> (ids, frame_start, n_frames). Returns
+        (B, 2, K) score probs; entry j of lane b is frame j's scores —
+        entries beyond the lane's frame count (and all entries of id-only
+        or unfed lanes) are garbage the caller must ignore. Unfed lanes
+        run a 1-token dummy chunk and commit nothing."""
+        ft = self.cfg.frame_num_tokens
+        K = self.block_frames
+        H = self.params["decoder"]["final_norm"].shape[-1]
+        embeds_l, t_real, score_pos = [], [], []
+        for b in range(self.B):
+            if b in chunks:
+                ids, fstart, nf = chunks[b]
+                parts = []
+                if ids:
+                    parts.append(self._embed_ids(ids))
+                if nf:
+                    parts.append(
+                        self._frame_embeds[b, fstart : fstart + nf]
+                        .reshape(nf * ft, -1)
+                    )
+                emb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+                embeds_l.append(emb)
+                t_real.append(emb.shape[0])
+                pos = [len(ids) + (j + 1) * ft - 1 for j in range(nf)]
+                score_pos.append(pos + [0] * (K - nf))
+            else:  # unfed lane: 1-token dummy, scores ignored by caller
+                embeds_l.append(torch.zeros((1, H), dtype=self.dtype, device=self.device))
+                t_real.append(1)
+                score_pos.append([0] * K)
+        bucket = pick_bucket(max(t_real), self._buckets)
+        for b in chunks:
+            self._check_fits(b, bucket)
+        self._guard_frozen_writes(bucket, chunks)
+        embeds = torch.stack([pad_chunk(c, bucket) for c in embeds_l])
+        probs, _ = mmduet.chunk_scores_forward(
+            self.params, self.cfg, embeds, self._cache, self._cur.tolist(), t_real,
+            score_pos, lora=self.lora, lora_scale=self.lora_scale,
+            shard_ctx=self._shard_ctx, commit=[b in chunks for b in range(self.B)],
+        )
+        self.dispatches += 1
+        for b in chunks:
+            self._cur[b] += t_real[b]
+        return probs.cpu().numpy()  # ONE host fetch for all (B, 2, K) scores
+
+    @torch.inference_mode()
+    def _generate_batch(self, lanes: Sequence[int]) -> Dict[int, str]:
+        """Batched greedy decode for the triggered lanes; returns
+        stream -> response text, applying per-lane
+        `remove_assistant_turns` cursor rollback and pending-token
+        bookkeeping (engine `_generate_response`). The generation prompt
+        is shared; lanes outside ``lanes`` are frozen throughout
+        (`mmduet.decode_loop`)."""
+        gen_embeds = self._embed_ids(self._gen_prompt_ids)
+        t = gen_embeds.shape[0]
+        W = max(self.args.max_new_tokens - 1, 1)
+        for b in lanes:
+            self._check_fits(b, t + W)
+        # the JAX engine's frozen lanes receive BOTH the prompt-width
+        # prefill write and the W-wide scratch commit at their cursor
+        self._guard_frozen_writes(max(t, W), set(lanes))
+        active = [b in lanes for b in range(self.B)]
+        pre = self._cur.copy()
+        packed, _, self._pen_mask = mmduet.decode_loop(
+            self.params, self.cfg, gen_embeds[None].expand(self.B, -1, -1), self._cache,
+            self._cur.tolist(), t, self._pen_mask, active,
+            max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
+            rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
+            shard_ctx=self._shard_ctx,
+        )
+        packed = packed.cpu().numpy()  # ONE fetch: tokens + n + cursor
+        buf = packed[:, :-2]
+        self.gen_lanes.append(len(lanes))
+        out: Dict[int, str] = {}
+        for b in lanes:
+            n, cursor = int(packed[b, -2]), int(packed[b, -1])
+            self.tokens_generated += n
+            token_ids = buf[b, :n]
+            if self.args.remove_assistant_turns:
+                self._cur[b] = pre[b]  # rewind: keep pre-response context
+                self._pending_ids[b] = []
+            else:
+                self._cur[b] = cursor
+                self._pending_ids[b] = [int(token_ids[-1])] if n else []
+            out[b] = self.tokenizer.decode(token_ids, skip_special_tokens=True)
+            self._last_role[b] = "assistant"
+        return out
+
+    # ------------------------------------------------------------------
+
+    def _remaining(self, b: int) -> int:
+        return int(self._lengths[b]) - int(self._next_b[b])
+
+    def _budget(self, b: int) -> int:
+        """Frames lane b may run before its next query is due or its
+        stream ends (engine `_block_budget` per lane)."""
+        n = min(self.block_frames, self._remaining(b))
+        if self._queues[b]:
+            q_time = self._queues[b][0][0]
+            interval = 1.0 / self._fps[b]
+            free = int(np.ceil((q_time - self._vt[b]) / interval - 1e-9))
+            n = min(n, max(free, 0))
+        return n
+
+    def _run_round(self, live: Sequence[int]) -> None:
+        """One scheduling round — one iteration of the single-stream loop
+        for every live lane: (at most one due query each) then (a
+        per-lane chunk of joiner + 1..K frames) in ONE dispatch. Lanes
+        schedule INDEPENDENTLY: a lane at a query boundary or needing a
+        joiner feeds a short chunk while clean lanes run their full
+        K-frame block in the same dispatch — no lane waits for the whole
+        group."""
+        # lanes with a deferred (coalescing) generation are stalled at
+        # their trigger point: no queries, no frames this round
+        for b in self._pending_gen:
+            self._pending_gen[b] += 1
+        sched = [b for b in live if b not in self._pending_gen]
+
+        # (1) one due query per live stream (engine loop head)
+        due = {
+            b: self._queues[b][0]
+            for b in sched
+            if self._queues[b] and self._vt[b] >= self._queues[b][0][0]
+        }
+        if due:
+            qchunks = {}
+            for b, (_, query) in due.items():
+                self._queues[b].popleft()
+                qchunks[b] = (
+                    self.tokenizer.apply_chat_template(
+                        [{"role": "user", "content": query}],
+                        tokenize=True,
+                        add_stream_query_prompt=self._last_role[b] == "stream",
+                        add_stream_prompt=True,
+                    ),
+                    0, 0,
+                )
+            self._dispatch_sched(qchunks)
+            for b in due:
+                self._last_role[b] = "user"
+
+        # (2) per-lane frame chunks in ONE dispatch
+        ft = self.cfg.frame_num_tokens
+        chunks = {}
+        for b in sched:
+            n = min(max(self._budget(b), 1), self._remaining(b))
+            chunks[b] = (self._frame_joiner_ids(b), int(self._next_b[b]), n)
+        if chunks:
+            probs = self._dispatch_sched(chunks)
+
+        # (3) per-stream host policy + rollback (engine loop body)
+        to_gen = []
+        for b in sched:
+            nf = chunks[b][2]
+            self._next_b[b] += nf
+            self._last_role[b] = "stream"
+            interval = 1.0 / self._fps[b]
+            for i in range(nf):
+                scores = {
+                    "informative_score": float(probs[b, 0, i]),
+                    "relevance_score": float(probs[b, 1, i]),
+                }
+                self.debug_data_lists[b].append(
+                    dict(time=self._vt[b], **scores)
+                )
+                stream_end_score = sum(
+                    v for k_, v in scores.items() if k_ in self.score_heads
+                )
+                need = self._policies[b].triggered(stream_end_score)
+                if need and not self.grounding_mode:
+                    # roll back not-yet-evaluated chunk frames
+                    k_back = nf - 1 - i
+                    if k_back > 0:
+                        self._cur[b] -= k_back * ft
+                        self._next_b[b] -= k_back
+                    to_gen.append(b)
+                    break
+                self._vt[b] += interval
+
+        # (4) batched generation — newly triggered lanes join the
+        # pending set; flush when any lane has waited out the coalesce
+        # window or no other lane has frames to stream meanwhile
+        for b in to_gen:
+            self._pending_gen[b] = 0
+        if self._pending_gen:
+            others = any(
+                self._remaining(b) > 0
+                for b in live if b not in self._pending_gen
+            )
+            if (
+                max(self._pending_gen.values()) >= self.gen_coalesce_rounds
+                or not others
+            ):
+                lanes = sorted(self._pending_gen)
+                texts = self._generate_batch(lanes)
+                for b in lanes:
+                    self._responses[b].append(
+                        {"time": self._vt[b], "content": texts[b],
+                         "role": "assistant"}
+                    )
+                    self._vt[b] += 1.0 / self._fps[b]
+                self._pending_gen.clear()
+
+    @torch.inference_mode()
+    def stream_all(self) -> List[List[Dict[str, Any]]]:
+        """Stream every fed session to completion (closed-group mode; see
+        `serve` for dynamic admission); per-stream time-sorted response
+        lists in the reference JSONL schema (engine `inference()` per
+        lane). Per-frame scores land in ``self.debug_data_lists``."""
+        if self._frame_embeds is None:
+            raise RuntimeError("input video streams first")
+        self._responses = [
+            [{"time": t, "content": q, "role": "user"}
+             for t, q in self._queues[b]]
+            for b in range(self.B)
+        ]
+        while True:
+            live = [
+                b for b in range(self.B)
+                if self._remaining(b) > 0 or b in self._pending_gen
+            ]
+            if not live:
+                break
+            self._run_round(live)
+        return [sorted(r, key=lambda x: x["time"]) for r in self._responses]

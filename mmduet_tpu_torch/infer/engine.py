@@ -24,8 +24,13 @@ first stream chunk is ``[system tokens] + frames`` with no stream header,
 and after a kept assistant turn the next frame is joined with ``[last
 generated token] + stream header`` (`inference.py:229-234`).
 
-Not ported yet: ``mesh`` (raises `NotImplementedError`), and `prewarm`,
-`stream_video`, `append_frames`.
+``mesh``: a (data, model) `parallel.Mesh` on the parameters' device; the
+parameters stay whole and the streaming attention runs per kv-head shard
+of the ``model`` axis (`ops.attention.flash_decode_attention_sharded`,
+bit-equal to the unsharded kernel). The vision tower's attention is kernel
+D on a CUDA device, also under a mesh.
+
+Not ported yet: `prewarm`, `stream_video`, `append_frames`.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ from ..config import MMDuetConfig, TestArgs
 
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..parallel import serving_shard_ctx
 from .state import (
     StreamState,
     ThresholdPolicy,
@@ -49,7 +55,7 @@ from .state import (
     pad_chunk,
     pick_bucket,
     validate_threshold_args,
-    visual_encode,
+    staged_visual_encode,
 )
 
 VISION_BATCH = 32
@@ -74,8 +80,6 @@ class LiveInferEngine:
         kv_cache_quant: Optional[str] = None,  # "int8": per-token int8 KV
         # cache ({"qw", "qs"} leaves, `qwen2.init_kv_cache`)
     ):
-        if mesh is not None:
-            raise NotImplementedError("LiveInferEngine: mesh serving is not ported yet")
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -87,6 +91,10 @@ class LiveInferEngine:
         # quantized)
         self.dtype = dtype or final_norm.dtype
         self.kv_cache_quant = kv_cache_quant
+        self.mesh = mesh
+        # one lane: only the heads are cut, over the mesh's model axis
+        self._shard_ctx = serving_shard_ctx(
+            mesh, cfg.text.num_heads, cfg.text.num_kv_heads, 1, self.device)
 
         validate_threshold_args(args)
         self.args = args
@@ -162,7 +170,7 @@ class LiveInferEngine:
     def input_video_stream(self, video_frames) -> None:
         """Vision-encode all frames on the device, VISION_BATCH at a time;
         the embeddings stay on the device."""
-        embeds = visual_encode(self._visual, video_frames, self.device, VISION_BATCH)
+        embeds = staged_visual_encode(self._visual, video_frames, self.device, VISION_BATCH)
         self.frame_embeds = embeds
         self.frame_times = [i / self.frame_fps for i in range(len(embeds))]
         self._next_frame = 0
@@ -210,7 +218,7 @@ class LiveInferEngine:
             self.params, self.cfg, pad_chunk(embeds, bucket)[None],
             self.state.kv_cache, self.state.cursor, t_real,
             lora=self.lora, lora_scale=self.lora_scale,
-            compute_lm_logits=compute_lm,
+            compute_lm_logits=compute_lm, shard_ctx=self._shard_ctx,
         )
         # both score probs in ONE tensor: one device->host copy per frame
         probs = torch.stack([out.informative_prob[0], out.relevance_prob[0]])
@@ -262,7 +270,7 @@ class LiveInferEngine:
         inf, rel, _ = mmduet.frames_block_forward(
             self.params, self.cfg, self.frame_embeds[idx : idx + n],
             self.state.kv_cache, self.state.cursor,
-            lora=self.lora, lora_scale=self.lora_scale,
+            lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
         )
         self.state.cursor += n * ft
         self._next_frame += n
@@ -317,7 +325,7 @@ class LiveInferEngine:
             max_new=self.args.max_new_tokens,
             eos_id=self.tokenizer.eos_token_id,
             rep=self.args.repetition_penalty,
-            lora=self.lora, lora_scale=self.lora_scale,
+            lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
         )
         self._pen_mask = pen_mask[0]
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor

@@ -45,11 +45,15 @@ def pad_chunk(embeds: torch.Tensor, bucket: int) -> torch.Tensor:
     )
 
 
-def visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
-                  video_frames, device, batch: int = 32) -> torch.Tensor:
+def staged_visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
+                         video_frames, device, batch: int = 32) -> torch.Tensor:
     """Vision-encode uint8 (T, H, W, 3) pixels ``batch`` frames at a time
-    on ``device`` through ``visual_fn`` (pixels -> (n, ft, H) embeddings);
-    returns (T, ft, H)."""
+    on ``device`` through ``visual_fn`` (pixels -> (n, ft, H) embeddings),
+    for the single-stream engine and the batched engines; returns
+    (T, ft, H). Each batch is uploaded just before its encode, so one
+    batch of pixels is resident; a ragged tail runs at its own length
+    (frames are independent in the tower, and nothing is compiled per
+    shape)."""
     if isinstance(video_frames, (list, tuple)):
         video_frames = np.stack(video_frames)
     video_frames = np.asarray(video_frames)
@@ -57,8 +61,10 @@ def visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
         raise ValueError(
             f"expected (T,H,W,3) uint8 frames, got {video_frames.shape}"
         )
+    if video_frames.shape[0] == 0:
+        raise ValueError("staged_visual_encode: no frames to encode")
     outs = [
-        visual_fn(torch.from_numpy(video_frames[i : i + batch]).to(device))
+        visual_fn(torch.from_numpy(np.ascontiguousarray(video_frames[i : i + batch])).to(device))
         for i in range(0, video_frames.shape[0], batch)
     ]
     return torch.cat(outs, dim=0)

@@ -7,7 +7,8 @@ Port of `mmduet_tpu/models/mmduet.py`:
   spatial pooling -> 49 tokens per frame;
 - ``joint_embed``   — text embeddings with ``<image>`` positions replaced
   by frame tokens through a cumsum gather;
-- ``step_forward`` / ``frames_block_forward`` — streaming forwards against
+- ``step_forward`` / ``chunk_scores_forward`` / ``frames_block_forward`` —
+  streaming forwards (one lane or a batch of lanes with a cursor each) against
   the preallocated KV cache, returning the score-head probabilities (and
   last-position LM logits);
 - ``decode_loop``   — prompt prefill + greedy decode into a scratch cache,
@@ -122,12 +123,16 @@ def normalize_pixels(cfg: MMDuetConfig, frames_uint8: torch.Tensor) -> torch.Ten
     return siglip.normalize_pixels(frames_uint8)
 
 
-def visual_embed(params: Params, cfg: MMDuetConfig, pixels: torch.Tensor) -> torch.Tensor:
+def visual_embed(params: Params, cfg: MMDuetConfig, pixels: torch.Tensor,
+                 vision_use_flash: Optional[bool] = None) -> torch.Tensor:
     """Normalized pixels (N, H, W, 3) -> frame token embeddings
-    (N, frame_num_tokens, hidden): SigLIP -> projector -> pooling."""
+    (N, frame_num_tokens, hidden): SigLIP -> projector -> pooling.
+    ``vision_use_flash``: the tower's attention route (`siglip._attend`;
+    None = kernel D on CUDA tensors)."""
     if cfg.vision_arch == "clip":
         raise NotImplementedError("the CLIP tower is not ported yet")
-    feats = siglip.siglip_encode(params["vision"], cfg.vision, pixels)
+    feats = siglip.siglip_encode(params["vision"], cfg.vision, pixels,
+                                 use_flash=vision_use_flash)
     return spatial_pool(project(params, feats), cfg)
 
 
@@ -259,6 +264,8 @@ def step_forward(
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     compute_lm_logits: bool = True,
+    shard_ctx=None,  # ops.attention.ShardCtx: attention per mesh shard
+    commit: Optional[Sequence[bool]] = None,  # lanes to commit (None = all)
 ) -> StepOutput:
     """One streaming step: write the chunk into the cache (in place) and
     read the scores at each lane's last real position."""
@@ -268,9 +275,54 @@ def step_forward(
     hidden, kv_cache = qwen2.qwen2_forward(
         params["decoder"], cfg.text, embeds, _positions(cl, T, embeds.device),
         kv_cache=kv_cache, cache_len=cl, lora=lora, lora_scale=lora_scale, t_real=tr,
+        shard_ctx=shard_ctx, commit=commit,
     )
     last = torch.stack([hidden[b, t - 1] for b, t in enumerate(tr)])[:, None]
     return _score_output(params, last, kv_cache, compute_lm_logits)
+
+
+def chunk_scores_forward(
+    params: Params,
+    cfg: MMDuetConfig,
+    embeds: torch.Tensor,  # (B, T, H) per-lane (padded) chunks
+    kv_cache: KVCache,
+    cache_len: Lanes,  # per-lane cursors (or one for all)
+    t_real: Lanes,  # per-lane real lengths (or one for all)
+    score_pos,  # (B, K) or (K,) chunk-local positions to score
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+    shard_ctx=None,
+    commit: Optional[Sequence[bool]] = None,  # lanes to commit (None = all)
+) -> Tuple[torch.Tensor, KVCache]:
+    """One batched streaming chunk -> score probabilities at several
+    per-lane chunk positions. Generalizes `step_forward` (scores at the
+    last real token) and `frames_block_forward` (scores at fixed frame
+    boundaries): the batched engine feeds ``[joiner or query ids + n <= K
+    frames]`` chunks whose frame boundaries differ per lane and reads each
+    frame's score at its own position. Entries of ``score_pos`` beyond a
+    lane's real frame count may point anywhere inside the chunk; the host
+    never reads their probabilities. The lanes run in one forward with a
+    cursor each (one kernel launch per layer, the weights read once).
+
+    Returns ((B, 2, K) stacked informative / relevance probabilities,
+    cache)."""
+    B, T, _ = embeds.shape
+    dev = embeds.device
+    cl = lane_list(cache_len, B)
+    tr = lane_list(t_real, B)
+    hidden, kv_cache = qwen2.qwen2_forward(
+        params["decoder"], cfg.text, embeds, _positions(cl, T, dev),
+        kv_cache=kv_cache, cache_len=cl, lora=lora, lora_scale=lora_scale, t_real=tr,
+        shard_ctx=shard_ctx, commit=commit,
+    )
+    sp = torch.as_tensor(np.asarray(score_pos), dtype=torch.int64)
+    if sp.ndim == 1:
+        sp = sp[None].expand(B, -1)
+    sp = sp.to(dev)
+    sel = torch.gather(hidden, 1, sp[..., None].expand(-1, -1, hidden.shape[-1]))  # (B, K, H)
+    inf = torch.softmax(_head(params["informative_head"], sel), dim=-1)[..., 1]
+    rel = torch.softmax(_head(params["relevance_head"], sel), dim=-1)[..., 1]
+    return torch.stack([inf, rel], dim=1), kv_cache
 
 
 def frames_block_forward(
@@ -281,6 +333,7 @@ def frames_block_forward(
     cache_len: int,
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
+    shard_ctx=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Score K consecutive frames in ONE chunk forward: attention is
     causal, so the heads read at each frame's last position (ft-1,
@@ -294,7 +347,7 @@ def frames_block_forward(
         params["decoder"], cfg.text, embeds,
         _positions([cache_len], K * ft, frames.device),
         kv_cache=kv_cache, cache_len=cache_len, lora=lora, lora_scale=lora_scale,
-        t_real=K * ft,
+        t_real=K * ft, shard_ctx=shard_ctx,
     )
     last = hidden.reshape(K, ft, H)[None, :, ft - 1, :]  # (1, K, H)
     inf = torch.softmax(_head(params["informative_head"], last)[0], dim=-1)[:, 1]
@@ -317,6 +370,7 @@ def decode_loop(
     rep: Optional[float] = None,
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
+    shard_ctx=None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Prompt prefill + greedy decode (with the repetition penalty as a
     token bitmask), the port of the JAX device-side `lax.while_loop` as a
@@ -327,12 +381,14 @@ def decode_loop(
     step attends [cache] + [scratch + current token] and writes its K/V
     into a (L, B, kh, W, hd) scratch, ``W = max(max_new - 1, 1)`` wide
     (the last sampled token is never fed back). Frozen (``active=False``)
-    lanes run the forwards but commit nothing of their own: their
-    scratch rows land at their frozen cursor. The scratch is in the
+    lanes run the forwards but commit nothing: neither their prompt rows
+    nor their scratch rows are written (the JAX package writes both past
+    the frozen cursor, where nothing reads them). The scratch is in the
     activation dtype also under an int8 cache: the one commit after the
     loop quantizes its rows. Capacity: for every active
-    lane ``cache_len[b] + t + W <= S``; for a frozen one
-    ``cache_len[b] + max(t, W) <= S`` (`commit_lanes` raises otherwise).
+    lane ``cache_len[b] + t + W <= S`` (`commit_lanes` raises otherwise);
+    the batched engine also holds a frozen lane to the JAX package's
+    ``cache_len[b] + max(t, W) <= S``, so both raise at the same point.
 
     Returns ``(packed (B, max_new+2) int32 [tokens | n | final cursor],
     cache, updated pen_mask)``."""
@@ -355,7 +411,8 @@ def decode_loop(
             pen_mask[b, tok] = True
 
     out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
-                       lora_scale=lora_scale, compute_lm_logits=True)
+                       lora_scale=lora_scale, compute_lm_logits=True,
+                       shard_ctx=shard_ctx, commit=act)
     cache = out.kv_cache  # prompt committed; read-only until the commit
     base = [c + t if a else c for c, t, a in zip(cl, tr, act)]
 
@@ -386,7 +443,7 @@ def decode_loop(
         hidden, scratch = qwen2.qwen2_forward(
             dec, cfg.text, emb, ints_to(cursor, dev)[:, None],
             kv_cache=cache, cache_len=base, lora=lora, lora_scale=lora_scale,
-            t_real=1, scratch=scratch, scratch_len=i - 1,
+            t_real=1, scratch=scratch, scratch_len=i - 1, shard_ctx=shard_ctx,
         )
         logits = qwen2.lm_logits(params["lm_head"], hidden[:, :1])[:, 0]
         tok = torch.argmax(penalized(logits), dim=-1).tolist()
@@ -400,9 +457,9 @@ def decode_loop(
                 last_tok[b] = tok[b]
             done[b] = done[b] or tok[b] == eos_id
         i += 1
-    # ONE commit of the scratch at each lane's post-prompt cursor; rows
-    # past a lane's fed count land in its garbage zone
-    cache = qwen2.commit_lanes(cache, scratch.k, scratch.v, base)
+    # ONE commit of the scratch at each active lane's post-prompt cursor;
+    # rows past a lane's fed count land in its garbage zone
+    cache = qwen2.commit_lanes(cache, scratch.k, scratch.v, base, act)
     packed = torch.tensor(
         [buf[b] + [n[b], cursor[b]] for b in range(B)],
         dtype=torch.int32, device=dev,

@@ -36,8 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import Qwen2Config
 
-from ..ops.attention import (KernelRefused, attend, flash_decode_attention,
-                             flash_full_attention)
+from ..ops.attention import (KernelRefused, ShardCtx, attend, flash_decode_attention,
+                             flash_decode_attention_sharded, flash_full_attention)
 from .quant import is_quantized, layer_view, quantized_matmul, unpack_int4
 
 Params = Dict[str, Any]
@@ -241,6 +241,11 @@ def qwen2_forward(
     use_flash: Optional[bool] = None,  # full mode: None = auto (kernel C on CUDA)
     scratch: Optional[KVCache] = None,  # (L, B, kh, M, hd) decode scratch
     scratch_len: Optional[int] = None,  # tokens already in the scratch
+    shard_ctx: Optional[ShardCtx] = None,  # streaming: attention per shard of
+    # a mesh (`flash_decode_attention_sharded`); the caller has checked
+    # `shard_ctx_ok`
+    commit: Optional[Sequence[bool]] = None,  # streaming: the lanes whose
+    # chunk K/V are committed (None = all)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder. Three modes:
 
@@ -259,6 +264,11 @@ def qwen2_forward(
     - **streaming** (``kv_cache`` given): split attention over [committed
       cache history] + [the chunk, causal], then the chunk's K/V
       committed into ``kv_cache`` in place at each lane's ``cache_len``.
+      A lane that ``commit`` leaves out keeps its cache untouched: the
+      batched engines leave out the lanes they do not feed, whose rows
+      the JAX package writes past the lane's cursor, where nothing reads
+      them. With ``shard_ctx`` the attention runs per (lane shard, head
+      shard) of the mesh, bit-equal to the unsharded call.
     - **scratch decode** (streaming + ``scratch``): the big cache is
       read-only; the chunk's K/V go into ``scratch`` at ``scratch_len``
       (in place) and attention runs over [cache slots < cache_len] +
@@ -322,10 +332,16 @@ def qwen2_forward(
             ck, cv = k_hm, v_hm
             new_k.append(k_hm)
             new_v.append(v_hm)
-        attn = flash_decode_attention(
-            q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
-            cl_dev, tr_dev, i, q_offset=qo_dev, **scales,
-        )
+        if shard_ctx is not None:
+            attn = flash_decode_attention_sharded(
+                q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
+                cl_dev, tr_dev, i, shard_ctx, q_offset=qo_dev, **scales,
+            )
+        else:
+            attn = flash_decode_attention(
+                q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
+                cl_dev, tr_dev, i, q_offset=qo_dev, **scales,
+            )
         x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -334,7 +350,7 @@ def qwen2_forward(
     # every layer's chunk K/V into the cache, in place; padded tail slots
     # hold garbage that the next chunk overwrites
     return hidden, commit_lanes(
-        kv_cache, torch.stack(new_k), torch.stack(new_v), cache_len_b
+        kv_cache, torch.stack(new_k), torch.stack(new_v), cache_len_b, commit
     )
 
 
@@ -384,11 +400,12 @@ def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
 
 
 def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
-                 starts: Lanes) -> KVCache:
+                 starts: Lanes, lanes: Optional[Sequence[bool]] = None) -> KVCache:
     """Write (L, B, kh, t, hd) K/V rows into the (L, B, kh, S, hd) cache
     at per-lane slot ``starts[b]``, in place, one slice write per lane
     (the JAX code chains per-lane `dynamic_update_slice` on a donated
     buffer). A write past the cache's end raises instead of clamping.
+    ``lanes``: only the lanes marked True are written (None = all).
 
     int8 cache: the rows are quantized here (per-token symmetric,
     `quantize_kv_rows`) and both the int8 values and the f32 scales are
@@ -398,6 +415,8 @@ def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
         new_k, k_s = quantize_kv_rows(new_k)
         new_v, v_s = quantize_kv_rows(new_v)
     for b, s in enumerate(lane_list(starts, B)):
+        if lanes is not None and not lanes[b]:
+            continue
         if s < 0 or s + t > cache.max_len:
             raise RuntimeError(
                 f"commit_lanes: lane {b} rows [{s}, {s + t}) outside the "

@@ -3,19 +3,22 @@
 Port of `mmduet_tpu/models/siglip.py`: patch embedding as crop + reshape +
 one matmul (no conv), per-layer weights stacked on a leading axis and run
 as a loop, features taken at layer -2 by running only the first
-``num_layers - 1`` layers. Vision attention is the plain matmul + softmax
-+ matmul of the JAX package's default branch.
+``num_layers - 1`` layers. Vision attention is
+`ops.attention.flash_vision_attention` (kernel D on CUDA tensors); the
+matmul + softmax + matmul route is its plain version, for CPU tensors
+(`_attend`).
 """
 
 from __future__ import annotations
 
-import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..config import SiglipConfig
+from ..ops.attention import (KernelRefused, flash_vision_attention,
+                             flash_vision_attention_ref)
 from .quant import is_quantized, layer_view, quantized_matmul
 
 Params = Dict[str, Any]
@@ -55,15 +58,29 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(N, gh * gw, C * p * p)
 
 
-def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int) -> torch.Tensor:
-    """(N, T, nh, hd) non-causal MHA: f32 scores and softmax, the value
-    product accumulated in f32 from probabilities in the value dtype."""
-    scores = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) / math.sqrt(hd)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    return torch.einsum("nhqk,nkhd->nqhd", probs, v).to(q.dtype)
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int,
+            use_flash: Optional[bool] = None) -> torch.Tensor:
+    """(N, T, nh, hd) non-causal MHA. ``use_flash`` True:
+    `flash_vision_attention` (on CUDA tensors kernel D or an error, on
+    CPU tensors its plain version). False: the matmul route
+    (`flash_vision_attention_ref`: f32 scores and softmax, the value
+    product accumulated in f32), which is for CPU tensors; on CUDA tensors
+    it raises `KernelRefused`, as `qwen2_forward` does for kernel C. None
+    (auto): kernel D for CUDA tensors, the matmul route for CPU tensors.
+    (The JAX package's auto takes its jnp route everywhere, on a timing of
+    its TPU kernel that says nothing about this card.)"""
+    if q.is_cuda and use_flash is False:
+        raise KernelRefused("siglip: attention on CUDA tensors runs kernel D (use_flash "
+                            "None or True); the matmul route is for CPU tensors")
+    if use_flash is None:
+        use_flash = q.is_cuda
+    if use_flash:
+        return flash_vision_attention(q, k, v)
+    return flash_vision_attention_ref(q, k, v)
 
 
-def encoder_layer(h: torch.Tensor, p: Params, cfg: SiglipConfig) -> torch.Tensor:
+def encoder_layer(h: torch.Tensor, p: Params, cfg: SiglipConfig,
+                  use_flash: Optional[bool] = None) -> torch.Tensor:
     """One pre-LN ViT encoder layer with the tanh-GELU MLP: LN -> MHA ->
     residual -> LN -> MLP -> residual."""
     N = h.shape[0]
@@ -74,7 +91,7 @@ def encoder_layer(h: torch.Tensor, p: Params, cfg: SiglipConfig) -> torch.Tensor
     q = _linear(y, p["q_proj"], p["q_bias"]).reshape(N, -1, nh, hd)
     k = _linear(y, p["k_proj"], p["k_bias"]).reshape(N, -1, nh, hd)
     v = _linear(y, p["v_proj"], p["v_bias"]).reshape(N, -1, nh, hd)
-    attn = _attend(q, k, v, hd).reshape(N, -1, nh * hd)
+    attn = _attend(q, k, v, hd, use_flash).reshape(N, -1, nh * hd)
     h = h + _linear(attn, p["o_proj"], p["o_bias"])
 
     y = _layer_norm(h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
@@ -88,6 +105,7 @@ def siglip_encode(
     cfg: SiglipConfig,
     images: torch.Tensor,  # (N, H, W, 3) already normalized to [-1, 1]
     feature_layer: int = -2,
+    use_flash: Optional[bool] = None,  # None = auto (kernel D on CUDA tensors)
 ) -> torch.Tensor:
     """Encode frames -> patch features (N, num_patches, hidden)."""
     x = _linear(patchify(images, cfg.patch_size), params["patch_embed"],
@@ -99,7 +117,7 @@ def siglip_encode(
     )
     layers = params["layers"]
     for i in range(num_layers):
-        x = encoder_layer(x, layer_view(layers, i), cfg)
+        x = encoder_layer(x, layer_view(layers, i), cfg, use_flash)
     return x
 
 

@@ -29,6 +29,18 @@ runs the plain version (`flash_full_attention_ref`, differentiable through
 autograd) for CPU tensors and the kernels of ``csrc/flash_full.cu``
 (forward; backward preprocess, dK/dV and dQ) for CUDA tensors.
 
+**Kernel A'**, kernel A per shard of a (data, model) mesh: port of
+`mmduet_tpu/ops/attention.py::flash_decode_attention_sharded`.
+`flash_decode_attention_sharded` launches kernel A once per (lane shard,
+head shard) on strided views of the operands; the result is bit-equal to
+one unsharded launch.
+
+**Kernel D**, non-causal multi-head attention for the ViT tower, forward
+only: port of `mmduet_tpu/ops/attention.py::flash_vision_attention`.
+`flash_vision_attention` runs the plain version
+(`flash_vision_attention_ref`) for CPU tensors and the kernel of
+``csrc/flash_vision.cu`` for CUDA tensors.
+
 There is no fallback from a kernel to its plain version. Kernel C's
 refusals and failed launches raise a `KernelError` (a `KernelRefused`
 ValueError or a `KernelLaunchFailed` RuntimeError), which the training
@@ -39,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -47,16 +59,21 @@ from . import _build
 
 NEG_INF = -1e30
 
-# Kernel launches since the last reset to 0. Only the CUDA branch of
-# `flash_decode_attention` adds to it, once per launch.
+# Kernel A launches since the last reset to 0. Only `_decode_launch` adds to
+# it, once per launch.
 LAUNCHES = 0
 # Those of them that went to the int8-cache variant.
 INT8_LAUNCHES = 0
+# Those of them that `flash_decode_attention_sharded` made (one per shard).
+SHARDED_LAUNCHES = 0
 # Kernel C: forward launches, and backward launches (a backward launches
 # the preprocess, dK/dV and dQ kernels, one count each). Only the CUDA
 # branch adds to them.
 FULL_FWD_LAUNCHES = 0
 FULL_BWD_LAUNCHES = 0
+# Kernel D launches. Only the CUDA branch of `flash_vision_attention` adds
+# to it.
+VISION_LAUNCHES = 0
 
 
 class KernelError(Exception):
@@ -73,6 +90,7 @@ class KernelLaunchFailed(KernelError, RuntimeError):
 
 _lib: Optional[ctypes.CDLL] = None
 _full_lib: Optional[ctypes.CDLL] = None
+_vision_lib: Optional[ctypes.CDLL] = None
 
 
 def _lanes(x: Optional[torch.Tensor], name: str, batch: int, device) -> torch.Tensor:
@@ -174,15 +192,10 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("flash_decode")
-        lib.flash_decode_bf16.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        tail = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        lib.flash_decode_bf16.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.flash_decode_bf16.restype = ctypes.c_int
-        lib.flash_decode_int8.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
+        lib.flash_decode_int8.argtypes = [ctypes.c_void_p] * 11 + tail
         lib.flash_decode_int8.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -190,36 +203,12 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def flash_decode_attention(
-    q: torch.Tensor,  # (B, T, nh, hd)
-    k_cache: torch.Tensor,  # (L, B, kh, S, hd) head-major, read-only
-    v_cache: torch.Tensor,  # same layout
-    chunk_k: torch.Tensor,  # (B, kh, Tc, hd) this chunk's K
-    chunk_v: torch.Tensor,  # (B, kh, Tc, hd)
-    cache_len: torch.Tensor,  # (B,) int32 committed tokens per lane
-    t_real: torch.Tensor,  # (B,) int32 real tokens in each lane's chunk
-    layer: int,  # layer into the stacked cache
-    q_offset: Optional[torch.Tensor] = None,  # (B,) int32 chunk position of
-    # query row 0 (scratch decode: generated tokens' K/V fill chunk slots
-    # 0..q_offset-1 and the queries sit after them); None = 0
-    k_scale: Optional[torch.Tensor] = None,  # (L, B, kh, S) f32 per-token
-    # scales of an int8 cache; None = the cache is in the activation dtype
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Returns the attention output (B, T, nh, hd). Rows t >= t_real[b]
-    hold values that are never read.
-
-    CPU tensors: the plain version. CUDA tensors: the kernel (its int8
-    variant when the scales are given), which takes bf16 queries and
-    chunk, a bf16 or int8 cache, hd = 128 and contiguous, 16-byte aligned
-    operands on one device; anything else raises (`KernelRefused` for
-    what concerns the int8 variant), as does a refused launch."""
-    global LAUNCHES, INT8_LAUNCHES
-    if q.device.type == "cpu":
-        return flash_decode_attention_ref(
-            q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
-            q_offset, k_scale, v_scale,
-        )
+def _decode_check(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
+                  q_offset, k_scale, v_scale):
+    """What kernel A takes, for whole operands or strided views of them:
+    bf16 queries and chunk, a bf16 or int8 cache, hd = 128, rows of hd
+    values contiguous and 16-byte aligned on one CUDA device, K and V of a
+    pair laid out alike. Returns the three per-lane cursors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: no kernel for device {q.device}")
     B, T, nh, hd = q.shape
@@ -259,22 +248,49 @@ def flash_decode_attention(
                 raise KernelRefused(
                     f"flash_decode_attention: {name} is int8 and no scales were given")
             raise TypeError(f"flash_decode_attention: {name} is {t.dtype}, the kernel takes bfloat16")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_decode_attention: {name} must be contiguous and 16-byte aligned")
+        # 16-byte vector loads: rows of hd values back to back, every other
+        # stride and the base a multiple of 16 bytes
+        step = 16 // t.element_size()
+        if (t.stride(-1) != 1 or t.stride(-2) != hd or t.data_ptr() % 16
+                or any(st % step for st in t.stride()[:-2])):
+            raise ValueError(
+                f"flash_decode_attention: {name} must have contiguous, 16-byte aligned rows "
+                f"(strides {t.stride()})")
+    for a, b in ((k_cache, v_cache), (chunk_k, chunk_v)):
+        if a.stride() != b.stride():
+            raise ValueError("flash_decode_attention: K and V must be laid out alike, got "
+                             f"strides {a.stride()} and {b.stride()}")
     for name, t in (("k_scale", k_scale), ("v_scale", v_scale)) if quantized else ():
         if (t.device != q.device or t.dtype != torch.float32
-                or tuple(t.shape) != (L, B, kh, S) or not t.is_contiguous()):
+                or tuple(t.shape) != (L, B, kh, S) or t.stride(-1) != 1
+                or t.stride() != k_scale.stride()):
             raise KernelRefused(
-                f"flash_decode_attention: {name} must be a contiguous f32 ({L}, {B}, {kh}, "
-                f"{S}) tensor on {q.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    cl = _lanes(cache_len, "cache_len", B, q.device)
-    tr = _lanes(t_real, "t_real", B, q.device)
-    qo = _lanes(q_offset, "q_offset", B, q.device)
-    out = torch.empty_like(q)
+                f"flash_decode_attention: {name} must be an f32 ({L}, {B}, {kh}, {S}) tensor "
+                f"with contiguous rows on {q.device}, got {t.dtype} {tuple(t.shape)} "
+                f"(strides {t.stride()}) on {t.device}")
+    return (_lanes(cache_len, "cache_len", B, q.device),
+            _lanes(t_real, "t_real", B, q.device),
+            _lanes(q_offset, "q_offset", B, q.device))
+
+
+def _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer,
+                   k_scale, v_scale) -> None:
+    """One launch of kernel A on operands that `_decode_check` passed, or
+    on a shard's views of them, writing ``out`` (laid out like ``q``).
+    Counts the launch."""
+    global LAUNCHES, INT8_LAUNCHES
+    B, T, nh, hd = q.shape
+    kh, S = k_cache.shape[2], k_cache.shape[3]
+    quantized = k_scale is not None
+    c, ck = k_cache.stride(), chunk_k.stride()
+    sc = k_scale.stride() if quantized else (0, 0, 0)
+    strides = (ctypes.c_longlong * 12)(
+        q.stride(0), q.stride(1), out.stride(0), out.stride(1),
+        c[0], c[1], c[2], ck[0], ck[1], sc[0], sc[1], sc[2])
     lib = _kernel_lib()
     tail = (chunk_k.data_ptr(), chunk_v.data_ptr(),
-            cl.data_ptr(), tr.data_ptr(), qo.data_ptr(), out.data_ptr(),
-            B, T, nh, kh, S, Tc, int(layer), 1.0 / math.sqrt(hd),
+            cl.data_ptr(), tr.data_ptr(), qo.data_ptr(), out.data_ptr(), strides,
+            B, T, nh, kh, S, chunk_k.shape[2], int(layer), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
     if quantized:
         err = lib.flash_decode_int8(
@@ -290,6 +306,143 @@ def flash_decode_attention(
         )
     LAUNCHES += 1
     INT8_LAUNCHES += quantized
+
+
+def flash_decode_attention(
+    q: torch.Tensor,  # (B, T, nh, hd)
+    k_cache: torch.Tensor,  # (L, B, kh, S, hd) head-major, read-only
+    v_cache: torch.Tensor,  # same layout
+    chunk_k: torch.Tensor,  # (B, kh, Tc, hd) this chunk's K
+    chunk_v: torch.Tensor,  # (B, kh, Tc, hd)
+    cache_len: torch.Tensor,  # (B,) int32 committed tokens per lane
+    t_real: torch.Tensor,  # (B,) int32 real tokens in each lane's chunk
+    layer: int,  # layer into the stacked cache
+    q_offset: Optional[torch.Tensor] = None,  # (B,) int32 chunk position of
+    # query row 0 (scratch decode: generated tokens' K/V fill chunk slots
+    # 0..q_offset-1 and the queries sit after them); None = 0
+    k_scale: Optional[torch.Tensor] = None,  # (L, B, kh, S) f32 per-token
+    # scales of an int8 cache; None = the cache is in the activation dtype
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Returns the attention output (B, T, nh, hd). Rows t >= t_real[b]
+    hold values that are never read.
+
+    CPU tensors: the plain version. CUDA tensors: the kernel (its int8
+    variant when the scales are given), which takes bf16 queries and
+    chunk, a bf16 or int8 cache, hd = 128 and operands on one device whose
+    rows of hd values are contiguous and 16-byte aligned (a whole tensor,
+    or a view cut along lanes and heads); anything else raises
+    (`KernelRefused` for what concerns the int8 variant), as does a
+    refused launch."""
+    if q.device.type == "cpu":
+        return flash_decode_attention_ref(
+            q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
+            q_offset, k_scale, v_scale,
+        )
+    cl, tr, qo = _decode_check(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
+                               layer, q_offset, k_scale, v_scale)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer,
+                   k_scale, v_scale)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel A': kernel A on each shard of a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+
+class ShardCtx(NamedTuple):
+    """How the serving tensors are laid out over a mesh
+    (`parallel.make_mesh`), for running kernel A per shard:
+
+    - ``head_axis`` ('model' or None): nh and kh are cut over it, each
+      shard owning a contiguous run of kv heads and their query heads;
+    - ``lane_axis`` ('data' or None): the lane (batch) dim is cut over it.
+
+    Attention mixes neither lanes nor heads, so a shard needs nothing of
+    another."""
+
+    mesh: Any
+    lane_axis: Optional[str] = None
+    head_axis: Optional[str] = None
+
+
+def shard_ctx_ok(ctx: ShardCtx, num_heads: int, num_kv_heads: int, lanes: int) -> bool:
+    """Every sharded dim must divide evenly into local shards."""
+    if ctx.head_axis is not None:
+        n = ctx.mesh.shape[ctx.head_axis]
+        if num_heads % n or num_kv_heads % n:
+            return False
+    if ctx.lane_axis is not None:
+        if lanes % ctx.mesh.shape[ctx.lane_axis]:
+            return False
+    return True
+
+
+def flash_decode_attention_sharded(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    chunk_k: torch.Tensor,
+    chunk_v: torch.Tensor,
+    cache_len: torch.Tensor,  # (B,)
+    t_real: torch.Tensor,  # (B,)
+    layer: int,
+    ctx: ShardCtx,
+    q_offset: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,  # int8 KV cache scales
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`flash_decode_attention` over a (data, model) mesh: port of
+    `mmduet_tpu/ops/attention.py::flash_decode_attention_sharded`. For each
+    (lane shard, head shard) of ``ctx`` the kernel runs on that shard's
+    (B / data_n) lanes x (kh / model_n) kv heads, with the nh / model_n
+    query heads of the same shard, and writes the shard's part of the
+    output. The shards are strided views: no cache operand is copied, and
+    the per-lane cursors are sliced per lane shard. Each (lane, head)
+    program computes exactly what it computes in one unsharded launch, so
+    the result is bit-equal to `flash_decode_attention`.
+
+    The mesh lies on one device (`parallel.make_mesh`), so the shards run
+    one after another on the operands' device. CPU tensors take the plain
+    version per shard. A ``ctx`` that `shard_ctx_ok` refuses raises."""
+    global SHARDED_LAUNCHES
+    B, T, nh, hd = q.shape
+    kh = k_cache.shape[2]
+    if not shard_ctx_ok(ctx, nh, kh, B):
+        raise ValueError(
+            f"flash_decode_attention_sharded: {nh} heads / {kh} kv heads / {B} lanes do not "
+            f"divide the mesh {dict(ctx.mesh.shape)} (lane_axis {ctx.lane_axis}, head_axis "
+            f"{ctx.head_axis})")
+    data_n = ctx.mesh.shape[ctx.lane_axis] if ctx.lane_axis is not None else 1
+    model_n = ctx.mesh.shape[ctx.head_axis] if ctx.head_axis is not None else 1
+    quantized = k_scale is not None
+    if q.device.type == "cpu":
+        if (k_scale is None) != (v_scale is None):
+            raise ValueError("flash_decode_attention: k_scale and v_scale go together")
+        cl = _lanes(cache_len, "cache_len", B, q.device)
+        tr = _lanes(t_real, "t_real", B, q.device)
+        qo = _lanes(q_offset, "q_offset", B, q.device)
+    else:
+        cl, tr, qo = _decode_check(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
+                                   layer, q_offset, k_scale, v_scale)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lb, hq, hk = B // data_n, nh // model_n, kh // model_n
+    for i in range(data_n):
+        lanes = slice(i * lb, (i + 1) * lb)
+        for j in range(model_n):
+            qh, kvh = slice(j * hq, (j + 1) * hq), slice(j * hk, (j + 1) * hk)
+            scales = ((k_scale[:, lanes, kvh], v_scale[:, lanes, kvh]) if quantized
+                      else (None, None))
+            shard = (q[lanes, :, qh], k_cache[:, lanes, kvh], v_cache[:, lanes, kvh],
+                     chunk_k[lanes, kvh], chunk_v[lanes, kvh], cl[lanes], tr[lanes])
+            if q.device.type == "cpu":
+                out[lanes, :, qh] = flash_decode_attention_ref(
+                    *shard, layer, qo[lanes], *scales)
+            else:
+                _decode_launch(*shard, qo[lanes], out[lanes, :, qh], layer, *scales)
+                SHARDED_LAUNCHES += 1
     return out
 
 
@@ -461,3 +614,88 @@ def flash_full_attention(
         )
     _full_check(q=q, k=k, v=v)
     return _FlashFull.apply(q, k, v, _segments(attn_mask, B, T, q.device))
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: non-causal attention of the ViT tower, forward only
+# ---------------------------------------------------------------------------
+
+
+def flash_vision_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of `flash_vision_attention`, the matmul
+    route of `siglip._attend`: (N, T, nh, hd) non-causal MHA with f32
+    scores and softmax, the probabilities rounded to the value dtype and
+    the value product accumulated in f32."""
+    hd = q.shape[-1]
+    scores = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) / math.sqrt(hd)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("nhqk,nkhd->nqhd", probs, v).to(q.dtype)
+
+
+def _vision_kernel_lib() -> ctypes.CDLL:
+    global _vision_lib
+    if _vision_lib is None:
+        lib = _build.load("flash_vision")
+        lib.flash_vision_bf16.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_vision_bf16.restype = ctypes.c_int
+        lib.flash_vision_error_string.argtypes = [ctypes.c_int]
+        lib.flash_vision_error_string.restype = ctypes.c_char_p
+        _vision_lib = lib
+    return _vision_lib
+
+
+def flash_vision_attention(
+    q: torch.Tensor,  # (N, T, nh, hd): every token real, no padding mask
+    k: torch.Tensor,
+    v: torch.Tensor,
+) -> torch.Tensor:
+    """Non-causal self-attention for the ViT tower: each of the nh heads
+    of each of the N images attends over all T tokens, with the softmax
+    scale 1 / sqrt(hd). Returns (N, T, nh, hd) in q's dtype.
+
+    CPU tensors: the plain version. CUDA tensors: kernel D, which takes
+    bf16, hd a multiple of 8 up to 128, any T, and contiguous, 16-byte
+    aligned operands of one shape on one device, none requiring a gradient
+    under grad mode (it is forward only); anything else raises
+    `KernelRefused`, a refused launch `KernelLaunchFailed`."""
+    global VISION_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_vision_attention_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise KernelRefused(f"flash_vision_attention: no kernel for device {q.device}")
+    if q.dim() != 4 or tuple(k.shape) != tuple(q.shape) or tuple(v.shape) != tuple(q.shape):
+        raise KernelRefused(
+            f"flash_vision_attention: want q, k, v of one (N, T, nh, hd) shape, got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    N, T, nh, hd = q.shape
+    if hd % 8 or not 8 <= hd <= 128:
+        raise KernelRefused(
+            f"flash_vision_attention: head_dim {hd} (the kernel takes a multiple of 8 up to 128)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise KernelRefused(f"flash_vision_attention: {name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise KernelRefused(
+                f"flash_vision_attention: {name} is {t.dtype}, the kernel takes bfloat16")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise KernelRefused(
+                f"flash_vision_attention: {name} must be contiguous and 16-byte aligned")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise KernelRefused(
+            "flash_vision_attention: the kernel has no backward; q, k or v that requires a "
+            "gradient cannot go through it on a CUDA device (a frozen tower runs under no_grad)")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    lib = _vision_kernel_lib()
+    err = lib.flash_vision_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), N, T, nh, hd,
+        1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise KernelLaunchFailed(
+            "flash_vision_attention: kernel launch failed: "
+            + lib.flash_vision_error_string(err).decode())
+    VISION_LAUNCHES += 1
+    return out

@@ -28,6 +28,12 @@ sum over up to T query rows of 7 heads: a bound on the sum of |terms|
 would grow with that count and let a lost query tile through, while this
 one grows as its square root.
 
+**Kernel D**, per element of o: kernel C's forward bound. Its one bf16
+rounding inside the sum is that of p, so the sum's error has the standard
+deviation 2^-8 * rms / sqrt(3) with rms = sqrt(sum_s p^2 v^2) over all T
+keys; `vision_attention_dropped` is the plain version without one key
+tile.
+
 **Kernel A, int8 cache**: the same row bound as kernel A. The int8 values
 are exact in the kernel's bf16 tiles and both scalings happen in f32, so
 its only rounding is again the bf16 output.
@@ -148,6 +154,35 @@ def full_attention_dropped(q, k, v, mask, dout, tile: slice) -> Grads:
 
 
 # ---------------------------------------------------------------------------
+# Kernel D
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def vision_probs(q, k, drop_keys: slice = slice(0, 0)) -> torch.Tensor:
+    """Kernel D's plain softmax P (N, nh, T, T) in f32; ``drop_keys`` masks
+    a range of keys (a kernel that lost a key tile)."""
+    hd = q.shape[-1]
+    s = torch.einsum("nqhd,nkhd->nhqk", q.float(), k.float()) / math.sqrt(hd)
+    s[..., drop_keys] = -1e30
+    return torch.softmax(s, dim=-1)
+
+
+@torch.no_grad()
+def vision_attention_rms(q, k, v) -> torch.Tensor:
+    """The rms of kernel D's bound for every element of o, (N, T, nh, hd)."""
+    p2 = vision_probs(q, k).square_()
+    return torch.einsum("nhqk,nkhd->nqhd", p2, v.float().square()).sqrt()
+
+
+@torch.no_grad()
+def vision_attention_dropped(q, k, v, tile: slice) -> torch.Tensor:
+    """Kernel D's plain o in f32 without the keys ``tile`` (an empty
+    ``tile`` gives the true output)."""
+    return torch.einsum("nhqk,nkhd->nqhd", vision_probs(q, k, tile), v.float())
+
+
+# ---------------------------------------------------------------------------
 # Kernel B
 # ---------------------------------------------------------------------------
 
@@ -229,3 +264,9 @@ def full_attention_bound(B: int, T: int, nh: int, kh: int, hd: int,
         return _bound(n_bytes, 4 * 2.0 * hd * B * nh * pairs)
     n_bytes = 2 * qo + 2 * kv + B * nh * T * 4
     return _bound(n_bytes, 2 * 2.0 * hd * B * nh * pairs)
+
+
+def vision_attention_bound(N: int, T: int, nh: int, hd: int) -> Tuple[float, str]:
+    """Kernel D: q, k, v read and o written once (bf16); two products over
+    all T x T (query, key) pairs of every head."""
+    return _bound(4 * N * T * nh * hd * 2, 2 * 2.0 * hd * N * nh * T * T)

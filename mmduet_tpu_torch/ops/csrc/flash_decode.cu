@@ -17,6 +17,15 @@
 // offset into the stacked cache comes from `layer` and the strides; no
 // per-layer copy is made.
 //
+// Every operand is addressed through the lane and head strides the caller
+// passes (`Strides`), so the same kernel runs on a strided view: the
+// sharded wrapper (the TPU package's `flash_decode_attention_sharded`, the
+// kernel under `shard_map`) launches it once per (lane shard, kv-head shard)
+// on that shard's view of q, out, cache, chunk and scales, with a grid of
+// (tiles, local kv heads, local lanes). No cache operand is copied, and a
+// (lane, head) program does the same arithmetic in the same order whichever
+// launch it belongs to, so a sharded run is bit-equal to one launch.
+//
 // Design (simple and correct first): one thread block per (query-row tile,
 // kv head, lane); 4 warps x 4 query rows; K/V tiles of 64 keys staged in
 // shared memory and shared by the 16 rows; f32 online-softmax state
@@ -55,6 +64,17 @@ constexpr int KT = 64;               // keys per shared-memory tile
 constexpr int KPAD = HD + 2;         // K row stride: 65 words, so lane j
                                      // reading key j hits bank (j + d) % 32
 constexpr float NEG = -1e30f;
+
+// Element strides of the operands (rows of hd values are contiguous, and so
+// are the q heads of one token, the slots of one cache head and the rows of
+// one chunk head).
+struct Strides {
+  long long q_b, q_t;                // q: lane, token
+  long long o_b, o_t;                // out: lane, token
+  long long c_l, c_b, c_h;           // cache: layer, lane, kv head
+  long long k_b, k_h;                // chunk: lane, kv head
+  long long s_l, s_b, s_h;           // int8 cache scales: layer, lane, kv head
+};
 
 struct __align__(16) Smem {
   float q[ROWS][HD];                 // queries of this tile, f32
@@ -230,8 +250,8 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const int* __restrict__ cache_len,
                     const int* __restrict__ t_real,
                     const int* __restrict__ q_offset,
-                    __nv_bfloat16* __restrict__ out,
-                    int B, int T, int nh, int kh, int S, int Tc, int layer,
+                    __nv_bfloat16* __restrict__ out, const Strides st,
+                    int T, int nh, int kh, int S, int Tc, int layer,
                     float scale) {
   __shared__ Smem sm;
   const int tile = blockIdx.x;
@@ -257,7 +277,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const int g = row / T;
       const int t = row % T;
       const __nv_bfloat162* qp = reinterpret_cast<const __nv_bfloat162*>(
-          q + ((size_t)(b * T + t) * nh + h * group + g) * HD);
+          q + (size_t)b * st.q_b + (size_t)t * st.q_t + (size_t)(h * group + g) * HD);
       val = __bfloat1622float2(qp[d2]);
     }
     *reinterpret_cast<float2*>(&sm.q[rr][2 * d2]) = val;
@@ -284,9 +304,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
   }
 
-  const size_t head = (size_t)b * kh + h;
-  const __nv_bfloat16* ckb = chunk_k + head * Tc * HD;
-  const __nv_bfloat16* cvb = chunk_v + head * Tc * HD;
+  const size_t head = (size_t)b * st.k_b + (size_t)h * st.k_h;
+  const __nv_bfloat16* ckb = chunk_k + head;
+  const __nv_bfloat16* cvb = chunk_v + head;
   for (int j0 = 0; j0 < chunk_end; j0 += KT) {
     __syncthreads();
     load_tile(sm, ckb, cvb, j0, chunk_end);
@@ -295,19 +315,20 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // cache history: every query row sits after it, so only cache_len masks
-  const size_t lay = ((size_t)layer * B + b) * kh + h;
+  const size_t lay = (size_t)layer * st.c_l + (size_t)b * st.c_b + (size_t)h * st.c_h;
+  const size_t slay = (size_t)layer * st.s_l + (size_t)b * st.s_b + (size_t)h * st.s_h;
   int no_limit[RPW];
 #pragma unroll
   for (int r = 0; r < RPW; ++r) no_limit[r] = clen;
   for (int j0 = 0; j0 < clen; j0 += KT) {
     __syncthreads();
     if constexpr (INT8) {
-      load_tile_int8(sm, static_cast<const int8_t*>(k_cache) + lay * S * HD,
-                     static_cast<const int8_t*>(v_cache) + lay * S * HD,
-                     k_scale + lay * S, v_scale + lay * S, j0, clen);
+      load_tile_int8(sm, static_cast<const int8_t*>(k_cache) + lay,
+                     static_cast<const int8_t*>(v_cache) + lay,
+                     k_scale + slay, v_scale + slay, j0, clen);
     } else {
-      load_tile(sm, static_cast<const __nv_bfloat16*>(k_cache) + lay * S * HD,
-                static_cast<const __nv_bfloat16*>(v_cache) + lay * S * HD, j0, clen);
+      load_tile(sm, static_cast<const __nv_bfloat16*>(k_cache) + lay,
+                static_cast<const __nv_bfloat16*>(v_cache) + lay, j0, clen);
     }
     __syncthreads();
     attend_tile<INT8>(sm, j0, clen, no_limit, scale, m, l, acc, sm.p[warp]);
@@ -325,9 +346,13 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     uint2 packed;
     packed.x = *reinterpret_cast<uint32_t*>(&o01);
     packed.y = *reinterpret_cast<uint32_t*>(&o23);
-    *reinterpret_cast<uint2*>(out + ((size_t)(b * T + t) * nh + h * group + g) * HD + lane * 4) =
-        packed;
+    *reinterpret_cast<uint2*>(out + (size_t)b * st.o_b + (size_t)t * st.o_t +
+                              (size_t)(h * group + g) * HD + lane * 4) = packed;
   }
+}
+
+Strides load_strides(const long long* s) {
+  return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
 }  // namespace
@@ -335,43 +360,47 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// Pointers are device pointers of contiguous bf16 / int32 tensors; the
-// caller checks shapes, dtypes, alignment and hd == 128.
+// Pointers are device pointers of bf16 / int32 tensors or of strided views
+// of them; `strides` points to the 12 element strides of `Strides`, in its
+// order, on the host. B, nh and kh are the view's own (a shard's local)
+// counts. The caller checks shapes, dtypes, strides, alignment and hd == 128.
 int flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                       const void* chunk_k, const void* chunk_v,
                       const void* cache_len, const void* t_real,
-                      const void* q_offset, void* out,
+                      const void* q_offset, void* out, const long long* strides,
                       int B, int T, int nh, int kh, int S, int Tc, int layer,
                       float scale, void* stream) {
   const int rows = (nh / kh) * T;
   const dim3 grid((rows + ROWS - 1) / ROWS, kh, B);
+  const Strides st = load_strides(strides);
   flash_decode_kernel<false><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), k_cache, v_cache, nullptr, nullptr,
       static_cast<const __nv_bfloat16*>(chunk_k),
       static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
       static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
-      static_cast<__nv_bfloat16*>(out), B, T, nh, kh, S, Tc, layer, scale);
+      static_cast<__nv_bfloat16*>(out), st, T, nh, kh, S, Tc, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The int8-cache variant: k_cache / v_cache are int8 (L, B, kh, S, hd),
-// k_scale / v_scale f32 (L, B, kh, S); everything else as above.
+// k_scale / v_scale f32 (L, B, kh, S) (or views); everything else as above.
 int flash_decode_int8(const void* q, const void* k_cache, const void* v_cache,
                       const void* k_scale, const void* v_scale,
                       const void* chunk_k, const void* chunk_v,
                       const void* cache_len, const void* t_real,
-                      const void* q_offset, void* out,
+                      const void* q_offset, void* out, const long long* strides,
                       int B, int T, int nh, int kh, int S, int Tc, int layer,
                       float scale, void* stream) {
   const int rows = (nh / kh) * T;
   const dim3 grid((rows + ROWS - 1) / ROWS, kh, B);
+  const Strides st = load_strides(strides);
   flash_decode_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<const __nv_bfloat16*>(chunk_k),
       static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
       static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
-      static_cast<__nv_bfloat16*>(out), B, T, nh, kh, S, Tc, layer, scale);
+      static_cast<__nv_bfloat16*>(out), st, T, nh, kh, S, Tc, layer, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

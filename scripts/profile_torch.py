@@ -6,11 +6,17 @@ At the default `MMDuetConfig` (Qwen2-7B decoder, SigLIP-so400m at 384 px,
 random bf16 weights from seed 0, the engine's 24576-slot KV cache) it
 profiles these calls of the main paths:
 
-- vision encode of 32 frames (`mmduet.visual_embed`, one engine batch);
+- vision encode of 32 frames (`mmduet.visual_embed`, one engine batch),
+  with kernel D and with its plain version put in the kernel's place from
+  this script (the matmul route, which the package refuses for CUDA
+  tensors);
 - an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`);
 - a 32-frame block at cursor 2000;
 - a greedy decode of 8 tokens (EOS off) after an 8-token prompt at
   cursor 3000 (`mmduet.decode_loop`);
+- the batched engine's calls at B = 8 lanes with cursors 500 to 4000: an
+  8-frame block on every lane (`mmduet.chunk_scores_forward`, 3136 rows)
+  and a greedy decode of 8 tokens on all lanes together;
 - one training step (`train.make_train_step`: A=2 micro-batches of one
   collated duet sample each, 48 pixel frames at 384 px, padded to the
   2944-token bucket, LoRA r 16, gradient checkpointing on), with the
@@ -23,8 +29,9 @@ For each call: the wall time (host clock around a device sync, median of
 3 after one warm-up, profiler off), the summed time of the device's own
 events under `torch.profiler` (one more call), the device's idle share
 (1 - device / wall), the shares of kernel A (flash_decode), kernel B
-(int4_: the product and the sum of its partial outputs) and kernel C
-(flash_full: forward, backward preprocess, dK/dV, dQ), and the costliest
+(int4_: the product and the sum of its partial outputs), kernel C
+(flash_full: forward, backward preprocess, dK/dV, dQ) and kernel D
+(flash_vision), and the costliest
 device kernels. Lines go to stdout and, with ``--out``, to FILE.
 """
 
@@ -43,11 +50,13 @@ from torch.profiler import ProfilerActivity, profile
 from mmduet_tpu_torch.config import MMDuetConfig, TrainArgs
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.models import (init_kv_cache, init_lora, init_mmduet_params, mmduet,
-                                     quant)
+                                     quant, siglip)
+from mmduet_tpu_torch.ops import attention
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import duet_batches
 
-KERNELS = {"kernel A": "flash_decode_kernel", "kernel B": "int4_", "kernel C": "flash_full_"}
+KERNELS = {"kernel A": "flash_decode_kernel", "kernel B": "int4_", "kernel C": "flash_full_",
+           "kernel D": "flash_vision_"}
 
 
 def _wall_ms(fn, reps: int = 3) -> float:
@@ -117,10 +126,35 @@ def main() -> None:
                 params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
         }
 
+    lanes = 8
+    cursors = [500 * (b + 1) for b in range(lanes)]
+    cache8 = init_kv_cache(cfg.text, lanes, 24576, torch.bfloat16, dev)
+    block8, prompt8 = embeds(lanes, 8 * ft, H), embeds(lanes, 8, H)
+    pen8 = torch.zeros((lanes, cfg.text.vocab_size), dtype=torch.bool, device=dev)
+
+    def vision():
+        return mmduet.visual_embed(
+            params, cfg, mmduet.normalize_pixels(cfg, pixels).to(torch.bfloat16))
+
+    def vision_plain():
+        kernel = siglip.flash_vision_attention
+        siglip.flash_vision_attention = attention.flash_vision_attention_ref
+        try:
+            return vision()
+        finally:
+            siglip.flash_vision_attention = kernel
+
     calls = {
-        "vision encode, 32 frames": lambda: mmduet.visual_embed(
-            params, cfg, mmduet.normalize_pixels(cfg, pixels).to(torch.bfloat16)),
+        "vision encode, 32 frames, kernel D": vision,
+        "vision encode, 32 frames, matmul route": vision_plain,
         **decoder_calls(params, cache),
+        f"8-frame block on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}":
+            lambda: mmduet.chunk_scores_forward(
+                params, cfg, block8, cache8, cursors, 8 * ft,
+                [(j + 1) * ft - 1 for j in range(8)]),
+        f"greedy decode, 8 tokens on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}":
+            lambda: mmduet.decode_loop(params, cfg, prompt8, cache8, cursors, 8, pen8,
+                                       max_new=8, eos_id=-1, rep=1.05),
     }
 
     def report(name, fn):
@@ -150,7 +184,7 @@ def main() -> None:
     report("training step, A=2 x 2944-token bucket, 48 frames",
            lambda: step(state, params, batch))
 
-    del state, step, batch, lora, cache, calls
+    del state, step, batch, lora, cache, cache8, calls
     params = quant.quantize_params(params, bits=4, donate=True)
     torch.cuda.empty_cache()
     cache = init_kv_cache(cfg.text, 1, 24576, torch.bfloat16, dev, quant="int8")

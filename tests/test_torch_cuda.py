@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: `flash_decode_attention` (kernel A,
-with a bf16 and with an int8 cache), `int4_matmul` (kernel B) and
-`flash_full_attention` (kernel C, forward and backward) against their
-plain PyTorch versions, their refusals, and the CLIs' use of them.
+with a bf16 and with an int8 cache), `flash_decode_attention_sharded`
+(kernel A', A per mesh shard), `int4_matmul` (kernel B),
+`flash_full_attention` (kernel C, forward and backward) and
+`flash_vision_attention` (kernel D) against their plain PyTorch versions,
+their refusals, and the CLIs' use of them.
 
 Every test needs an NVIDIA GPU (`cuda` marker) and skips without one. The
 file imports no jax, so it also runs where JAX is not installed:
@@ -20,8 +22,9 @@ import mmduet_tpu_torch.eval.inference as cli
 from mmduet_tpu_torch.config import TestArgs, tiny_config
 from mmduet_tpu_torch.eval.inference import main as cli_main
 from mmduet_tpu_torch.infer import LiveInferEngine
-from mmduet_tpu_torch.models import init_lora, init_mmduet_params, quant, qwen2
+from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, qwen2
 from mmduet_tpu_torch.ops import attention, bounds, quant_matmul
+from mmduet_tpu_torch.parallel import make_mesh
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.train.loop import main as train_cli_main
 
@@ -558,3 +561,194 @@ def test_matmul_f32_gradients_match_the_upcast_product(dev):
         assert got.dtype == torch.bfloat16
         bound = 2.0**-8 * ref.abs() + 2.0**-9 * 8 * ref.square().mean().sqrt() + 1e-5
         assert ((got.float() - ref).abs() <= bound).all()
+
+
+# ---------------------------------------------------------------------------
+# kernel A': kernel A per shard of a one-device mesh
+# ---------------------------------------------------------------------------
+
+# (name, B, T, Tc, nh, kh, S, L, layer, cache_len, t_real, q_offset)
+SHARD_CASE = ("sharded", 8, 64, 64, 28, 4, 4096, 2, 1,
+              (0, 1, 63, 700, 2047, 2048, 3000, 4095), (64, 53, 1, 64, 17, 64, 49, 60), (0,) * 8)
+
+
+def _ctx(shape, dev):
+    mesh = make_mesh(shape, devices=[dev] * (shape[0] * shape[1]))
+    return attention.ShardCtx(mesh, "data" if shape[0] > 1 else None,
+                              "model" if shape[1] > 1 else None)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 4), (4, 1), (8, 1)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_kernel_is_bit_equal_to_one_launch(shape, quantized, dev):
+    """The shards are strided views of the operands; a (lane, head) program
+    computes the same in any launch. Shards fed another shard's cursors or
+    their neighbour's kv heads do not pass."""
+    layer = SHARD_CASE[8]
+    q, k, v, ck, cv, (cl, tr, qo) = _decode_inputs(SHARD_CASE, dev)
+    scales = {}
+    if quantized:
+        (k, ks), (v, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    one = attention.flash_decode_attention(q, k, v, ck, cv, cl, tr, layer, q_offset=qo, **scales)
+    before = attention.LAUNCHES, attention.SHARDED_LAUNCHES, attention.INT8_LAUNCHES
+    ctx = _ctx(shape, dev)
+    got = attention.flash_decode_attention_sharded(q, k, v, ck, cv, cl, tr, layer, ctx,
+                                                   q_offset=qo, **scales)
+    torch.cuda.synchronize()
+    n = shape[0] * shape[1]
+    assert (attention.LAUNCHES - before[0], attention.SHARDED_LAUNCHES - before[1],
+            attention.INT8_LAUNCHES - before[2]) == (n, n, n if quantized else 0)
+    assert torch.equal(got, one)
+    if shape[0] > 1:
+        wrong = attention.flash_decode_attention_sharded(
+            q, k, v, ck, cv, cl.roll(8 // shape[0]), tr, layer, ctx, q_offset=qo, **scales)
+        assert not torch.equal(wrong, one)
+    if shape[1] > 1:
+        rolled = {name: t.roll(4 // shape[1], dims=2) for name, t in scales.items()}
+        wrong = attention.flash_decode_attention_sharded(
+            q, k.roll(4 // shape[1], dims=2), v.roll(4 // shape[1], dims=2), ck, cv, cl, tr,
+            layer, ctx, q_offset=qo, **rolled)
+        assert bounds.row_ratio(wrong[:, :1], one[:, :1].float()) > 1.0
+
+
+def test_kernel_takes_strided_views_and_refuses_broken_rows(dev):
+    """A view cut along lanes and heads launches as it is (no copy); rows
+    that are not contiguous, or K and V laid out differently, are refused."""
+    layer = SHARD_CASE[8]
+    q, k, v, ck, cv, (cl, tr, qo) = _decode_inputs(SHARD_CASE, dev)
+    one = attention.flash_decode_attention(q, k, v, ck, cv, cl, tr, layer, q_offset=qo)
+    lanes, qh, kvh = slice(2, 6), slice(14, 28), slice(2, 4)
+    part = attention.flash_decode_attention(
+        q[lanes, :, qh], k[:, lanes, kvh], v[:, lanes, kvh], ck[lanes, kvh], cv[lanes, kvh],
+        cl[lanes], tr[lanes], layer, q_offset=qo[lanes])
+    assert torch.equal(part, one[lanes, :, qh])
+    with pytest.raises(ValueError, match="contiguous"):
+        attention.flash_decode_attention(q, k[..., ::2, :], v[..., ::2, :], ck, cv, cl, tr, layer)
+    with pytest.raises(ValueError, match="laid out alike"):
+        # K a view of two of the four heads, V a compact copy of two
+        attention.flash_decode_attention(q[:, :, :14], k[:, :, :2], v[:, :, 2:].contiguous(),
+                                         ck[:, :2], cv[:, :2], cl, tr, layer)
+    with pytest.raises(ValueError, match="do not divide"):
+        attention.flash_decode_attention_sharded(q, k, v, ck, cv, cl, tr, layer,
+                                                 _ctx((1, 8), dev))
+
+
+# ---------------------------------------------------------------------------
+# kernel D: the ViT tower's attention
+# ---------------------------------------------------------------------------
+
+# (N, T, nh, hd): SigLIP-so400m's heads of 72 with ragged T, CLIP-L's 64,
+# one token, a full-width head, the narrowest head
+VISION_CASES = [(4, 729, 16, 72), (1, 50, 16, 64), (2, 1, 3, 72), (2, 129, 2, 128),
+                (3, 64, 2, 8), (1, 200, 4, 40)]
+
+
+@pytest.mark.parametrize("shape", VISION_CASES, ids=lambda s: "x".join(map(str, s)))
+def test_flash_vision_kernel_matches_plain_version(shape, dev):
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+               for _ in range(3))
+    before = attention.VISION_LAUNCHES
+    got = attention.flash_vision_attention(q, k, v)
+    assert attention.VISION_LAUNCHES == before + 1
+    want = attention.flash_vision_attention_ref(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    rms = bounds.vision_attention_rms(q, k, v)
+    assert bounds.full_attention_ratio(got, want, rms) <= 1.0
+    if shape[1] > 128:  # the bound is tight: a plain version without one key tile fails it
+        dropped = bounds.vision_attention_dropped(q, k, v, slice(64, 128))
+        assert bounds.full_attention_ratio(got, dropped, rms) > 1.0
+
+
+def test_flash_vision_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros((2, 10, 4, 72), device=dev, dtype=torch.bfloat16)
+    attention.flash_vision_attention(q, q, q)  # what it does take
+    with pytest.raises(attention.KernelRefused, match="bfloat16"):
+        attention.flash_vision_attention(q.float(), q.float(), q.float())
+    q70 = torch.zeros((2, 10, 4, 70), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(attention.KernelRefused, match="head_dim 70"):
+        attention.flash_vision_attention(q70, q70, q70)
+    q136 = torch.zeros((2, 10, 4, 136), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(attention.KernelRefused, match="head_dim 136"):
+        attention.flash_vision_attention(q136, q136, q136)
+    strided = torch.zeros((2, 10, 4, 144), device=dev, dtype=torch.bfloat16)[..., :72]
+    with pytest.raises(attention.KernelRefused, match="contiguous"):
+        attention.flash_vision_attention(strided, q, q)
+    with pytest.raises(attention.KernelRefused, match="one .* shape"):
+        attention.flash_vision_attention(q, q[:, :5], q)
+    with pytest.raises(attention.KernelRefused, match="on cpu"):
+        attention.flash_vision_attention(q, q.cpu(), q)
+
+
+def test_auto_vision_use_flash_launches_kernel_d_on_the_card(dev):
+    """``vision_use_flash=None`` on CUDA tensors is kernel D (the JAX
+    package's auto is its jnp route everywhere), as True is; False, the
+    matmul route, is for CPU tensors and is refused on the card. Kernel D's
+    embeddings agree with the plain version's (f32 on the CPU) within bf16."""
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                torch.bfloat16)
+    px = torch.rand((3, 32, 32, 3), device=dev).mul(2).sub(1).to(torch.bfloat16)
+    layers = cfg.vision.num_layers - 1
+    outs = {}
+    for use_flash in (None, True):
+        before = attention.VISION_LAUNCHES
+        outs[use_flash] = mmduet.visual_embed(params, cfg, px, vision_use_flash=use_flash)
+        assert attention.VISION_LAUNCHES - before == layers, use_flash
+    assert torch.equal(outs[None], outs[True])
+    before = attention.VISION_LAUNCHES
+    with pytest.raises(attention.KernelRefused, match="matmul route is for CPU"):
+        mmduet.visual_embed(params, cfg, px, vision_use_flash=False)
+    assert attention.VISION_LAUNCHES == before
+    plain = mmduet.visual_embed(_map(lambda t: t.float().cpu(), params), cfg, px.float().cpu(),
+                                vision_use_flash=False)
+    scale = plain.abs().max().item()
+    assert (outs[True].float().cpu() - plain).abs().max().item() <= 0.05 * scale
+
+
+def test_flash_vision_kernel_refuses_a_gradient(dev):
+    """Kernel D is forward only: under grad mode an operand that requires a
+    gradient is refused (a result without a graph would train an unfrozen
+    tower on zero gradients); under ``no_grad`` the flag does not matter."""
+    q, k, v = (torch.randn((1, 20, 2, 72), device=dev, dtype=torch.bfloat16) for _ in range(3))
+    for i in range(3):
+        ops = [q, k, v]
+        ops[i] = ops[i].clone().requires_grad_(True)
+        before = attention.VISION_LAUNCHES
+        with pytest.raises(attention.KernelRefused, match="backward"):
+            attention.flash_vision_attention(*ops)
+        assert attention.VISION_LAUNCHES == before
+        with torch.no_grad():
+            assert torch.equal(attention.flash_vision_attention(*ops),
+                               attention.flash_vision_attention(q, k, v))
+
+
+def test_cli_batch_streams_runs_on_the_card_through_the_kernels(dev, tmp_path, monkeypatch):
+    """`--tiny_random --batch_streams 2` with the default ``--device cuda``:
+    three samples through two lanes; kernels A and D launched, the rows
+    carry the CPU run's keys and finite scores."""
+    r = np.random.RandomState(0)
+    samples = [SimpleNamespace(
+        question_id=f"q{i}", frames=r.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8), fps=2.0,
+        video_duration=n / 2, error=None,
+        conversation=[{"role": "user", "content": f"query {i}?", "time": 0}])
+        for i, n in enumerate((6, 4, 5))]
+    monkeypatch.setattr(cli, "_make_dataset", lambda args, resolution: samples)
+    argv = ["--tiny_random", "--no_prefetch", "--test_fname", "x", "--input_dir", "x",
+            "--frame_fps", "2", "--stream_end_score_sum_threshold", "0.3",
+            "--max_new_tokens", "4", "--batch_streams", "2", "--gen_coalesce_rounds", "1"]
+    before = attention.LAUNCHES, attention.VISION_LAUNCHES
+    cli_main(argv + ["--output_fname", str(tmp_path / "cuda.jsonl")])
+    launched = attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]
+    cli_main(argv + ["--output_fname", str(tmp_path / "cpu.jsonl"), "--device", "cpu"])
+    assert (attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]) == launched
+    assert launched[0] > 0 and launched[0] % 2 == 0  # two decoder layers a forward
+    assert launched[1] == 3  # one tower layer, one encode per admitted sample
+    rows, cpu_rows = ({json.loads(line)["question_id"]: json.loads(line)
+                       for line in open(tmp_path / f)} for f in ("cuda.jsonl", "cpu.jsonl"))
+    assert set(rows) == set(cpu_rows) == {"q0", "q1", "q2"}
+    for qid, row in rows.items():
+        assert set(row) == set(cpu_rows[qid]) and row["latency"]["aggregate"] is True
+        assert len(row["debug_data"]) == len(cpu_rows[qid]["debug_data"])
+        assert all(np.isfinite(d["informative_score"]) for d in row["debug_data"])

@@ -29,6 +29,7 @@ from mmduet_tpu_torch.config import TestArgs as PortInferArgs
 from mmduet_tpu_torch.infer import LiveInferEngine
 from mmduet_tpu_torch.models import params_from_numpy
 from mmduet_tpu_torch.models.io import config_from_dict
+from mmduet_tpu_torch.parallel import make_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 ATOL = 1e-4
@@ -149,8 +150,9 @@ def test_engine_input_vision_feats_matches_jax():
 
 def test_engine_unported_options_raise():
     args = port_args(make_args(stream_end_prob_threshold=0.5))
+    # a mesh lies on one device; one over several devices is not ported
     with pytest.raises(NotImplementedError, match="mesh"):
-        LiveInferEngine(TP, port_cfg(CFG), TOK, args, mesh=object())
+        make_mesh((1, 2), devices=["cpu", "cuda:0"])
     with pytest.raises(ValueError, match="unknown KV cache quant"):
         LiveInferEngine(TP, port_cfg(CFG), TOK, args, kv_cache_quant="int4")
 
@@ -204,7 +206,7 @@ def test_cli_jsonl_has_the_jax_cli_schema(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--batch_streams", "2"], ["--mesh_model", "2"], ["--mesh_data", "2"],
+    ["--batch_streams", "2", "--mesh_data", "2"], ["--mesh_model", "2"], ["--mesh_data", "2"],
     ["--is_online_model", "false"], ["--prewarm"], ["--profile_dir", "prof"],
 ])
 def test_cli_unported_flags_raise(tmp_path, flag):
