@@ -11,9 +11,10 @@ Phases (any failure ends the run with a nonzero exit):
    it and beside its roofline bound (`ops/bounds.py`): kernel A (streaming
    attention) with a bf16 and with an int8 cache, kernel B (the int4
    matrix product) at the five weight shapes of the 7B decoder and six row
-   counts, kernel C (training attention, forward and the three input
-   gradients, beside `scaled_dot_product_attention` as the library's
-   yardstick), kernel A' (kernel A per shard of a one-device mesh: for four
+   counts, kernel C (training attention: forward, its saved log-sum-exp
+   and the three input gradients, two runs bit-equal, timed at the three
+   training buckets beside `scaled_dot_product_attention` as the library's
+   yardstick, the backward's four kernels also each on its own), kernel A' (kernel A per shard of a one-device mesh: for four
    mesh shapes, both caches and three chunk shapes at 8 lanes, bit-equal to
    one launch) and kernel D (the ViT tower's attention at 32 frames x 729
    patches x 16 heads of 72 and at small ragged shapes, beside
@@ -32,7 +33,7 @@ Phases (any failure ends the run with a nonzero exit):
    px, padded to the 2944-token bucket), LoRA r 16 / alpha 32 on the seven
    projections, gradient checkpointing on; kernel C's launches must equal
    what 28 layers x A x steps predict (two forwards per layer under remat,
-   three backward kernels);
+   four backward kernels);
 5. the vision tower with kernel D (asked for and by auto) and, for the
    comparison, with the plain version put in the kernel's place from here
    (frames/s each; the package refuses that route for CUDA tensors), then
@@ -475,13 +476,15 @@ def check_int4_kernel(log) -> dict:
     }
 
 
-# Kernel C at the training shapes: B=1, 7B heads (nh 28, kh 4, hd 128),
-# bf16. (T, real tokens, padding side): the three length buckets of
+# Kernel C at the training shapes: 7B heads (nh 28, kh 4, hd 128), bf16.
+# (T, real tokens per lane, padding side): the three length buckets of
 # parse_length_buckets("auto", 5924) right-padded as the collator pads, one
-# left-padded case and one tiny T.
-FULL_CASES = ((1536, 1400, "right"), (2944, 2700, "right"), (5924, 5500, "right"),
-              (2944, 2000, "left"), (40, 29, "right"))
-TIMED_T = 2944
+# left-padded case, one tiny T, and two lanes with different pad lengths at
+# a T one past a tile.
+FULL_CASES = ((1536, (1400,), "right"), (2944, (2700,), "right"), (5924, (5500,), "right"),
+              (2944, (2000,), "left"), (40, (29,), "right"), (705, (650, 130), "left"))
+TIMED_T = 2944  # the bucket of the kernels line; the other two are timed beside it
+LSE_TOL = 1e-3  # natural-log units: the kernel sums exp2 of f32 scores of the same bf16 values
 DROP_TILE = 20  # the tile [64 * 20, 64 * 21) of the mutated plain versions
 
 
@@ -493,17 +496,22 @@ def check_full_attention_kernel(log) -> List[dict]:
     gen = torch.Generator(device=dev).manual_seed(2)
     nh, kh, hd = 28, 4, 128
     worst = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}  # max|diff|, max ratio
-    timed = {}
+    worst_lse = 0.0
+    timed = library = None
     for T, n_real, side in FULL_CASES:
+        B = len(n_real)
+
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
-        q, k, v, dout = randn(1, T, nh, hd), randn(1, T, kh, hd), randn(1, T, kh, hd), randn(1, T, nh, hd)
-        mask = torch.zeros((1, T), dtype=torch.bool, device=dev)
-        if side == "right":
-            mask[:, :n_real] = True
-        else:
-            mask[:, T - n_real:] = True
+        q, k, v, dout = randn(B, T, nh, hd), randn(B, T, kh, hd), randn(B, T, kh, hd), randn(B, T, nh, hd)
+        mask = torch.zeros((B, T), dtype=torch.bool, device=dev)
+        for b, n in enumerate(n_real):
+            if side == "right":
+                mask[b, :n] = True
+            else:
+                mask[b, T - n:] = True
+        worst_lse = max(worst_lse, _check_lse_and_determinism(q, k, v, mask, dout, T, side))
         leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
         got = attention.flash_full_attention(*leaves, mask)
         got.backward(dout)
@@ -530,30 +538,33 @@ def check_full_attention_kernel(log) -> List[dict]:
             worst[key] = [max(worst[key][0], err), max(worst[key][1], ratio)]
         if T == TIMED_T and side == "right":
             _check_bound_is_tight(q, k, v, mask, dout, outputs, rms, log)
-            timed = _time_full(q, k, v, mask, dout)
-            library = _time_sdpa(q, k, v, dout)
-            log(f"flash_full T={T} (nh 28, kh 4, hd 128, bf16): forward kernel "
-                f"{timed['fwd'][0]:.4f} ms, plain {timed['fwd'][1]:.4f} ms; backward kernel "
-                f"{timed['bwd'][0]:.4f} ms, plain {timed['bwd'][1]:.4f} ms; forward+backward "
-                f"kernel {timed['fwd+bwd'][0]:.4f} ms, plain {timed['fwd+bwd'][1]:.4f} ms; "
-                f"scaled_dot_product_attention (causal, no padding mask) forward "
-                f"{library['fwd']:.4f} ms, backward {library['bwd']:.4f} ms")
-        elif T != 40:
+        if T >= 1536:  # a training bucket: kernel, plain version, the library's call
             t = _time_full(q, k, v, mask, dout)
-            log(f"flash_full T={T} ({side}-padded): forward kernel {t['fwd'][0]:.4f} ms, "
-                f"plain {t['fwd'][1]:.4f} ms; forward+backward kernel "
-                f"{t['fwd+bwd'][0]:.4f} ms, plain {t['fwd+bwd'][1]:.4f} ms")
+            lib = _time_sdpa(q, k, v, dout)
+            each = _time_full_backward_kernels(q, k, v, mask, dout)
+            log(f"flash_full T={T} ({side}-padded, nh 28, kh 4, hd 128, bf16): forward kernel "
+                f"{t['fwd'][0]:.4f} ms, plain {t['fwd'][1]:.4f} ms; backward kernel "
+                f"{t['bwd'][0]:.4f} ms, plain {t['bwd'][1]:.4f} ms; forward+backward "
+                f"kernel {t['fwd+bwd'][0]:.4f} ms, plain {t['fwd+bwd'][1]:.4f} ms; "
+                f"scaled_dot_product_attention (causal, no padding mask) forward "
+                f"{lib['fwd']:.4f} ms, backward {lib['bwd']:.4f} ms")
+            log(f"flash_full T={T} ({side}-padded): the backward's kernels on their own: "
+                + ", ".join(f"{name} {ms:.4f} ms" for name, ms in each.items()))
+            if T == TIMED_T and side == "right":
+                timed, library = t, lib
         del q, k, v, dout, leaves, got, got_grads, want, want_grads, rms, outputs
         torch.cuda.empty_cache()
     log(f"flash_full: {len(FULL_CASES)} cases, o within the bound at most "
         f"{worst['fwd'][1]:.3f} of it (max|diff| {worst['fwd'][0]}); dq, dk, dv at most "
-        f"{worst['bwd'][1]:.3f} of it (max|diff| {worst['bwd'][0]})")
+        f"{worst['bwd'][1]:.3f} of it (max|diff| {worst['bwd'][0]}); the saved log-sum-exp "
+        f"within {worst_lse:.2e} of the plain one (<= {LSE_TOL}); two forward and two "
+        f"backward runs bit-equal in every case")
     entry = {"route": "cuda", "source": "mmduet_tpu_torch/ops/csrc/flash_full.cu",
              "replaces": "mmduet_tpu/ops/attention.py:569"}
     entries = []
     for key, name in (("fwd", "flash_full_attention (forward)"),
-                      ("bwd", "flash_full_attention (backward: preprocess, dK/dV, dQ; "
-                              "launches count each of the three)")):
+                      ("bwd", "flash_full_attention (backward: preprocess, dK/dV partials, "
+                              "their reduction, dQ; launches count each of the four)")):
         bound_ms, bound_by = bounds.full_attention_bound(1, TIMED_T, nh, kh, hd,
                                                          backward=key == "bwd")
         log(f"flash_full T={TIMED_T} {key}: bound {bound_ms:.5f} ms ({bound_by})")
@@ -561,6 +572,43 @@ def check_full_attention_kernel(log) -> List[dict]:
                             plain_ms=timed[key][1], bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library[key]))
     return entries
+
+
+def _check_lse_and_determinism(q, k, v, mask, dout, T, side) -> float:
+    """The forward's saved row log-sum-exp against the plain one (returns
+    max|diff|), and two forward and two backward runs of the kernels on the
+    same inputs against each other, bit for bit (no atomics, a fixed
+    summation order)."""
+    B = q.shape[0]
+    seg = attention._kernel_segments(mask, B, T, q.device)
+    out, lse = attention._full_forward(q, k, v, seg)
+    out2, lse2 = attention._full_forward(q, k, v, seg)
+    first = attention._full_backward(q, k, v, seg, out, lse, dout)
+    second = attention._full_backward(q, k, v, seg, out, lse, dout)
+    want = attention.flash_full_lse_ref(q, k, seg[:, :T])
+    torch.cuda.synchronize()
+    err = (lse - want).abs().max().item()
+    if not err <= LSE_TOL:
+        raise AssertionError(f"flash_full T={T} {side}-padded: log-sum-exp max|diff| {err} "
+                             f"> {LSE_TOL}")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+            and all(torch.equal(a, b) for a, b in zip(first, second))):
+        raise AssertionError(f"flash_full T={T} {side}-padded: two runs on the same inputs "
+                             f"differ")
+    return err
+
+
+def _time_full_backward_kernels(q, k, v, mask, dout) -> dict:
+    """ms of each of the backward's launches on its own, in their order."""
+    B, T = mask.shape
+    seg = attention._kernel_segments(mask, B, T, q.device)
+    out, lse = attention._full_forward(q, k, v, seg)
+    plan = attention._full_backward_plan(q, k, v, seg, out, lse, dout)
+    before = attention.FULL_BWD_LAUNCHES
+    times = {name: _time_ms(lambda: attention._full_launch(name, *plan[1][name]), 10)
+             for name in attention.FULL_BWD_KERNELS}
+    attention.FULL_BWD_LAUNCHES = before
+    return times
 
 
 def _check_bound_is_tight(q, k, v, mask, dout, outputs, rms, log) -> None:
@@ -1248,10 +1296,10 @@ def run_training(cfg, tok, params, log) -> tuple:
 
     layers = cfg.text.num_layers
     calls = layers * TRAIN_ACCUM * TRAIN_STEPS
-    want = (2 * calls, 3 * calls)
+    want = (2 * calls, len(attention.FULL_BWD_KERNELS) * calls)
     if launches != want:
         raise AssertionError(f"training: kernel C launches (forward, backward) {launches}, "
-                             f"want {want} (the forward twice per layer under remat, three "
+                             f"want {want} (the forward twice per layer under remat, four "
                              f"backward kernels per layer)")
     for i, m in enumerate(rows):
         if not all(math.isfinite(m[k]) for k in ("loss", "lm_loss", "video_loss", "grad_norm")):

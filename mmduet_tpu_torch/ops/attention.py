@@ -51,7 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -495,16 +495,71 @@ def flash_full_attention_ref(
     return attend(q, k, v, vis)
 
 
+def flash_full_lse_ref(q: torch.Tensor, k: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """The row log-sum-exp that kernel C's forward saves, in plain PyTorch:
+    (B, nh, T) f32, natural-log units, over the visible scaled scores of
+    each query (key s <= t with ``seg[s] == seg[t]``)."""
+    B, T, nh, hd = q.shape
+    kh = k.shape[2]
+    qr = q.reshape(B, T, kh, nh // kh, hd).float()
+    scores = torch.einsum("btkgh,bskh->bkgts", qr, k.float()) / math.sqrt(hd)
+    idx = torch.arange(T, device=q.device)
+    vis = (idx[:, None] >= idx[None, :])[None] & (seg[:, :, None] == seg[:, None, :])
+    scores = scores.masked_fill(~vis[:, None, None], float("-inf"))
+    return torch.logsumexp(scores, dim=-1).reshape(B, nh, T)
+
+
+def flash_full_backward_ref(
+    q: torch.Tensor,  # (B, T, nh, hd)
+    k: torch.Tensor,  # (B, T, kh, hd)
+    v: torch.Tensor,  # (B, T, kh, hd)
+    seg: torch.Tensor,  # (B, T) int segment ids
+    o: torch.Tensor,  # (B, T, nh, hd): the forward's output
+    lse: torch.Tensor,  # (B, nh, T) f32: the forward's row log-sum-exp, natural log
+    dout: torch.Tensor,  # (B, T, nh, hd)
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel C's backward in plain PyTorch, tile-free but with the
+    kernels' algebra: the probabilities are rebuilt from the saved LSE on
+    exp2 (``P = 2^(c S - lse log2 e)`` with ``c = scale log2 e``, 0 where
+    masked), ``D = rowsum(dO * O)``, ``dS = P (dP - D)``, the partial dK and
+    dV of each q head are summed in q-head order within the GQA group, and
+    the softmax scale goes onto dQ and dK at the end. Returns (dq, dk, dv)
+    in f32."""
+    B, T, nh, hd = q.shape
+    kh = k.shape[2]
+    group = nh // kh
+    scale = 1.0 / math.sqrt(hd)
+    log2e = 1.4426950408889634
+    qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
+    idx = torch.arange(T, device=q.device)
+    vis = (idx[:, None] >= idx[None, :])[None] & (seg[:, :, None] == seg[:, None, :])
+    delta = (df * of).sum(-1).permute(0, 2, 1)  # (B, nh, T)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for h in range(nh):  # ascending q heads: the kernels' fixed order of the GQA sum
+        hk = h // group
+        s = torch.einsum("btd,bsd->bts", qf[:, :, h], kf[:, :, hk])
+        p = torch.exp2(s * (scale * log2e) - (lse[:, h] * log2e)[:, :, None])
+        p = torch.where(vis, p, torch.zeros_like(p))
+        dp = torch.einsum("btd,bsd->bts", df[:, :, h], vf[:, :, hk])
+        ds = p * (dp - delta[:, h][:, :, None])
+        dv[:, :, hk] += torch.einsum("bts,btd->bsd", p, df[:, :, h])
+        dk[:, :, hk] += torch.einsum("bts,btd->bsd", ds, qf[:, :, h])
+        dq[:, :, h] = torch.einsum("bts,bsd->btd", ds, kf[:, :, hk]) * scale
+    return dq, dk * scale, dv
+
+
 def _full_kernel_lib() -> ctypes.CDLL:
     global _full_lib
     if _full_lib is None:
         lib = _build.load("flash_full")
         ptrs, ints = ctypes.c_void_p, ctypes.c_int
-        for name, n_ptr in (("fwd", 6), ("bwd_dkdv", 9), ("bwd_dq", 8)):
+        for name, n_ptr in (("fwd", 6), ("bwd_dkdv", 8), ("bwd_reduce", 4), ("bwd_dq", 7)):
             fn = getattr(lib, f"flash_full_{name}_bf16")
             fn.argtypes = [ptrs] * n_ptr + [ints] * 4 + [ctypes.c_float, ptrs]
             fn.restype = ints
-        lib.flash_full_bwd_pre_bf16.argtypes = [ptrs] * 3 + [ints] * 3 + [ptrs]
+        lib.flash_full_bwd_pre_bf16.argtypes = [ptrs] * 4 + [ints] * 3 + [ptrs]
         lib.flash_full_bwd_pre_bf16.restype = ints
         lib.flash_full_error_string.argtypes = [ints]
         lib.flash_full_error_string.restype = ctypes.c_char_p
@@ -512,9 +567,12 @@ def _full_kernel_lib() -> ctypes.CDLL:
     return _full_lib
 
 
+FULL_BWD_KERNELS = ("bwd_pre", "bwd_dkdv", "bwd_reduce", "bwd_dq")  # one backward, in order
+
+
 def _full_launch(what: str, *args) -> None:
-    """Launches kernel C's ``what`` kernel (fwd, bwd_pre, bwd_dkdv, bwd_dq)
-    and counts it; a refused launch raises."""
+    """Launches kernel C's ``what`` kernel (fwd or one of
+    `FULL_BWD_KERNELS`) and counts it; a refused launch raises."""
     global FULL_FWD_LAUNCHES, FULL_BWD_LAUNCHES
     lib = _full_kernel_lib()
     err = getattr(lib, f"flash_full_{what}_bf16")(*args)
@@ -544,21 +602,93 @@ def _full_check(**tensors: torch.Tensor) -> None:
                 f"flash_full_attention: {name} must be contiguous and 16-byte aligned")
 
 
+FULL_PAD = 128  # the kernels' resident tile: segment ids and row statistics are padded to it
+
+
+_seg_memo: Optional[Tuple[torch.Tensor, int, torch.Tensor]] = None  # a mask, its version, its ids
+
+
+def _kernel_segments(attn_mask: Optional[torch.Tensor], B: int, T: int, device) -> torch.Tensor:
+    """`_segments` as kernel C reads them: (B, T rounded up to `FULL_PAD`)
+    int32, -2 past T (an id that no token has), so that every tile's run of
+    ids starts on a 16-byte boundary and can be copied in bulk. A decoder's
+    layers all pass the same mask tensor, so the ids of the last mask are
+    kept until another tensor, or that one changed in place, comes."""
+    global _seg_memo
+    device = torch.device(device)
+    if attn_mask is not None and _seg_memo is not None:
+        mask, version, seg = _seg_memo
+        if mask is attn_mask and version == attn_mask._version and seg.device == device:
+            return seg
+    seg = torch.full((B, -(-T // FULL_PAD) * FULL_PAD), -2, dtype=torch.int32, device=device)
+    seg[:, :T] = _segments(attn_mask, B, T, device)
+    if attn_mask is not None:
+        _seg_memo = (attn_mask, attn_mask._version, seg)
+    return seg
+
+
+def _full_forward(q, k, v, seg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's forward launch on checked CUDA operands and
+    `_kernel_segments` ids: O and the row log-sum-exp ((B, nh, T) f32,
+    natural log)."""
+    B, T, nh, hd = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _full_launch("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), B, T, nh, k.shape[2],
+                 1.0 / math.sqrt(hd), stream)
+    return out, lse
+
+
+def _full_backward_plan(q, k, v, seg, out, lse, dout):
+    """Kernel C's backward as data: the outputs (dq, dk, dv) and the four
+    launches of `FULL_BWD_KERNELS` in order, each with its arguments: the
+    row statistics (the LSE in log2 units and D = rowsum(dO * O), padded
+    like the segment ids), the f32 partial dK/dV of every q head (scratch of
+    2 x (B, T, nh, hd) f32), their sum over each GQA group in q-head order,
+    and dQ."""
+    B, T, nh, hd = q.shape
+    kh = k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowstats = torch.empty((2, B, nh, seg.shape[1]), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, T, nh, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), dout.data_ptr(),
+              rowstats.data_ptr())
+    dims = (B, T, nh, kh, 1.0 / math.sqrt(hd), stream)
+    launches = {
+        "bwd_pre": (out.data_ptr(), dout.data_ptr(), lse.data_ptr(), rowstats.data_ptr(),
+                    B, T, nh, stream),
+        "bwd_dkdv": (*inputs, part[0].data_ptr(), part[1].data_ptr(), *dims),
+        "bwd_reduce": (part[0].data_ptr(), part[1].data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                       *dims),
+        "bwd_dq": (*inputs, dq.data_ptr(), *dims),
+    }
+    # the caller holds the scratch until the launches are queued (the
+    # allocator then reuses its memory in stream order)
+    return (dq, dk, dv), launches, (rowstats, part)
+
+
+def _full_backward(q, k, v, seg, out, lse, dout):
+    """Kernel C's backward on checked CUDA operands: the launches of
+    `_full_backward_plan`. Deterministic: no atomics, a fixed summation
+    order."""
+    grads, launches, _scratch = _full_backward_plan(q, k, v, seg, out, lse, dout)
+    for name in FULL_BWD_KERNELS:
+        _full_launch(name, *launches[name])
+    return grads
+
+
 class _FlashFull(torch.autograd.Function):
     """Kernel C as an autograd function: the forward kernel saves O and the
-    row log-sum-exp; the backward recomputes P from them and launches the
-    preprocess, dK/dV and dQ kernels. Under activation checkpointing the
-    forward runs again inside the backward (and counts again)."""
+    row log-sum-exp; the backward recomputes P from them in the kernels of
+    `FULL_BWD_KERNELS`. Under activation checkpointing the forward runs
+    again inside the backward (and counts again)."""
 
     @staticmethod
     def forward(ctx, q, k, v, seg):
-        B, T, nh, hd = q.shape
-        kh = k.shape[2]
-        out = torch.empty_like(q)
-        lse = torch.empty((B, nh, T), dtype=torch.float32, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _full_launch("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
-                     out.data_ptr(), lse.data_ptr(), B, T, nh, kh, 1.0 / math.sqrt(hd), stream)
+        out, lse = _full_forward(q, k, v, seg)
         ctx.save_for_backward(q, k, v, seg, out, lse)
         return out
 
@@ -567,19 +697,7 @@ class _FlashFull(torch.autograd.Function):
         q, k, v, seg, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         _full_check(dout=dout)
-        B, T, nh, hd = q.shape
-        kh = k.shape[2]
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty_like(lse)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), dout.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr())
-        dims = (B, T, nh, kh, 1.0 / math.sqrt(hd), stream)
-        _full_launch("bwd_pre", out.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                     B, T, nh, stream)
-        _full_launch("bwd_dkdv", *inputs, dk.data_ptr(), dv.data_ptr(), *dims)
-        _full_launch("bwd_dq", *inputs, dq.data_ptr(), *dims)
-        return dq, dk, dv, None
+        return (*_full_backward(q, k, v, seg, out, lse, dout), None)
 
 
 def flash_full_attention(
@@ -613,7 +731,7 @@ def flash_full_attention(
             f"k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
     _full_check(q=q, k=k, v=v)
-    return _FlashFull.apply(q, k, v, _segments(attn_mask, B, T, q.device))
+    return _FlashFull.apply(q, k, v, _kernel_segments(attn_mask, B, T, q.device))
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,8 @@ For each call: the wall time (host clock around a device sync, median of
 events under `torch.profiler` (one more call), the device's idle share
 (1 - device / wall), the shares of kernel A (flash_decode), kernel B
 (int4_: the product and the sum of its partial outputs), kernel C
-(flash_full: forward, backward preprocess, dK/dV, dQ) and kernel D
+(flash_full: forward, backward preprocess, dK/dV partials, their reduction,
+dQ) and kernel D
 (flash_vision), and the costliest
 device kernels. Lines go to stdout and, with ``--out``, to FILE.
 """

@@ -378,7 +378,13 @@ FULL_CASES = [
     ("left_pad_first_row", 1, 200, 28, 4, "left", (130,)),
     ("right_pad_segment", 2, 300, 28, 4, "right", (300, 1)),
     ("long", 1, 700, 28, 4, "right", (650,)),
+    ("two_pad_lengths", 2, 777, 28, 4, "right", (700, 333)),
+    ("two_left_pad_lengths", 2, 400, 28, 4, "left", (290, 64)),
+    ("one_past_a_tile", 1, 65, 28, 4, "none", (65,)),
+    ("one_past_a_block", 1, 129, 28, 4, "right", (100,)),
+    ("longest_bucket_left_pad", 1, 5924, 28, 4, "left", (5000,)),
 ]
+N_BWD = len(attention.FULL_BWD_KERNELS)  # launches of one backward
 
 
 @pytest.mark.parametrize("case", FULL_CASES, ids=[c[0] for c in FULL_CASES])
@@ -387,7 +393,7 @@ def test_flash_full_kernel_matches_plain_version(case, dev):
     element within `ops.bounds`' bound: 2^-8 |plain| + 2^-9 8 rms + 1e-5,
     rms the root of the summed squared terms (bf16 rounding of one factor
     a term, independent between terms, and of the O behind D). A backward
-    is three launches."""
+    is `FULL_BWD_KERNELS`' four launches."""
     name, B, T, nh, kh, side, n_real = case
     gen = torch.Generator(device=dev).manual_seed(len(name))
 
@@ -407,7 +413,8 @@ def test_flash_full_kernel_matches_plain_version(case, dev):
     before = (attention.FULL_FWD_LAUNCHES, attention.FULL_BWD_LAUNCHES)
     got = attention.flash_full_attention(*leaves, mask)
     got.backward(dout)
-    assert (attention.FULL_FWD_LAUNCHES, attention.FULL_BWD_LAUNCHES) == (before[0] + 1, before[1] + 3)
+    assert (attention.FULL_FWD_LAUNCHES, attention.FULL_BWD_LAUNCHES) == (
+        before[0] + 1, before[1] + N_BWD)
     ref = [x.float().requires_grad_(True) for x in (q, k, v)]
     want = attention.flash_full_attention_ref(*ref, mask)
     want.backward(dout.float())
@@ -418,6 +425,64 @@ def test_flash_full_kernel_matches_plain_version(case, dev):
                              [want.detach()] + [x.grad for x in ref], rms):
         assert torch.isfinite(g).all(), (name, what)
         assert bounds.full_attention_ratio(g, w, r) <= 1.0, (name, what)
+
+
+def _full_case_on_card(dev, B=2, T=333, nh=28, kh=4, n_real=(300, 90), side="left", seed=11):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, dout = (torch.randn((B, T, h, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+                     for h in (nh, kh, kh, nh))
+    mask = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    for b, n in enumerate(n_real):
+        if side == "left":
+            mask[b, T - n:] = True
+        else:
+            mask[b, :n] = True
+    return q, k, v, dout, mask
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_flash_full_kernel_lse_matches_plain_lse(side, dev):
+    """The row log-sum-exp that the forward saves for the backward, natural
+    log, (B, nh, T) f32: within 1e-3 of the plain one on every row (the
+    kernel sums exp2 of f32 scores of the same bf16 values)."""
+    q, k, v, _, mask = _full_case_on_card(dev, side=side)
+    B, T = mask.shape
+    _, lse = attention._full_forward(q, k, v, attention._kernel_segments(mask, B, T, dev))
+    want = attention.flash_full_lse_ref(q, k, attention._segments(mask, B, T, dev))
+    torch.cuda.synchronize()
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    assert (lse - want).abs().max().item() <= 1e-3
+
+
+def test_flash_full_kernel_backward_is_deterministic(dev):
+    """No atomics and a fixed order of the GQA sum: two backward runs on the
+    same inputs give the same bits; so do two forward runs."""
+    q, k, v, dout, mask = _full_case_on_card(dev, T=700, n_real=(650, 200), side="right")
+    B, T = mask.shape
+    seg = attention._kernel_segments(mask, B, T, dev)
+    out, lse = attention._full_forward(q, k, v, seg)
+    out2, lse2 = attention._full_forward(q, k, v, seg)
+    first = attention._full_backward(q, k, v, seg, out, lse, dout)
+    second = attention._full_backward(q, k, v, seg, out, lse, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_full_kernel_matches_the_plain_backward_algebra(dev):
+    """`flash_full_backward_ref` (the kernels' algebra, tile-free, in f32) on
+    the kernel's own O and LSE: dq, dk, dv within the bound."""
+    q, k, v, dout, mask = _full_case_on_card(dev)
+    B, T = mask.shape
+    seg = attention._kernel_segments(mask, B, T, dev)
+    out, lse = attention._full_forward(q, k, v, seg)
+    got = attention._full_backward(q, k, v, seg, out, lse, dout)
+    want = attention.flash_full_backward_ref(q, k, v, seg[:, :T], out, lse, dout)
+    torch.cuda.synchronize()
+    rms = bounds.full_attention_rms(q, k, v, mask, dout, out)
+    for what, g, w, r in zip(("dq", "dk", "dv"), got, want, rms[1:]):
+        assert bounds.full_attention_ratio(g, w, r) <= 1.0, what
 
 
 def test_flash_full_kernel_refuses_what_it_does_not_take(dev):
@@ -449,7 +514,7 @@ def _small_decoder(dev):
 
 def test_remat_runs_kernel_c_forward_again_in_the_backward(dev):
     """Full mode under auto on the card: kernel C, one forward per layer,
-    one more per layer under remat, three backward kernels per layer."""
+    one more per layer under remat, a backward's four kernels per layer."""
     cfg, dec = _small_decoder(dev)
     T, L = 120, cfg.text.num_layers
     mask = torch.ones((1, T), dtype=torch.bool, device=dev)
@@ -462,7 +527,7 @@ def test_remat_runs_kernel_c_forward_again_in_the_backward(dev):
         hidden[mask].float().sum().backward()
         fwd = attention.FULL_FWD_LAUNCHES - before[0]
         bwd = attention.FULL_BWD_LAUNCHES - before[1]
-        assert (fwd, bwd) == ((2 if remat else 1) * L, 3 * L), remat
+        assert (fwd, bwd) == ((2 if remat else 1) * L, N_BWD * L), remat
         assert torch.isfinite(emb.grad).all()
 
 
@@ -493,7 +558,7 @@ def test_train_cli_tiny_random_runs_on_the_card(dev, tmp_path):
     """`python -m mmduet_tpu_torch.train.loop --tiny_random --synthetic_steps
     2` with the default ``--device cuda``: the attention went through kernel
     C (2 steps x 2 micro-batches x 2 layers, forward twice under remat,
-    three backward kernels), two log rows with finite losses, and a final
+    a backward's four kernels), two log rows with finite losses, and a final
     checkpoint whose tensors came from the card."""
     out = tmp_path / "run"
     before = attention.FULL_FWD_LAUNCHES, attention.FULL_BWD_LAUNCHES
@@ -501,7 +566,7 @@ def test_train_cli_tiny_random_runs_on_the_card(dev, tmp_path):
                     "--logging_steps", "1", "--output_dir", str(out)])
     calls = 2 * 2 * 2
     assert (attention.FULL_FWD_LAUNCHES - before[0],
-            attention.FULL_BWD_LAUNCHES - before[1]) == (2 * calls, 3 * calls)
+            attention.FULL_BWD_LAUNCHES - before[1]) == (2 * calls, N_BWD * calls)
     rows = [json.loads(line) for line in open(out / "log.jsonl")]
     assert [r["step"] for r in rows] == [1, 2]
     assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in rows)
