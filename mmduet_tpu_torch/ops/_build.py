@@ -2,9 +2,10 @@
 
 Each kernel source under ``csrc/`` has a plain C interface. At first use it
 is compiled for Hopper (``sm_90a``) into ``build/`` at the repository root,
-under a name keyed by a hash of the source and the flags, and loaded with
-``ctypes``. Nothing here runs at import time: the CPU-only tests import
-every module of the package and never reach ``nvcc``.
+under a name keyed by a hash of the flags, the source and the local headers
+it includes, and loaded with ``ctypes``. Nothing here runs at import time:
+the CPU-only tests import every module of the package and never reach
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -35,11 +37,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path) -> list:
+    """``path`` and every local header it includes (``#include "..."``,
+    resolved beside the including file), each once, in the order met."""
+    seen, todo = [], [path.resolve()]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        todo += [(p.parent / m.decode()).resolve() for m in _LOCAL_INCLUDE.findall(p.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (a hash of source and flags)."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Where ``csrc/<name>.cu`` builds to: a hash of the flags, the source
+    and the local headers it includes, so that an edited header builds
+    anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources(CSRC / f"{name}.cu"):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names: str) -> None:

@@ -10,7 +10,10 @@ read-only: the caller commits the chunk's K/V afterwards
 
 `flash_decode_attention` chooses by device: tensors on the CPU take the
 plain version (`flash_decode_attention_ref`); tensors on a CUDA device
-launch the kernel in ``csrc/flash_decode.cu`` or raise.
+launch the kernel in ``csrc/flash_decode.cu`` or raise. With a bf16 cache
+the kernel runs on the tensor cores, split over the cache when the rows
+are few (`decode_split_span`); it rounds the softmax numerators to bf16
+for the value product, as the Pallas kernel does.
 
 **Kernel A, int8 cache** (``k_scale`` / ``v_scale`` given; the Pallas
 kernel's ``quantized=True``): the cache holds int8 rows with one f32
@@ -188,14 +191,70 @@ def flash_decode_attention_ref(
     )
 
 
+# Kernel A with a bf16 cache runs on 64-row query tiles. Its cache is cut
+# into spans of this many slots, by the rows of one (lane, kv head) alone
+# (T times the GQA group; one tile = a decode step, up to 16 = a frame or
+# joiner step), so that a shard's launch splits as one launch does.
+SPLIT_TILE_ROWS = 64
+SPLIT_SPAN_ONE_TILE = 256
+SPLIT_SPAN_FEW_TILES = 2048
+SPLIT_MAX_TILES = 16
+
+
+def decode_split_span(rows: int, S: int) -> int:
+    """Slots of one split of kernel A's bf16 cache for ``rows`` GQA rows a
+    (lane, kv head) and a cache of S slots: the grid has ceil(S / span)
+    splits; S itself (one split) above `SPLIT_MAX_TILES` row tiles."""
+    tiles = -(-rows // SPLIT_TILE_ROWS)
+    span = (SPLIT_SPAN_ONE_TILE if tiles == 1 else
+            SPLIT_SPAN_FEW_TILES if tiles <= SPLIT_MAX_TILES else S)
+    return max(1, min(span, S))
+
+
+# The split's scratch per device: f32 partials and int32 counters (zeros,
+# and left zero by every launch), grown when a launch needs more. Launches
+# that share it run one after another on one stream. `_split_memo` keeps
+# each launch shape's (span, partials, counters) pointers for the host's
+# sake, and is emptied whenever the scratch is reallocated.
+_split_scratch: dict = {}
+_split_memo: dict = {}
+
+
+def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[int, Any, Any]:
+    """Kernel A's (span, partials pointer, counters pointer) for a launch
+    of B lanes x kh kv heads x ``rows`` GQA rows over S cache slots
+    (pointers None when the cache is one span)."""
+    key = (device, B, kh, rows, S)
+    got = _split_memo.get(key)
+    if got is None:
+        span = decode_split_span(rows, S)
+        nsplit = -(-S // span)
+        got = (span, None, None)
+        if nsplit > 1:
+            n_part = B * kh * nsplit * rows * (hd + 2)
+            n_counters = B * kh * -(-rows // SPLIT_TILE_ROWS)
+            part, counters = _split_scratch.get(device, (None, None))
+            if part is None or part.numel() < n_part or counters.numel() < n_counters:
+                part = torch.empty(max(n_part, 0 if part is None else part.numel()),
+                                   dtype=torch.float32, device=device)
+                counters = torch.zeros(max(n_counters, 0 if counters is None else counters.numel()),
+                                       dtype=torch.int32, device=device)
+                _split_scratch[device] = (part, counters)
+                _split_memo.clear()
+            got = (span, part.data_ptr(), counters.data_ptr())
+        _split_memo[key] = got
+    return got
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("flash_decode")
-        tail = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        lib.flash_decode_bf16.argtypes = [ctypes.c_void_p] * 9 + tail
+        ptr, num = ctypes.c_void_p, ctypes.c_int
+        lib.flash_decode_bf16.argtypes = [ptr] * 12 + [num] * 8 + [ctypes.c_float, ptr]
         lib.flash_decode_bf16.restype = ctypes.c_int
-        lib.flash_decode_int8.argtypes = [ctypes.c_void_p] * 11 + tail
+        tail = [ptr] + [num] * 7 + [ctypes.c_float, ptr]
+        lib.flash_decode_int8.argtypes = [ptr] * 11 + tail
         lib.flash_decode_int8.restype = ctypes.c_int
         lib.flash_decode_error_string.argtypes = [ctypes.c_int]
         lib.flash_decode_error_string.restype = ctypes.c_char_p
@@ -233,29 +292,31 @@ def _decode_check(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, laye
     if (k_scale is None) != (v_scale is None):
         raise KernelRefused("flash_decode_attention: k_scale and v_scale go together")
     quantized = k_scale is not None
-    operands = dict(q=q, k_cache=k_cache, v_cache=v_cache,
-                    chunk_k=chunk_k, chunk_v=chunk_v)
-    for name, t in operands.items():
-        if t.device != q.device:
-            raise ValueError(f"flash_decode_attention: {name} on {t.device}, q on {q.device}")
-        if quantized and name.endswith("_cache"):
-            if t.dtype != torch.int8:
+    dev = q.device
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("chunk_k", chunk_k), ("chunk_v", chunk_v)):
+        if t.device != dev:
+            raise ValueError(f"flash_decode_attention: {name} on {t.device}, q on {dev}")
+        dtype, cache = t.dtype, name[-6:] == "_cache"
+        if quantized and cache:
+            if dtype != torch.int8:
                 raise KernelRefused(
-                    f"flash_decode_attention: {name} is {t.dtype}; with scales the "
+                    f"flash_decode_attention: {name} is {dtype}; with scales the "
                     "kernel takes an int8 cache")
-        elif t.dtype != torch.bfloat16:
-            if t.dtype == torch.int8 and name.endswith("_cache"):
+        elif dtype != torch.bfloat16:
+            if dtype == torch.int8 and cache:
                 raise KernelRefused(
                     f"flash_decode_attention: {name} is int8 and no scales were given")
-            raise TypeError(f"flash_decode_attention: {name} is {t.dtype}, the kernel takes bfloat16")
+            raise TypeError(f"flash_decode_attention: {name} is {dtype}, the kernel takes bfloat16")
         # 16-byte vector loads: rows of hd values back to back, every other
         # stride and the base a multiple of 16 bytes
-        step = 16 // t.element_size()
-        if (t.stride(-1) != 1 or t.stride(-2) != hd or t.data_ptr() % 16
-                or any(st % step for st in t.stride()[:-2])):
+        step = 16 if dtype == torch.int8 else 8
+        st = t.stride()
+        if (st[-1] != 1 or st[-2] != hd or t.data_ptr() % 16
+                or any(x % step for x in st[:-2])):
             raise ValueError(
                 f"flash_decode_attention: {name} must have contiguous, 16-byte aligned rows "
-                f"(strides {t.stride()})")
+                f"(strides {st})")
     for a, b in ((k_cache, v_cache), (chunk_k, chunk_v)):
         if a.stride() != b.stride():
             raise ValueError("flash_decode_attention: K and V must be laid out alike, got "
@@ -273,6 +334,10 @@ def _decode_check(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, laye
             _lanes(q_offset, "q_offset", B, q.device))
 
 
+# The ctypes arrays of the strides already met (a serving run meets a few).
+_strides_memo: dict = {}
+
+
 def _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer,
                    k_scale, v_scale) -> None:
     """One launch of kernel A on operands that `_decode_check` passed, or
@@ -282,23 +347,27 @@ def _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer
     B, T, nh, hd = q.shape
     kh, S = k_cache.shape[2], k_cache.shape[3]
     quantized = k_scale is not None
-    c, ck = k_cache.stride(), chunk_k.stride()
+    sq, so, c, ck = q.stride(), out.stride(), k_cache.stride(), chunk_k.stride()
     sc = k_scale.stride() if quantized else (0, 0, 0)
-    strides = (ctypes.c_longlong * 12)(
-        q.stride(0), q.stride(1), out.stride(0), out.stride(1),
-        c[0], c[1], c[2], ck[0], ck[1], sc[0], sc[1], sc[2])
+    key = (sq[0], sq[1], so[0], so[1], c[0], c[1], c[2], ck[0], ck[1], sc[0], sc[1], sc[2])
+    strides = _strides_memo.get(key)
+    if strides is None:
+        strides = _strides_memo[key] = (ctypes.c_longlong * 12)(*key)
     lib = _kernel_lib()
-    tail = (chunk_k.data_ptr(), chunk_v.data_ptr(),
-            cl.data_ptr(), tr.data_ptr(), qo.data_ptr(), out.data_ptr(), strides,
-            B, T, nh, kh, S, chunk_k.shape[2], int(layer), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+    Tc, scale = chunk_k.shape[2], 1.0 / math.sqrt(hd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    pointers = (chunk_k.data_ptr(), chunk_v.data_ptr(), cl.data_ptr(), tr.data_ptr(),
+                qo.data_ptr(), out.data_ptr())
     if quantized:
         err = lib.flash_decode_int8(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), *tail)
+            k_scale.data_ptr(), v_scale.data_ptr(), *pointers, strides,
+            B, T, nh, kh, S, Tc, int(layer), scale, stream)
     else:
+        span, part, counters = _split_args(q.device, B, kh, (nh // kh) * T, S, hd)
         err = lib.flash_decode_bf16(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *tail)
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *pointers, part, counters,
+            strides, B, T, nh, kh, S, Tc, int(layer), span, scale, stream)
     if err:
         raise KernelLaunchFailed(
             "flash_decode_attention: kernel launch failed: "

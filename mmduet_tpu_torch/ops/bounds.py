@@ -7,9 +7,21 @@ check the kernels with these bounds; the `*_dropped` helpers build a wrong
 plain version that a bound must refuse (the check that it is tight).
 
 **Kernel A**, per output row (one query row of one head, hd values):
-``|kernel - plain| <= ROW_REL * max|plain row| + ROW_ABS``. The bf16 output
-rounding is at most half an ulp, 2^-9 of |x| <= 2^-9 of the row's max;
-ROW_ABS covers f32 summation in another order.
+``|kernel - plain| <= ROW_REL * max|plain row| + ROW_ABS`` for what rounds
+once, at the output: the bf16 output rounding is at most half an ulp,
+2^-9 of |x| <= 2^-9 of the row's max; ROW_ABS covers f32 summation in
+another order. With a bf16 cache the kernel also rounds every softmax
+numerator p to bf16 before its value product (as the Pallas kernel does;
+the plain version here keeps p in f32 on f32 operands). That is kernel D's
+rounding, and it adds kernel D's term to each element:
+``+ 2^-9 * SIGMAS * rms`` with rms = sqrt(sum_s p_s^2 v_s^2) over the
+element's visible keys (cache and chunk), from the plain f32 softmax
+(`decode_attention_rms`). The kernel's p is the numerator before the
+division by l, so its relative rounding error (at most 2^-8, independent
+between keys) carries through the division unchanged. A row bound on the
+sum of |p v| 2^-8 instead would grow with the cache and let a lost key
+tile through; `decode_attention_dropped` is the plain version without a
+range of cache slots (a lost key tile or split), which must fail.
 
 **Kernel C**, per element of o, dq, dk, dv:
 ``|kernel - plain| <= 2^-8 |plain| + 2^-9 * SIGMAS * rms + FULL_ABS``.
@@ -34,9 +46,9 @@ deviation 2^-8 * rms / sqrt(3) with rms = sqrt(sum_s p^2 v^2) over all T
 keys; `vision_attention_dropped` is the plain version without one key
 tile.
 
-**Kernel A, int8 cache**: the same row bound as kernel A. The int8 values
-are exact in the kernel's bf16 tiles and both scalings happen in f32, so
-its only rounding is again the bf16 output.
+**Kernel A, int8 cache**: the row bound without the rms term. The int8
+values are exact in the kernel's bf16 tiles, p stays in f32 and both
+scalings happen in f32, so its only rounding is the bf16 output.
 
 **Kernel B**, per output element:
 ``|kernel - plain| <= B_REL * sum_h |y_h| |q_h| s_h + B_ABS``. Kernel and
@@ -56,7 +68,7 @@ TB/s and its operations over the 989 TFLOP/s bf16 tensor-core peak.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -72,11 +84,66 @@ BF16_FLOP_PER_S = 989e12   # dense tensor-core peak, published
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def row_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+def row_ratio(got: torch.Tensor, want: torch.Tensor, rms: Optional[torch.Tensor] = None) -> float:
     """Kernel A: the largest ``|got - want|`` over its row bound (<= 1
-    passes); rows run along the last axis."""
+    passes); rows run along the last axis. ``rms``
+    (`decode_attention_rms`, the bf16 cache) adds the term of p's rounding."""
     bound = ROW_REL * want.abs().amax(dim=-1, keepdim=True) + ROW_ABS
+    if rms is not None:
+        bound = bound + 2.0**-9 * SIGMAS * rms
     return ((got.float() - want).abs() / bound).max().item()
+
+
+@torch.no_grad()
+def decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
+                 q_offset=None, drop_slots: slice = slice(0, 0)):
+    """Kernel A's plain softmax in f32, as `attention.attend_split` forms
+    it: (p over cache slots (B, kh, g, T, S), p over chunk columns (B, kh,
+    g, T, Tc)); ``drop_slots`` masks a range of cache slots as well."""
+    B, T, nh, hd = q.shape
+    kc = k_cache[layer].float()
+    kh, S, Tc = kc.shape[1], kc.shape[2], chunk_k.shape[2]
+    qo = torch.zeros_like(cache_len) if q_offset is None else q_offset
+    qr = q.float().reshape(B, T, kh, nh // kh, hd)
+    s_cache = torch.einsum("btkgh,bksh->bkgts", qr, kc) / math.sqrt(hd)
+    s_chunk = torch.einsum("btkgh,bkch->bkgtc", qr, chunk_k.float()) / math.sqrt(hd)
+    slot = torch.arange(S, device=q.device)
+    hidden = (slot[None, :] >= cache_len[:, None]) | (
+        (slot >= (drop_slots.start or 0)) & (slot < (drop_slots.stop or 0)))[None]
+    s_cache.masked_fill_(hidden[:, None, None, None, :], -1e30)
+    col = torch.arange(Tc, device=q.device)[None, None, :]
+    row = torch.arange(T, device=q.device)[None, :, None]
+    vis = (col <= qo[:, None, None] + row) & (col < t_real[:, None, None])
+    s_chunk.masked_fill_(~vis[:, None, None], -1e30)
+    p = torch.softmax(torch.cat([s_cache, s_chunk], dim=-1), dim=-1)
+    return p[..., :S], p[..., S:]
+
+
+@torch.no_grad()
+def decode_attention_rms(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
+                         q_offset=None) -> torch.Tensor:
+    """The rms of kernel A's p-rounding term for every output element,
+    (B, T, nh, hd): sqrt(sum over visible keys of p^2 v^2)."""
+    B, T, nh, hd = q.shape
+    p_cache, p_chunk = decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
+                                    layer, q_offset)
+    sq = torch.einsum("bkgts,bksh->btkgh", p_cache.square_(), v_cache[layer].float().square())
+    sq += torch.einsum("bkgtc,bkch->btkgh", p_chunk.square_(), chunk_v.float().square())
+    return sq.sqrt_().reshape(B, T, nh, hd)
+
+
+@torch.no_grad()
+def decode_attention_dropped(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
+                             q_offset=None, drop: slice = slice(0, 0)) -> torch.Tensor:
+    """Kernel A's plain output in f32 without the cache slots ``drop`` (a
+    kernel that lost a key tile or a split; an empty ``drop`` gives the
+    true output)."""
+    B, T, nh, hd = q.shape
+    p_cache, p_chunk = decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
+                                    layer, q_offset, drop)
+    out = torch.einsum("bkgts,bksh->btkgh", p_cache, v_cache[layer].float())
+    out += torch.einsum("bkgtc,bkch->btkgh", p_chunk, chunk_v.float())
+    return out.reshape(B, T, nh, hd)
 
 
 @torch.no_grad()

@@ -56,7 +56,7 @@ from mmduet_tpu_torch.ops import attention
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import duet_batches
 
-KERNELS = {"kernel A": "flash_decode_kernel", "kernel B": "int4_", "kernel C": "flash_full_",
+KERNELS = {"kernel A": "flash_decode_", "kernel B": "int4_", "kernel C": "flash_full_",
            "kernel D": "flash_vision_"}
 
 

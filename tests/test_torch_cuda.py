@@ -12,6 +12,7 @@ file imports no jax, so it also runs where JAX is not installed:
 """
 
 import json
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -73,13 +74,83 @@ def test_kernel_matches_plain_version(case, dev):
     got = attention.flash_decode_attention(q, k, v, ck, cv, lanes[0], lanes[1], layer,
                                            q_offset=lanes[2])
     assert attention.LAUNCHES == before + 1
-    want = attention.flash_decode_attention_ref(
-        q.float(), k.float(), v.float(), ck.float(), cv.float(),
-        lanes[0], lanes[1], layer, q_offset=lanes[2])
+    up = (q.float(), k.float(), v.float(), ck.float(), cv.float(),
+          lanes[0], lanes[1], layer, lanes[2])
+    want = attention.flash_decode_attention_ref(*up)
+    rms = bounds.decode_attention_rms(*up)  # the kernel rounds p to bf16
     torch.cuda.synchronize()
     for b, n in enumerate(tr):
-        worst = bounds.row_ratio(got[b, :n], want[b, :n])
+        worst = bounds.row_ratio(got[b, :n], want[b, :n], rms[b, :n])
         assert worst <= 1.0, (name, b, worst)
+
+
+# (name, T, Tc, t_real, q_offset, cache_len, cache slots a lost split or
+# key tile): the main path's shapes, nh 28 / kh 4, cache of 24576 slots
+A_TIMED = [
+    ("decode_step", 1, 31, 11, 10, 2048, slice(256, 512)),
+    ("decode_step_long", 1, 31, 11, 10, 24000, slice(256, 512)),
+    ("frame_step", 64, 64, 53, 0, 2048, slice(640, 704)),
+    ("8_frame_block", 392, 392, 392, 0, 2048, slice(640, 704)),
+    ("32_frame_block", 1568, 1568, 1568, 0, 2048, slice(640, 704)),
+]
+
+
+def _device_ms(fn, iters=20):
+    """Device ms of one call: ``iters`` calls replayed from a CUDA graph."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@pytest.mark.parametrize("case", A_TIMED, ids=[c[0] for c in A_TIMED])
+def test_kernel_at_main_path_shapes_is_timed_and_its_bound_is_tight(case, dev):
+    """Kernel A (bf16 cache) at the main path's shapes: within its bound, a
+    plain version that lost one split (decode) or one key tile (blocks)
+    fails it, and the kernel's time stands beside its roofline bound; the
+    int8 variant is timed at the same shape."""
+    name, T, Tc, t_real, q_off, cache_len, drop = case
+    nh, kh, hd, S = 28, 4, 128, 24576
+    gen = torch.Generator(device=dev).manual_seed(T)
+    q, k, v = (torch.randn(s, generator=gen, device=dev, dtype=torch.bfloat16)
+               for s in ((1, T, nh, hd), (1, 1, kh, S, hd), (1, 1, kh, S, hd)))
+    ck, cv = (torch.randn((1, kh, Tc, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    cl, tr, qo = (torch.tensor([x], dtype=torch.int32, device=dev)
+                  for x in (cache_len, t_real, q_off))
+    call = lambda: attention.flash_decode_attention(q, k, v, ck, cv, cl, tr, 0,  # noqa: E731
+                                                    q_offset=qo)
+    got = call()
+    live = slice(0, cache_len)
+    up = (q.float(), k[..., live, :].float(), v[..., live, :].float(), ck.float(), cv.float(),
+          cl, tr, 0, qo)
+    rms = bounds.decode_attention_rms(*up)[:, :t_real]
+    want = attention.flash_decode_attention_ref(*up)[:, :t_real]
+    assert bounds.row_ratio(got[:, :t_real], want, rms) <= 1.0
+    dropped = bounds.decode_attention_dropped(*up, drop=drop)[:, :t_real]
+    assert bounds.row_ratio(got[:, :t_real], dropped, rms) > 3.0
+    del want, dropped, rms
+    ms = _device_ms(call)
+    bound_ms, bound_by = bounds.decode_attention_bound(1, T, nh, kh, hd, cache_len, t_real, q_off)
+    (kq, ks), (vq, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
+    int8_ms = _device_ms(lambda: attention.flash_decode_attention(
+        q, kq, vq, ck, cv, cl, tr, 0, q_offset=qo, k_scale=ks, v_scale=vs))
+    print(f"kernel A {name} (cache_len {cache_len}): {ms:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}); int8 cache {int8_ms:.4f} ms")
+    assert math.isfinite(ms) and ms > 0.0 and bound_ms > 0.0
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
