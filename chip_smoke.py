@@ -14,7 +14,9 @@ Phases (any failure ends the run with a nonzero exit):
    a kernel's ms is its device time, replayed from a CUDA graph, beside the
    eager time through the wrapper and the wrapper's host time per call), kernel B (the int4
    matrix product) at the five weight shapes of the 7B decoder and six row
-   counts, kernel C (training attention: forward, its saved log-sum-exp
+   counts (timed as kernel A is at 1, 392 and 1568 rows, beside
+   `_weight_int4pack_mm`, the library's W4A16 call, once it reproduces the
+   plain version, and the dense bf16 weight on cuBLAS), kernel C (training attention: forward, its saved log-sum-exp
    and the three input gradients, two runs bit-equal, timed at the three
    training buckets beside `scaled_dot_product_attention` as the library's
    yardstick, the backward's four kernels also each on its own), kernel A' (kernel A per shard of a one-device mesh: for four
@@ -457,6 +459,41 @@ INT4_SHAPES = ((3584, 3584), (3584, 512), (3584, 18944), (18944, 3584), (3584, 1
 INT4_ROWS = (1, 8, 53, 392, 1568, 2049)
 INT4_TIMED_ROWS = (1, 392, 1568)
 INT4_ENTRY = ((3584, 18944), 392)  # the shape and rows of the kernels line
+INT4_MUTANT_FACTOR = 10.0  # a plain version with one fault misses the bound by this much or more
+LIB_REL = 2.0**-8  # `_weight_int4pack_mm` against the plain version: bf16 weights and output
+
+
+def int4pack_operands(qw4: torch.Tensor, qs: torch.Tensor, inner_k_tiles: int = 8):
+    """Kernel B's split-halves int4 leaf as `torch.ops.aten._weight_int4pack_mm`
+    takes it: the unsigned values q + 8, two a byte along k (the even k in
+    the high nibble) in an (O, H / 2) uint8 tensor for
+    `_convert_weight_to_int4pack`, and (G, O, 2) bf16 scales and zero points
+    (0), which that call reads as w = (u - 8) s + z = q s."""
+    q = quant_matmul.unpack_groups(qw4)  # (G, g, O) int8 in [-8, 7]
+    u = (q.reshape(-1, q.shape[-1]).t().to(torch.int32) + 8)  # (O, H)
+    packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous()
+    weight = torch.ops.aten._convert_weight_to_int4pack(packed, inner_k_tiles)
+    s = qs[:, 0, :].to(torch.bfloat16)
+    scales_zeros = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
+    return weight, scales_zeros
+
+
+def check_int4_library(y, qw4, qs, want, mag):
+    """`_weight_int4pack_mm` on kernel B's operands: (callable, None) when
+    it reproduces the plain version within ``LIB_REL * (|plain| + sum|y||q|s)``
+    (its weight and output are bf16), else (None, the reason)."""
+    g = 2 * qw4.shape[1]
+    try:
+        weight, scales_zeros = int4pack_operands(qw4, qs)
+        call = lambda: torch.ops.aten._weight_int4pack_mm(y, weight, g, scales_zeros)  # noqa: E731
+        got = call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:  # the build of torch may lack the CUDA kernel
+        return None, f"_weight_int4pack_mm failed: {str(e).splitlines()[0]}"
+    ratio = ((got.float() - want).abs() / (LIB_REL * (want.abs() + mag) + 1e-6)).max().item()
+    if not ratio <= 1.0:
+        return None, f"_weight_int4pack_mm misses the plain version by {ratio:.3g}x its bf16 bound"
+    return call, None
 
 
 def check_int4_kernel(log) -> dict:
@@ -465,7 +502,7 @@ def check_int4_kernel(log) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = worst_ratio = 0.0
-    entry_times = None
+    entry = None
     for H, O in INT4_SHAPES:
         w = torch.randn((H, O), generator=gen, device=dev, dtype=torch.bfloat16) / math.sqrt(H)
         leaf = quant.quantize_weight_int4(w, 0)
@@ -493,55 +530,72 @@ def check_int4_kernel(log) -> dict:
                 factors = {kind: bounds.int4_matmul_ratio(
                     got, bounds.int4_matmul_mutated(y, qw4, qs, kind), mag)
                     for kind in ("scale", "halves")}
-                if not all(f > 1.0 for f in factors.values()):
-                    raise AssertionError(f"int4_matmul check: a mutated plain version passes "
-                                         f"the bound at R={R}: {factors}")
+                if not all(f >= INT4_MUTANT_FACTOR for f in factors.values()):
+                    raise AssertionError(f"int4_matmul check: a mutated plain version misses "
+                                         f"the bound by less than {INT4_MUTANT_FACTOR}x at "
+                                         f"R={R}: {factors}")
                 log(f"int4_matmul R={R} H={H} O={O}: plain versions with one group's scale "
                     f"dropped / the nibble halves swapped fail the bound by "
                     f"{factors['scale']:.0f}x / {factors['halves']:.0f}x")
             if R in INT4_TIMED_ROWS:
-                turn = iter(range(10 ** 9))
-
-                def launch():
-                    a, b = copies[next(turn) % n_copies]
-                    return quant_matmul.int4_matmul(y, a, b)
-
-                ms = _time_ms(launch, 20 if R == 1 else 8)
-                plain_ms = _time_ms(lambda: quant_matmul.int4_matmul_ref(y, qw4, qs), 2, warmup=1)
-                bound_ms, bound_by = bounds.int4_matmul_bound(R, H, O)
-                log(f"int4_matmul R={R} H={H} O={O}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                    f"ms, bound {bound_ms:.5f} ms ({bound_by}); packed weight "
-                    f"{qw4.numel() / 1e6:.1f} MB at {qw4.numel() / ms / 1e6:.1f} GB/s, "
-                    f"{2e-9 * R * H * O / ms:.2f} TFLOP/s")
-                # beside it, on the same activations: the dense bf16 weight on
-                # cuBLAS, and the int8 leaf's route (a bf16 copy of the weight per
-                # call, cuBLAS, one row of scales), which has no kernel
-                dense_ms = _time_ms(lambda: quant.matmul_f32(y, w), 8)
-                int8_ms = _time_ms(lambda: quant.quantized_matmul(y, leaf8), 8)
-                log(f"int4_matmul R={R} H={H} O={O}: the dense bf16 weight on cuBLAS "
-                    f"{dense_ms:.4f} ms, the int8 leaf's plain route {int8_ms:.4f} ms (one "
-                    f"weight every launch: {2 * H * O / 1e6:.1f} MB of bf16, in L2 if under 50 MB)")
+                timed = time_int4(log, y, w, leaf8, qw4, qs, copies, want, mag)
                 if ((H, O), R) == INT4_ENTRY:
-                    entry_times = (ms, plain_ms, bound_ms, bound_by)
+                    entry = timed
             del y, got, want, mag
         del w, leaf, leaf8, qw4, qs, copies
         torch.cuda.empty_cache()
     n_cases = len(INT4_SHAPES) * len(INT4_ROWS)
     log(f"int4_matmul: {n_cases} cases within {bounds.B_REL} * sum|y||w| + {bounds.B_ABS} "
         f"(max|diff| {worst}, at most {worst_ratio:.4f} of the bound)")
-    ms, plain_ms, bound_ms, bound_by = entry_times
     return {
         "name": "int4_matmul",
         "route": "cuda",
         "source": "mmduet_tpu_torch/ops/csrc/int4_matmul.cu",
         "replaces": "mmduet_tpu/ops/quant_matmul.py:108",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no PyTorch call multiplies by nibble-packed grouped int4
+        **entry,
     }
+
+
+def time_int4(log, y, w, leaf8, qw4, qs, copies, want, mag) -> dict:
+    """Kernel B's times at one shape: device ms from a CUDA graph's replay,
+    the eager ms and host us per call through the wrapper, beside the plain
+    version, the bound, `_weight_int4pack_mm` (the library's W4A16 call) and
+    the dense bf16 weight on cuBLAS; returns the kernels line's numbers."""
+    R, H = y.shape
+    O = qw4.shape[-1]
+    turn = iter(range(10 ** 9))
+
+    def launch():
+        a, b = copies[next(turn) % len(copies)]
+        return quant_matmul.int4_matmul(y, a, b)
+
+    ms = _graph_ms(launch)
+    eager_ms = _time_ms(launch, 20 if R == 1 else 8)
+    host_us = _host_us(launch, 200 if R == 1 else 20)
+    plain_ms = _time_ms(lambda: quant_matmul.int4_matmul_ref(y, qw4, qs), 2, warmup=1)
+    bound_ms, bound_by = bounds.int4_matmul_bound(R, H, O)
+    plan = quant_matmul.int4_plan(R, H, O, 2 * qw4.shape[1])
+    log(f"int4_matmul R={R} H={H} O={O}: kernel {ms:.4f} ms ({plan.path}, ks {plan.ks}; "
+        f"eager through the wrapper {eager_ms:.4f}, host {host_us:.2f} us per call), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}), {ms / bound_ms:.2f}x it; "
+        f"packed weight {qw4.numel() / 1e6:.1f} MB at {qw4.numel() / ms / 1e6:.1f} GB/s, "
+        f"{2e-9 * R * H * O / ms:.2f} TFLOP/s")
+    library, why = check_int4_library(y, qw4, qs, want, mag)
+    library_ms = _graph_ms(library) if library is not None else None
+    # beside it, on the same activations: the dense bf16 weight on cuBLAS,
+    # and the int8 leaf's route (a bf16 copy of the weight per call, cuBLAS,
+    # one row of scales), which has no kernel
+    dense_ms = _graph_ms(lambda: quant.matmul_f32(y, w))
+    int8_ms = _time_ms(lambda: quant.quantized_matmul(y, leaf8), 8)
+    log(f"int4_matmul R={R} H={H} O={O}: _weight_int4pack_mm "
+        + (f"{library_ms:.4f} ms (kernel/library {ms / library_ms:.2f})" if why is None else
+           f"not timed: {why}")
+        + f"; the dense bf16 weight on cuBLAS {dense_ms:.4f} ms (kernel/cuBLAS "
+        f"{ms / dense_ms:.2f}; one weight every launch: {2 * H * O / 1e6:.1f} MB of bf16, in L2 "
+        f"if under 50 MB); the int8 leaf's plain route {int8_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # Kernel C at the training shapes: 7B heads (nh 28, kh 4, hd 128), bf16.

@@ -1,7 +1,7 @@
 // Building blocks of the port's Hopper (sm_90a) kernels: mbarriers, TMA
 // and cp.async copies into 128-byte-swizzled shared memory, and `wgmma`
-// products with their descriptors. Kernels A (bf16 cache) and D include
-// it; `flash_full.cu` (kernel C) keeps its own copy of the same blocks.
+// products with their descriptors. Kernels A (bf16 cache), B and D
+// include it; `flash_full.cu` (kernel C) keeps its own copy of the same blocks.
 //
 // Swizzled tiles: rows of 128 bytes (64 bf16), 8-row groups 1024 bytes
 // apart; the 16-byte chunk c of row r sits at chunk c ^ (r % 8), which is
@@ -109,6 +109,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];"
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
         "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 

@@ -27,7 +27,8 @@ grad mode; the plain version is differentiable through autograd.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,13 +36,108 @@ from . import _build
 from .attention import KernelLaunchFailed, KernelRefused
 
 # Kernel launches since the last reset to 0: only the CUDA branch of
-# `int4_matmul` adds to it, once per call (a call whose groups are split
-# over blocks also runs the kernel that adds the partial outputs).
+# `int4_matmul` adds to it, once per call (one call is one launch, a call
+# whose groups are split over blocks included).
 B_LAUNCHES = 0
 
 GROUP_SIZES = (16, 32, 64, 128)  # what the kernel takes (its staged rows of y hold whole groups)
 GEMV_ROWS = 4  # up to here the CUDA-core kernel, above it the tensor-core one
-TARGET_BLOCKS = 528  # 4 blocks for each of the card's 132 SMs
+NUM_SMS = 132  # the H100 SXM's streaming multiprocessors
+TARGET_BLOCKS = 4 * NUM_SMS  # the GEMV's blocks: 4 for each SM
+GEMV_COLS = 256  # output columns of a GEMV block
+TILE_COLS = 192  # output columns of a tensor-core block: three warpgroups of 64
+PARTIAL_STEPS = 6  # a split block's partial tile costs about as much as 6 of its k-steps
+
+
+class Int4Plan(NamedTuple):
+    """How kernel B cuts one call: ``path`` "gemv" (CUDA cores, R <= 4) or
+    "wgmma" (tensor cores); a block owns ``rows`` x ``cols`` outputs and
+    ``per`` of the call's ``units`` k-steps (of ``step`` values: a group
+    for the GEMV, ``max(g, 64)`` values for the tensor cores); ``ks``
+    blocks share an output tile's steps and add their partials in split
+    order; ``grid`` is (column tiles, row tiles, ks)."""
+
+    path: str
+    rows: int
+    cols: int
+    step: int
+    units: int
+    per: int
+    ks: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def tiles(self) -> int:
+        """Output tiles, one ticket each when the steps are split."""
+        return self.grid[0] * self.grid[1]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _split(units: int, want: int) -> Tuple[int, int]:
+    """(k-steps a block, blocks) for about ``want`` blocks over ``units``."""
+    per = _cdiv(units, want)
+    return per, _cdiv(units, per)
+
+
+@functools.lru_cache(maxsize=1024)
+def int4_plan(R: int, H: int, O: int, g: int) -> Int4Plan:
+    """Kernel B's cut of an (R, H) x (H, O) product with groups of g (the
+    kernel's launch computes the same from R, H, O, g and ``ks``).
+
+    The GEMV splits the groups so that about `TARGET_BLOCKS` blocks run.
+    The tensor cores take one block an SM (up to 161 KB of shared memory),
+    so a call runs in waves of `NUM_SMS` blocks; they split the k-steps
+    where that shortens the waves' total: the fewest whole waves times a
+    block's steps, with a split block's partial tile counted as
+    `PARTIAL_STEPS` more steps and the combine as ``ks``. Their ``rows``
+    (64 or 104, the instantiations the launch has) go to the launch."""
+    if R <= GEMV_ROWS:
+        units = H // g
+        tiles = _cdiv(O, GEMV_COLS)
+        per, ks = _split(units, min(units, max(1, TARGET_BLOCKS // tiles)))
+        return Int4Plan("gemv", R, GEMV_COLS, g, units, per, ks, (tiles, 1, ks))
+    # the rows of y a block takes (wgmma's N): 64 up to 64 rows, else 104,
+    # which is what the registers allow at three warpgroups
+    rows, step = 64 if R <= 64 else 104, max(g, 64)
+    units = _cdiv(H, step)
+    grid = (_cdiv(O, TILE_COLS), _cdiv(R, rows))
+    tiles = grid[0] * grid[1]
+
+    def cost(split):
+        per, ks = split
+        return (_cdiv(tiles * ks, NUM_SMS) * (per + (PARTIAL_STEPS if ks > 1 else 0))
+                + (ks if ks > 1 else 0))
+
+    per, ks = min((_split(units, want) for want in range(1, units + 1)),
+                  key=lambda split: (cost(split), split[1]))
+    return Int4Plan("wgmma", rows, TILE_COLS, step, units, per, ks, (*grid, ks))
+
+
+# The split's scratch per device: f32 partials and int32 tickets (zeros,
+# and left zero by every launch), grown when a launch needs more. Launches
+# that share it run one after another on one stream, so a call allocates
+# only its output.
+_split_scratch: dict = {}
+
+
+def _split_ptrs(device, plan: Int4Plan, R: int, O: int) -> Tuple[int, int]:
+    """(partials pointer, tickets pointer) for a call cut by ``plan``; (0,
+    0) when its steps are not split."""
+    if plan.ks == 1:
+        return 0, 0
+    n_part, n_tickets = plan.ks * R * O, plan.tiles
+    part, tickets = _split_scratch.get(device, (None, None))
+    if part is None or part.numel() < n_part or tickets.numel() < n_tickets:
+        part = torch.empty(max(n_part, 0 if part is None else part.numel()),
+                           dtype=torch.float32, device=device)
+        tickets = torch.zeros(max(n_tickets, 0 if tickets is None else tickets.numel()),
+                              dtype=torch.int32, device=device)
+        _split_scratch[device] = (part, tickets)
+    return part.data_ptr(), tickets.data_ptr()
+
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -75,25 +171,12 @@ def int4_matmul_ref(y: torch.Tensor, qw4: torch.Tensor, qs: torch.Tensor) -> tor
     return grouped_product(y, unpack_groups(qw4), qs)
 
 
-def split_groups(R: int, G: int, O: int) -> int:
-    """Over how many blocks the kernel splits the G groups of one output
-    tile, so that about `TARGET_BLOCKS` blocks run: 1 when the output
-    tiles alone are enough."""
-    if R <= GEMV_ROWS:
-        tiles = -(-O // 256)
-    else:
-        tiles = -(-O // 128) * -(-R // 64)
-    want = min(G, max(1, TARGET_BLOCKS // tiles))
-    per = -(-G // want)
-    return -(-G // per)
-
-
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load("int4_matmul")
         lib.int4_matmul_bf16.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         )
         lib.int4_matmul_bf16.restype = ctypes.c_int
         lib.int4_matmul_error_string.argtypes = [ctypes.c_int]
@@ -152,13 +235,12 @@ def int4_matmul(y: torch.Tensor, qw4: torch.Tensor, qs: torch.Tensor) -> torch.T
     out = torch.empty((*y.shape[:-1], O), dtype=torch.float32, device=y.device)
     if R == 0:
         return out
-    ks = split_groups(R, H // g, O)
-    partial = (torch.empty((ks, R, O), dtype=torch.float32, device=y.device)
-               if ks > 1 else out)
+    plan = int4_plan(R, H, O, g)
+    part, tickets = _split_ptrs(y.device, plan, R, O)
     lib = _kernel_lib()
     err = lib.int4_matmul_bf16(
-        y.data_ptr(), qw4.data_ptr(), qs.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        R, H, O, g, ks, torch.cuda.current_stream(y.device).cuda_stream,
+        y.data_ptr(), qw4.data_ptr(), qs.data_ptr(), out.data_ptr(), part, tickets,
+        R, H, O, g, plan.ks, plan.rows, torch.cuda.current_stream(y.device).cuda_stream,
     )
     if err:
         raise KernelLaunchFailed(

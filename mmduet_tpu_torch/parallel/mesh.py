@@ -58,11 +58,18 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """Build a (data, model) mesh over ``devices`` (default: the current
-    CUDA device, or the CPU without one). ``shape=None`` puts every entry
-    on the data axis. The entries must all be the same device."""
+    CUDA device). ``shape=None`` puts every entry on the data axis. The
+    entries must all be the same device.
+
+    Without ``devices`` on a host with no CUDA device it raises
+    `RuntimeError`: a mesh is laid on the CPU only when the caller names
+    the CPU (``devices=["cpu"]``), never as a quiet fallback."""
     if devices is None:
-        devices = [torch.device("cuda", torch.cuda.current_device())
-                   if torch.cuda.is_available() else torch.device("cpu")]
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device for the default mesh; pass devices= "
+                "(for example devices=['cpu']) to lay it elsewhere")
+        devices = [torch.device("cuda", torch.cuda.current_device())]
     devices = [torch.device(d) for d in devices]
     n = len(devices)
     if shape is None:

@@ -29,7 +29,7 @@ For each call: the wall time (host clock around a device sync, median of
 3 after one warm-up, profiler off), the summed time of the device's own
 events under `torch.profiler` (one more call), the device's idle share
 (1 - device / wall), the shares of kernel A (flash_decode), kernel B
-(int4_: the product and the sum of its partial outputs), kernel C
+(int4_: the product, one launch a call), kernel C
 (flash_full: forward, backward preprocess, dK/dV partials, their reduction,
 dQ) and kernel D
 (flash_vision), and the costliest

@@ -240,6 +240,10 @@ INT4_CASES = [
     ("block_7b_gate", (392,), 3584, 18944, 128),
     ("block_7b_down", (200,), 18944, 3584, 128),
     ("decode_7b_down", (2,), 18944, 3584, 128),
+    ("row_tile_128", (128,), 512, 272, 64),
+    ("row_tile_129", (129,), 1024, 48, 32),
+    ("split_7b_kv", (392,), 3584, 512, 128),
+    ("rows_2049_one_call", (2049,), 3584, 512, 128),
 ]
 
 
@@ -285,6 +289,28 @@ def test_int4_bound_catches_a_wrong_decode(case, kind, dev):
     mag = bounds.int4_matmul_magnitude(y, qw4, qs)
     wrong = bounds.int4_matmul_mutated(y, qw4, qs, kind)
     assert bounds.int4_matmul_ratio(got, wrong, mag) > 1.0
+
+
+@pytest.mark.parametrize("case", [INT4_CASES[7], INT4_CASES[14]], ids=["gemv", "wgmma"])
+def test_int4_split_call_is_one_launch_and_bit_equal(case, dev):
+    """A call whose k-steps are split over blocks (`int4_plan`'s ks > 1) is
+    one launch, the same in two runs bit for bit: the last block of a tile
+    adds the partials in split order."""
+    y, qw4, qs = _int4_inputs(case, dev)
+    R, H, O = y.numel() // y.shape[-1], y.shape[-1], qw4.shape[-1]
+    assert quant_matmul.int4_plan(R, H, O, case[4]).ks > 1
+    before = quant_matmul.B_LAUNCHES
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        first = quant_matmul.int4_matmul(y, qw4, qs)
+        torch.cuda.synchronize()
+    assert quant_matmul.B_LAUNCHES == before + 1
+    kernels = [e.key for e in prof.key_averages() if "int4" in e.key]
+    assert len(kernels) == 1 and "reduce" not in kernels[0], kernels
+    second = quant_matmul.int4_matmul(y, qw4, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    mag = bounds.int4_matmul_magnitude(y, qw4, qs)
+    assert bounds.int4_matmul_ratio(first, quant_matmul.int4_matmul_ref(y, qw4, qs), mag) <= 1.0
 
 
 def test_int4_kernel_refuses_what_it_does_not_take(dev):

@@ -282,15 +282,18 @@ def test_int4_matmul_ref_bf16_is_the_grouped_form():
 
 
 def test_split_groups_plan():
-    # (rows, groups, columns) -> blocks that share one output tile's groups
-    assert tqm.split_groups(1, 28, 152064) == 1       # LM head: 594 column tiles
-    assert tqm.split_groups(1, 28, 3584) == 28        # 14 column tiles
-    assert tqm.split_groups(1, 148, 3584) == 37       # down_proj: 4 groups a block
-    assert tqm.split_groups(1568, 28, 18944) == 1
-    assert 1 < tqm.split_groups(53, 28, 512) <= 28
-    for R, G, O in ((1, 28, 512), (4, 148, 3584), (392, 28, 512), (64, 2, 256)):
-        ks = tqm.split_groups(R, G, O)
-        assert 1 <= ks <= G and -(-G // ks) * ks >= G
+    # (rows, H, columns, g) -> blocks that share one output tile's k-steps
+    # (`int4_plan`, which took the place of `split_groups`)
+    assert tqm.int4_plan(1, 3584, 152064, 128).ks == 1    # LM head: 594 column tiles
+    assert tqm.int4_plan(1, 3584, 3584, 128).ks == 28     # 14 column tiles
+    assert tqm.int4_plan(1, 18944, 3584, 128).ks == 37    # down_proj: 4 groups a block
+    assert tqm.int4_plan(1568, 3584, 18944, 128).ks == 1
+    assert 1 < tqm.int4_plan(53, 3584, 512, 128).ks <= 28
+    for R, H, O, g in ((1, 3584, 512, 128), (4, 18944, 3584, 128), (392, 3584, 512, 128),
+                       (64, 256, 256, 128), (5, 48, 48, 16), (392, 18944, 3584, 128)):
+        plan = tqm.int4_plan(R, H, O, g)
+        assert 1 <= plan.ks <= plan.units and plan.per * plan.ks >= plan.units
+        assert plan.per * (plan.ks - 1) < plan.units  # every split has a step
 
 
 def test_int4_leaf_gradient_is_defined_on_the_cpu():

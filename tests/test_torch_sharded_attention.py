@@ -104,6 +104,18 @@ def test_shard_ctx_ok_and_mesh_equal_the_jax_package(shape):
     assert make_mesh(devices=["cpu"] * 3).shape == {"data": 3, "model": 1}
 
 
+def test_make_mesh_never_falls_back_to_the_cpu(monkeypatch):
+    """With no ``devices`` the mesh is the current CUDA device's; without
+    one it raises, and the CPU is taken only when named."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh((1, 1))
+    mesh = make_mesh(devices=["cpu"])
+    assert mesh.device == torch.device("cpu") and mesh.shape == {"data": 1, "model": 1}
+
+
 def test_serving_shard_ctx_follows_the_engines_rule():
     mesh = make_mesh((2, 2), devices=["cpu"] * 4)
     ctx = serving_shard_ctx(mesh, 28, 4, 8, "cpu")
