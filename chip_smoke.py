@@ -9,8 +9,9 @@ Phases (any failure ends the run with a nonzero exit):
    (one nvcc per source, all at once), held against its plain PyTorch
    version on the card at the shapes the paths give it, and timed beside
    it and beside its roofline bound (`ops/bounds.py`): kernel A (streaming
-   attention) with a bf16 and with an int8 cache (timed at the decode step,
-   cache_len 2048 and 24000, the frame step and the 8- and 32-frame blocks;
+   attention) with a bf16 and with an int8 cache (each timed at the decode
+   step, cache_len 2048 and 24000, the frame step and the 8- and 32-frame
+   blocks;
    a kernel's ms is its device time, replayed from a CUDA graph, beside the
    eager time through the wrapper and the wrapper's host time per call), kernel B (the int4
    matrix product) at the five weight shapes of the 7B decoder and six row
@@ -24,7 +25,8 @@ Phases (any failure ends the run with a nonzero exit):
    one launch) and kernel D (the ViT tower's attention at 32 frames x 729
    patches x 16 heads of 72 and at small ragged shapes, beside
    `scaled_dot_product_attention`). Plain versions with one fault (a lost
-   tile for kernels C and D, a lost split or key tile for kernel A; a
+   tile for kernels C and D, a lost split or key tile for kernel A with
+   either cache; a
    dropped group scale or swapped nibble halves for kernel B) must fail the
    bounds, and so must shards of kernel A' that
    read another shard's cursors or kv heads. ``--kernels-only`` stops here
@@ -192,40 +194,41 @@ def check_attention_kernel(log) -> List[dict]:
         for variant, (args, scales) in variants.items():
             got = attention.flash_decode_attention(*args, **scales)
             # the plain version on the same values in f32 (p unrounded) and
-            # on the live slots only (the others are masked); the bf16
-            # cache's kernel rounds p, and its bound has the rms term
+            # on the live slots only (the others are masked); the kernel
+            # rounds p (times the V scales of an int8 cache) to bf16, and its
+            # bound has the rms term
             live = slice(0, max(max(cl), 1))
             up = tuple(a[..., live, :] if i in (1, 2) else a for i, a in enumerate(args))
             up = tuple(a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
                        for a in up)
             cut = {k_: s[..., live] for k_, s in scales.items()}
             want = attention.flash_decode_attention_ref(*up, **cut)
-            rms = bounds.decode_attention_rms(*up) if variant == "bf16" else None
+            rms = bounds.decode_attention_rms(*up, **cut)
             torch.cuda.synchronize()
             real = slice(0, t_real)
             err = (got[:, real].float() - want[:, real]).abs().max().item()
-            ratio = bounds.row_ratio(got[:, real], want[:, real],
-                                     None if rms is None else rms[:, real])
+            ratio = bounds.row_ratio(got[:, real], want[:, real], rms[:, real])
             if not math.isfinite(ratio) or ratio > 1.0:
                 raise AssertionError(
                     f"flash_decode kernel ({variant} cache) vs plain: {name} B={B} "
                     f"cache_len={cl} layer={layer}: max|diff| {err}, {ratio} times the row "
-                    f"bound {bounds.ROW_REL} * max|row| + {bounds.ROW_ABS}"
-                    + (f" + 2^-9 {bounds.SIGMAS} rms" if rms is not None else ""))
+                    f"bound {bounds.ROW_REL} * max|row| + {bounds.ROW_ABS} + 2^-9 "
+                    f"{bounds.SIGMAS} rms")
             worst[variant] = [max(worst[variant][0], err), max(worst[variant][1], ratio)]
-            timed_lens = TIMED_CACHE_LENS.get(name, (2048,)) if variant == "bf16" else (2048,)
-            if B == 1 and cache_len == 2048 and variant == "bf16" and name in DROP:
+            if B == 1 and cache_len == 2048 and name in DROP:
                 # the bound is tight: the plain version without one split (or
                 # one key tile) fails it
-                dropped = bounds.decode_attention_dropped(*up, drop=DROP[name])
+                dropped = bounds.decode_attention_dropped(*up, drop=DROP[name], **cut)
                 factor = bounds.row_ratio(got[:, real], dropped[:, real], rms[:, real])
                 if not factor > 1.0:
-                    raise AssertionError(f"flash_decode check: {name} without cache slots "
-                                         f"{DROP[name]} passes the bound ({factor} of it)")
-                log(f"flash_decode {name}: the plain version without the cache slots "
-                    f"[{DROP[name].start}, {DROP[name].stop}) fails the bound by {factor:.1f}x")
+                    raise AssertionError(f"flash_decode check ({variant} cache): {name} without "
+                                         f"cache slots {DROP[name]} passes the bound ({factor} "
+                                         "of it)")
+                log(f"flash_decode {name}, {variant} cache: the plain version without the cache "
+                    f"slots [{DROP[name].start}, {DROP[name].stop}) fails the bound by "
+                    f"{factor:.1f}x")
                 del dropped
-            if B == 1 and cache_len in timed_lens:
+            if B == 1 and cache_len in TIMED_CACHE_LENS.get(name, (2048,)):
                 call = lambda: attention.flash_decode_attention(*args, **scales)  # noqa: E731
                 ms = _graph_ms(call)
                 eager_ms = _time_ms(call, 20)
@@ -246,9 +249,13 @@ def check_attention_kernel(log) -> List[dict]:
     for variant, label in (("bf16", "flash_decode_attention"),
                            ("int8", "flash_decode_attention (int8 cache)")):
         log(f"flash_decode, {variant} cache: {len(cases)} cases within {bounds.ROW_REL} * "
-            f"max|row| + {bounds.ROW_ABS}" + (f" + 2^-9 {bounds.SIGMAS} rms" if variant == "bf16"
-                                              else "")
-            + f" (max|diff| {worst[variant][0]}, at most {worst[variant][1]} of the row bound)")
+            f"max|row| + {bounds.ROW_ABS} + 2^-9 {bounds.SIGMAS} rms (max|diff| "
+            f"{worst[variant][0]}, at most {worst[variant][1]} of the row bound)")
+        for name, *_ in ATTN_SHAPES:
+            for cache_len in TIMED_CACHE_LENS.get(name, (2048,)):
+                ms, _, bound_ms, bound_by = timed[variant, name, cache_len]
+                log(f"flash_decode, {variant} cache, {name} at cache_len {cache_len}: {ms:.4f} ms,"
+                    f" bound {bound_ms:.5f} ms ({bound_by}), {ms / bound_ms:.1f}x the bound")
         ms, plain_ms, bound_ms, bound_by = timed[variant, "8-frame block", 2048]
         entries.append({
             "name": label,
@@ -310,10 +317,10 @@ def check_sharded_attention_kernel(log) -> dict:
                   vc[..., :live, :] if scales else vc[..., :live, :].float(),
                   ck.float(), cv.float(), cl, tr, layer, qo)
             want = attention.flash_decode_attention_ref(*up, **cut)
-            # the bf16 cache's kernel rounds p: its bound has the rms term
-            rms = None if scales else bounds.decode_attention_rms(*up)
-            rows = [(one[b, :int(tr[b])], want[b, :int(tr[b])],
-                     None if rms is None else rms[b, :int(tr[b])]) for b in range(B)]
+            # the kernel rounds p: its bound has the rms term
+            rms = bounds.decode_attention_rms(*up, **cut)
+            rows = [(one[b, :int(tr[b])], want[b, :int(tr[b])], rms[b, :int(tr[b])])
+                    for b in range(B)]
             ratio = max(bounds.row_ratio(g, w, r) for g, w, r in rows)
             worst = max(worst, max((g.float() - w).abs().max().item() for g, w, _ in rows))
             if not math.isfinite(ratio) or ratio > 1.0:

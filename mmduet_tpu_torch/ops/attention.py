@@ -10,20 +10,22 @@ read-only: the caller commits the chunk's K/V afterwards
 
 `flash_decode_attention` chooses by device: tensors on the CPU take the
 plain version (`flash_decode_attention_ref`); tensors on a CUDA device
-launch the kernel in ``csrc/flash_decode.cu`` or raise. With a bf16 cache
-the kernel runs on the tensor cores, split over the cache when the rows
-are few (`decode_split_span`); it rounds the softmax numerators to bf16
-for the value product, as the Pallas kernel does.
+launch the kernel in ``csrc/flash_decode.cu`` or raise. The kernel runs
+on the tensor cores for both cache types, split over the cache when the
+rows are few (`decode_split_span`); it rounds the softmax numerators to
+bf16 for the value product, as the Pallas kernel does.
 
 **Kernel A, int8 cache** (``k_scale`` / ``v_scale`` given; the Pallas
 kernel's ``quantized=True``): the cache holds int8 rows with one f32
 scale per (layer, lane, head, slot). The K scale multiplies the scores
 as a column scaling, the V scale is folded into the softmax numerators,
 and the denominator sums the unscaled numerators; the chunk stays in the
-activation dtype. The plain version does these column scalings in f32
-on the int8 values. (The JAX package's jnp fallback instead dequantizes
-the cache to the activation dtype first, which rounds differently in
-bf16; in f32 the two agree to rounding.)
+activation dtype. The kernel widens the int8 tiles to bf16 (exactly) and
+rounds the scaled numerators p * v_scale to bf16, as the Pallas kernel
+does; the plain version does the column scalings in f32 on the int8
+values and keeps p in f32. (The JAX package's jnp fallback instead
+dequantizes the cache to the activation dtype first, which rounds
+differently in bf16; in f32 the two agree to rounding.)
 
 **Kernel C**, causal GQA attention over a padded batch, forward and
 backward (the decoder's training attention): port of
@@ -191,7 +193,7 @@ def flash_decode_attention_ref(
     )
 
 
-# Kernel A with a bf16 cache runs on 64-row query tiles. Its cache is cut
+# Kernel A runs on 64-row query tiles, for either cache type. Its cache is cut
 # into spans of this many slots, by the rows of one (lane, kv head) alone
 # (T times the GQA group; one tile = a decode step, up to 16 = a frame or
 # joiner step), so that a shard's launch splits as one launch does.
@@ -202,7 +204,7 @@ SPLIT_MAX_TILES = 16
 
 
 def decode_split_span(rows: int, S: int) -> int:
-    """Slots of one split of kernel A's bf16 cache for ``rows`` GQA rows a
+    """Slots of one split of kernel A's cache for ``rows`` GQA rows a
     (lane, kv head) and a cache of S slots: the grid has ceil(S / span)
     splits; S itself (one split) above `SPLIT_MAX_TILES` row tiles."""
     tiles = -(-rows // SPLIT_TILE_ROWS)
@@ -246,19 +248,24 @@ def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[in
     return got
 
 
+def bind_decode_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Gives a build of ``csrc/flash_decode.cu`` its functions' argument
+    types."""
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    tail = [num] * 8 + [ctypes.c_float, ptr]
+    lib.flash_decode_bf16.argtypes = [ptr] * 12 + tail
+    lib.flash_decode_bf16.restype = ctypes.c_int
+    lib.flash_decode_int8.argtypes = [ptr] * 14 + tail
+    lib.flash_decode_int8.restype = ctypes.c_int
+    lib.flash_decode_error_string.argtypes = [ctypes.c_int]
+    lib.flash_decode_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _build.load("flash_decode")
-        ptr, num = ctypes.c_void_p, ctypes.c_int
-        lib.flash_decode_bf16.argtypes = [ptr] * 12 + [num] * 8 + [ctypes.c_float, ptr]
-        lib.flash_decode_bf16.restype = ctypes.c_int
-        tail = [ptr] + [num] * 7 + [ctypes.c_float, ptr]
-        lib.flash_decode_int8.argtypes = [ptr] * 11 + tail
-        lib.flash_decode_int8.restype = ctypes.c_int
-        lib.flash_decode_error_string.argtypes = [ctypes.c_int]
-        lib.flash_decode_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind_decode_lib(_build.load("flash_decode"))
     return _lib
 
 
@@ -356,18 +363,16 @@ def _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer
     lib = _kernel_lib()
     Tc, scale = chunk_k.shape[2], 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    span, part, counters = _split_args(q.device, B, kh, (nh // kh) * T, S, hd)
     pointers = (chunk_k.data_ptr(), chunk_v.data_ptr(), cl.data_ptr(), tr.data_ptr(),
-                qo.data_ptr(), out.data_ptr())
+                qo.data_ptr(), out.data_ptr(), part, counters, strides,
+                B, T, nh, kh, S, Tc, int(layer), span, scale, stream)
     if quantized:
-        err = lib.flash_decode_int8(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), *pointers, strides,
-            B, T, nh, kh, S, Tc, int(layer), scale, stream)
+        err = lib.flash_decode_int8(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                    k_scale.data_ptr(), v_scale.data_ptr(), *pointers)
     else:
-        span, part, counters = _split_args(q.device, B, kh, (nh // kh) * T, S, hd)
-        err = lib.flash_decode_bf16(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *pointers, part, counters,
-            strides, B, T, nh, kh, S, Tc, int(layer), span, scale, stream)
+        err = lib.flash_decode_bf16(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                    *pointers)
     if err:
         raise KernelLaunchFailed(
             "flash_decode_attention: kernel launch failed: "

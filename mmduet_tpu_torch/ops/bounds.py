@@ -46,9 +46,15 @@ deviation 2^-8 * rms / sqrt(3) with rms = sqrt(sum_s p^2 v^2) over all T
 keys; `vision_attention_dropped` is the plain version without one key
 tile.
 
-**Kernel A, int8 cache**: the row bound without the rms term. The int8
-values are exact in the kernel's bf16 tiles, p stays in f32 and both
-scalings happen in f32, so its only rounding is the bf16 output.
+**Kernel A, int8 cache**: the bf16 cache's bound, with the scales in its
+rms term. The int8 values are exact in the kernel's bf16 tiles and the K
+scale multiplies the f32 scores, but the kernel rounds each scaled
+numerator p * v_scale to bf16 before its value product (as the Pallas
+kernel's ``(p * vscale).astype(q.dtype)`` does), while the plain version
+keeps it in f32. So rms = sqrt(sum_cache p^2 (v_scale v_int)^2 + sum_chunk
+p^2 v^2) over the element's visible keys (`decode_attention_rms` with
+``k_scale`` / ``v_scale``); `decode_attention_dropped` with the scales is
+the plain version without a lost split or key tile, which must fail.
 
 **Kernel B**, per output element:
 ``|kernel - plain| <= B_REL * sum_h |y_h| |q_h| s_h + B_ABS``. Kernel and
@@ -87,25 +93,35 @@ Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 def row_ratio(got: torch.Tensor, want: torch.Tensor, rms: Optional[torch.Tensor] = None) -> float:
     """Kernel A: the largest ``|got - want|`` over its row bound (<= 1
     passes); rows run along the last axis. ``rms``
-    (`decode_attention_rms`, the bf16 cache) adds the term of p's rounding."""
+    (`decode_attention_rms`) adds the term of p's rounding."""
     bound = ROW_REL * want.abs().amax(dim=-1, keepdim=True) + ROW_ABS
     if rms is not None:
         bound = bound + 2.0**-9 * SIGMAS * rms
     return ((got.float() - want).abs() / bound).max().item()
 
 
+def _cache_values(v_cache, layer, v_scale) -> torch.Tensor:
+    """Layer ``layer`` of the cache's V in f32, the int8 values times their
+    scales when ``v_scale`` is given."""
+    v = v_cache[layer].float()
+    return v if v_scale is None else v * v_scale[layer].float()[..., None]
+
+
 @torch.no_grad()
 def decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
-                 q_offset=None, drop_slots: slice = slice(0, 0)):
+                 q_offset=None, drop_slots: slice = slice(0, 0), k_scale=None):
     """Kernel A's plain softmax in f32, as `attention.attend_split` forms
     it: (p over cache slots (B, kh, g, T, S), p over chunk columns (B, kh,
-    g, T, Tc)); ``drop_slots`` masks a range of cache slots as well."""
+    g, T, Tc)); ``drop_slots`` masks a range of cache slots as well.
+    ``k_scale`` (an int8 cache) scales the cache scores per column."""
     B, T, nh, hd = q.shape
     kc = k_cache[layer].float()
     kh, S, Tc = kc.shape[1], kc.shape[2], chunk_k.shape[2]
     qo = torch.zeros_like(cache_len) if q_offset is None else q_offset
     qr = q.float().reshape(B, T, kh, nh // kh, hd)
     s_cache = torch.einsum("btkgh,bksh->bkgts", qr, kc) / math.sqrt(hd)
+    if k_scale is not None:
+        s_cache *= k_scale[layer].float()[:, :, None, None, :]
     s_chunk = torch.einsum("btkgh,bkch->bkgtc", qr, chunk_k.float()) / math.sqrt(hd)
     slot = torch.arange(S, device=q.device)
     hidden = (slot[None, :] >= cache_len[:, None]) | (
@@ -121,27 +137,30 @@ def decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer
 
 @torch.no_grad()
 def decode_attention_rms(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
-                         q_offset=None) -> torch.Tensor:
+                         q_offset=None, k_scale=None, v_scale=None) -> torch.Tensor:
     """The rms of kernel A's p-rounding term for every output element,
-    (B, T, nh, hd): sqrt(sum over visible keys of p^2 v^2)."""
+    (B, T, nh, hd): sqrt(sum over visible keys of p^2 v^2), v the scaled
+    values of an int8 cache (``k_scale`` / ``v_scale``)."""
     B, T, nh, hd = q.shape
     p_cache, p_chunk = decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
-                                    layer, q_offset)
-    sq = torch.einsum("bkgts,bksh->btkgh", p_cache.square_(), v_cache[layer].float().square())
+                                    layer, q_offset, k_scale=k_scale)
+    sq = torch.einsum("bkgts,bksh->btkgh", p_cache.square_(),
+                      _cache_values(v_cache, layer, v_scale).square())
     sq += torch.einsum("bkgtc,bkch->btkgh", p_chunk.square_(), chunk_v.float().square())
     return sq.sqrt_().reshape(B, T, nh, hd)
 
 
 @torch.no_grad()
 def decode_attention_dropped(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real, layer,
-                             q_offset=None, drop: slice = slice(0, 0)) -> torch.Tensor:
+                             q_offset=None, drop: slice = slice(0, 0), k_scale=None,
+                             v_scale=None) -> torch.Tensor:
     """Kernel A's plain output in f32 without the cache slots ``drop`` (a
     kernel that lost a key tile or a split; an empty ``drop`` gives the
-    true output)."""
+    true output), with the scales of an int8 cache if given."""
     B, T, nh, hd = q.shape
     p_cache, p_chunk = decode_probs(q, k_cache, v_cache, chunk_k, chunk_v, cache_len, t_real,
-                                    layer, q_offset, drop)
-    out = torch.einsum("bkgts,bksh->btkgh", p_cache, v_cache[layer].float())
+                                    layer, q_offset, drop, k_scale)
+    out = torch.einsum("bkgts,bksh->btkgh", p_cache, _cache_values(v_cache, layer, v_scale))
     out += torch.einsum("bkgtc,bkch->btkgh", p_chunk, chunk_v.float())
     return out.reshape(B, T, nh, hd)
 

@@ -22,26 +22,26 @@
 // passes (`Strides`), so the same kernel runs on a strided view: the
 // sharded wrapper (the TPU package's `flash_decode_attention_sharded`, the
 // kernel under `shard_map`) launches it once per (lane shard, kv-head shard)
-// on that shard's view of q, out, cache, chunk and scales, with a grid of
-// (tiles, local kv heads, local lanes). No cache operand is copied, and a
+// on that shard's view of q, out, cache, chunk and scales, with a grid over
+// its local lanes and kv heads. No cache operand is copied, and a
 // (lane, head) program does the same arithmetic in the same order whichever
 // launch it belongs to, so a sharded run is bit-equal to one launch.
 //
-// Two kernels, by cache type:
-//
-// **bf16 cache (`flash_decode_bf16`): tensor-core tiles, split over the
-// cache when the rows are few.** A block is one warpgroup (128 threads) on
-// 64 GQA rows of one (lane, kv head) and one span of the cache. Both
+// One kernel, `flash_decode_tc_kernel<INT8>`, for both cache types
+// (`flash_decode_bf16`, `flash_decode_int8`): tensor-core tiles, split over
+// the cache when the rows are few. A block is one warpgroup (128 threads)
+// on 64 GQA rows of one (lane, kv head) and one span of the cache. Both
 // products are `wgmma`: S = Q K^T m64n64k16 from 128-byte-swizzled shared
 // memory (8 steps over hd), O += P V m64n128k16 with P from registers,
 // rounded to bf16 as in the Pallas kernel, and V untransposed through the
-// MN-major descriptor. Keys stream in 64-key tiles through two-stage K and
-// V rings (80 KB of shared memory with the resident Q: two blocks an SM).
-// A tile's products and softmax run one after the other, and the copies of
-// the next tile land meanwhile; the second block on an SM keeps its tensor
-// cores busy through a block's softmax. Copies are `cp.async` of 16 bytes a
-// thread into the swizzled layout: no tensor map to encode per call (a call
-// takes q, out and chunk pointers that change every layer, and the sharded
+// MN-major descriptor. Keys stream in 64-key tiles through two bf16 stages
+// of K and of V (80 KB of shared memory with the resident Q, 81 KB with
+// the int8 cache's scales: two blocks an SM). A tile's products and
+// softmax run one after the other, and the copies of the next tile land
+// meanwhile; the second block on an SM keeps its tensor cores busy
+// through a block's softmax. Copies are `cp.async` of 16 bytes a thread
+// into the swizzled layout: no tensor map to encode per call (a call takes
+// q, out and chunk pointers that change every layer, and the sharded
 // wrapper passes strided views), and rows past a source's end are
 // zero-filled by the copy itself.
 //   The softmax runs on exp2 with scale * log2(e) folded into one fma per
@@ -52,60 +52,58 @@
 //   values, no divergence): the last cache tile of a span, and the chunk's
 //   tiles near the diagonal. A row whose keys so far are all masked keeps m
 //   = -1e30 and subtracts 0, so its masked scores weigh exactly 0.
-//   The split (flash-decoding): the cache is cut into spans of a fixed
-//   number of slots that depends only on the rows of a (lane, head), T times
-//   the GQA group, and on S (`ops/attention.py::decode_split_span`): 256
-//   slots when the rows fit one tile (a decode step: 7 rows), 2048 up to 16
-//   tiles (a frame or joiner step: 448 rows), else one span (the 8- and
-//   32-frame blocks: 43 and 172 tiles a head are work enough). The grid is
-//   (row tiles, ceil(S / span), lanes x kv heads), sized from S: the wrapper
-//   never reads a cursor. A block whose span starts past its lane's
-//   cache_len exits at once. With one live span a block writes its rows
-//   directly; else each live block writes f32 partials (acc, m, l) into
-//   scratch, and the last one of its (lane, head, row tile), found by a
-//   counter that it resets to 0, combines them in span order. So a (lane,
-//   head) is computed the same way in any launch, and a sharded run stays
-//   bit-equal to one launch (the split depends on nothing a shard changes).
+//   The split (flash-decoding): the cache is cut into spans of a fixed number
+//   of slots that depends only on the rows of a (lane, head), T times the GQA
+//   group, and on S (`ops/attention.py::decode_split_span`): 256 slots when
+//   the rows fit one tile (a decode step: 7 rows), 2048 up to 16 tiles (a
+//   frame or joiner step: 448 rows), else one span (the 8- and 32-frame
+//   blocks: 43 and 172 tiles a head are work enough). The grid is (row tiles,
+//   lanes x kv heads, ceil(S / span)), sized from S: the wrapper never reads
+//   a cursor. A block whose span starts past its lane's cache_len exits at
+//   once; the splits are the grid's outer dimension, so that the blocks of
+//   the first spans, those with work, are dispatched first and spread over
+//   the SMs. With one live span a block writes its rows directly; else each
+//   live block writes f32 partials (acc, m, l) into scratch, and the last one
+//   of its (lane, head, row tile), found by a counter that it resets to 0,
+//   combines them in span order, a warp a row and four columns a lane, so
+//   that four rows' loads are in flight together. So a (lane, head) is
+//   computed the same way in any launch, and a sharded run stays bit-equal to
+//   one launch (the split depends on nothing a shard changes).
 //
-// **int8 cache (`flash_decode_int8`): CUDA cores.** One thread block per
-// (query-row tile, kv head, lane); 4 warps x 4 query rows; K/V tiles of 64
-// keys staged in shared memory and shared by the 16 rows; f32
-// online-softmax state (m, l, acc) per row, with each lane owning 4 of the
-// 128 output dims; p stays in f32 for the value product. The chunk is
-// processed first so that every real row has a finite running max before
-// any fully masked cache tile (masked scores are a finite -1e30, as in the
-// JAX code).
-//
-// The int8 cache (the Pallas kernel's `quantized=True` variant): the cache
-// holds int8 K/V rows with one f32 scale per (layer, lane, head, slot). A
-// tile arrives as int8 (half the bytes, 16 values per 16-byte load) and is
-// widened to bf16 in shared memory, exactly; a block loads the scales of
-// its own head's slots. The algebra is the reference's: the K scale
-// multiplies the score as a column scaling, s = (q . k_int) * scale *
-// ks[col]; the V scale is folded into the numerator, acc += (p * vs[col]) *
-// v_int; the denominator sums the unscaled p. The chunk stays bf16 and goes
-// first.
-//
-// Later work: the int8 cache on the tensor-core path (the tile loads would
-// widen int8 to bf16 in shared memory, the scales ride on S's columns and
-// P's).
+// The int8 cache (the Pallas kernel's `quantized=True` variant): int8 K/V
+// rows with one f32 scale per (layer, lane, head, slot). A cache tile is
+// half the bytes of a bf16 one and comes through registers, two tiles
+// ahead: while the tensor cores take S of tile i, each thread widens its
+// registers of tile i + 1's K (four 16-byte pieces) to bf16, exactly,
+// stores them into the other stage in the swizzled layout the descriptors
+// read, with its one scale beside it (64 K scales, then 64 V scales), and
+// loads tile i + 2's K into the registers; under P V it does the same for
+// V. A block's first two cache tiles load together; `fence.proxy.async`
+// and the barrier at the top of tile i + 1 make the stores visible to
+// `wgmma`. Rows and scales at or past the span's end load as zeros, so a
+// slot past the cursor is never read. The chunk stays bf16 and comes by
+// `cp.async`, one tile ahead. No int8 ring: shared memory stays at the bf16
+// instance's two stages (81 KB, two blocks an SM; a ring of two int8 stages
+// would take 114 KB, one block an SM, and a one-stage ring filled by
+// `cp.async` in place of the registers was 5-17 % slower at every shape on
+// an H100). The algebra is the Pallas kernel's: each thread multiplies its
+// S accumulators by the K scale of their key (a column scaling, before the
+// mask and the row max); the row sum l takes the unscaled p, and p is
+// multiplied by the V scale of its key before it is rounded to bf16 for
+// the value product, as `(p * vscale).astype(q.dtype)` does; the chunk's p
+// is not scaled.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr int HD = 128;              // head dim (the only one supported)
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = 4;               // query rows per warp
-constexpr int ROWS = WARPS * RPW;    // query rows per block
-constexpr int KT = 64;               // keys per shared-memory tile
-constexpr int KPAD = HD + 2;         // K row stride: 65 words, so lane j
-                                     // reading key j hits bank (j + d) % 32
 constexpr float NEG = -1e30f;
 
 // Element strides of the operands (rows of hd values are contiguous, and so
@@ -119,275 +117,22 @@ struct Strides {
   long long s_l, s_b, s_h;           // int8 cache scales: layer, lane, kv head
 };
 
-struct __align__(16) Smem {
-  float q[ROWS][HD];                 // queries of this tile, f32
-  __nv_bfloat16 k[KT][KPAD];
-  __nv_bfloat16 v[KT][HD];
-  float p[WARPS][RPW][KT];           // softmax numerators of the tile
-  float ks[KT];                      // int8 cache: the tile's K and V scales
-  float vs[KT];
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// Stage keys [j0, j0 + KT) of one (HD-contiguous rows) K/V source; rows at
-// or past n are zero-filled and masked later.
-__device__ __forceinline__ void load_tile(Smem& sm, const __nv_bfloat16* kb,
-                                          const __nv_bfloat16* vb, int j0, int n) {
-  constexpr int CHUNKS = HD / 8;     // 16-byte pieces per row
-  for (int c = threadIdx.x; c < KT * CHUNKS; c += THREADS) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 8;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-    uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-    if (j0 + row < n) {
-      const size_t off = (size_t)(j0 + row) * HD + col;
-      kv = *reinterpret_cast<const uint4*>(kb + off);
-      vv = *reinterpret_cast<const uint4*>(vb + off);
-    }
-    uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[row][col]);
-    kd[0] = kv.x;
-    kd[1] = kv.y;
-    kd[2] = kv.z;
-    kd[3] = kv.w;
-    *reinterpret_cast<uint4*>(&sm.v[row][col]) = vv;
-  }
-}
-
-// 16 int8 values -> 16 bf16 values (exact), as 8 packed pairs
+// 16 int8 values -> 16 bf16 values, exactly, as 8 packed pairs (the first
+// four: values 0-7). A byte x in a 16-bit lane: the bf16 bits 0x4300 | (x &
+// 0x7f) are 128 + (x & 0x7f), and 0x4300 ^ (x & 0x80) are 128 for x >= 0
+// and 256 for x < 0, so their difference is x.
 __device__ __forceinline__ void widen16(const uint4& raw, uint32_t (&out)[8]) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn((float)b[2 * i], (float)b[2 * i + 1]);
-    out[i] = *reinterpret_cast<const uint32_t*>(&v);
+    const uint32_t p = __byte_perm(w[i >> 1], 0u, (i & 1) ? 0x4342u : 0x4140u);
+    const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;
+    const uint32_t b = (p & 0x00800080u) ^ 0x43004300u;
+    const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+                                     *reinterpret_cast<const __nv_bfloat162*>(&b));
+    out[i] = *reinterpret_cast<const uint32_t*>(&d);
   }
 }
-
-// The int8 cache's form of `load_tile`: keys [j0, j0 + KT) of one head's
-// int8 rows widened to bf16, and their f32 scales (rows at or past n: zeros).
-__device__ __forceinline__ void load_tile_int8(Smem& sm, const int8_t* kb, const int8_t* vb,
-                                               const float* ksb, const float* vsb,
-                                               int j0, int n) {
-  constexpr int CHUNKS = HD / 16;    // 16-byte pieces per int8 row
-  for (int c = threadIdx.x; c < KT * CHUNKS; c += THREADS) {
-    const int row = c / CHUNKS;
-    const int col = (c % CHUNKS) * 16;
-    uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-    uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-    if (j0 + row < n) {
-      const size_t off = (size_t)(j0 + row) * HD + col;
-      kv = *reinterpret_cast<const uint4*>(kb + off);
-      vv = *reinterpret_cast<const uint4*>(vb + off);
-    }
-    uint32_t kw[8], vw[8];
-    widen16(kv, kw);
-    widen16(vv, vw);
-    uint32_t* kd = reinterpret_cast<uint32_t*>(&sm.k[row][col]);
-    uint32_t* vd = reinterpret_cast<uint32_t*>(&sm.v[row][col]);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      kd[i] = kw[i];
-      vd[i] = vw[i];
-    }
-  }
-  if (threadIdx.x < KT) {
-    const int j = j0 + threadIdx.x;
-    sm.ks[threadIdx.x] = j < n ? ksb[j] : 0.f;
-    sm.vs[threadIdx.x] = j < n ? vsb[j] : 0.f;
-  }
-}
-
-// One staged tile into the warp's online-softmax state. `limit[r]` is the
-// last key index row r may see (exclusive), `n` the source's valid keys.
-// SCALED: the tile is an int8 cache tile, with its scales in sm.ks / sm.vs.
-template <bool SCALED>
-__device__ __forceinline__ void attend_tile(const Smem& sm, int j0, int n,
-                                            const int (&limit)[RPW], float scale,
-                                            float (&m)[RPW], float (&l)[RPW],
-                                            float (&acc)[RPW][4], float (&pbuf)[RPW][KT]) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float s[RPW][2];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) s[r][0] = s[r][1] = 0.f;
-
-  const __nv_bfloat162* k0 = reinterpret_cast<const __nv_bfloat162*>(&sm.k[lane][0]);
-  const __nv_bfloat162* k1 = reinterpret_cast<const __nv_bfloat162*>(&sm.k[lane + 32][0]);
-#pragma unroll 8
-  for (int d2 = 0; d2 < HD / 2; ++d2) {
-    const float2 a = __bfloat1622float2(k0[d2]);
-    const float2 b = __bfloat1622float2(k1[d2]);
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float2 qq = *reinterpret_cast<const float2*>(&sm.q[warp * RPW + r][2 * d2]);
-      s[r][0] = fmaf(qq.x, a.x, fmaf(qq.y, a.y, s[r][0]));
-      s[r][1] = fmaf(qq.x, b.x, fmaf(qq.y, b.y, s[r][1]));
-    }
-  }
-
-  const int c0 = j0 + lane;
-  const int c1 = j0 + lane + 32;
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    float x0 = s[r][0] * scale;
-    float x1 = s[r][1] * scale;
-    if (SCALED) {                    // K's per-token scale: a column scaling
-      x0 *= sm.ks[lane];
-      x1 *= sm.ks[lane + 32];
-    }
-    if (!(c0 < n && c0 < limit[r])) x0 = NEG;
-    if (!(c1 < n && c1 < limit[r])) x1 = NEG;
-    const float mn = fmaxf(m[r], warp_max(fmaxf(x0, x1)));
-    const float alpha = expf(m[r] - mn);
-    const float p0 = expf(x0 - mn);
-    const float p1 = expf(x1 - mn);
-    l[r] = l[r] * alpha + warp_sum(p0 + p1);
-    m[r] = mn;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] *= alpha;
-    // V's per-token scale rides on the numerator; l keeps the unscaled p
-    pbuf[r][lane] = SCALED ? p0 * sm.vs[lane] : p0;
-    pbuf[r][lane + 32] = SCALED ? p1 * sm.vs[lane + 32] : p1;
-  }
-  __syncwarp();
-
-  const int jn = min(KT, n - j0);
-  for (int j = 0; j < jn; ++j) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(&sm.v[j][lane * 4]);
-    const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const float pj = pbuf[r][j];
-      acc[r][0] = fmaf(pj, v01.x, acc[r][0]);
-      acc[r][1] = fmaf(pj, v01.y, acc[r][1]);
-      acc[r][2] = fmaf(pj, v23.x, acc[r][2]);
-      acc[r][3] = fmaf(pj, v23.y, acc[r][3]);
-    }
-  }
-  __syncwarp();
-}
-
-// The int8 cache: int8 (L, B, kh, S, hd) rows with f32 scales (L, B, kh, S).
-__global__ void __launch_bounds__(THREADS)
-flash_decode_int8_kernel(const __nv_bfloat16* __restrict__ q,
-                         const void* __restrict__ k_cache,
-                         const void* __restrict__ v_cache,
-                         const float* __restrict__ k_scale,
-                         const float* __restrict__ v_scale,
-                         const __nv_bfloat16* __restrict__ chunk_k,
-                         const __nv_bfloat16* __restrict__ chunk_v,
-                         const int* __restrict__ cache_len,
-                         const int* __restrict__ t_real,
-                         const int* __restrict__ q_offset,
-                         __nv_bfloat16* __restrict__ out, const Strides st,
-                         int T, int nh, int kh, int S, int Tc, int layer,
-                         float scale) {
-  __shared__ Smem sm;
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = nh / kh;
-  const int rows = group * T;
-  const int row0 = tile * ROWS;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  const int clen = min(max(cache_len[b], 0), S);
-  const int treal = min(max(t_real[b], 0), Tc);
-  const int qoff = q_offset[b];
-
-  // queries of this tile -> shared memory (rows past `rows` are zeros)
-  for (int idx = threadIdx.x; idx < ROWS * (HD / 2); idx += THREADS) {
-    const int rr = idx / (HD / 2);
-    const int d2 = idx % (HD / 2);
-    const int row = row0 + rr;
-    float2 val = make_float2(0.f, 0.f);
-    if (row < rows) {
-      const int g = row / T;
-      const int t = row % T;
-      const __nv_bfloat162* qp = reinterpret_cast<const __nv_bfloat162*>(
-          q + (size_t)b * st.q_b + (size_t)t * st.q_t + (size_t)(h * group + g) * HD);
-      val = __bfloat1622float2(qp[d2]);
-    }
-    *reinterpret_cast<float2*>(&sm.q[rr][2 * d2]) = val;
-  }
-
-  // causal limit of each of this warp's rows inside the chunk, and the
-  // last chunk column any row of the block can see
-  int limit[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = row0 + warp * RPW + r;
-    limit[r] = qoff + (row < rows ? row % T : T - 1) + 1;
-  }
-  const int last = min(row0 + ROWS, rows) - 1;
-  const int t_max = (row0 / T != last / T) ? T - 1 : last % T;
-  const int chunk_end = max(0, min(treal, qoff + t_max + 1));
-
-  float m[RPW], l[RPW], acc[RPW][4];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = NEG;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-  }
-
-  const size_t head = (size_t)b * st.k_b + (size_t)h * st.k_h;
-  const __nv_bfloat16* ckb = chunk_k + head;
-  const __nv_bfloat16* cvb = chunk_v + head;
-  for (int j0 = 0; j0 < chunk_end; j0 += KT) {
-    __syncthreads();
-    load_tile(sm, ckb, cvb, j0, chunk_end);
-    __syncthreads();
-    attend_tile<false>(sm, j0, chunk_end, limit, scale, m, l, acc, sm.p[warp]);
-  }
-
-  // cache history: every query row sits after it, so only cache_len masks
-  const size_t lay = (size_t)layer * st.c_l + (size_t)b * st.c_b + (size_t)h * st.c_h;
-  const size_t slay = (size_t)layer * st.s_l + (size_t)b * st.s_b + (size_t)h * st.s_h;
-  int no_limit[RPW];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) no_limit[r] = clen;
-  for (int j0 = 0; j0 < clen; j0 += KT) {
-    __syncthreads();
-    load_tile_int8(sm, static_cast<const int8_t*>(k_cache) + lay,
-                   static_cast<const int8_t*>(v_cache) + lay, k_scale + slay, v_scale + slay,
-                   j0, clen);
-    __syncthreads();
-    attend_tile<true>(sm, j0, clen, no_limit, scale, m, l, acc, sm.p[warp]);
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = row0 + warp * RPW + r;
-    if (row >= rows) continue;
-    const int g = row / T;
-    const int t = row % T;
-    const float denom = fmaxf(l[r], 1e-30f);
-    __nv_bfloat162 o01 = __floats2bfloat162_rn(acc[r][0] / denom, acc[r][1] / denom);
-    __nv_bfloat162 o23 = __floats2bfloat162_rn(acc[r][2] / denom, acc[r][3] / denom);
-    uint2 packed;
-    packed.x = *reinterpret_cast<uint32_t*>(&o01);
-    packed.y = *reinterpret_cast<uint32_t*>(&o23);
-    *reinterpret_cast<uint2*>(out + (size_t)b * st.o_b + (size_t)t * st.o_t +
-                              (size_t)(h * group + g) * HD + lane * 4) = packed;
-  }
-}
-
-// ---- bf16 cache: tensor-core tiles, split over the cache ------------------
 
 namespace hp = hopper;
 
@@ -396,32 +141,39 @@ namespace tc {
 constexpr int THREADS = 128;            // one warpgroup
 constexpr int BR = 64;                  // GQA rows of a block
 constexpr int BKT = 64;                 // keys of a streamed tile
-constexpr int NST = 2;                  // ring stages of K and of V
+constexpr int NST = 2;                  // stages of K and of V
 constexpr uint32_t HALF = 64 * 128;     // bytes of 64 rows x 64 columns
 constexpr uint32_t TILE = 2 * HALF;     // a 64 x 128 bf16 tile
-// Shared memory, in bytes from a 1024-byte aligned base: Q | K[NST] | V[NST]
+// Shared memory, in bytes from a 1024-byte aligned base: Q | K[NST] |
+// V[NST] | (int8 cache) the scales of each stage, 64 of K then 64 of V
 constexpr uint32_t SM_K = TILE;
 constexpr uint32_t SM_V = SM_K + NST * TILE;
-constexpr size_t SMEM = SM_V + NST * TILE + 1024;
-static_assert(THREADS == HD, "the combine gives each thread one column");
+constexpr uint32_t SM_SC = SM_V + NST * TILE;
+constexpr size_t SMEM = SM_SC + 1024;
+constexpr size_t SMEM_INT8 = SM_SC + NST * 2 * BKT * sizeof(float) + 1024;
+static_assert(HD == 4 * 32, "the combine gives each lane four columns");
+static_assert(THREADS == 2 * BKT, "a thread loads one scale of a tile");
 
+template <bool INT8>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k_cache,
-                       const __nv_bfloat16* __restrict__ v_cache,
+                       const void* __restrict__ k_cache, const void* __restrict__ v_cache,
+                       const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                        const __nv_bfloat16* __restrict__ chunk_k,
                        const __nv_bfloat16* __restrict__ chunk_v,
                        const int* __restrict__ cache_len, const int* __restrict__ t_real,
                        const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part, int* __restrict__ counters, const Strides st,
                        int T, int nh, int kh, int S, int Tc, int layer, int span, float scale) {
+  using CacheT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int ticket;
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const sbase = smem_raw + (base - hp::smem_u32(smem_raw));
   const int tile = blockIdx.x;
-  const int split = blockIdx.y;
-  const int nsplit = gridDim.y;
-  const int bh = blockIdx.z;
+  const int split = blockIdx.z;
+  const int nsplit = gridDim.z;
+  const int bh = blockIdx.y;
   const int b = bh / kh;
   const int h = bh % kh;
   const int group = nh / kh;
@@ -451,19 +203,24 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t lay = (size_t)layer * st.c_l + (size_t)b * st.c_b + (size_t)h * st.c_h;
   const __nv_bfloat16* ckb = chunk_k + chead;
   const __nv_bfloat16* cvb = chunk_v + chead;
-  const __nv_bfloat16* kcb = k_cache + lay;
-  const __nv_bfloat16* vcb = v_cache + lay;
+  const CacheT* kcb = static_cast<const CacheT*>(k_cache) + lay;
+  const CacheT* vcb = static_cast<const CacheT*>(v_cache) + lay;
 
-  // K or V of key tile i (the chunk's tiles first) into its ring stage i %
-  // NST; rows past the source's end are zeros. Thread x copies the 16-byte
-  // chunk x % 16 of rows x / 16 + 8 k: one swizzled offset, 1024 bytes
-  // further for each k (unrolled: on an H100 a strided loop over the tile
-  // took 15-20 % longer at the 8- and 32-frame blocks)
+  // bf16 K or V of key tile i (the chunk's tiles first; with the int8
+  // cache only the chunk's) into its stage i % NST; rows past the source's
+  // end are zeros. Thread x copies the 16-byte chunk x % 16 of rows x / 16
+  // + 8 k: one swizzled offset, 1024 bytes further for each k (unrolled: on
+  // an H100 a strided loop over the tile took 15-20 % longer at the 8- and
+  // 32-frame blocks)
   const int cr = threadIdx.x >> 4, cc = threadIdx.x & 15;
   const uint32_t cdst = hp::swizzled(cr, cc, HALF);
   auto load = [&](int i, bool v_tile) {
     const bool chunk = i < nct;
-    const __nv_bfloat16* src = v_tile ? (chunk ? cvb : vcb) : (chunk ? ckb : kcb);
+    const __nv_bfloat16* src;
+    if constexpr (INT8)
+      src = v_tile ? cvb : ckb;
+    else
+      src = v_tile ? (chunk ? cvb : vcb) : (chunk ? ckb : kcb);
     const int j0 = chunk ? i * BKT : lo + (i - nct) * BKT;
     const int n = chunk ? chunk_end : hi;
     const uint32_t dst = base + (v_tile ? SM_V : SM_K) + (i % NST) * TILE + cdst;
@@ -475,8 +232,55 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
 
+  // The int8 cache's tiles: thread x holds the 16-byte pieces w8 of rows
+  // wr + 16 k (k < 4) of the tile's K and of its V, and one scale: K's of
+  // slot x or V's of slot x - 64. Within each 8-thread phase of a 16-byte
+  // store the rows are one even and one odd and the pieces four, so the
+  // swizzled stores meet no bank twice; each warp loads 512 contiguous bytes.
+  const int wr = 4 * (threadIdx.x >> 5) + (((threadIdx.x >> 2) & 1) | ((threadIdx.x >> 3) & 2));
+  const int w8 = (threadIdx.x & 3) | ((threadIdx.x >> 1) & 4);
+  const float* scb = nullptr;
+  if constexpr (INT8)
+    scb = (threadIdx.x < BKT ? k_scale : v_scale) + (size_t)layer * st.s_l +
+          (size_t)b * st.s_b + (size_t)h * st.s_h;
+  // K or V of cache tile i into registers (zeros at and past hi), and with
+  // K the thread's scale
+  auto fetch = [&](int i, const CacheT* src, uint4 (&r)[4], float* sc) {
+    const int j0 = lo + (i - nct) * BKT;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = j0 + wr + 16 * k;
+      r[k] = row < hi ? __ldg(reinterpret_cast<const uint4*>(src + (size_t)row * HD + w8 * 16))
+                      : make_uint4(0, 0, 0, 0);
+    }
+    if (sc != nullptr) {
+      const int j = j0 + (threadIdx.x & (BKT - 1));
+      *sc = j < hi ? __ldg(scb + j) : 0.f;
+    }
+  };
+  // those registers, widened, into K's or V's stage of tile i (and the scale)
+  auto land = [&](int i, uint32_t part, const uint4 (&r)[4], const float* sc) {
+    unsigned char* d = sbase + part + (i % NST) * TILE;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int row = wr + 16 * k;
+      uint32_t w[8];
+      widen16(r[k], w);
+      *reinterpret_cast<uint4*>(d + hp::swizzled(row, 2 * w8, HALF)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+      *reinterpret_cast<uint4*>(d + hp::swizzled(row, 2 * w8 + 1, HALF)) =
+          make_uint4(w[4], w[5], w[6], w[7]);
+    }
+    if (sc != nullptr)
+      reinterpret_cast<float*>(sbase + SM_SC)[(i % NST) * 2 * BKT + threadIdx.x] = *sc;
+  };
+  uint4 rk[4], rv[4];  // K and V of the cache tile after the next
+  float rsc = 0.f;
+
   // the block's query rows (row = g * T + t; zeros past `rows`) with K and
-  // V of tile 0, then K and V of tile 1, each set its own group of copies
+  // V of tile 0; with the bf16 cache, K and V of tile 1 as a second group of
+  // copies; with the int8 cache, tile 1 into registers if it is a cache
+  // tile (both in flight before tile 0 lands, if it is one too)
   for (int idx = threadIdx.x; idx < BR * 16; idx += THREADS) {
     const int r = idx >> 4, ch = idx & 15;
     const int row = row0 + r;
@@ -486,16 +290,39 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
         q + (size_t)b * st.q_b + (size_t)t * st.q_t + (size_t)(h * group + g) * HD + ch * 8;
     hp::cp_async16(base + hp::swizzled(r, ch, HALF), src, ok);
   }
-  if (n_tiles > 0) {
-    load(0, false);
-    load(0, true);
+  if constexpr (INT8) {
+    if (nct > 0) {
+      load(0, false);
+      load(0, true);
+      if (n_tiles > 1 && nct == 1) {
+        fetch(1, kcb, rk, &rsc);
+        fetch(1, vcb, rv, nullptr);
+      }
+    } else if (n_tiles > 0) {
+      uint4 k0[4], v0[4];
+      float s0;
+      fetch(0, kcb, k0, &s0);
+      fetch(0, vcb, v0, nullptr);
+      if (n_tiles > 1) {
+        fetch(1, kcb, rk, &rsc);
+        fetch(1, vcb, rv, nullptr);
+      }
+      land(0, SM_K, k0, &s0);
+      land(0, SM_V, v0, nullptr);
+    }
+    hp::cp_async_commit();
+  } else {
+    if (n_tiles > 0) {
+      load(0, false);
+      load(0, true);
+    }
+    hp::cp_async_commit();
+    if (n_tiles > 1) {
+      load(1, false);
+      load(1, true);
+    }
+    hp::cp_async_commit();
   }
-  hp::cp_async_commit();
-  if (n_tiles > 1) {
-    load(1, false);
-    load(1, true);
-  }
-  hp::cp_async_commit();
 
   // this thread's rows (second: + 8) and the first of its two columns in
   // every 8-column block of an accumulator
@@ -526,7 +353,11 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   for (int i = 0; i < n_tiles; ++i) {
-    hp::cp_async_wait<1>();  // K and V of tile i (and, at i = 0, Q) have landed
+    // K and V of tile i (and, at i = 0, Q) have landed
+    if constexpr (INT8)
+      hp::cp_async_wait<0>();
+    else
+      hp::cp_async_wait<1>();
     hp::fence_proxy_async();
     __syncthreads();
     float sc[32];
@@ -536,10 +367,36 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < HD / 16; ++kk)
       hp::wgmma_ss(sc, qdesc + hp::kstep(kk, HALF), kdesc + hp::kstep(kk, HALF), kk);
     hp::wgmma_commit();
+    if constexpr (INT8) {
+      // while the tensor cores take S: tile i + 1 into the other stage,
+      // which tile i - 1 has left (the chunk's by cp.async; the cache's K
+      // from the registers), then tile i + 2's K into the registers
+      if (i + 1 < nct) {
+        load(i + 1, false);
+        load(i + 1, true);
+      } else if (i + 1 < n_tiles) {
+        land(i + 1, SM_K, rk, &rsc);
+      }
+      if (i + 2 < n_tiles && i + 2 >= nct) fetch(i + 2, kcb, rk, &rsc);
+      hp::cp_async_commit();
+    }
     hp::wgmma_wait<0>();
     hp::acc_fence(sc);
 
     const bool chunk = i < nct;
+    const float* tsc = reinterpret_cast<const float*>(sbase + SM_SC) + (i % NST) * 2 * BKT;
+    if constexpr (INT8) {
+      if (!chunk) {  // K's scales on S's columns, before the mask and the max
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 ks = *reinterpret_cast<const float2*>(tsc + n * 8 + col);
+          sc[4 * n] *= ks.x;
+          sc[4 * n + 1] *= ks.y;
+          sc[4 * n + 2] *= ks.x;
+          sc[4 * n + 3] *= ks.y;
+        }
+      }
+    }
     const int j0 = chunk ? i * BKT : lo + (i - nct) * BKT;
     if (j0 + BKT > (chunk ? chunk_free : hi)) {  // the same in every thread
 #pragma unroll
@@ -584,6 +441,18 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
       acc[4 * n + 2] *= alpha[1];
       acc[4 * n + 3] *= alpha[1];
     }
+    if constexpr (INT8) {
+      if (!chunk) {  // V's scales on p, after l took it unscaled
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const float2 vs = *reinterpret_cast<const float2*>(tsc + BKT + n * 8 + col);
+          sc[4 * n] *= vs.x;
+          sc[4 * n + 1] *= vs.y;
+          sc[4 * n + 2] *= vs.x;
+          sc[4 * n + 3] *= vs.y;
+        }
+      }
+    }
     uint32_t pa[4][4];
     hp::pack_a(pa, sc);
     const uint64_t vdesc = hp::desc_mnmajor(base + SM_V + (i % NST) * TILE, HALF);
@@ -591,9 +460,13 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) hp::wgmma_rs(acc, pa[kk], vdesc + hp::rowstep(kk));
     hp::wgmma_commit();
+    if constexpr (INT8) {  // and under P V, the same for V
+      if (i + 1 >= nct && i + 1 < n_tiles) land(i + 1, SM_V, rv, nullptr);
+      if (i + 2 < n_tiles && i + 2 >= nct) fetch(i + 2, vcb, rv, nullptr);
+    }
     hp::wgmma_wait<0>();
     hp::acc_fence(acc);
-    refill(i);
+    if constexpr (!INT8) refill(i);
   }
 
   float lsum[2];
@@ -619,7 +492,7 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // partials: acc (bh, split, row, HD) f32, then (m, l) (bh, split, row, 2)
-  const size_t all_rows = (size_t)gridDim.z * nsplit * rows;
+  const size_t all_rows = (size_t)gridDim.y * nsplit * rows;
   const size_t first = ((size_t)bh * nsplit + split) * rows;
   float* pacc = part + first * HD;
   float* pml = part + all_rows * HD + first * 2;
@@ -641,31 +514,75 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   __threadfence();
 
   // the last block of this (lane, head, row tile): the live spans' partials
-  // in span order
-  const int d = threadIdx.x;
+  // in span order, a warp a row and four columns a lane. Lane j reads span
+  // s0 + j's (m, l), and each lane takes the weights of spans s0, s0 + 1, ...
+  // in turn from the lane that read them, so every sum runs in span order
+  const int warp = threadIdx.x >> 5;
   const size_t bh0 = (size_t)bh * nsplit * rows;
-  for (int r = row0; r <= last; ++r) {
+  const float* pm = part + all_rows * HD;
+  for (int r = row0 + warp; r <= last; r += THREADS / 32) {
     float mx = NEG;
-    for (int sp = 0; sp < n_live; ++sp)
-      mx = fmaxf(mx, __ldcg(part + all_rows * HD + (bh0 + (size_t)sp * rows + r) * 2));
-    float lt = 0.f, o = 0.f;
-    for (int sp = 0; sp < n_live; ++sp) {
-      const size_t at = bh0 + (size_t)sp * rows + r;
-      const float2 ml = __ldcg(reinterpret_cast<const float2*>(part + all_rows * HD + at * 2));
+    for (int sp = lane; sp < n_live; sp += 32)
+      mx = fmaxf(mx, __ldcg(pm + (bh0 + (size_t)sp * rows + r) * 2));
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+    float lt = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < n_live; s0 += 32) {
+      float2 ml = make_float2(NEG, 0.f);
+      if (s0 + lane < n_live)
+        ml = __ldcg(reinterpret_cast<const float2*>(pm + (bh0 + (size_t)(s0 + lane) * rows + r) *
+                                                        2));
       const float w = hp::ex2((ml.x - mx) * c);
-      lt += w * ml.y;
-      o += w * __ldcg(part + at * HD + d);
+      const int n = min(32, n_live - s0);
+#pragma unroll 8
+      for (int j = 0; j < n; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, w, j);
+        lt += wj * __shfl_sync(0xffffffffu, ml.y, j);
+        const float4 a = __ldcg(reinterpret_cast<const float4*>(
+            part + (bh0 + (size_t)(s0 + j) * rows + r) * HD + 4 * lane));
+        o[0] += wj * a.x;
+        o[1] += wj * a.y;
+        o[2] += wj * a.z;
+        o[3] += wj * a.w;
+      }
     }
-    out_row(r)[d] = __float2bfloat16_rn(o / fmaxf(lt, 1e-30f));
+    const float den = fmaxf(lt, 1e-30f);
+    *reinterpret_cast<uint2*>(out_row(r) + 4 * lane) =
+        make_uint2(hp::pack(o[0] / den, o[1] / den), hp::pack(o[2] / den, o[3] / den));
   }
   if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
 }
 
-}  // namespace tc
-
-Strides load_strides(const long long* s) {
-  return Strides{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
+// One launch of the kernel for the cache type INT8 (see flash_decode_bf16).
+template <bool INT8>
+int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
+           const void* v_scale, const void* chunk_k, const void* chunk_v, const void* cache_len,
+           const void* t_real, const void* q_offset, void* out, void* part, void* counters,
+           const long long* s, int B, int T, int nh, int kh, int S, int Tc, int layer, int span,
+           float scale, void* stream) {
+  constexpr size_t smem = INT8 ? SMEM_INT8 : SMEM;
+  static const cudaError_t smem_ok = cudaFuncSetAttribute(
+      flash_decode_tc_kernel<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
+  if (span < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (nh / kh) * T;
+  const int nsplit = (S + span - 1) / span;
+  if (nsplit > 1 && (part == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((rows + BR - 1) / BR, B * kh, nsplit);
+  const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
+  flash_decode_tc_kernel<INT8><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const __nv_bfloat16*>(chunk_k), static_cast<const __nv_bfloat16*>(chunk_v),
+      static_cast<const int*>(cache_len), static_cast<const int*>(t_real),
+      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(part), static_cast<int*>(counters), st, T, nh, kh, S, Tc, layer, span,
+      scale);
+  return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace tc
 
 }  // namespace
 
@@ -676,58 +593,33 @@ extern "C" {
 // of them; `strides` points to the 12 element strides of `Strides`, in its
 // order, on the host. B, nh and kh are the view's own (a shard's local)
 // counts. The caller checks shapes, dtypes, strides, alignment and hd ==
-// 128.
-//
-// The bf16 cache: `span` is the split's slots (`decode_split_span`); with
-// ceil(S / span) > 1 spans, `part` is f32 scratch of B kh ceil(S / span)
-// (nh / kh) T (hd + 2) values and `counters` int32 zeros, B kh ceil((nh /
-// kh) T / 64) of them, which the kernel leaves zero again.
+// 128. `span` is the split's slots (`decode_split_span`); with ceil(S /
+// span) > 1 spans, `part` is f32 scratch of B kh ceil(S / span) (nh / kh)
+// T (hd + 2) values and `counters` int32 zeros, B kh ceil((nh / kh) T /
+// 64) of them, which the kernel leaves zero again.
 int flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                       const void* chunk_k, const void* chunk_v,
                       const void* cache_len, const void* t_real,
                       const void* q_offset, void* out, void* part, void* counters,
                       const long long* strides, int B, int T, int nh, int kh, int S, int Tc,
                       int layer, int span, float scale, void* stream) {
-  static const cudaError_t smem_ok = cudaFuncSetAttribute(
-      tc::flash_decode_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tc::SMEM);
-  if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-  if (span < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (nh / kh) * T;
-  const int nsplit = (S + span - 1) / span;
-  if (nsplit > 1 && (part == nullptr || counters == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((rows + tc::BR - 1) / tc::BR, nsplit, B * kh);
-  const Strides st = load_strides(strides);
-  tc::flash_decode_tc_kernel<<<grid, tc::THREADS, tc::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_cache),
-      static_cast<const __nv_bfloat16*>(v_cache), static_cast<const __nv_bfloat16*>(chunk_k),
-      static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
-      static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), static_cast<int*>(counters),
-      st, T, nh, kh, S, Tc, layer, span, scale);
-  return static_cast<int>(cudaGetLastError());
+  return tc::launch<false>(q, k_cache, v_cache, nullptr, nullptr, chunk_k, chunk_v, cache_len,
+                           t_real, q_offset, out, part, counters, strides, B, T, nh, kh, S, Tc,
+                           layer, span, scale, stream);
 }
 
-// The int8-cache variant: k_cache / v_cache are int8 (L, B, kh, S, hd),
-// k_scale / v_scale f32 (L, B, kh, S) (or views); everything else as above.
+// The int8 cache: k_cache / v_cache are int8 (L, B, kh, S, hd), k_scale /
+// v_scale f32 (L, B, kh, S) (or views); everything else as above.
 int flash_decode_int8(const void* q, const void* k_cache, const void* v_cache,
                       const void* k_scale, const void* v_scale,
                       const void* chunk_k, const void* chunk_v,
                       const void* cache_len, const void* t_real,
-                      const void* q_offset, void* out, const long long* strides,
-                      int B, int T, int nh, int kh, int S, int Tc, int layer,
-                      float scale, void* stream) {
-  const int rows = (nh / kh) * T;
-  const dim3 grid((rows + ROWS - 1) / ROWS, kh, B);
-  const Strides st = load_strides(strides);
-  flash_decode_int8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), k_cache, v_cache,
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const __nv_bfloat16*>(chunk_k),
-      static_cast<const __nv_bfloat16*>(chunk_v), static_cast<const int*>(cache_len),
-      static_cast<const int*>(t_real), static_cast<const int*>(q_offset),
-      static_cast<__nv_bfloat16*>(out), st, T, nh, kh, S, Tc, layer, scale);
-  return static_cast<int>(cudaGetLastError());
+                      const void* q_offset, void* out, void* part, void* counters,
+                      const long long* strides, int B, int T, int nh, int kh, int S, int Tc,
+                      int layer, int span, float scale, void* stream) {
+  return tc::launch<true>(q, k_cache, v_cache, k_scale, v_scale, chunk_k, chunk_v, cache_len,
+                          t_real, q_offset, out, part, counters, strides, B, T, nh, kh, S, Tc,
+                          layer, span, scale, stream);
 }
 
 const char* flash_decode_error_string(int code) {

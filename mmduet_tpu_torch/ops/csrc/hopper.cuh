@@ -1,7 +1,7 @@
-// Building blocks of the port's Hopper (sm_90a) kernels: mbarriers, TMA
-// and cp.async copies into 128-byte-swizzled shared memory, and `wgmma`
-// products with their descriptors. Kernels A (bf16 cache), B and D
-// include it; `flash_full.cu` (kernel C) keeps its own copy of the same blocks.
+// Building blocks of the port's Hopper (sm_90a) kernels: mbarriers, TMA and
+// cp.async copies into 128-byte-swizzled shared memory, and `wgmma` products
+// with their descriptors. Kernels A, B and D include it; `flash_full.cu`
+// (kernel C) keeps its own copy of the same blocks.
 //
 // Swizzled tiles: rows of 128 bytes (64 bf16), 8-row groups 1024 bytes
 // apart; the 16-byte chunk c of row r sits at chunk c ^ (r % 8), which is

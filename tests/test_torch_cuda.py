@@ -118,10 +118,10 @@ def _device_ms(fn, iters=20):
 
 @pytest.mark.parametrize("case", A_TIMED, ids=[c[0] for c in A_TIMED])
 def test_kernel_at_main_path_shapes_is_timed_and_its_bound_is_tight(case, dev):
-    """Kernel A (bf16 cache) at the main path's shapes: within its bound, a
-    plain version that lost one split (decode) or one key tile (blocks)
-    fails it, and the kernel's time stands beside its roofline bound; the
-    int8 variant is timed at the same shape."""
+    """Kernel A at the main path's shapes, with a bf16 and with an int8
+    cache: within its bound, a plain version that lost one split (decode)
+    or one key tile (blocks) fails it, and the kernel's time stands beside
+    its roofline bound."""
     name, T, Tc, t_real, q_off, cache_len, drop = case
     nh, kh, hd, S = 28, 4, 128, 24576
     gen = torch.Generator(device=dev).manual_seed(T)
@@ -146,20 +146,34 @@ def test_kernel_at_main_path_shapes_is_timed_and_its_bound_is_tight(case, dev):
     ms = _device_ms(call)
     bound_ms, bound_by = bounds.decode_attention_bound(1, T, nh, kh, hd, cache_len, t_real, q_off)
     (kq, ks), (vq, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
-    int8_ms = _device_ms(lambda: attention.flash_decode_attention(
-        q, kq, vq, ck, cv, cl, tr, 0, q_offset=qo, k_scale=ks, v_scale=vs))
+    call8 = lambda: attention.flash_decode_attention(  # noqa: E731
+        q, kq, vq, ck, cv, cl, tr, 0, q_offset=qo, k_scale=ks, v_scale=vs)
+    got = call8()
+    up8 = (q.float(), kq[..., live, :], vq[..., live, :], ck.float(), cv.float(), cl, tr, 0, qo)
+    scales = dict(k_scale=ks[..., live], v_scale=vs[..., live])
+    rms = bounds.decode_attention_rms(*up8, **scales)[:, :t_real]
+    want = attention.flash_decode_attention_ref(*up8, **scales)[:, :t_real]
+    assert bounds.row_ratio(got[:, :t_real], want, rms) <= 1.0
+    dropped = bounds.decode_attention_dropped(*up8, drop=drop, **scales)[:, :t_real]
+    assert bounds.row_ratio(got[:, :t_real], dropped, rms) > 3.0
+    del want, dropped, rms
+    int8_ms = _device_ms(call8)
+    int8_bound_ms, _ = bounds.decode_attention_bound(1, T, nh, kh, hd, cache_len, t_real, q_off,
+                                                     int8=True)
     print(f"kernel A {name} (cache_len {cache_len}): {ms:.4f} ms, bound {bound_ms:.5f} ms "
-          f"({bound_by}); int8 cache {int8_ms:.4f} ms")
+          f"({bound_by}); int8 cache {int8_ms:.4f} ms, bound {int8_bound_ms:.5f} ms")
     assert math.isfinite(ms) and ms > 0.0 and bound_ms > 0.0
+    assert math.isfinite(int8_ms) and int8_ms > 0.0
 
 
 @pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
 def test_int8_cache_kernel_matches_plain_version(case, dev):
     """Kernel A's int8 variant on the cache that `quantize_kv_rows` makes of
     random bf16 rows, against the plain version's f32 column scalings on
-    the same int8 values: the kernel's only rounding is its bf16 output, so
-    the bf16 kernel's row bound holds. Slots past each lane's cursor hold
-    poisoned scales that must never be read into a result."""
+    the same int8 values: the kernel rounds p * v_scale to bf16 and its
+    output, so the bf16 kernel's row bound holds with the scaled values in
+    its rms term. Slots past each lane's cursor hold poisoned scales that
+    must never be read into a result."""
     name, B, T, Tc, nh, kh, S, L, layer, cl, tr, qo = case
     q, k, v, ck, cv, lanes = _decode_inputs(case, dev)
     (kq, ks), (vq, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
@@ -171,32 +185,107 @@ def test_int8_cache_kernel_matches_plain_version(case, dev):
                                            q_offset=lanes[2], k_scale=ks, v_scale=vs)
     assert (attention.LAUNCHES, attention.INT8_LAUNCHES) == (before[0] + 1, before[1] + 1)
     clean = [torch.nan_to_num(x, nan=0.0, posinf=0.0) for x in (ks, vs)]
-    want = attention.flash_decode_attention_ref(
-        q.float(), kq, vq, ck.float(), cv.float(), lanes[0], lanes[1], layer,
-        q_offset=lanes[2], k_scale=clean[0], v_scale=clean[1])
+    up = (q.float(), kq, vq, ck.float(), cv.float(), lanes[0], lanes[1], layer, lanes[2])
+    want = attention.flash_decode_attention_ref(*up, k_scale=clean[0], v_scale=clean[1])
+    rms = bounds.decode_attention_rms(*up, k_scale=clean[0], v_scale=clean[1])
     torch.cuda.synchronize()
     for b, n in enumerate(tr):
         assert torch.isfinite(got[b, :n]).all(), (name, b)
-        worst = bounds.row_ratio(got[b, :n], want[b, :n])
+        worst = bounds.row_ratio(got[b, :n], want[b, :n], rms[b, :n])
         assert worst <= 1.0, (name, b, worst)
 
 
 def test_int8_cache_bound_catches_a_lost_scale(dev):
     """Plain versions with one fault, K's scales taken as 1 or V's scales
-    of one key tile left out, miss the kernel by more than the row bound."""
+    of one key tile left out, miss the kernel by more than the row bound
+    with its rms term."""
     case = CASES[5]  # the 8-frame block over 3000 cache slots
     name, B, T, Tc, nh, kh, S, L, layer, cl, tr, qo = case
     q, k, v, ck, cv, lanes = _decode_inputs(case, dev)
     (kq, ks), (vq, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
     got = attention.flash_decode_attention(q, kq, vq, ck, cv, lanes[0], lanes[1], layer,
                                            q_offset=lanes[2], k_scale=ks, v_scale=vs)
+    up = (q.float(), kq, vq, ck.float(), cv.float(), lanes[0], lanes[1], layer, lanes[2])
+    rms = bounds.decode_attention_rms(*up, k_scale=ks, v_scale=vs)
+    assert bounds.row_ratio(got, attention.flash_decode_attention_ref(
+        *up, k_scale=ks, v_scale=vs), rms) <= 1.0
     vs_lost = vs.clone()
     vs_lost[:, :, :, 640:704] = 0.0
     for k_scale, v_scale in ((torch.ones_like(ks), vs), (ks, vs_lost)):
-        wrong = attention.flash_decode_attention_ref(
-            q.float(), kq, vq, ck.float(), cv.float(), lanes[0], lanes[1], layer,
-            q_offset=lanes[2], k_scale=k_scale, v_scale=v_scale)
-        assert bounds.row_ratio(got, wrong) > 1.0
+        wrong = attention.flash_decode_attention_ref(*up, k_scale=k_scale, v_scale=v_scale)
+        assert bounds.row_ratio(got, wrong, rms) > 1.0
+
+
+# (name, T, S, cache_len): one row tile (7 rows: 256-slot spans), a few
+# (448 rows: 2048-slot spans, two of them live), many (2744 rows: one span)
+SPLIT_REGIMES = [("one_tile", 1, 4096, 3001, 256), ("few_tiles", 64, 4096, 3001, 2048),
+                 ("many_tiles", 392, 4096, 3001, 4096)]
+
+
+def _int8_case(T, S, cache_len, dev, seed=7):
+    nh, kh = 28, 4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device=dev, dtype=torch.bfloat16)
+               for s in ((1, T, nh, 128), (1, 1, kh, S, 128), (1, 1, kh, S, 128)))
+    ck, cv = (torch.randn((1, kh, T, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+              for _ in range(2))
+    (kq, ks), (vq, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
+    cl, tr = (torch.tensor([x], dtype=torch.int32, device=dev) for x in (cache_len, T))
+    return (q, kq, vq, ck, cv, cl, tr, 0), dict(k_scale=ks, v_scale=vs)
+
+
+@pytest.mark.parametrize("regime", SPLIT_REGIMES, ids=[r[0] for r in SPLIT_REGIMES])
+def test_int8_cache_at_each_split_regime(regime, dev):
+    """The int8 cache splits as the bf16 one does (`decode_split_span`), and
+    is within its bound in each regime."""
+    name, T, S, cache_len, span = regime
+    args, scales = _int8_case(T, S, cache_len, dev)
+    assert attention.decode_split_span(7 * T, S) == span
+    got = attention.flash_decode_attention(*args, **scales)
+    up = (args[0].float(),) + args[1:3] + (args[3].float(), args[4].float()) + args[5:]
+    want = attention.flash_decode_attention_ref(*up, **scales)
+    rms = bounds.decode_attention_rms(*up, **scales)
+    assert bounds.row_ratio(got, want, rms) <= 1.0, name
+
+
+def test_int8_split_call_is_bit_equal_and_leaves_the_counters_zero(dev):
+    """A decode step over 12 live spans of 256 slots: the last block of
+    each (lane, head) combines the partials in span order, so two calls are
+    bit-equal, and it resets its counter, so the scratch's counters are all
+    zero after the calls."""
+    args, scales = _int8_case(1, 4096, 3001, dev, seed=11)
+    one = attention.flash_decode_attention(*args, **scales)
+    two = attention.flash_decode_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    _, counters = attention._split_scratch[args[0].device]
+    assert int(counters.abs().sum()) == 0
+
+
+def test_int8_call_captures_in_a_cuda_graph(dev):
+    """The wrapper reads no cursor and allocates no scratch per call: a
+    call captured in a CUDA graph, replayed after the cursors changed in
+    place, gives what an eager call with those cursors gives."""
+    args, scales = _int8_case(1, 4096, 3001, dev, seed=13)
+    q, kq, vq, ck, cv, cl, tr, layer = args
+    call = lambda: attention.flash_decode_attention(  # noqa: E731
+        q, kq, vq, ck, cv, cl, tr, layer, **scales)
+    call()  # the split's scratch is allocated here, outside the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = attention.INT8_LAUNCHES
+    with torch.cuda.graph(graph):
+        captured = call()
+    assert attention.INT8_LAUNCHES == before + 1
+    for cursor in (3001, 700, 2049):
+        cl.fill_(cursor)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, call()), cursor
 
 
 def test_int8_cache_kernel_refuses_what_it_does_not_take(dev):

@@ -1,5 +1,5 @@
-"""Kernels A (bf16 cache) and D as they cut their work, emulated on the CPU
-against the JAX package, and the build key of their shared header.
+"""Kernels A (bf16 and int8 cache) and D as they cut their work, emulated on
+the CPU against the JAX package, and the build key of their shared header.
 
 - Kernel A: 64-row query tiles of one (lane, kv head); the cache cut into
   spans of `attention.decode_split_span` slots (or a span given here), one
@@ -12,7 +12,13 @@ against the JAX package, and the build key of their shared header.
   order. Held against the JAX package's Pallas kernel in interpret mode and
   against the port's `attend_split`, with empty spans at cache_len 0 and 1,
   a cursor exactly at a span edge and q_offset > 0; every visible (row,
-  key) pair is taken exactly once.
+  key) pair is taken exactly once. The int8 cache takes the same tiles, its
+  K scale on S's columns (zero past the span's end, as the kernel loads
+  them), the row sum of the unscaled p, and its V scale on p; it is held
+  against the Pallas kernel's ``quantized=True`` variant with scales
+  poisoned past each cursor (the references get them zeroed), and, with p
+  * v_scale rounded to bf16 as the kernel rounds it, within the row bound
+  and its rms term (`ops/bounds.py`), which a lost split or key tile fails.
 - Kernel D: 192-query blocks of three 64-row warpgroups, 128-key tiles, Q K^T
   over ceil(hd / 16) steps of 16 columns and P V over N = hd (64, 72) or the
   next of 80 and 128, the columns past hd and the rows past T zeros; only the
@@ -33,7 +39,7 @@ from jax.experimental.pallas.ops.tpu.flash_attention import mha_reference
 
 from mmduet_tpu.ops.attention import flash_decode_attention as jax_flash_decode
 from mmduet_tpu.ops.attention import flash_vision_attention as jax_flash_vision
-from mmduet_tpu_torch.ops import _build, attention
+from mmduet_tpu_torch.ops import _build, attention, bounds
 
 ATOL, RTOL = 2e-5, 1e-5
 LOG2E = 1.4426950408889634
@@ -49,14 +55,19 @@ def _rows(x, r0, n):
     return out
 
 
-def _online(m, l, acc, s, v, c):
+def _online(m, l, acc, s, v, c, vscale=None, round_p=False):
     """One tile into a row block's online softmax on exp2, as the kernels
-    do it: a row with nothing visible yet subtracts 0, not its -1e30."""
+    do it: a row with nothing visible yet subtracts 0, not its -1e30. The
+    row sum takes p; the value product p times ``vscale`` (an int8 cache's
+    V scales, per key), rounded to bf16 if ``round_p``."""
     mn = torch.maximum(m, s.max(1).values)
     alpha = torch.exp2((m - mn) * c)
     mc = torch.where(mn > 0.5 * NEG, mn * c, torch.zeros_like(mn))
     p = torch.exp2(s * c - mc[:, None])
-    return mn, l * alpha + p.sum(1), acc * alpha[:, None] + p @ v
+    pv = p if vscale is None else p * vscale[None, :]
+    if round_p:
+        pv = pv.bfloat16().float()
+    return mn, l * alpha + p.sum(1), acc * alpha[:, None] + pv @ v
 
 
 # ---------------------------------------------------------------------------
@@ -64,10 +75,14 @@ def _online(m, l, acc, s, v, c):
 # ---------------------------------------------------------------------------
 
 
-def _emulate_decode(q, kc, vc, ck, cv, cl, tr, layer, qo, span=None):
+def _emulate_decode(q, kc, vc, ck, cv, cl, tr, layer, qo, span=None, ks=None, vs=None,
+                    round_p=False):
     """flash_decode_tc_kernel over its grid; returns the output and, per
     (lane, kv head), the count of times each (GQA row, key) pair was taken
-    unmasked (keys: cache slots, then chunk columns)."""
+    unmasked (keys: cache slots, then chunk columns). ``ks`` / ``vs`` (L, B,
+    kh, S): the cache is int8 values (here in f32) with these scales, read
+    as zeros at and past a tile's end; ``round_p`` rounds the cache's p *
+    vs to bf16, as the kernel does."""
     B, T, nh, hd = q.shape
     kh, S, Tc = kc.shape[2], kc.shape[3], ck.shape[2]
     group = nh // kh
@@ -113,13 +128,18 @@ def _emulate_decode(q, kc, vc, ck, cv, cl, tr, layer, qo, span=None):
                         vv[key >= n] = 0.0
                         seen = key[None] < (limit[:, None] if src == "chunk" else hi)
                         nr = min(TILE, rows - row0)
+                        s = qa @ kk.T
+                        ksc = vsc = None
+                        if ks is not None and src == "cache":  # zeros past the tile's end
+                            ksc, vsc = (torch.where(key < n, _rows(x[layer, b, h], j0, TILE),
+                                                    torch.zeros(TILE)) for x in (ks, vs))
+                            s = s * ksc[None, :]  # before the mask and the max
                         if j0 + TILE <= (chunk_free if src == "chunk" else hi):
                             # the kernel skips the mask: every row sees every key
                             assert seen[:nr].all()
-                            s = qa @ kk.T
                         else:
-                            s = torch.where(seen, qa @ kk.T, torch.full((TILE, TILE), NEG))
-                        m, l, acc = _online(m, l, acc, s, vv, c)
+                            s = torch.where(seen, s, torch.full((TILE, TILE), NEG))
+                        m, l, acc = _online(m, l, acc, s, vv, c, vsc, round_p and vsc is not None)
                         c0 = j0 + (S if src == "chunk" else 0)
                         w = min(TILE, S + Tc - c0)
                         taken[b, h, row0:row0 + nr, c0:c0 + w] += seen[:nr, :w]
@@ -208,6 +228,90 @@ def test_decode_tiling_takes_every_visible_pair_once(T):
     for span in (None, 128):
         _, taken = _emulate_decode(q, k, v, ck, cv, cl, tr, 0, qo, span)
         assert torch.equal(taken, want), span
+
+
+def _quantize_rows(x):
+    """Symmetric per-row int8 over the last axis, as `qwen2.quantize_kv_rows`
+    makes it: (int8 values, f32 scales)."""
+    scale = np.maximum(np.abs(x).max(-1), 1e-20) / 127.0
+    return np.clip(np.round(x / scale[..., None]), -127, 127).astype(np.int8), \
+        scale.astype(np.float32)
+
+
+def _int8_inputs(case):
+    """A `DECODE_CASES` case with an int8 cache: (q, kq, vq, ck, cv), the
+    scales poisoned past each lane's cursor (inf for K, NaN for V) and the
+    same zeroed there, and the cursors."""
+    name, B, T, Tc, nh, kh, S, layer, cl, tr, qo, span = case
+    q, k, v, ck, cv = _decode_inputs(B, T, Tc, nh, kh, S, 2, seed=len(name) + 100)
+    (kq, ks), (vq, vs) = _quantize_rows(k), _quantize_rows(v)
+    clean_ks, clean_vs = ks.copy(), vs.copy()
+    for b, n in enumerate(cl):
+        ks[:, b, :, n:], vs[:, b, :, n:] = np.inf, np.nan
+        clean_ks[:, b, :, n:], clean_vs[:, b, :, n:] = 0.0, 0.0
+    cl, tr, qo = (np.asarray(x, np.int32) for x in (cl, tr, qo))
+    return (q, kq, vq, ck, cv), (ks, vs), (clean_ks, clean_vs), (cl, tr, qo)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in DECODE_CASES])
+def test_int8_decode_split_matches_jax_and_attend_split(case):
+    """The int8 cache through the same tiling: K scale on S's columns, the
+    row sum of the unscaled p, V scale on p; against the Pallas kernel's
+    ``quantized=True`` variant in interpret mode and `attend_split` with
+    scales, in f32, every visible pair taken once; the poisoned scales past
+    the cursors never reach the result."""
+    name, B, T, Tc, nh, kh, S, layer, _, _, _, span = case
+    (q, kq, vq, ck, cv), (ks, vs), (cks, cvs), (cl, tr, qo) = _int8_inputs(case)
+    t = torch.from_numpy
+    got, taken = _emulate_decode(t(q), t(kq).float(), t(vq).float(), t(ck), t(cv), cl, tr,
+                                 layer, qo, span, t(ks), t(vs))
+    assert torch.equal(taken, _visible(cl, tr, qo, B, kh, T, nh // kh, S, Tc))
+    assert torch.isfinite(got).all()
+    want_port = attention.attend_split(t(q), t(kq[layer]), t(vq[layer]), t(ck), t(cv), t(cl),
+                                       t(tr), t(qo), t(cks[layer]), t(cvs[layer]))
+    want_jax = np.asarray(jax_flash_decode(
+        jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.asarray(cl), jnp.asarray(tr), jnp.int32(layer), q_offset=jnp.asarray(qo),
+        k_scale=jnp.asarray(cks), v_scale=jnp.asarray(cvs), interpret=True))
+    for b, n in enumerate(tr):  # rows t >= t_real are never read
+        np.testing.assert_allclose(got[b, :n].numpy(), want_port[b, :n].numpy(),
+                                   atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(got[b, :n].numpy(), want_jax[b, :n], atol=ATOL, rtol=RTOL)
+
+
+# (case of DECODE_CASES, cache slots a lost split or key tile)
+INT8_DROPS = [(DECODE_CASES[1], slice(256, 512)), (DECODE_CASES[2], slice(128, 256)),
+              (DECODE_CASES[3], slice(640, 704))]
+
+
+@pytest.mark.parametrize("case,drop", INT8_DROPS, ids=[c[0][0] for c in INT8_DROPS])
+def test_int8_rounding_of_p_is_within_the_bound_and_a_lost_tile_is_not(case, drop):
+    """With p * v_scale rounded to bf16 as the kernel rounds it, the
+    emulation stays within kernel A's row bound plus its rms term of the
+    scaled values (`bounds.decode_attention_rms` with the scales); the
+    plain version without one split or key tile
+    (`bounds.decode_attention_dropped`) does not, and with nothing dropped
+    it is `attend_split`."""
+    name, B, T, Tc, nh, kh, S, layer, _, _, _, span = case
+    (q, kq, vq, ck, cv), (ks, vs), (cks, cvs), (cl, tr, qo) = _int8_inputs(case)
+    t = torch.from_numpy
+    got, _ = _emulate_decode(t(q), t(kq).float(), t(vq).float(), t(ck), t(cv), cl, tr, layer,
+                             qo, span, t(ks), t(vs), round_p=True)
+    up = (t(q), t(kq), t(vq), t(ck), t(cv), t(cl), t(tr), layer, t(qo))
+    scales = dict(k_scale=t(cks), v_scale=t(cvs))
+    want = bounds.decode_attention_dropped(*up, **scales)
+    np.testing.assert_allclose(
+        want.numpy(), attention.attend_split(t(q), t(kq[layer]), t(vq[layer]), t(ck), t(cv),
+                                             t(cl), t(tr), t(qo), t(cks[layer]),
+                                             t(cvs[layer])).numpy(), atol=ATOL, rtol=RTOL)
+    rms = bounds.decode_attention_rms(*up, **scales)
+    dropped = bounds.decode_attention_dropped(*up, drop=drop, **scales)
+    lanes = [b for b in range(B) if int(cl[b]) >= drop.stop]  # lanes whose slots were dropped
+    assert lanes
+    for b, n in enumerate(tr):
+        assert bounds.row_ratio(got[b, :n], want[b, :n], rms[b, :n]) <= 1.0
+    assert max(bounds.row_ratio(got[b, :tr[b]], dropped[b, :tr[b]], rms[b, :tr[b]])
+               for b in lanes) > 1.0
 
 
 def test_decode_split_span_depends_on_rows_and_capacity_only():
