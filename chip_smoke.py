@@ -31,18 +31,36 @@ Phases (any failure ends the run with a nonzero exit):
    bounds, and so must shards of kernel A' that
    read another shard's cursors or kv heads. ``--kernels-only`` stops here
    (no result line);
-3. the serving path at the full width of the default model (Qwen2-7B
+3. an HF-format llava-OV directory at the published widths (2 decoder and
+   2 vision layers: all of them would write ~16 GB, past the time; random
+   weights from seed 0, two shards and an index, written by
+   `write_hf_dir` here: the card has no safetensors package) through the
+   port's converter, bf16 and ``--quantize int4``; `load_checkpoint` puts
+   both on the card, every leaf bit-equal to the HF tensors under the
+   documented transposes (int4: to `quantize_params(bits=4)` of the bf16
+   output), and 16 frames served from each (int4 with the int8 cache:
+   kernels B and A-int8) score as the same weights built in memory;
+   conversion seconds, GB read and written, the host's peak RSS;
+4. the serving path at the full width of the default model (Qwen2-7B
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
    generates, then streams them again in grounding mode; kernel A's
-   launches over that run must be positive;
-4. the training path at the same width: `make_train_step` takes 3
+   launches over that run must be positive. Then live feeding on that
+   model: `stream_video` in chunks of 16 (generation, grounding, grounding
+   with ``upload_ahead``) equals `input_video_stream` + `inference()` bit
+   for bit, kernels A and D launch as the layers imply, both routes' wall
+   times, and a `torch.profiler` trace shows kernel D (on the engine's side
+   stream) overlapping kernel A; `prewarm(vision=True)` timed, a session
+   after it equal to a cold engine's; the offline baseline's one answer
+   over 64 frames and a question (kernels A and D launched, a finite
+   cache);
+5. the training path at the same width: `make_train_step` takes 3
    optimizer steps of A=2 collated duet micro-batches (pixel frames at 384
    px, padded to the 2944-token bucket), LoRA r 16 / alpha 32 on the seven
    projections, gradient checkpointing on; kernel C's launches must equal
    what 28 layers x A x steps predict (two forwards per layer under remat,
    four backward kernels);
-5. the vision tower with kernel D (asked for and by auto) and, for the
+6. the vision tower with kernel D (asked for and by auto) and, for the
    comparison, with the plain version put in the kernel's place from here
    (frames/s each; the package refuses that route for CUDA tensors), then
    the batched serving path at the same width:
@@ -54,18 +72,20 @@ Phases (any failure ends the run with a nonzero exit):
    the first run's exactly, and once (generation mode) with an int8 cache.
    The launches of kernels A, A' and D must equal what the layers, the
    mesh's shards, the decoder forwards and the vision batches predict;
-6. the quantized serving path at the same width: the decoder, embedding
+7. the quantized serving path at the same width: the decoder, embedding
    and LM head quantized to group-128 int4 on the card
    (`quantize_params(bits=4)`), `LiveInferEngine(kv_cache_quant="int8")`,
    the same two passes as in 3; kernel B's launches must equal seven per
    layer and decoder forward plus one per generated token (the LM head),
    and every attention launch must be of the int8 variant;
-7. small-model checks, card (bf16, kernels) against CPU (f32, plain
+8. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
-   against single-stream runs on the card), and one train step's loss and
-   gradient norm;
-8. one JSON line for the seven kernels, then the result line
+   against single-stream runs on the card), the offline baseline's prompt
+   cache, and one train step's loss and gradient norm; and the inference
+   CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
+   names kernel A;
+9. one JSON line for the seven kernels, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -74,10 +94,16 @@ It needs `torch` with CUDA; it never falls back to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
+import os
+import resource
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from typing import List
 
@@ -87,12 +113,127 @@ import torch
 from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs, tiny_config
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, LiveInferEngine
+from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, siglip
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
 from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
+
+
+# --- an HF-format llava-OV directory, written without the safetensors
+# package (the GPU machine has none); the CPU tests read it back with it
+
+_ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+              torch.int8: "I8", torch.int32: "I32"}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """``tensors`` as one safetensors file: an 8-byte little-endian header
+    length, the JSON header (``dtype``, ``shape``, ``data_offsets``) padded
+    with spaces to 8 bytes, then each tensor's bytes in order. Returns the
+    bytes written."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": _ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(blob) + offset
+
+
+def hf_state_dict(params: dict, cfg: MMDuetConfig) -> dict:
+    """The port's tree under the llava-OV checkpoint's keys and layouts:
+    the inverse of `models.convert.convert_mmduet` (HF Linear weights are
+    (out, in), per-layer tensors unstacked, the patch embedding a conv
+    weight (out, 3, p, p); the vision tower nested as llava nests it)."""
+    sd = {}
+
+    def layers(tree, prefix, names):
+        for leaf, (key, transpose) in names.items():
+            if leaf in tree:
+                for i, w in enumerate(tree[leaf].unbind(0)):
+                    sd[prefix.format(i=i) + key] = w.t() if transpose else w
+
+    dec = params["decoder"]
+    sd["model.embed_tokens.weight"] = dec["embed"]
+    sd["model.norm.weight"] = dec["final_norm"]
+    layers(dec["layers"], "model.layers.{i}.", {
+        "input_norm": ("input_layernorm.weight", False),
+        "post_attn_norm": ("post_attention_layernorm.weight", False),
+        **{p: (f"self_attn.{p}.weight", True) for p in ("q_proj", "k_proj", "v_proj", "o_proj")},
+        **{p: (f"mlp.{p}.weight", True) for p in ("gate_proj", "up_proj", "down_proj")},
+        **{f"{p}_bias": (f"self_attn.{p}_proj.bias", False) for p in "qkv"},
+    })
+    sd["lm_head.weight"] = params["lm_head"].t()
+    for head in ("informative_head", "relevance_head"):
+        sd[f"{head}.weight"] = params[head].t()
+    pj = params["projector"]
+    sd.update({"model.mm_projector.0.weight": pj["fc1"].t(),
+               "model.mm_projector.0.bias": pj["fc1_bias"],
+               "model.mm_projector.2.weight": pj["fc2"].t(),
+               "model.mm_projector.2.bias": pj["fc2_bias"]})
+    vis, vp = params["vision"], "model.vision_tower.vision_tower.vision_model."
+    p = cfg.vision.patch_size
+    sd[vp + "embeddings.patch_embedding.weight"] = vis["patch_embed"].t().reshape(-1, 3, p, p)
+    sd[vp + "embeddings.patch_embedding.bias"] = vis["patch_bias"]
+    sd[vp + "embeddings.position_embedding.weight"] = vis["pos_embed"]
+    layers(vis["layers"], vp + "encoder.layers.{i}.", {
+        **{f"ln{n}_{w}": (f"layer_norm{n}.{'weight' if w == 'scale' else 'bias'}", False)
+           for n in (1, 2) for w in ("scale", "bias")},
+        **{f"{p}_proj": (f"self_attn.{p}_proj.weight", True) for p in "qkv"},
+        **{f"{p}_bias": (f"self_attn.{p}_proj.bias", False) for p in "qkv"},
+        "o_proj": ("self_attn.out_proj.weight", True), "o_bias": ("self_attn.out_proj.bias", False),
+        "fc1": ("mlp.fc1.weight", True), "fc1_bias": ("mlp.fc1.bias", False),
+        "fc2": ("mlp.fc2.weight", True), "fc2_bias": ("mlp.fc2.bias", False),
+    })
+    return sd
+
+
+def hf_config(cfg: MMDuetConfig) -> dict:
+    """The HF ``config.json`` entries `models.convert.config_from_hf` reads."""
+    t, v = cfg.text, cfg.vision
+    return {
+        "vocab_size": t.vocab_size, "hidden_size": t.hidden_size,
+        "intermediate_size": t.intermediate_size, "num_hidden_layers": t.num_layers,
+        "num_attention_heads": t.num_heads, "num_key_value_heads": t.num_kv_heads,
+        "head_dim": t.head_dim, "rope_theta": t.rope_theta, "rms_norm_eps": t.rms_norm_eps,
+        "tie_word_embeddings": t.tie_word_embeddings, "eos_token_id": cfg.eos_token_id,
+        "video_pooling_stride": cfg.video_pooling_stride,
+        "vision_config": {
+            "image_size": v.image_size, "patch_size": v.patch_size,
+            "hidden_size": v.hidden_size, "intermediate_size": v.intermediate_size,
+            "num_hidden_layers": v.num_layers, "num_attention_heads": v.num_heads},
+    }
+
+
+def write_hf_dir(path: str, params: dict, cfg: MMDuetConfig, shards: int = 2) -> int:
+    """An HF-format llava-OV directory of ``params``: ``config.json`` and
+    the tensors in ``shards`` safetensors files listed by
+    ``model.safetensors.index.json``. Returns the bytes written."""
+    os.makedirs(path, exist_ok=True)
+    sd = hf_state_dict(params, cfg)
+    names = list(sd)
+    cut = [names[i * len(names) // shards: (i + 1) * len(names) // shards]
+           for i in range(shards)]
+    weight_map, written = {}, 0
+    for i, part in enumerate(cut):
+        fname = f"model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        written += write_safetensors(os.path.join(path, fname), {k: sd[k] for k in part})
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": written}, "weight_map": weight_map}, f)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f)
+    return written
 
 
 def _card() -> str:
@@ -949,8 +1090,7 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     stats = {}
-    # the main path starts here
-    attention.LAUNCHES = attention.INT8_LAUNCHES = quant_matmul.B_LAUNCHES = 0
+    _zero_counts()  # the main path starts here
     for name, engine in (("generation", gen), ("grounding", ground)):
         before = attention.LAUNCHES
         t0 = time.perf_counter()
@@ -967,8 +1107,7 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
             p50_ms=float(np.percentile(engine.frame_latencies_ms, 50)),
         )
         _check_pass(engine, name, stats[name]["launches"], responses, QUERY)
-    counts = dict(attention=attention.LAUNCHES, attention_int8=attention.INT8_LAUNCHES,
-                  int4_matmul=quant_matmul.B_LAUNCHES)  # the main path ends here
+    counts = _kernel_counts()  # the main path ends here
     _check_counts(params, cfg, counts, gen.tokens_generated + ground.tokens_generated,
                   kv_cache_quant)
 
@@ -1122,9 +1261,15 @@ def _timed(engine, name: str, acc: dict, sync: bool = False) -> None:
     setattr(engine, name, wrapped)
 
 
-def _attention_counts() -> dict:
+def _kernel_counts() -> dict:
     return dict(attention=attention.LAUNCHES, attention_int8=attention.INT8_LAUNCHES,
-                attention_sharded=attention.SHARDED_LAUNCHES, vision=attention.VISION_LAUNCHES)
+                attention_sharded=attention.SHARDED_LAUNCHES, vision=attention.VISION_LAUNCHES,
+                int4_matmul=quant_matmul.B_LAUNCHES)
+
+
+def _zero_counts() -> None:
+    attention.LAUNCHES = attention.INT8_LAUNCHES = attention.SHARDED_LAUNCHES = 0
+    attention.VISION_LAUNCHES = quant_matmul.B_LAUNCHES = 0
 
 
 def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
@@ -1154,15 +1299,13 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     sched = engine._dispatch_sched
     engine._dispatch_sched = lambda chunks: (fed.append(sum(c[2] for c in chunks.values()))
                                              or sched(chunks))
-    # the main path starts here
-    attention.LAUNCHES = attention.INT8_LAUNCHES = attention.SHARDED_LAUNCHES = 0
-    attention.VISION_LAUNCHES = 0
+    _zero_counts()  # the main path starts here
     t0 = time.perf_counter()
     results = {i: (resp, debug) for i, resp, debug in engine.serve(
         _batch_session(cfg, i) for i in range(BATCH_SESSIONS))}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _attention_counts()  # the generation pass ends here
+    counts = _kernel_counts()  # the generation pass ends here
     n_frames = sum(BATCH_LENGTHS)
     if sorted(results) != list(range(BATCH_SESSIONS)):
         raise AssertionError(f"batched serve ({what}): sessions retired {sorted(results)}")
@@ -1252,7 +1395,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
             f"in {t_vision:.3f} s = {BATCH_LANES * max(lengths) / t_vision:.2f} frames/s; "
             f"launches (attention, vision) {launches} = {want}")
         out.update(rows=rows, grounding_ms_per_frame=1e3 * t_stream / n)
-        out["counts"] = _attention_counts()  # both passes; the path ends here
+        out["counts"] = _kernel_counts()  # both passes; the path ends here
         del scorer, videos
         torch.cuda.empty_cache()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1368,6 +1511,75 @@ def check_small_batched(log) -> float:
     return err
 
 
+def check_small_offline(log) -> float:
+    """The offline baseline on a small model (hd = 128): the card (bf16,
+    kernels A and D) against the CPU (f32, plain versions), on the same
+    prompt: the K and V rows of the prompt in the cache agree within
+    SMALL_TOL of their largest value, at every layer."""
+    from mmduet_tpu_torch.eval.offline_baseline import OfflineBaselineRunner
+
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
+    cpu = torch.device("cpu")
+    params = init_mmduet_params(cfg, torch.Generator(device=cpu).manual_seed(6), cpu)
+    params = _tree_map(lambda t: t.to(torch.bfloat16).float(), params)
+    frames = np.random.RandomState(7).randint(0, 256, (70, 32, 32, 3), dtype=np.uint8)
+    caches, texts = [], []
+    for p in (params, _tree_map(lambda t: t.to("cuda", torch.bfloat16), params)):
+        runner = OfflineBaselineRunner(p, cfg, tok, _args(max_new_tokens=8, max_num_frames=80))
+        runner.set_fps(2.0)
+        before = attention.LAUNCHES, attention.VISION_LAUNCHES
+        texts.append(runner.answer(frames, "What is happening?"))
+        ran = attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]
+        n = runner.state.cursor - runner.tokens_generated + 1  # the prompt's rows
+        caches.append([kv_arr(c)[:, 0, :, :n].float().cpu()
+                       for c in (runner.state.kv_cache.k, runner.state.kv_cache.v)])
+    if ran[0] <= 0 or ran[1] <= 0:
+        raise AssertionError(f"small offline baseline: launches of kernels A and D {ran}")
+    err = max(float((g - w).abs().max() / w.abs().max()) for g, w in zip(caches[1], caches[0]))
+    if caches[0][0].shape != caches[1][0].shape or not err <= SMALL_TOL:
+        raise AssertionError(f"small offline baseline: card vs CPU prompt cache relative "
+                             f"max|diff| {err} > {SMALL_TOL}")
+    log(f"small offline baseline (hd=128, 2 layers, 70 frames, {caches[0][0].shape[-2]} prompt "
+        f"rows in 256-row chunks): card bf16 vs CPU f32 prompt K/V relative max|diff| "
+        f"{err:.2e} <= {SMALL_TOL}; answers {'equal' if texts[0] == texts[1] else 'differ'}")
+    return err
+
+
+def check_small_cli_profile(log) -> None:
+    """`--profile_dir` on the small model through the CLI (``--tiny_random``,
+    ``--device cuda``, a stub dataset of one 6-frame sample): the Chrome
+    trace exists, names kernel A, and the row is written."""
+    from types import SimpleNamespace
+
+    from mmduet_tpu_torch.eval import inference
+
+    root = tempfile.mkdtemp(prefix="cli_profile.", dir=_build.BUILD_DIR)
+    sample = SimpleNamespace(
+        question_id="q0", frames=np.random.RandomState(0).randint(
+            0, 256, (6, 32, 32, 3), dtype=np.uint8), fps=2.0, video_duration=3.0, error=None,
+        conversation=[{"role": "user", "content": "query?", "time": 0}])
+    make_dataset = inference._make_dataset
+    inference._make_dataset = lambda args, resolution: [sample]
+    try:
+        inference.main(["--tiny_random", "--no_prefetch", "--test_fname", "x", "--input_dir", "x",
+                        "--frame_fps", "2", "--stream_end_prob_threshold", "0.5",
+                        "--max_new_tokens", "4", "--prewarm",
+                        "--output_fname", os.path.join(root, "rows.jsonl"),
+                        "--profile_dir", os.path.join(root, "prof")])
+        spans = _kernel_intervals(os.path.join(root, "prof", "trace.json"))
+        with open(os.path.join(root, "rows.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    finally:
+        inference._make_dataset = make_dataset
+        shutil.rmtree(root, ignore_errors=True)
+    if not spans["A"] or len(rows) != 1 or len(rows[0]["debug_data"]) != 6:
+        raise AssertionError(f"--profile_dir: {len(spans['A'])} kernel A events in the trace, "
+                             f"{len(rows)} rows")
+    log(f"CLI --prewarm --profile_dir (tiny random model, 6 frames): the Chrome trace names "
+        f"kernel A in {len(spans['A'])} kernel events, D in {len(spans['D'])}; 1 row written")
+
+
 def check_same_outputs(a: dict, b: dict, what: str) -> None:
     """Two batched runs gave the same responses, times and scores, exactly."""
     if a["results"] != b["results"] or a.get("rows") != b.get("rows"):
@@ -1458,6 +1670,386 @@ def run_training(cfg, tok, params, log) -> tuple:
         f"kernel C launches {launches[0]} forward / {launches[1]} backward")
     return launches
 
+# ---------------------------------------------------------------------------
+# The user's journey around the serving loop: an HF checkpoint converted
+# and served, live feeding with the vision tower on its own stream,
+# prewarm, the offline baseline, the CLI's profiler
+# ---------------------------------------------------------------------------
+
+# Decoder and vision layers of the converted checkpoint. Every width is the
+# published one (Qwen2-7B, SigLIP-so400m), ~3.2 GB written; all 28 + 27
+# layers would write ~16 GB and read it twice, past this script's time.
+CONVERT_LAYERS = 2
+CONVERT_FRAMES = 16
+
+
+def _peak_rss_gb() -> float:
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _same_leaves(got: dict, want: dict, what: str) -> None:
+    flat_got, flat_want = dict(_flat(got)), dict(_flat(want))
+    if set(flat_got) != set(flat_want):
+        raise AssertionError(f"{what}: leaves {sorted(set(flat_got) ^ set(flat_want))} differ")
+    for key, leaf in flat_want.items():
+        if flat_got[key].dtype != leaf.dtype or not torch.equal(flat_got[key], leaf):
+            raise AssertionError(f"{what}: leaf {key} is not bit-equal")
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        yield from _flat(v, f"{prefix}/{k}") if isinstance(v, dict) else ((f"{prefix}/{k}", v),)
+
+
+def run_conversion(log, dev=None, base=None) -> None:
+    """An HF-format llava-OV directory at full width (CONVERT_LAYERS deep,
+    random weights from seed 0, two shards and an index) through
+    `python -m mmduet_tpu_torch.models.convert`, bf16 and ``--quantize
+    int4``; `load_checkpoint` puts each on the card, every leaf is held
+    bitwise against the HF tensors and the in-memory tree (int4: against
+    `quantize_params(bits=4)` of the bf16 output), and 16 frames are served
+    from each checkpoint (bf16 cache; int4 with the int8 cache) with the
+    scores of the same weights built in memory."""
+    from mmduet_tpu_torch.models import convert, io
+
+    dev = dev or torch.device("cuda", torch.cuda.current_device())
+    base = base or MMDuetConfig()
+    cfg = base.replace(text=dataclasses.replace(base.text, num_layers=CONVERT_LAYERS),
+                       vision=dataclasses.replace(base.vision, num_layers=CONVERT_LAYERS))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_mmduet_params(cfg, gen, dev, torch.bfloat16)
+    # norms and biases start constant: perturb them, so that a leaf that
+    # lands under another's key shows
+    params = _tree_map(lambda t: t + 0.02 * torch.randn(t.shape, generator=gen, device=dev,
+                                                        dtype=t.dtype)
+                       if bool((t == t.reshape(-1)[0]).all()) else t, params)
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens, vocab_size=cfg.text.vocab_size)
+    frames = np.random.RandomState(3).randint(
+        0, 256, (CONVERT_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
+    root = tempfile.mkdtemp(prefix="convert_smoke.", dir=_build.BUILD_DIR)
+    hf, dense_dir, int4_dir = (os.path.join(root, n) for n in ("hf", "bf16", "int4"))
+    try:
+        t0 = time.perf_counter()
+        written = write_hf_dir(hf, params, cfg)
+        t_write = time.perf_counter() - t0
+        secs = {}
+        for out, extra in ((dense_dir, []), (int4_dir, ["--quantize", "int4"])):
+            t0 = time.perf_counter()
+            convert.main(["--hf_dir", hf, "--output", out, "--device", str(dev)] + extra)
+            torch.cuda.synchronize()
+            secs[out] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dense_cfg, dense, lora = io.load_checkpoint(dense_dir)  # no device: the card
+        int4_cfg, int4, _ = io.load_checkpoint(int4_dir)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        want_cfg = cfg.replace(v_placeholder_id=cfg.text.vocab_size)
+        if (lora is not None or dense_cfg != want_cfg or int4_cfg != want_cfg
+                or not all(t.device == dev for _, t in _flat(dense))):
+            raise AssertionError(f"converted checkpoint: config {dense_cfg} (want {want_cfg}), "
+                                 f"lora {lora is not None}, leaves on "
+                                 f"{ {t.device for _, t in _flat(dense)} }")
+        hf_sd = convert.load_hf_state_dict(hf)
+        back = hf_state_dict(dense, dense_cfg)
+        if set(back) != set(hf_sd) or not all(
+                torch.equal(back[k], hf_sd[k].to(dev)) for k in hf_sd):
+            raise AssertionError("converted checkpoint: a leaf is not the HF tensor under the "
+                                 "documented transposes")
+        _same_leaves(dense, params, "converted bf16 checkpoint vs the tree in memory")
+        _same_leaves(int4, quant.quantize_params(dense, bits=4),
+                     "converted int4 checkpoint vs quantize_params(bits=4) of the bf16 one")
+        rss = _peak_rss_gb()
+
+        serve_cfg = dense_cfg.replace(v_placeholder_id=tok.v_placeholder_id,
+                                      eos_token_id=tok.eos_token_id)
+        args = _args(stream_end_prob_threshold=1.0, grounding_mode=True,
+                     max_num_frames=CONVERT_FRAMES)
+
+        def scores(p, kv_cache_quant=None):
+            engine = LiveInferEngine(p, serve_cfg, tok, args, kv_cache_quant=kv_cache_quant)
+            return _grounding_scores(engine, frames, QUERY)
+
+        _zero_counts()  # the converted checkpoints' serving starts here
+        got_dense = scores(dense)
+        counts_dense = _kernel_counts()
+        _zero_counts()
+        got_int4 = scores(int4, "int8")
+        counts_int4 = _kernel_counts()  # and ends here
+        vision_per_encode = CONVERT_LAYERS - 1
+        if (counts_dense["attention"] <= 0 or counts_dense["attention"] % CONVERT_LAYERS
+                or counts_dense["attention_int8"] or counts_dense["int4_matmul"]
+                or counts_int4["attention_int8"] != counts_int4["attention"]
+                or counts_int4["int4_matmul"] != 7 * counts_int4["attention"]
+                or counts_dense["vision"] != vision_per_encode
+                or counts_int4["vision"] != vision_per_encode):
+            raise AssertionError(f"converted checkpoints served: launches bf16 {counts_dense}, "
+                                 f"int4 {counts_int4}")
+        want_dense = scores(params)
+        want_int4 = scores(quant.quantize_params(params, bits=4), "int8")
+        if got_dense != want_dense or got_int4 != want_int4:
+            raise AssertionError("converted checkpoints served: scores differ from those of the "
+                                 "same weights built in memory")
+        log(f"conversion ({CONVERT_LAYERS} decoder + {CONVERT_LAYERS} vision layers at 7B "
+            f"widths): HF directory of {written / 1e9:.3f} GB (2 shards + index) written in "
+            f"{t_write:.2f} s; convert bf16 {secs[dense_dir]:.2f} s (read {written / 1e9:.3f} "
+            f"GB, wrote {_dir_bytes(dense_dir) / 1e9:.3f} GB), --quantize int4 "
+            f"{secs[int4_dir]:.2f} s (read {written / 1e9:.3f} GB, wrote "
+            f"{_dir_bytes(int4_dir) / 1e9:.3f} GB); load_checkpoint of both onto the card "
+            f"{t_load:.2f} s; host peak RSS {rss:.2f} GB")
+        log(f"converted checkpoints: every leaf bit-equal to the HF tensors and the tree in "
+            f"memory (int4: to quantize_params(bits=4)); {CONVERT_FRAMES} frames served from "
+            f"each, scores equal to the in-memory weights' exactly; launches bf16 "
+            f"{counts_dense}, int4 + int8 cache {counts_int4}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, dense, int4
+    torch.cuda.empty_cache()
+
+
+LIVE_CHUNK = 16  # frames a stream_video chunk in the equality checks
+
+
+def _live_pass(engine, frames, stream: bool, chunk: int = LIVE_CHUNK, upload_ahead=False):
+    """One session: the query at t=0, then ``frames`` through
+    `stream_video` or through `input_video_stream` + `inference()`. Returns
+    (wall s, (responses, score rows, cursor))."""
+    engine.reset()
+    engine.input_query_stream([{"role": "user", "content": QUERY, "time": 0.0}])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if stream:
+        out = engine.stream_video(frames, chunk_frames=chunk, upload_ahead=upload_ahead)
+    else:
+        engine.input_video_stream(frames)
+        out = engine.inference()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [(d["time"], d["informative_score"], d["relevance_score"])
+            for d in engine.debug_data_list]
+    # stream_video lists the user turns after the answers before its sort
+    # by time, as the JAX engine does: a user turn and an answer at the same
+    # time come in either order
+    out = sorted(out, key=lambda r: (r["time"], r["role"], r["content"]))
+    return wall, (out, rows, engine.state.cursor)
+
+
+LIVE_TOL = 3e-2  # score probabilities where the chunks cut other blocks than
+# the one-shot route: a 32-frame block and single steps round the bf16
+# activations differently through 28 layers (chunks of 16 under 32-frame
+# grounding blocks); where the chunks are a multiple of the block, bit-equal
+
+
+def _live_diff(got, want, exact: bool, what: str) -> float:
+    """Max |score difference| of two `_live_pass` results, which must have
+    the same responses, times and cursor; 0 when ``exact`` demands it."""
+    (g_out, g_rows, g_cur), (w_out, w_rows, w_cur) = got, want
+    if (g_out != w_out or g_cur != w_cur or len(g_rows) != len(w_rows)
+            or [r[0] for r in g_rows] != [r[0] for r in w_rows]):
+        raise AssertionError(f"{what}: responses, times or cursor ({g_cur} vs {w_cur}) differ")
+    diff = max((abs(a - b) for g, w in zip(g_rows, w_rows) for a, b in zip(g[1:], w[1:])),
+               default=0.0)
+    if (exact and diff != 0.0) or not diff <= LIVE_TOL:
+        raise AssertionError(f"{what}: scores max|diff| {diff} (want "
+                             f"{'0' if exact else f'<= {LIVE_TOL}'})")
+    return diff
+
+
+def _kernel_intervals(trace_path: str) -> dict:
+    """Device intervals (µs) and streams of the kernels in a Chrome trace
+    of `torch.profiler`: kernel A's ("A"), kernel D's ("D") and every
+    kernel's ("all")."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"A": [], "D": [], "all": []}
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        span = (e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+        out["all"].append(span)
+        for key, name in (("A", "flash_decode_tc_kernel"), ("D", "flash_vision_kernel")):
+            if name in e.get("name", ""):
+                out[key].append(span)
+    return out
+
+
+def _union(spans, gap: float = 0.0) -> list:
+    """The intervals merged where they overlap or lie within ``gap`` µs."""
+    merged = []
+    for a, b, *_ in sorted(spans):
+        if merged and a <= merged[-1][1] + gap:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
+
+
+def _overlap_us(xs, ys) -> float:
+    """Time (µs) that two sets of intervals are both busy."""
+    xs, ys, i, j, total = _union(xs), _union(ys), 0, 0, 0.0
+    while i < len(xs) and j < len(ys):
+        total += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def run_live_feeding(cfg, tok, params, log) -> dict:
+    """`stream_video` on the full-width, full-depth model, 64 frames in
+    chunks of LIVE_CHUNK: generation and grounding mode, then grounding
+    with ``upload_ahead``, then both modes in chunks of 32. Each equals
+    `input_video_stream` + `inference()`: texts, times and cursor, and the
+    scores bit for bit where the chunk is a multiple of the block (within
+    LIVE_TOL where it is not: 16-frame chunks under 32-frame grounding
+    blocks cut other blocks); both routes are timed; the launches of A and
+    D are what the layers imply, and a profile shows D's kernels running
+    beside A's on another stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = np.random.RandomState(0).randint(
+        0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
+    engines = {mode: LiveInferEngine(params, cfg, tok, _args(
+        max_new_tokens=8, stream_end_score_sum_threshold=1.0, grounding_mode=mode == "grounding"))
+        for mode in ("generation", "grounding")}
+    for engine in engines.values():  # the side stream's first encode (cuBLAS on a new stream)
+        engine.prewarm(buckets=(), block=False, generate=False, vision=True)
+    per_encode = cfg.vision.num_layers - 1
+    walls, stats, vision_ahead, sequential = {}, {}, {}, {}
+    _zero_counts()  # the live-feeding path starts here
+    for name, mode, chunk, upload_ahead in (
+            ("generation", "generation", LIVE_CHUNK, False),
+            ("grounding", "grounding", LIVE_CHUNK, False),
+            ("grounding, upload_ahead", "grounding", LIVE_CHUNK, True),
+            ("grounding, chunks of 32", "grounding", 32, False),
+            ("generation, chunks of 32", "generation", 32, False)):
+        engine = engines[mode]
+        if mode not in sequential:  # each mode's sequential route, once
+            c0 = _kernel_counts()
+            sequential[mode] = _live_pass(engine, frames, stream=False)
+            sequential[mode] += (_kernel_counts()["attention"] - c0["attention"],)
+        seq_wall, want, a_seq = sequential[mode]
+        c1 = _kernel_counts()
+        live_wall, got = _live_pass(engine, frames, stream=True, chunk=chunk,
+                                    upload_ahead=upload_ahead)
+        c2 = _kernel_counts()
+        exact = chunk % engine.block_frames == 0
+        diff = _live_diff(got, want, exact, f"stream_video ({name})")
+        if upload_ahead:  # the vision-ahead route's blocks: bit-equal to it
+            _live_diff(got, vision_ahead[mode], True, f"stream_video ({name}) vs vision ahead")
+        elif chunk == LIVE_CHUNK:
+            vision_ahead[mode] = got
+        a_live, d_live = c2["attention"] - c1["attention"], c2["vision"] - c1["vision"]
+        encodes = -(-N_FRAMES // chunk) * -(-chunk // 32)  # each chunk at the 32-frame shape
+        if (a_live <= 0 or a_live % cfg.text.num_layers or (exact and a_live != a_seq)
+                or d_live != encodes * per_encode):
+            raise AssertionError(f"stream_video ({name}): {a_live} launches of kernel A (the "
+                                 f"sequential route {a_seq}), {d_live} of kernel D (want "
+                                 f"{encodes} encodes x {per_encode} layers)")
+        walls[name] = (seq_wall, live_wall)
+        stats[name] = dict(a=a_live, a_seq=a_seq, d=d_live, diff=diff, exact=exact, responses=sum(
+            r["role"] == "assistant" for r in got[0]))
+    counts = _kernel_counts()  # and ends here
+    trace = os.path.join(tempfile.mkdtemp(prefix="live_trace.", dir=_build.BUILD_DIR),
+                         "trace.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _live_pass(engines["generation"], frames, stream=True)
+    prof.export_chrome_trace(trace)
+    spans = _kernel_intervals(trace)
+    shutil.rmtree(os.path.dirname(trace), ignore_errors=True)
+    for name, (seq_wall, live_wall) in walls.items():
+        st = stats[name]
+        same = ("bit-equal" if st["exact"] else
+                f"scores within {st['diff']:.3e} (<= {LIVE_TOL}; the chunks cut other blocks)")
+        log(f"stream_video ({name}, 64 frames, each chunk encoded at 32): wall {live_wall:.3f} s "
+            f"against {seq_wall:.3f} s for input_video_stream + inference(); responses, times "
+            f"and cursor equal, {same}; launches A {st['a']} (sequential {st['a_seq']}), D "
+            f"{st['d']}; {st['responses']} responses")
+    d_streams = {s for *_, s in spans["D"]}
+    a_streams = {s for *_, s in spans["A"]}
+    side = [x for x in spans["all"] if x[2] in d_streams]  # the vision stream's kernels
+    main = [x for x in spans["all"] if x[2] in a_streams]  # the decoder's
+    # an encode's window: the vision stream's kernels merged across gaps of
+    # up to 1 ms (the host's launches between its layers)
+    windows = _union(side, gap=1e3)
+    a_inside = sum(_overlap_us(windows, [a]) > 0 for a in spans["A"])
+    main_inside = _overlap_us(windows, main)
+    side_main, d_a = _overlap_us(side, main), _overlap_us(spans["D"], spans["A"])
+    log(f"stream_video profile (generation, chunks of {LIVE_CHUNK}): {len(spans['D'])} kernel D "
+        f"on stream(s) {sorted(d_streams)}, {len(spans['A'])} kernel A on {sorted(a_streams)}; "
+        f"the vision stream busy {_overlap_us(side, side) / 1e3:.3f} ms in {len(windows)} "
+        f"windows, the decoder's stream {_overlap_us(main, main) / 1e3:.3f} ms, "
+        f"{main_inside / 1e3:.3f} ms of it inside the vision windows, {a_inside} launches of A "
+        f"there; kernels of the two streams at the same instant {side_main / 1e3:.3f} ms, "
+        f"kernel D beside kernel A {d_a / 1e3:.3f} ms; launches over the path {counts}")
+    if (len(spans["D"]) != stats["generation"]["d"] or not spans["A"] or d_streams & a_streams
+            or a_inside <= 0):
+        raise AssertionError(f"stream_video profile: {len(spans['D'])} kernel D and "
+                             f"{len(spans['A'])} kernel A on streams {d_streams} / {a_streams}; "
+                             f"{a_inside} launches of A inside the vision stream's windows")
+    return dict(counts, walls=walls)
+
+
+def run_prewarm(cfg, tok, params, log) -> float:
+    """`prewarm(vision=True)` on the full-width model, timed; a session
+    after it equals one on a cold engine."""
+    frames = np.random.RandomState(5).randint(
+        0, 256, (LIVE_CHUNK, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
+    args = _args(max_new_tokens=8, stream_end_score_sum_threshold=1.0)
+    warm = LiveInferEngine(params, cfg, tok, args)
+    _zero_counts()  # prewarm's path starts here
+    t0 = time.perf_counter()
+    warm.prewarm(vision=True)
+    dt = time.perf_counter() - t0
+    counts = _kernel_counts()  # and ends here
+    if (warm.state.cursor or warm.frame_embeds is not None or counts["attention"] <= 0
+            or counts["attention"] % cfg.text.num_layers
+            or counts["vision"] != 2 * (cfg.vision.num_layers - 1)):
+        raise AssertionError(f"prewarm: cursor {warm.state.cursor}, launches {counts}")
+    got = _live_pass(warm, frames, stream=True)[1]
+    want = _live_pass(LiveInferEngine(params, cfg, tok, args), frames, stream=True)[1]
+    if got != want:
+        raise AssertionError("prewarm: the session after it differs from a cold engine's")
+    log(f"prewarm(vision=True): {dt:.3f} s (kernels built already; {len(DEFAULT_BUCKETS)} "
+        f"buckets, the 8-frame block, an 8-token decode, two 32-frame encodes); launches "
+        f"{counts}; a {LIVE_CHUNK}-frame session after it equals a cold engine's exactly")
+    return dt
+
+
+def run_offline_baseline(cfg, tok, params, log) -> float:
+    """`OfflineBaselineRunner.answer` at full width: 64 frames and the
+    question, prefilled in 256-row chunks, one greedy answer."""
+    from mmduet_tpu_torch.eval.offline_baseline import OfflineBaselineRunner
+
+    frames = np.random.RandomState(0).randint(
+        0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
+    runner = OfflineBaselineRunner(params, cfg, tok, _args(max_new_tokens=16))
+    runner.set_fps(2.0)
+    _zero_counts()  # the baseline's path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    text = runner.answer(frames, QUERY)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = _kernel_counts()  # and ends here
+    cursor = runner.state.cursor
+    k = kv_arr(runner.state.kv_cache.k)[:, 0, :, :cursor]
+    if (not isinstance(text, str) or runner.tokens_generated <= 0
+            or not bool(torch.isfinite(k).all()) or counts["attention"] <= 0
+            or counts["attention"] % cfg.text.num_layers
+            or counts["vision"] != 2 * (cfg.vision.num_layers - 1)):
+        raise AssertionError(f"offline baseline: answer {text!r}, cursor {cursor}, launches "
+                             f"{counts}")
+    log(f"offline baseline (64 frames + question, {cursor - runner.tokens_generated + 1} "
+        f"prompt rows in 256-row chunks): {dt:.3f} s for one answer of "
+        f"{runner.tokens_generated} tokens; launches {counts}")
+    return dt
+
+
 def quantize_on_card(params, log):
     """The 7B-width tree's decoder, embedding and LM head to group-128 int4
     on the card, leaf by leaf (``donate``: each bf16 leaf is freed as it is
@@ -1505,9 +2097,13 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         log(f"kernels checked in {time.perf_counter() - t_start:.1f} s")
         return 0
+    run_conversion(log)
     cfg, tok, params = full_width_model(log)
     dense = run_main_path(cfg, tok, params, log)
     dec["launches"] = dense["attention"]
+    run_live_feeding(cfg, tok, params, log)
+    run_prewarm(cfg, tok, params, log)
+    run_offline_baseline(cfg, tok, params, log)
     full_fwd["launches"], full_bwd["launches"] = run_training(cfg, tok, params, log)
     time_vision_routes(cfg, params, log)
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1545,6 +2141,8 @@ def main(argv=None) -> int:
     check_small_input(log)
     check_small_input(log, quantized=True)
     check_small_batched(log)
+    check_small_offline(log)
+    check_small_cli_profile(log)
     check_small_train(log)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [dec, dec_int8, sharded, int4, full_fwd, full_bwd, vision]}))

@@ -27,11 +27,19 @@ admission; ``--gen_coalesce_rounds`` merges staggered answers into one
 batched decode): the same rows per sample, written as samples finish, the
 ``latency`` block holding the run's aggregate per-frame time.
 
+``--prewarm`` pays the first calls' costs (the kernels' builds, their
+scratch, cuBLAS's handles) before the first sample, single-stream and
+batched. ``--profile_dir DIR`` runs under `torch.profiler` and writes a
+Chrome trace, ``DIR/trace.json`` (the card's kernels with ``--device
+cuda``). ``--is_online_model false`` runs the offline whole-video baseline
+(`eval.offline_baseline`), one row per sample with the JAX CLI's schema
+``{question_id, model_response, question, video_duration}``. An HF
+checkpoint becomes a ``--checkpoint`` directory through
+`python -m mmduet_tpu_torch.models.convert`.
+
 ``--device`` defaults to ``cuda``; nothing switches to the CPU on its
 own. Not ported yet (each raises): ``--mesh_model`` / ``--mesh_data`` > 1
-(serving over several cards), ``--is_online_model false``,
-``--prewarm`` and ``--profile_dir``; nor is the conversion of HF
-safetensors into a checkpoint directory.
+(serving over several cards).
 
 `round_floats`, `_argparser`, `_test_args` and `_make_dataset` are the
 JAX CLI's host helpers, copied (its `build_argparser` under the name
@@ -42,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -187,9 +196,6 @@ def _not_ported(args) -> None:
     unported = {
         "--mesh_model > 1": args.mesh_model > 1,
         "--mesh_data > 1": args.mesh_data > 1,
-        "--is_online_model false": not args.is_online_model,
-        "--prewarm": args.prewarm,
-        "--profile_dir": args.profile_dir is not None,
     }
     for flag, given in unported.items():
         if given:
@@ -244,6 +250,14 @@ def build_engine(args):
     )
 
 
+def _prewarm(args, engine) -> None:
+    if args.prewarm:
+        t0 = time.perf_counter()
+        # grounding never generates: skip warming the decode loop
+        engine.prewarm(vision=True, generate=not args.grounding_mode)
+        print(f"prewarm: {time.perf_counter() - t0:.1f}s", file=sys.stderr)
+
+
 def _run_batched(args) -> None:
     """Continuous-batched serving: stream the samples through
     `BatchedStreamEngine.serve()`, ``--batch_streams`` at a time — per-sample
@@ -264,6 +278,7 @@ def _run_batched(args) -> None:
         # fused block is a pure win
         block_frames=32 if args.grounding_mode else 8,
     )
+    _prewarm(args, engine)
     dataset = _make_dataset(args, cfg.frame_resolution)
 
     n_done = 0
@@ -322,14 +337,84 @@ def _run_batched(args) -> None:
           f"in {dt:.1f}s -> {args.output_fname}")
 
 
+def _run_offline_baseline(args) -> None:
+    """Whole-video non-streaming baseline (reference
+    `test/inference.py:382-423`): one greedy answer per sample; output
+    schema {question_id, model_response, question, video_duration}."""
+    from ..config import TestArgs
+    from .offline_baseline import OfflineBaselineRunner
+
+    cfg, params, lora, tokenizer = _load_model(args)
+    test_args = TestArgs(
+        frame_fps=args.frame_fps,
+        frame_resolution=args.frame_resolution or cfg.frame_resolution,
+        max_num_frames=args.max_num_frames,
+        repetition_penalty=args.repetition_penalty,
+        max_new_tokens=args.max_new_tokens,
+        stream_end_prob_threshold=1.0,
+    )
+    runner = OfflineBaselineRunner(
+        params, cfg, tokenizer, test_args, lora=lora,
+        lora_scale=1.0 if lora is not None else 0.0,
+    )
+    dataset = _make_dataset(args, cfg.frame_resolution)
+
+    n_done = 0
+    t_start = time.perf_counter()
+    samples = dataset if args.no_prefetch else dataset.prefetch()
+    with open(args.output_fname, "w") as f_out:
+        for i, sample in enumerate(samples):
+            if sample.frames is None:
+                print(f"skipping {sample.question_id}: {sample.error}", file=sys.stderr)
+                continue
+            runner.set_fps(fps=sample.fps)
+            question = next(
+                (t["content"] for t in sample.conversation if t["role"] == "user"), None)
+            if question is None:
+                print(f"skipping {sample.question_id}: no user turn", file=sys.stderr)
+                continue
+            text = runner.answer(sample.frames, question)
+            res = {
+                "question_id": sample.question_id,
+                "model_response": [text],
+                "question": question,
+                "video_duration": sample.video_duration,
+            }
+            f_out.write(json.dumps(res) + "\n")
+            n_done += 1
+            if i % 10 == 0:
+                f_out.flush()
+    dt = time.perf_counter() - t_start
+    print(f"baseline done: {n_done} samples in {dt:.1f}s -> {args.output_fname}")
+
+
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
     _not_ported(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if not args.profile_dir:
+        return _main_inner(args)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(args.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        _main_inner(args)
+    os.makedirs(args.profile_dir, exist_ok=True)
+    path = os.path.join(args.profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}", file=sys.stderr)
+
+
+def _main_inner(args) -> None:
+    if not args.is_online_model:
+        return _run_offline_baseline(args)
     if args.batch_streams > 1:
         return _run_batched(args)
     engine = build_engine(args)
+    _prewarm(args, engine)
     dataset = _make_dataset(args, engine.cfg.frame_resolution)
 
     n_done = 0

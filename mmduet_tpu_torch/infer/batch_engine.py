@@ -28,8 +28,9 @@ with the same messages; the vision tower's attention is kernel D on a
 CUDA device, also under a mesh; a ``mesh`` lies on one device
 (`parallel.make_mesh`) and only cuts the streaming attention into shards
 (`ops.attention.flash_decode_attention_sharded`, bit-equal to the
-unsharded kernel). `prewarm` is not ported (nothing is compiled per
-shape here).
+unsharded kernel). `BatchedStreamEngine.prewarm` pays before the first
+group what its first calls would (the kernels' builds, their scratch,
+cuBLAS's handles, the allocator's pool).
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ import torch
 from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..ops import _build
 from ..parallel import serving_shard_ctx
 from .state import (
     DEFAULT_BUCKETS,
@@ -734,6 +736,46 @@ class BatchedStreamEngine(BatchedStreamScorer):
         return out
 
     # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def prewarm(
+        self,
+        buckets: Optional[Sequence[int]] = None,
+        block: bool = True,  # kept for the JAX engine's signature: the block
+        # shapes are in the engine's bucket table and warm in the same loop
+        generate: bool = True,
+        vision: bool = False,
+    ) -> None:
+        """Pay before the first group what its first calls would
+        (`LiveInferEngine.prewarm`: the kernels' builds, kernel A's split
+        scratch and memo per launch shape, kernel B's scratch, cuBLAS's
+        handles, the allocator's pool): one batched dispatch of zeros at
+        each chunk bucket over all B lanes, a batched decode of every lane
+        and, with ``vision``, one VISION_BATCH encode. Resets the engine
+        afterwards."""
+        if self.device.type == "cuda":
+            _build.build()
+        H = self.params["decoder"]["final_norm"].shape[-1]
+        zeros = [0] * self.B
+        for b in buckets if buckets is not None else self._buckets:
+            if b > self._cache_size:
+                continue
+            mmduet.chunk_scores_forward(
+                self.params, self.cfg,
+                torch.zeros((self.B, b, H), dtype=self.dtype, device=self.device),
+                self._cache, zeros, [b] * self.B, [[0] * self.block_frames] * self.B,
+                lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+            )
+        if generate:
+            self._cur[:] = 0
+            self._generate_batch(list(range(self.B)))
+        if vision:
+            r = self.cfg.frame_resolution
+            staged_visual_encode(self._visual, np.zeros((VISION_BATCH, r, r, 3), np.uint8),
+                                 self.device, VISION_BATCH)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
 
     def _remaining(self, b: int) -> int:
         return int(self._lengths[b]) - int(self._next_b[b])

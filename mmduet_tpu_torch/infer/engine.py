@@ -30,7 +30,16 @@ of the ``model`` axis (`ops.attention.flash_decode_attention_sharded`,
 bit-equal to the unsharded kernel). The vision tower's attention is kernel
 D on a CUDA device, also under a mesh.
 
-Not ported yet: `prewarm`, `stream_video`, `append_frames`.
+Live sources: `append_frames` / `append_frame_embeds` add frames to a
+running session (chunked feeding equals one-shot feeding), and
+`stream_video` encodes chunk i+1 while chunk i is decoded. On a CUDA
+device the vision tower (upload, kernel D, projector) then runs on a side
+stream of its own, and the decoder on a stream of higher priority, ordered
+after the caller's current stream and before it again at the end: kernels
+A and B, whose split scratch is shared per device (`ops.attention`,
+`ops.quant_matmul`), run on one stream at a time.
+`prewarm` takes what an eager first session would pay (the kernels'
+builds, their scratch, cuBLAS's handles, the allocator's pool) before it.
 """
 
 from __future__ import annotations
@@ -46,14 +55,18 @@ from ..config import MMDuetConfig, TestArgs
 
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..ops import _build
 from ..parallel import serving_shard_ctx
 from .state import (
+    DEFAULT_BUCKETS,
     StreamState,
     ThresholdPolicy,
     build_prompt_fragments,
+    encode_uploaded,
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
+    upload_pixels,
     validate_threshold_args,
     staged_visual_encode,
 )
@@ -100,6 +113,10 @@ class LiveInferEngine:
         self.args = args
         self.score_heads = args.score_heads.split(",")
         self.grounding_mode = args.grounding_mode
+        # one-deep block pipelining in grounding mode (False forces the
+        # sequential loop; the results are the same)
+        self.pipeline_grounding = True
+        self._streams_: Optional[Tuple[torch.cuda.Stream, torch.cuda.Stream]] = None
 
         # pre-tokenized incremental fragments (reference inference.py:61-63)
         self._start_ids, self._stream_open_ids, self._gen_prompt_ids = (
@@ -158,6 +175,62 @@ class LiveInferEngine:
             (self.cfg.text.vocab_size,), dtype=torch.bool, device=self.device
         )
 
+    @torch.inference_mode()
+    def prewarm(
+        self,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        block: bool = True,
+        generate: bool = True,
+        vision: bool = False,
+    ) -> None:
+        """Pay before the first live session what its first calls would.
+
+        Nothing compiles in eager mode; what a cold first session pays is
+        the `nvcc` builds of the kernels (`ops._build`), kernel A's split
+        scratch and its memo for each launch shape, kernel B's scratch
+        (int4 leaves), cuBLAS's handles and workspaces, and the caching
+        allocator's pool. This feeds a zero chunk at each prefill bucket
+        (query turns and frame steps bucket to these widths), the fused
+        frame block, the greedy decode, one chunk on `stream_video`'s
+        decoder stream (a CUDA device) and, with ``vision``, one encode of
+        VISION_BATCH frames on the current stream and one through
+        `stream_video`'s path (pinned upload, the side stream on a CUDA
+        device). Resets the engine afterwards: a session after it equals
+        one on a cold engine."""
+        if self.device.type == "cuda":
+            _build.build()  # every source at once, one nvcc each
+        H = self.cfg.text.hidden_size
+        zeros = lambda *shape: torch.zeros(shape, dtype=self.dtype, device=self.device)  # noqa: E731
+        for b in buckets:
+            if self.state.capacity < b:
+                continue
+            self.state.cursor = 0
+            self._feed(zeros(b, H))
+        if block and self.block_frames >= 2:
+            self.state.cursor = 0
+            mmduet.frames_block_forward(
+                self.params, self.cfg, zeros(self.block_frames, self.cfg.frame_num_tokens, H),
+                self.state.kv_cache, 0, lora=self.lora, lora_scale=self.lora_scale,
+                shard_ctx=self._shard_ctx,
+            )
+        if generate:
+            self.state.cursor = 0
+            self._generate_response()
+        main, _ = self._streams()
+        if main is not None:  # stream_video's decoder stream: its cuBLAS workspace
+            main.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(main):
+                self.state.cursor = 0
+                self._feed(zeros(min(DEFAULT_BUCKETS[-1], self.state.capacity), H))
+        if vision:
+            r = self.cfg.frame_resolution
+            px = np.zeros((VISION_BATCH, r, r, 3), np.uint8)
+            staged_visual_encode(self._visual, px, self.device, VISION_BATCH)
+            self._encode_chunk(self._upload(px))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.reset()
+
     # ------------------------------------------------------------------
     # inputs
     # ------------------------------------------------------------------
@@ -183,6 +256,153 @@ class LiveInferEngine:
         )
         self.frame_times = [i / self.frame_fps for i in range(len(frame_embeds))]
         self._next_frame = 0
+
+    @torch.inference_mode()
+    def append_frames(self, video_frames) -> None:
+        """Add frames to the running session: the live-source path
+        (camera, stream, chunked upload). Encodes the new pixels and
+        appends their embeddings; the next `inference()` call continues the
+        same stream (cache, clocks, policy state), so chunked feeding equals
+        one-shot feeding."""
+        self.append_frame_embeds(
+            staged_visual_encode(self._visual, video_frames, self.device, VISION_BATCH))
+
+    @torch.inference_mode()
+    def append_frame_embeds(self, frame_embeds) -> None:
+        """`append_frames` for post-projector embeddings (T, ft, H).
+
+        The embeddings live in one (max_num_frames, ft, H) buffer,
+        allocated at the first append and written in place with `copy_`,
+        so an append costs its own chunk (concatenating would copy the
+        whole history at every call). More than ``max_num_frames`` frames
+        in a session raise ValueError."""
+        new = torch.as_tensor(frame_embeds, dtype=self.dtype, device=self.device)
+        base = len(self.frame_times)
+        cap = self.args.max_num_frames
+        if base + len(new) > cap:
+            raise ValueError(
+                f"append_frame_embeds: {base} + {len(new)} frames exceeds "
+                f"max_num_frames {cap}"
+            )
+        if self.frame_embeds is None or self.frame_embeds.shape[0] != cap:
+            buf = torch.zeros((cap, self.cfg.frame_num_tokens, new.shape[-1]),
+                              dtype=self.dtype, device=self.device)
+            if self.frame_embeds is not None and base:
+                buf[:base].copy_(self.frame_embeds[:base])
+            self.frame_embeds = buf
+        self.frame_embeds[base: base + len(new)].copy_(new)
+        self.frame_times.extend((base + i) / self.frame_fps for i in range(len(new)))
+
+    def _streams(self) -> Tuple[Optional[torch.cuda.Stream], Optional[torch.cuda.Stream]]:
+        """(decoder stream, vision stream) of `stream_video`, made once per
+        engine on the parameters' CUDA device (making them raises if they
+        cannot be made); (None, None) on the CPU, where the steps run in
+        order. The decoder's stream has the higher priority: the card
+        dispatches its blocks first, and the vision tower's fill the time
+        the decoder leaves idle (at equal priority the next chunk's encode,
+        enqueued first, holds the SMs the decode beside it waits for)."""
+        if self.device.type != "cuda":
+            return None, None
+        if self._streams_ is None:
+            self._streams_ = (torch.cuda.Stream(device=self.device, priority=-1),
+                              torch.cuda.Stream(device=self.device, priority=0))
+        return self._streams_
+
+    def _upload(self, pixels):
+        """Pixels onto the device on the side stream (pinned, non_blocking)."""
+        return upload_pixels(pixels, self.device, VISION_BATCH, self._streams()[1])
+
+    def _encode_chunk(self, up):
+        """Enqueue the vision encode of uploaded pixels ``up`` on the side
+        stream; returns (embeds, done, up): ``done`` is the event the
+        current stream waits on before it reads ``embeds`` (None on the
+        CPU), and ``up`` keeps the pinned pixels referenced."""
+        side = self._streams()[1]
+        if side is None:
+            return encode_uploaded(self._visual, up.buf, up.n, VISION_BATCH), None, up
+        # after whatever the current stream made before (the parameters);
+        # between stream_video's chunks the current stream is idle here
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            embeds = encode_uploaded(self._visual, up.buf, up.n, VISION_BATCH)
+            done = torch.cuda.Event()
+            done.record(side)
+        return embeds, done, up
+
+    @torch.inference_mode()
+    def stream_video(self, video_frames, chunk_frames: int = 64,
+                     upload_ahead: bool = False) -> List[Dict[str, Any]]:
+        """Pixels -> responses with the vision of chunk i+1 under the
+        decode of chunk i (`input_video_stream` + `inference()` run the
+        two phases one after the other).
+
+        On a CUDA device each chunk's upload (pinned, ``non_blocking``),
+        vision tower (kernel D) and projector run on a side stream; the
+        decoder (kernels A and B) runs on the engine's decoder stream, of a
+        higher priority, which waits on the chunk's event before it reads
+        the embeddings. The decoder's host syncs wait on its stream only,
+        so the next chunk's vision runs beside them. The decoder's stream
+        starts after the caller's current stream and the caller's stream
+        waits for it at the end, so kernels A and B, whose split scratch is
+        per device, never run on two streams at once. Each chunk is encoded
+        at the one VISION_BATCH shape, padded. On the CPU the same steps
+        run in order.
+
+        ``upload_ahead=True`` overlaps only the transfer: chunk i+1's
+        pixels are uploaded while chunk i decodes, and its encode is
+        enqueued just before its own decode.
+
+        Queries must be fed (`input_query_stream`) BEFORE this call. The
+        results equal the one-shot path's: chunks after the first go
+        through `append_frame_embeds` and ``inference(drain=False)``, which
+        leaves a tail shorter than a block for the next chunk."""
+        video_frames = np.asarray(video_frames)
+        # user turns are reported once up front; the per-chunk inference()
+        # calls would re-list whatever is still queued at each call
+        user_turns = [
+            {"time": t, "content": q, "role": "user"} for t, q in self.query_queue
+        ]
+        responses: List[Dict[str, Any]] = []
+        main, _ = self._streams()
+
+        def run_pending(embeds, done, up, drain: bool) -> None:
+            if done is not None:
+                main.wait_event(done)
+                # made on the side stream, read on this one: its memory is
+                # not reused before this stream's reads are done
+                embeds.record_stream(main)
+            self.append_frame_embeds(embeds)
+            # drain=False mid-stream: tails shorter than a block wait for
+            # the next chunk instead of degrading to single-frame steps
+            responses.extend(
+                r for r in self.inference(drain=drain) if r["role"] != "user"
+            )
+
+        chunks = [video_frames[s: s + chunk_frames]
+                  for s in range(0, len(video_frames), chunk_frames)]
+        caller = torch.cuda.current_stream(self.device) if main is not None else None
+        if main is not None:
+            main.wait_stream(caller)
+        try:
+            with torch.cuda.stream(main):  # no-op on the CPU (None)
+                pending = None
+                for chunk in chunks:
+                    if upload_ahead:
+                        ahead = self._upload(chunk)  # in flight through the decode below
+                        if pending is not None:
+                            run_pending(*self._encode_chunk(pending), drain=False)
+                    else:
+                        ahead = self._encode_chunk(self._upload(chunk))  # under the decode
+                        if pending is not None:
+                            run_pending(*pending, drain=False)
+                    pending = ahead
+                if pending is not None:
+                    run_pending(*(self._encode_chunk(pending) if upload_ahead else pending),
+                                drain=True)
+        finally:
+            if main is not None:
+                caller.wait_stream(main)
+        return sorted(responses + user_turns, key=lambda x: x["time"])
 
     @torch.inference_mode()
     def input_vision_feats(self, feats) -> None:
@@ -347,6 +567,15 @@ class LiveInferEngine:
     # the streaming loop (reference inference.py:276-313)
     # ------------------------------------------------------------------
 
+    # views over the shared ThresholdPolicy state
+    @property
+    def stream_end_prob_list(self) -> List[float]:
+        return self._policy.prob_list
+
+    @property
+    def stream_end_score_sum(self) -> float:
+        return self._policy.score_sum
+
     def _block_budget(self) -> int:
         """How many frames can run in one block before the next query is due
         or the stream ends."""
@@ -361,7 +590,15 @@ class LiveInferEngine:
             n = min(n, max(free, 0))
         return n
 
-    def _inference_grounding(self) -> List[Dict[str, Any]]:
+    def _stops_early(self, drain: bool) -> bool:
+        """``drain=False``: fewer than a block of frames is left and no
+        query is due, so the tail waits for the next chunk."""
+        return not drain and (
+            len(self.frame_times) - self._next_frame < self.block_frames
+            and not (self.query_queue and self.video_time >= self.query_queue[0][0])
+        )
+
+    def _inference_grounding(self, drain: bool = True) -> List[Dict[str, Any]]:
         """Grounding-mode streaming with one-deep block pipelining: the
         next block is enqueued BEFORE the previous block's scores are
         fetched, so the host round trip hides behind device compute.
@@ -400,6 +637,8 @@ class LiveInferEngine:
                 t += self.frame_interval
 
         while self._next_frame < len(self.frame_times):
+            if self._stops_early(drain):
+                break
             if self.query_queue and self.video_time >= self.query_queue[0][0]:
                 self._encode_query()
             n = self._block_budget()
@@ -421,12 +660,13 @@ class LiveInferEngine:
         n_frames = self._next_frame - start_frame
         total_ms = (time.perf_counter() - t_wall) * 1000
         # replace only THIS call's entries with the uniform aggregate
+        # (earlier calls' entries stay, for chunked live feeding)
         del self.frame_latencies_ms[lat_start:]
         self.frame_latencies_ms.extend([total_ms / max(n_frames, 1)] * n_frames)
         return sorted(responses, key=lambda x: x["time"])
 
     @torch.inference_mode()
-    def inference(self) -> List[Dict[str, Any]]:
+    def inference(self, drain: bool = True) -> List[Dict[str, Any]]:
         """Stream all frames; returns the time-sorted response list in the
         reference's JSONL schema (`test/inference.py:276-313` semantics).
 
@@ -434,13 +674,24 @@ class LiveInferEngine:
         or turn-joiner interrupts; a response trigger mid-block rolls the
         un-consumed frames back (cursor rewind), so results equal
         single-frame stepping. Grounding mode, which never generates, runs
-        the pipelined loop (`_inference_grounding`)."""
-        if self.grounding_mode:
-            return self._inference_grounding()
+        the pipelined loop (`_inference_grounding`) unless
+        ``pipeline_grounding`` is False.
+
+        ``drain=False`` (chunked live feeding, `stream_video`): stop once
+        fewer than ``block_frames`` frames remain and no query is due,
+        leaving the tail for after the next `append_frame_embeds`, so a
+        chunk boundary never degrades to single-frame steps. Responses,
+        times and cursors are unchanged, and so are the scores where the
+        blocks are the same; where they are not, the scores differ by the
+        rounding of other forward shapes."""
+        if self.grounding_mode and self.pipeline_grounding:
+            return self._inference_grounding(drain)
         responses = [
             {"time": t, "content": q, "role": "user"} for t, q in self.query_queue
         ]
         while self._next_frame < len(self.frame_times):
+            if self._stops_early(drain):
+                break
             if self.query_queue and self.video_time >= self.query_queue[0][0]:
                 self._encode_query()
 
@@ -457,7 +708,7 @@ class LiveInferEngine:
                 stream_end_score = sum(
                     v for k, v in scores.items() if k in self.score_heads
                 )
-                if self._policy.triggered(stream_end_score):
+                if self._policy.triggered(stream_end_score) and not self.grounding_mode:
                     # discard not-yet-evaluated block frames, re-run later
                     self._rollback_frames(len(scores_list) - 1 - i)
                     response = self._generate_response()

@@ -1,6 +1,10 @@
 """Streaming state: preallocated KV cache + cursor + shape buckets, and
 the host-side policy code the engines share.
 
+`upload_pixels` puts pixels in pinned host memory and copies them
+``non_blocking`` on a given CUDA stream; `encode_uploaded` encodes them at
+the one batch shape (`LiveInferEngine.stream_video`).
+
 The host code here (`DEFAULT_BUCKETS`, `pick_bucket`,
 `validate_threshold_args`, `build_prompt_fragments`, `frame_joiner_ids`,
 `ThresholdPolicy`) is a copy of `mmduet_tpu/infer/state.py`, which imports
@@ -12,7 +16,7 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
-from typing import Callable, List, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,6 +49,65 @@ def pad_chunk(embeds: torch.Tensor, bucket: int) -> torch.Tensor:
     )
 
 
+def _frames_array(video_frames) -> np.ndarray:
+    if isinstance(video_frames, (list, tuple)):
+        video_frames = np.stack(video_frames)
+    video_frames = np.asarray(video_frames)
+    if video_frames.ndim != 4 or video_frames.shape[-1] != 3:
+        raise ValueError(
+            f"expected (T,H,W,3) uint8 frames, got {video_frames.shape}"
+        )
+    return video_frames
+
+
+class Uploaded(NamedTuple):
+    """Pixels on the device (`upload_pixels`): ``buf`` (padded to a
+    multiple of the encode batch), ``n`` real frames, and ``host``, the
+    pinned host copy the transfer reads (None on the CPU), which the
+    caller holds until the transfer has finished."""
+
+    buf: torch.Tensor
+    n: int
+    host: Optional[torch.Tensor]
+
+
+def upload_pixels(video_frames, device, batch: int = 32,
+                  stream: Optional["torch.cuda.Stream"] = None) -> Uploaded:
+    """uint8 (T, H, W, 3) pixels, zero-padded to a multiple of ``batch``
+    frames, onto ``device``.
+
+    On a CUDA device the pixels are first put in pinned (page-locked) host
+    memory and copied ``non_blocking`` on ``stream`` (default: the current
+    one): the host does not wait for the transfer, so a caller can start
+    the next chunk's upload while the card decodes the current one
+    (`LiveInferEngine.stream_video`). A copy from pageable memory would
+    block the host until it ends. On the CPU the array is used in place."""
+    video_frames = _frames_array(video_frames)
+    n = video_frames.shape[0]
+    pad = -n % batch
+    if pad:
+        video_frames = np.concatenate(
+            [video_frames, np.zeros((pad, *video_frames.shape[1:]), video_frames.dtype)])
+    host = torch.from_numpy(np.ascontiguousarray(video_frames))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return Uploaded(host.to(device), n, None)
+    host = host.pin_memory()
+    with torch.cuda.stream(stream or torch.cuda.current_stream(device)):
+        buf = host.to(device, non_blocking=True)
+    return Uploaded(buf, n, host)
+
+
+def encode_uploaded(visual_fn: Callable[[torch.Tensor], torch.Tensor],
+                    buf: torch.Tensor, n: int, batch: int = 32) -> torch.Tensor:
+    """Vision-encode an uploaded padded pixel buffer ``batch`` frames at a
+    time (every encode at the one batch shape, as the whole batches of
+    `staged_visual_encode` are); returns the (n, ft, H) embeddings of the
+    real frames."""
+    outs = [visual_fn(buf[j: j + batch]) for j in range(0, buf.shape[0], batch)]
+    return torch.cat(outs, dim=0)[:n]
+
+
 def staged_visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
                          video_frames, device, batch: int = 32) -> torch.Tensor:
     """Vision-encode uint8 (T, H, W, 3) pixels ``batch`` frames at a time
@@ -54,13 +117,7 @@ def staged_visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
     batch of pixels is resident; a ragged tail runs at its own length
     (frames are independent in the tower, and nothing is compiled per
     shape)."""
-    if isinstance(video_frames, (list, tuple)):
-        video_frames = np.stack(video_frames)
-    video_frames = np.asarray(video_frames)
-    if video_frames.ndim != 4 or video_frames.shape[-1] != 3:
-        raise ValueError(
-            f"expected (T,H,W,3) uint8 frames, got {video_frames.shape}"
-        )
+    video_frames = _frames_array(video_frames)
     if video_frames.shape[0] == 0:
         raise ValueError("staged_visual_encode: no frames to encode")
     outs = [

@@ -51,7 +51,17 @@ def save_checkpoint(ckpt_dir: str, cfg: MMDuetConfig, params, lora=None) -> None
     save_config(cfg, os.path.join(ckpt_dir, "config.json"))
 
 
-def load_checkpoint(ckpt_dir: str, device="cpu") -> Tuple[MMDuetConfig, Any, Optional[Any]]:
+def load_checkpoint(ckpt_dir: str, device=None) -> Tuple[MMDuetConfig, Any, Optional[Any]]:
+    """(cfg, params, lora) of a checkpoint directory, with every tensor on
+    ``device``: by default the current CUDA device. With no device named
+    and no CUDA device it raises `RuntimeError`; the CPU is used only when
+    the caller names it (``device="cpu"``), never as a quiet fallback."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "load_checkpoint: no CUDA device to load onto; pass device= "
+                "(device=\"cpu\" to load onto the CPU)")
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = load_config(os.path.join(ckpt_dir, "config.json"))
     tree = torch.load(os.path.join(ckpt_dir, PARAMS_FILE), map_location=device,
                       weights_only=True)

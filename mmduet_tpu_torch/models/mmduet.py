@@ -76,7 +76,11 @@ def spatial_pool(features: torch.Tensor, cfg: MMDuetConfig) -> torch.Tensor:
     grid = features.reshape(N, side, side, C)
     mode = cfg.spatial_pool_mode
     if mode == "bilinear":
-        w = torch.from_numpy(_bilinear_weights(side, out_side)).to(features.device)
+        # through pinned memory: a copy from pageable memory would wait for
+        # the whole queue of the current stream (the vision stream's encode)
+        w = torch.from_numpy(_bilinear_weights(side, out_side))
+        w = (w.pin_memory().to(features.device, non_blocking=True) if features.is_cuda
+             else w.to(features.device))
         pooled = torch.einsum(
             "nhwc,hi,wj->nijc", grid.float(), w, w
         ).to(features.dtype)

@@ -218,6 +218,12 @@ def decode_split_span(rows: int, S: int) -> int:
 # that share it run one after another on one stream. `_split_memo` keeps
 # each launch shape's (span, partials, counters) pointers for the host's
 # sake, and is emptied whenever the scratch is reallocated.
+# The one-stream rule: kernel A runs on one stream at a time, the decoder's
+# (the caller's current stream; inside `LiveInferEngine.stream_video` the
+# engine's decoder stream, which starts after the caller's stream and which
+# the caller's stream waits for at the end), never beside another launch of
+# A. `stream_video` puts the vision tower (kernel D, which has no scratch)
+# on a side stream of its own.
 _split_scratch: dict = {}
 _split_memo: dict = {}
 

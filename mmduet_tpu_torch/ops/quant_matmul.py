@@ -119,7 +119,10 @@ def int4_plan(R: int, H: int, O: int, g: int) -> Int4Plan:
 # The split's scratch per device: f32 partials and int32 tickets (zeros,
 # and left zero by every launch), grown when a launch needs more. Launches
 # that share it run one after another on one stream, so a call allocates
-# only its output.
+# only its output. The one-stream rule: kernel B runs on one stream at a
+# time, the decoder's (as kernel A, `ops.attention`); the side stream of
+# `LiveInferEngine.stream_video` runs the vision tower, which never
+# launches B (its int8 leaves have no kernel).
 _split_scratch: dict = {}
 
 

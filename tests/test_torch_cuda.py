@@ -1003,3 +1003,137 @@ def test_cli_batch_streams_runs_on_the_card_through_the_kernels(dev, tmp_path, m
         assert set(row) == set(cpu_rows[qid]) and row["latency"]["aggregate"] is True
         assert len(row["debug_data"]) == len(cpu_rows[qid]["debug_data"])
         assert all(np.isfinite(d["informative_score"]) for d in row["debug_data"])
+
+
+# ---------------------------------------------------------------------------
+# live feeding, prewarm, the converter and load_checkpoint on the card
+# ---------------------------------------------------------------------------
+
+
+def _small_card_model(dev, bits=None):
+    """A small model (hd 128) in bf16 on the card, int4 weights with
+    ``bits=4``."""
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(5), dev,
+                                torch.bfloat16)
+    if bits:
+        params = quant.quantize_params(params, bits=bits)
+    return cfg, params, CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
+
+
+def _live_engine(cfg, params, tok, grounding=False, **kw):
+    args = TestArgs(frame_fps=2.0, max_new_tokens=4, max_num_frames=64, grounding_mode=grounding,
+                    stream_end_score_sum_threshold=0.6)
+    return LiveInferEngine(params, cfg, tok, args, block_frames=4 if not grounding else 8, **kw)
+
+
+LIVE_FRAMES = np.random.RandomState(9).randint(0, 256, (64, 32, 32, 3), dtype=np.uint8)
+LIVE_QUERY = [{"role": "user", "content": "what now?", "time": 1.5}]
+
+
+def _live_run(engine, stream: bool, upload_ahead: bool = False):
+    engine.reset()
+    engine.input_query_stream(list(LIVE_QUERY))
+    if stream:
+        out = engine.stream_video(LIVE_FRAMES, chunk_frames=16, upload_ahead=upload_ahead)
+    else:
+        engine.input_video_stream(LIVE_FRAMES)
+        out = engine.inference()
+    torch.cuda.synchronize()
+    # stream_video lists the user turns after the answers before its sort
+    # by time, as the JAX engine does: a user turn and an answer at the same
+    # time come in either order
+    out = sorted(out, key=lambda r: (r["time"], r["role"], r["content"]))
+    return out, [(d["time"], d["informative_score"], d["relevance_score"])
+                 for d in engine.debug_data_list], engine.state.cursor
+
+
+@pytest.mark.parametrize("upload_ahead", [False, True], ids=["vision_ahead", "upload_ahead"])
+@pytest.mark.parametrize("grounding", [False, True], ids=["generation", "grounding"])
+def test_stream_video_on_the_card_equals_sequential(dev, grounding, upload_ahead):
+    """Chunks of 16 frames (a multiple of the block) through the side
+    stream give the sequential route's texts, times, scores and cursor, bit
+    for bit: the same blocks, and every vision encode at the 32-frame
+    shape."""
+    cfg, params, tok = _small_card_model(dev)
+    engine = _live_engine(cfg, params, tok, grounding)
+    want = _live_run(engine, stream=False)
+    got = _live_run(engine, stream=True, upload_ahead=upload_ahead)
+    assert got == want
+    assert len(got[1]) == 64 and (grounding or any(r["role"] == "assistant" for r in got[0]))
+
+
+def test_stream_video_runs_kernel_d_on_its_own_stream(dev, monkeypatch):
+    """Every launch of kernel D in `stream_video` is on the engine's vision
+    stream, every launch of kernels A and B on its decoder stream (of a
+    higher priority); the split scratch of A and B is left at zero (the
+    one-stream rule of `ops.attention._split_scratch` and
+    `ops.quant_matmul._split_scratch`)."""
+    from mmduet_tpu_torch.models import siglip
+
+    cfg, params, tok = _small_card_model(dev, bits=4)
+    engine = _live_engine(cfg, params, tok, kv_cache_quant="int8")
+    main = torch.cuda.current_stream(dev)
+    seen = {"D": set(), "A": set(), "B": set()}
+
+    def spy(name, fn):
+        def wrapped(*args, **kw):
+            seen[name].add(torch.cuda.current_stream(dev).cuda_stream)
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(siglip, "flash_vision_attention", spy("D", siglip.flash_vision_attention))
+    monkeypatch.setattr(attention, "_decode_launch", spy("A", attention._decode_launch))
+    monkeypatch.setattr(quant, "int4_matmul", spy("B", quant.int4_matmul))
+    before = attention.VISION_LAUNCHES, attention.INT8_LAUNCHES, quant_matmul.B_LAUNCHES
+    _live_run(engine, stream=True)
+    launched = (attention.VISION_LAUNCHES - before[0], attention.INT8_LAUNCHES - before[1],
+                quant_matmul.B_LAUNCHES - before[2])
+    assert all(n > 0 for n in launched), launched
+    decoder, vision = engine._streams()
+    assert len({decoder.cuda_stream, vision.cuda_stream, main.cuda_stream}) == 3
+    assert decoder.priority < vision.priority  # a lower number is a higher priority
+    assert seen["D"] == {vision.cuda_stream}
+    assert seen["A"] == seen["B"] == {decoder.cuda_stream}
+    for scratch in (attention._split_scratch, quant_matmul._split_scratch):
+        for part, counters in scratch.values():
+            assert not bool(counters.any())
+
+
+def test_prewarm_on_the_card_then_a_session_equals_a_cold_engine(dev):
+    cfg, params, tok = _small_card_model(dev)
+    warm = _live_engine(cfg, params, tok)
+    warm.prewarm(vision=True)
+    assert warm.state.cursor == 0 and warm.frame_embeds is None
+    assert _live_run(warm, stream=True) == _live_run(_live_engine(cfg, params, tok), stream=True)
+
+
+def test_converter_needs_no_safetensors_and_loads_onto_the_card(dev, tmp_path, monkeypatch):
+    """The GPU machine has no ``safetensors``: the converter reads the
+    format itself. `chip_smoke.write_hf_dir` writes an HF directory of a
+    tree; the CLI (default ``--device cuda``) converts it, and
+    `load_checkpoint` with no device puts it back on the card, leaf for
+    leaf."""
+    import sys
+
+    import chip_smoke
+    from mmduet_tpu_torch.models import convert, io
+
+    monkeypatch.setitem(sys.modules, "safetensors", None)  # import safetensors fails
+    cfg = tiny_config()
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                torch.bfloat16)
+    chip_smoke.write_hf_dir(str(tmp_path / "hf"), params, cfg)
+    convert.main(["--hf_dir", str(tmp_path / "hf"), "--output", str(tmp_path / "ckpt")])
+    _, loaded, lora = io.load_checkpoint(str(tmp_path / "ckpt"))
+    assert lora is None
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            yield from flat(v, f"{prefix}/{k}") if isinstance(v, dict) else ((f"{prefix}/{k}", v),)
+
+    got, want = dict(flat(loaded)), dict(flat(params))
+    assert set(got) == set(want)
+    for key, leaf in want.items():
+        assert got[key].is_cuda, key
+        assert got[key].dtype == leaf.dtype and torch.equal(got[key], leaf), key

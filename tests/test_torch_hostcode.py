@@ -37,6 +37,8 @@ COPIED_MODULES = [
     "stream/__init__.py", "stream/template.py", "stream/tokenizer.py", "stream/labels.py",
     "data/__init__.py", "data/collator.py", "data/stream_dataset.py",
     "data/eval_dataset.py", "data/time_utils.py", "data/video.py",
+    "eval/evaluate.py", "eval/dvc.py", "eval/qvh.py", "eval/grounding.py", "eval/magqa.py",
+    "eval/captioning.py", "eval/span_utils.py", "eval/openai_batch.py",
 ]
 
 
@@ -165,12 +167,48 @@ def _loop_helpers(tmp_path) -> None:
     assert dataclasses.asdict(t_cfg) == dataclasses.asdict(j_cfg)
 
 
+BASELINE_FORMATS = ["convert_to_online_format", "parse_baseline_span",
+                    "baseline_qvh_saliency", "baseline_dvc_captions"]
+BASELINE_EXAMPLES = [
+    {"question_id": "a", "model_response": ["From 10 to 30, a cat appears."], "video_duration": 50.0},
+    {"question_id": "b", "model_response": "2.5 - 7.5 seconds, a dog runs. 9.0 - 11.0 seconds, "
+                                           "it sits.", "video_duration": 20.0},
+    {"question_id": "c", "model_response": ["Just an answer."], "video_duration": 9.0},
+    {"question_id": "d", "model_response": ["from 20 to 60"], "video_duration": 10.0},
+    {"question_id": "e", "model_response": ["It starts at 3.5 and ends at 8"], "video_duration": 12.0},
+    {"question_id": "f", "model_response": ["1 2 3"], "video_duration": 4.0},
+]
+
+
+def _baseline_format(name: str) -> None:
+    """A format converter of `eval/offline_baseline.py` (the JAX module
+    imports jax): the same source, and the same result on each example."""
+    import mmduet_tpu.eval.offline_baseline as jbase
+    import mmduet_tpu_torch.eval.offline_baseline as tbase
+
+    ours, theirs = getattr(tbase, name), getattr(jbase, name)
+    assert inspect.getsource(ours) == inspect.getsource(theirs)
+    for ex in BASELINE_EXAMPLES:
+        args = (ex, "vtimellm" in ex["question_id"] or ex["question_id"] == "a") \
+            if name == "baseline_dvc_captions" else (ex,)
+        assert ours(*args) == theirs(*args), (name, ex)
+    if name == "convert_to_online_format":
+        (turn,) = ours(BASELINE_EXAMPLES[0])["model_response_list"]
+        assert turn == {"time": 10.0, "content": "a cat appears.", "role": "assistant"}
+    elif name == "parse_baseline_span":
+        assert ours(BASELINE_EXAMPLES[3]) == (2.0, 6.0)
+        assert ours(BASELINE_EXAMPLES[5]) is None
+
+
 @pytest.mark.parametrize(
     "case", COPIED_MODULES + ["eval/inference.py helpers", "infer/state.py host policy",
-                              "train/loop.py and models/io.py helpers"])
+                              "train/loop.py and models/io.py helpers"]
+    + [f"eval/offline_baseline.py {name}" for name in BASELINE_FORMATS])
 def test_copied_host_code_equals_the_original(case, tmp_path):
     if case in COPIED_MODULES:
         _module_text(case)
+    elif case.startswith("eval/offline_baseline"):
+        _baseline_format(case.split()[-1])
     elif case.startswith("eval"):
         _cli_helpers()
     elif case.startswith("infer"):

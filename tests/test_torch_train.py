@@ -429,7 +429,7 @@ def test_cli_tiny_random_writes_the_jax_clis_log_keys_and_a_final_checkpoint(tmp
     with open(os.path.join(jax_out, "log.jsonl")) as f:
         (jrow,) = [json.loads(line) for line in f]
     assert set(rows[0]) == set(jrow)
-    cfg, params, lo = tio.load_checkpoint(str(tmp_path / "torch" / "final"))
+    cfg, params, lo = tio.load_checkpoint(str(tmp_path / "torch" / "final"), device="cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jio.load_config(str(tmp_path / "torch" / "final" / "config.json")))
     assert set(params) == set(TP) and set(lo) == set(tlora.DEFAULT_TARGETS)
@@ -445,8 +445,8 @@ def test_cli_resume_continues_to_the_uninterrupted_result(tmp_path):
     assert "resuming from" in stdout and "skipping 2" in stdout
     assert rows[-1]["step"] == 4
     assert rows[-1]["loss"] == whole[-1]["loss"]
-    _, pa, la = tio.load_checkpoint(str(tmp_path / "a" / "final"))
-    _, pb, lb = tio.load_checkpoint(os.path.join(part, "final"))
+    _, pa, la = tio.load_checkpoint(str(tmp_path / "a" / "final"), device="cpu")
+    _, pb, lb = tio.load_checkpoint(os.path.join(part, "final"), device="cpu")
     for key, leaf in _flat(la).items():
         assert torch.equal(_flat(lb)[key], leaf), key
 
