@@ -23,8 +23,9 @@ Phases (any failure ends the run with a nonzero exit):
    yardstick, the backward's four kernels also each on its own), kernel A' (kernel A per shard of a one-device mesh: for four
    mesh shapes, both caches and three chunk shapes at 8 lanes, bit-equal to
    one launch) and kernel D (the ViT tower's attention at 32 frames x 729
-   patches x 16 heads of 72 and at small ragged shapes, beside
-   `scaled_dot_product_attention`). Plain versions with one fault (a lost
+   patches x 16 heads of 72, at CLIP-L/14-336's 32 x 577 x 16 heads of 64,
+   both timed beside `scaled_dot_product_attention`, and at small ragged
+   shapes). Plain versions with one fault (a lost
    tile for kernels C and D, a lost split or key tile for kernel A with
    either cache; a
    dropped group scale or swapped nibble halves for kernel B) must fail the
@@ -53,7 +54,19 @@ Phases (any failure ends the run with a nonzero exit):
    stream) overlapping kernel A; `prewarm(vision=True)` timed, a session
    after it equal to a cold engine's; the offline baseline's one answer
    over 64 frames and a question (kernels A and D launched, a finite
-   cache);
+   cache). Then, on the same weights, offline feature extraction
+   (`data.preprocess._encode_frames`: the 64 frames' SigLIP features, bit
+   for bit the engine's tower output on the same 32-frame batches; a
+   grounding pass over them with the pixel route's times and triggers; the
+   ``--bf16`` file read back), the live demo (`LiveInferForDemo` after
+   `prewarm(vision=True)`, a `DemoState` thread over the 64 frames behind
+   the demo's HTTP handler on 127.0.0.1, paused mid-stream for a query sent
+   through ``/query`` and ``/resume``, ``/state`` read to the last frame),
+   and the CLIP arch at published widths (CLIP-L/14-336 in place of the
+   SigLIP tower, CLS + 7 x 7 pooled tokens, the same 7B decoder): the 64
+   frames at 336 px in generation and grounding mode, kernel D's 24 launches
+   a tower call and kernel A's counted, every attention of a 32-frame tower
+   call within D's bound of the plain version;
 5. the training path at the same width: `make_train_step` takes 3
    optimizer steps of A=2 collated duet micro-batches (pixel frames at 384
    px, padded to the 2944-token bucket), LoRA r 16 / alpha 32 on the seven
@@ -85,7 +98,9 @@ Phases (any failure ends the run with a nonzero exit):
    cache, and one train step's loss and gradient norm; and the inference
    CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
    names kernel A;
-9. one JSON line for the seven kernels, then the result line
+9. one JSON line for the seven kernels (kernel D's entry also holds its
+   ``clip336_*`` numbers and its launches on the CLIP path), then the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -95,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -104,17 +120,25 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.parse
+import urllib.request
+from http.server import ThreadingHTTPServer
 from typing import List
 
 import numpy as np
 import torch
 
-from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs, tiny_config
+from mmduet_tpu_torch.config import ClipConfig, MMDuetConfig, TestArgs, TrainArgs, tiny_config
+from mmduet_tpu_torch.data import preprocess
+from mmduet_tpu_torch.demo.app import DemoState, make_handler
+from mmduet_tpu_torch.demo.live import LiveInferForDemo
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, LiveInferEngine
 from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
-from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, siglip
+from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmduet_params,
+                                     mmduet, quant, siglip)
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
 from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, make_mesh
@@ -534,19 +558,53 @@ def check_sharded_attention_kernel(log) -> dict:
 
 
 # Kernel D: (N, T, nh, hd). The serving shape (VISION_BATCH frames of 729
-# patches through SigLIP-so400m's 16 heads of 72), then small ragged ones.
-VISION_SHAPES = ((32, 729, 16, 72), (1, 50, 16, 64), (2, 129, 3, 128), (3, 64, 2, 8),
-                 (1, 1, 1, 40))
+# patches through SigLIP-so400m's 16 heads of 72), CLIP-L/14-336's (1 + 24 x
+# 24 tokens through 16 heads of 64: the last 192-query block holds one row,
+# the last 128-key tile 65 keys), then small ragged ones.
+VISION_SHAPES = ((32, 729, 16, 72), (32, 577, 16, 64), (1, 50, 16, 64), (2, 129, 3, 128),
+                 (3, 64, 2, 8), (1, 1, 1, 40))
 VISION_DROP = slice(64 * 5, 64 * 6)  # the key tile of the mutated plain version
+# the shapes timed, and the prefix of their fields in kernel D's entry
+VISION_TIMED = {(32, 729, 16, 72): "", (32, 577, 16, 64): "clip336_"}
+
+
+def _time_vision(q, k, v, rms, got, log) -> dict:
+    """Kernel D at one timed shape: the plain version without one key tile
+    must fail the bound; the kernel, the plain version and SDPA timed
+    beside the bound."""
+    N, T, nh, hd = q.shape
+    dropped = bounds.vision_attention_dropped(q, k, v, VISION_DROP)
+    factor = bounds.full_attention_ratio(got, dropped, rms)
+    del dropped
+    if not factor > 1.0:
+        raise AssertionError(f"flash_vision check at {tuple(q.shape)}: the plain version "
+                             f"without one key tile passes the bound ({factor} of it)")
+    log(f"flash_vision {tuple(q.shape)}: the plain version without the keys "
+        f"[{VISION_DROP.start}, {VISION_DROP.stop}) fails the bound by {factor:.1f}x")
+    ms = _time_ms(lambda: attention.flash_vision_attention(q, k, v), 20)
+    plain_ms = _time_ms(lambda: attention.flash_vision_attention_ref(q, k, v), 3)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))  # (N, nh, T, hd)
+    # the library's yardstick, timed here and called nowhere in the port
+    library_ms = _time_ms(lambda: sdpa(qh, kh_, vh), 20)
+    bound_ms, bound_by = bounds.vision_attention_bound(N, T, nh, hd)
+    log(f"flash_vision N={N} T={T} nh={nh} hd={hd} bf16: kernel {ms:.4f} ms "
+        f"({4e-9 * N * nh * T * T * hd / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+        f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_vision_attention_kernel(log) -> dict:
     """flash_vision_attention (CUDA) vs flash_vision_attention_ref on the
-    card; returns kernel D's JSON entry (without launches)."""
+    card; returns kernel D's JSON entry (without launches), with the
+    CLIP-L/14-336 shape's numbers as ``clip336_*`` fields."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     worst = worst_ratio = 0.0
-    for i, shape in enumerate(VISION_SHAPES):
+    timed = {}
+    for shape in VISION_SHAPES:
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
         got = attention.flash_vision_attention(q, k, v)
@@ -560,28 +618,15 @@ def check_vision_attention_kernel(log) -> dict:
                 f"flash_vision kernel vs plain at {shape}: max|diff| {err}, {ratio} times the "
                 f"bound 2^-8 |plain| + 2^-9 {bounds.SIGMAS} rms + {bounds.FULL_ABS}")
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-        if i == 0:
-            N, T, nh, hd = shape
-            dropped = bounds.vision_attention_dropped(q, k, v, VISION_DROP)
-            factor = bounds.full_attention_ratio(got, dropped, rms)
-            if not factor > 1.0:
-                raise AssertionError(f"flash_vision check: the plain version without one key "
-                                     f"tile passes the bound ({factor} of it)")
-            log(f"flash_vision: the plain version without the keys [{VISION_DROP.start}, "
-                f"{VISION_DROP.stop}) fails the bound by {factor:.1f}x")
-            del dropped
-            ms = _time_ms(lambda: attention.flash_vision_attention(q, k, v), 20)
-            plain_ms = _time_ms(lambda: attention.flash_vision_attention_ref(q, k, v), 3)
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))  # (N, nh, T, hd)
-            # the library's yardstick, timed here and called nowhere in the port
-            library_ms = _time_ms(lambda: sdpa(qh, kh_, vh), 20)
-            bound_ms, bound_by = bounds.vision_attention_bound(N, T, nh, hd)
-            log(f"flash_vision N={N} T={T} nh={nh} hd={hd} bf16: kernel {ms:.4f} ms "
-                f"({4e-9 * N * nh * T * T * hd / ms:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"scaled_dot_product_attention {library_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                f"({bound_by})")
-        del q, k, v, got, want, rms
+        if shape in VISION_TIMED:
+            del want
+            prefix = VISION_TIMED[shape]
+            timed.update({prefix + key: x
+                          for key, x in _time_vision(q, k, v, rms, got, log).items()})
+            if prefix:
+                timed[prefix + "shape"] = list(shape)
+                timed[prefix + "max_abs_err"] = err
+        del q, k, v, got, rms
         torch.cuda.empty_cache()
     log(f"flash_vision: {len(VISION_SHAPES)} shapes within 2^-8 |plain| + 2^-9 {bounds.SIGMAS} "
         f"rms + {bounds.FULL_ABS} (max|diff| {worst}, at most {worst_ratio:.3f} of the bound)")
@@ -591,11 +636,7 @@ def check_vision_attention_kernel(log) -> dict:
         "source": "mmduet_tpu_torch/ops/csrc/flash_vision.cu",
         "replaces": "mmduet_tpu/ops/attention.py:520",
         "max_abs_err": worst,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **timed,
     }
 
 
@@ -2050,6 +2091,336 @@ def run_offline_baseline(cfg, tok, params, log) -> float:
     return dt
 
 
+def _serving_frames(resolution: int) -> np.ndarray:
+    return np.random.RandomState(0).randint(
+        0, 256, (N_FRAMES, resolution, resolution, 3), dtype=np.uint8)
+
+
+def _record_triggers(engine) -> list:
+    """Wrap ``engine._threshold_triggered`` to record every decision."""
+    seen, fn = [], engine._threshold_triggered
+
+    def wrapped(score):
+        seen.append(fn(score))
+        return seen[-1]
+
+    engine._threshold_triggered = wrapped
+    return seen
+
+
+def clip_model(cfg, params):
+    """The serving model with CLIP-L/14-336 (`ClipConfig()`: 336 px, patch
+    14, 1024 wide, 4096 MLP, 24 layers, 16 heads) in place of the SigLIP
+    tower: CLS + 7 x 7 adaptive-pooled patches = 50 tokens a frame, a
+    1024 -> 3584 projector; the 7B decoder tree is shared. Random bf16
+    weights from seed 0, on the decoder's device: (cfg, tok, params)."""
+    dev = params["lm_head"].device
+    tok = CharTokenizer(frame_num_tokens=50, vocab_size=cfg.text.vocab_size)
+    ccfg = cfg.replace(vision=ClipConfig(), vision_arch="clip", frame_token_cls=True,
+                       frame_token_pooled=(7, 7), frame_num_tokens=50, frame_resolution=336)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vh, h = ccfg.vision.hidden_size, ccfg.text.hidden_size
+
+    def dense(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype) / math.sqrt(shape[0])
+
+    dtype = params["lm_head"].dtype
+    projector = {"fc1": dense(vh, h), "fc1_bias": torch.zeros(h, device=dev, dtype=dtype),
+                 "fc2": dense(h, h), "fc2_bias": torch.zeros(h, device=dev, dtype=dtype)}
+    vision = init_clip_params(ccfg.vision, gen, dev, dtype)
+    return ccfg, tok, dict(params, vision=vision, projector=projector)
+
+
+CLIP_TOWER_REL = 0.05  # the tower's output, kernel D against the plain version:
+# 24 layers of bf16 activations, as `time_vision_routes` holds SigLIP's
+
+
+def run_clip_path(cfg, params, log) -> dict:
+    """The CLIP arch at published widths: ViT-L/14-336 and the 7B decoder
+    stream the serving cell's 64 frames (at 336 px) through
+    `LiveInferEngine` in generation mode (8-frame blocks, a query at t = 0)
+    and in grounding mode (32-frame blocks), after `prewarm(vision=True)`
+    at 336 px. Counts are set to 0 just before the passes and read just
+    after: kernel D 24 launches a tower call, kernel A a multiple of 28.
+    Then every attention of one 32-frame tower call is held against the
+    plain version on the same inputs within D's bound, and the tower's
+    output against the plain version put in the kernel's place from here."""
+    gc.collect()  # earlier phases' engines (their caches) hold reference cycles
+    ccfg, tok, cparams = clip_model(cfg, params)
+    frames = _serving_frames(ccfg.frame_resolution)
+    query = [{"role": "user", "content": QUERY, "time": 0.0}]
+    engines = {name: LiveInferEngine(cparams, ccfg, tok, _args(
+        stream_end_score_sum_threshold=1.0, grounding_mode=name == "grounding"))
+        for name in ("generation", "grounding")}
+    t0 = time.perf_counter()
+    engines["generation"].prewarm(vision=True)
+    log(f"CLIP-L/14-336 model: prewarm(vision=True) at 336 px in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    _zero_counts()  # the CLIP path starts here
+    for name, engine in engines.items():
+        before = attention.LAUNCHES
+        t0 = time.perf_counter()
+        engine.input_video_stream(frames)
+        torch.cuda.synchronize()
+        t_vision = time.perf_counter() - t0
+        engine.input_query_stream(query)
+        responses = engine.inference()
+        torch.cuda.synchronize()
+        lat = engine.frame_latencies_ms
+        stats[name] = dict(launches=attention.LAUNCHES - before, responses=responses,
+                           fps=N_FRAMES / t_vision, p50=float(np.percentile(lat, 50)),
+                           p90=float(np.percentile(lat, 90)))
+        _check_pass(engine, f"CLIP {name}", stats[name]["launches"], responses, QUERY)
+    counts = _kernel_counts()  # and ends here
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    layers = ccfg.vision.num_layers
+    want_d = 2 * _vision_batches(N_FRAMES) * layers
+    if (counts["vision"] != want_d or counts["attention"] <= 0
+            or counts["attention"] % ccfg.text.num_layers or counts["attention_int8"]
+            or counts["int4_matmul"]):
+        raise AssertionError(f"CLIP path: launches {counts}; want kernel D {want_d} (2 passes "
+                             f"x {_vision_batches(N_FRAMES)} encodes x {layers} layers) and "
+                             f"kernel A a multiple of {ccfg.text.num_layers}")
+    for name, st in stats.items():
+        log(f"CLIP-L/14-336 + 7B, {name} pass ({engines[name].block_frames}-frame blocks, "
+            f"{N_FRAMES} frames at 336 px): per frame p50 {st['p50']:.3f} ms, p90 "
+            f"{st['p90']:.3f} ms; vision {st['fps']:.2f} frames/s; {st['launches']} launches "
+            f"of A; {sum(r['role'] == 'assistant' for r in st['responses'])} responses")
+    log(f"CLIP path launches {counts}; peak device memory {peak_gib:.2f} GiB")
+    tower = _check_clip_tower(ccfg, cparams, frames[:32], log)
+    return dict(counts, peak_gib=peak_gib, tower=tower,
+                **{f"{n}_{k}": st[k] for n, st in stats.items() for k in ("p50", "p90", "fps")})
+
+
+def _check_clip_tower(ccfg, cparams, frames, log) -> dict:
+    """One 32-frame CLIP tower call: each layer's kernel D output against
+    the plain version on the same q, k, v within D's bound, the call timed,
+    and the tower's output against the plain version's in the kernel's
+    place (patched in from here: the package refuses it on the card)."""
+    from mmduet_tpu_torch.models import clip
+
+    dev = cparams["lm_head"].device
+    px = mmduet.normalize_pixels(ccfg, torch.from_numpy(frames).to(dev)).to(
+        cparams["lm_head"].dtype)
+    kernel, ratios = siglip.flash_vision_attention, []
+
+    def held(q, k, v):
+        out = kernel(q, k, v)
+        want = attention.flash_vision_attention_ref(q.float(), k.float(), v.float())
+        ratios.append(bounds.full_attention_ratio(out, want, bounds.vision_attention_rms(q, k, v)))
+        return out
+
+    def tower():
+        return clip.standalone_encode(cparams["vision"], ccfg.vision, px, True, (7, 7))
+
+    with torch.inference_mode():
+        got = tower()
+        ms = _time_ms(tower, 3, warmup=1)
+        siglip.flash_vision_attention = held
+        try:
+            tower()
+            siglip.flash_vision_attention = attention.flash_vision_attention_ref
+            plain = tower()
+        finally:
+            siglip.flash_vision_attention = kernel
+    worst = max(ratios)
+    diff = (got.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    if (len(ratios) != ccfg.vision.num_layers or not math.isfinite(worst) or worst > 1.0
+            or got.shape != (len(frames), ccfg.frame_num_tokens, ccfg.vision.hidden_size)
+            or not diff <= CLIP_TOWER_REL * scale):
+        raise AssertionError(f"CLIP tower: {len(ratios)} attentions, at most {worst} of D's "
+                             f"bound; output {tuple(got.shape)} vs the plain version max|diff| "
+                             f"{diff} (max {scale})")
+    log(f"CLIP tower, 32 frames: {ccfg.vision.num_layers} attentions each within D's bound "
+        f"(at most {worst:.3f} of it); the output (CLS + 7 x 7) against the plain version in "
+        f"the kernel's place max|diff| {diff:.4f} of max {scale:.2f} (<= {CLIP_TOWER_REL}); "
+        f"{ms:.3f} ms a call ({32e3 / ms:.2f} frames/s)")
+    return {"ms": ms, "worst_ratio": worst}
+
+
+FEATURE_TOL = SMALL_TOL  # grounding scores from features against pixels: the
+# projector and pooling run at 64 frames where the pixel route runs 32
+
+
+def run_extraction(cfg, params, log) -> dict:
+    """Offline feature extraction at full width: the SigLIP-so400m tower of
+    the bf16 model through `preprocess._encode_frames` on the 64 serving
+    frames, 32 at a time. Bit-equal to the engine's tower output on the same
+    32-frame batches; a grounding pass over `input_vision_feats` of them
+    gives the pixel route's times and triggers, its scores within
+    FEATURE_TOL; the ``--bf16`` file read back through `load_features`."""
+    frames = _serving_frames(cfg.frame_resolution)
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens, vocab_size=cfg.text.vocab_size)
+    query = [{"role": "user", "content": QUERY, "time": 0.0}]
+    args = _args(stream_end_score_sum_threshold=1.0, grounding_mode=True)
+    pixel, feat = (LiveInferEngine(params, cfg, tok, args) for _ in range(2))
+    triggers = [_record_triggers(e) for e in (pixel, feat)]
+
+    towers, encode = [], siglip.siglip_encode
+
+    def recorded(*a, **k):  # the engine's tower output, batch by batch
+        towers.append(encode(*a, **k))
+        return towers[-1]
+
+    siglip.siglip_encode = recorded
+    try:
+        pixel.input_video_stream(frames)
+    finally:
+        siglip.siglip_encode = encode
+    pixel.input_query_stream(query)
+    pixel.inference()
+
+    preprocess._encode_frames(frames[:32], params["vision"], cfg.vision)  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()  # the extraction path starts here
+    t0 = time.perf_counter()
+    feats = preprocess._encode_frames(frames, params["vision"], cfg.vision, batch_size=32)
+    dt = time.perf_counter() - t0
+    counts = _kernel_counts()  # and ends here
+    want = torch.cat(towers).float().cpu().numpy()
+    if (counts["vision"] != _vision_batches(N_FRAMES) * (cfg.vision.num_layers - 1)
+            or feats.dtype != np.float32 or not np.array_equal(feats, want)):
+        raise AssertionError(f"extraction: launches {counts}, features {feats.dtype} "
+                             f"{feats.shape} bit-equal to the engine's tower: "
+                             f"{np.array_equal(feats, want)}")
+    feat.input_vision_feats(feats)
+    feat.input_query_stream(query)
+    feat.inference()
+    times = [[d["time"] for d in e.debug_data_list] for e in (pixel, feat)]
+    diff = max(abs(a[k] - b[k]) for a, b in zip(pixel.debug_data_list, feat.debug_data_list)
+               for k in ("informative_score", "relevance_score"))
+    if times[0] != times[1] or len(times[0]) != N_FRAMES or triggers[0] != triggers[1] \
+            or not diff <= FEATURE_TOL:
+        raise AssertionError(f"extraction: features route vs pixels: times equal "
+                             f"{times[0] == times[1]}, triggers equal {triggers[0] == triggers[1]}"
+                             f", scores max|diff| {diff}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="features.", dir=_build.BUILD_DIR)
+    try:
+        path = os.path.join(tmp, "video.npy")
+        preprocess.write_bf16_npy(path, feats)
+        size = os.path.getsize(path)
+        back = preprocess.load_features(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the features of a bf16 tower are bf16 values: they come back exactly
+    if not np.array_equal(back, torch.from_numpy(feats).bfloat16().float().numpy()):
+        raise AssertionError("extraction: the bf16 file read back differs from the features")
+    log(f"feature extraction (SigLIP-so400m, bf16 on the card, batches of 32): {N_FRAMES} "
+        f"frames in {dt:.3f} s = {N_FRAMES / dt:.2f} frames/s, {feats.nbytes / 1e6:.1f} MB of "
+        f"f32 features to the host; bit-equal to the engine's tower; launches {counts}; "
+        f"grounding over input_vision_feats: times and {sum(triggers[1])} triggers of "
+        f"{len(triggers[1])} equal, scores max|diff| {diff:.3e} (<= {FEATURE_TOL}); the --bf16 "
+        f"file ({size / 1e6:.1f} MB) read back equal")
+    return {"frames_per_s": N_FRAMES / dt, "diff": diff}
+
+
+def run_demo(cfg, params, log) -> dict:
+    """The live demo at full width: the 7B bf16 engine as
+    `LiveInferForDemo` (as `demo/app.py` makes it), `prewarm(vision=True)`,
+    then a `DemoState(realtime=False)` thread over the 64 serving frames
+    behind `make_handler` on a local `ThreadingHTTPServer`. The loop pauses
+    after frame 32; a query is sent through ``/query`` and ``/resume`` (so
+    it reaches `encode_given_query` mid-stream), and ``/state`` is read
+    until it reports the last frame."""
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens, vocab_size=cfg.text.vocab_size)
+    engine = LiveInferEngine(params, cfg, tok, _args(max_new_tokens=8,
+                                                     stream_end_score_sum_threshold=1.0))
+    engine.__class__ = LiveInferForDemo
+    engine.prewarm(vision=True)
+    state = DemoState(engine, _serving_frames(cfg.frame_resolution), fps=2.0, realtime=False)
+    step_ms, rows, one_frame = [], [], engine.input_one_frame
+
+    def timed_frame():
+        t0 = time.perf_counter()
+        out = one_frame()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        rows.append(out)
+        if len(step_ms) == N_FRAMES // 2:
+            state.pause_event.clear()  # as typing in the page's chat box does
+        return out
+
+    engine.input_one_frame = timed_frame
+    failed = []
+
+    def run():
+        try:
+            state.run()
+        except BaseException as e:  # reported by the main thread below
+            failed.append(e)
+            state.done = True
+
+    server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(state))
+    threads = [threading.Thread(target=server.serve_forever, daemon=True),
+               threading.Thread(target=run, daemon=True)]
+    port = server.server_address[1]
+
+    def get(path):
+        return json.loads(urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                                 timeout=30).read())
+
+    _zero_counts()  # the demo's path starts here
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        deadline, polls, asked = time.perf_counter() + 300, 0, False
+        while True:
+            snap = get("/state")
+            polls += 1
+            if failed or (snap["done"] and len(snap["informative"]) == N_FRAMES):
+                break
+            if not asked and snap["paused"] and len(snap["informative"]) == N_FRAMES // 2:
+                get("/query?text=" + urllib.parse.quote(QUERY))
+                get("/resume")
+                asked = True
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"demo: /state after 300 s: {len(snap['informative'])} "
+                                     f"frames, paused {snap['paused']}")
+            time.sleep(0.02)
+        threads[1].join(timeout=60)
+    finally:
+        server.shutdown()
+        server.server_close()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()  # and ends here
+    if failed:
+        raise failed[0]
+    chat = snap["chat"]
+    users = [m for m in chat if m["role"] == "user"]
+    # the chat lists the non-empty answers (`DemoState.run`); the char
+    # tokenizer decodes most of a random 7B model's tokens to nothing
+    triggered = [r for r in rows[:N_FRAMES] if r["response"] is not None]
+    answers = [{"role": "assistant", "content": r["response"], "time": r["time"]}
+               for r in triggered if r["response"]]
+    scores = snap["informative"] + snap["relevance"]
+    if (threads[1].is_alive() or len(step_ms) != N_FRAMES + 1 or rows[-1] is not None
+            or not asked
+            or [r["frame_idx"] for r in rows[:N_FRAMES]] != list(range(1, N_FRAMES + 1))
+            or users != [{"role": "user", "content": QUERY, "time": N_FRAMES // 2 / 2.0}]
+            or [m for m in chat if m["role"] == "assistant"] != answers
+            or not triggered or engine.tokens_generated <= 0
+            or not all(math.isfinite(x) and 0 <= x <= 1 for x in scores)
+            or counts["vision"] != _vision_batches(N_FRAMES) * (cfg.vision.num_layers - 1)
+            or counts["attention"] <= 0 or counts["attention"] % cfg.text.num_layers):
+        raise AssertionError(f"demo: {len(step_ms)} steps, query sent {asked}, chat {chat}, "
+                             f"launches {counts}")
+    frames_ms = step_ms[:N_FRAMES]
+    log(f"demo (LiveInferForDemo, 7B bf16, {N_FRAMES} frames, paused at frame "
+        f"{N_FRAMES // 2} for a query through /query + /resume): input_one_frame p50 "
+        f"{np.percentile(frames_ms, 50):.3f} ms, p90 {np.percentile(frames_ms, 90):.3f} ms, "
+        f"max {max(frames_ms):.3f} ms; {len(triggered)} triggers (at "
+        f"{[r['time'] for r in triggered]} s), {engine.tokens_generated} tokens generated, "
+        f"{len(answers)} non-empty answers in the chat; {polls} reads of /state over "
+        f"{wall:.3f} s; launches {counts}")
+    return {"p50": float(np.percentile(frames_ms, 50)),
+            "p90": float(np.percentile(frames_ms, 90))}
+
+
 def quantize_on_card(params, log):
     """The 7B-width tree's decoder, embedding and LM head to group-128 int4
     on the card, leaf by leaf (``donate``: each bf16 leaf is freed as it is
@@ -2104,6 +2475,12 @@ def main(argv=None) -> int:
     run_live_feeding(cfg, tok, params, log)
     run_prewarm(cfg, tok, params, log)
     run_offline_baseline(cfg, tok, params, log)
+    t_new = time.perf_counter()
+    run_extraction(cfg, params, log)
+    run_demo(cfg, params, log)
+    clip_path = run_clip_path(cfg, params, log)
+    vision["clip_launches"] = clip_path["vision"]
+    log(f"extraction, demo and CLIP phases in {time.perf_counter() - t_new:.1f} s")
     full_fwd["launches"], full_bwd["launches"] = run_training(cfg, tok, params, log)
     time_vision_routes(cfg, params, log)
     dev = torch.device("cuda", torch.cuda.current_device())

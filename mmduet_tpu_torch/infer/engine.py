@@ -428,6 +428,11 @@ class LiveInferEngine:
             self.cfg.text.vocab_size,
         ).to(self.dtype)
 
+    # `_feed` and `_generate_response` write the cache (an inference tensor,
+    # made in `reset`) in place, so they enter inference mode themselves:
+    # `demo.live.LiveInferForDemo` calls them from outside the public entry
+    # points
+    @torch.inference_mode()
     def _feed(self, embeds: torch.Tensor, compute_lm: bool = False):
         """Feed a (T, H) chunk: bucket-pad, run one step, advance cursor."""
         t_real = embeds.shape[0]
@@ -532,6 +537,7 @@ class LiveInferEngine:
         self._feed(self._embed_ids(ids))
         self.last_role = "user"
 
+    @torch.inference_mode()
     def _generate_response(self) -> str:
         gen_embeds = self._embed_ids(self._gen_prompt_ids)
         t_real = gen_embeds.shape[0]
@@ -566,6 +572,9 @@ class LiveInferEngine:
     # ------------------------------------------------------------------
     # the streaming loop (reference inference.py:276-313)
     # ------------------------------------------------------------------
+
+    def _threshold_triggered(self, stream_end_score: float) -> bool:
+        return self._policy.triggered(stream_end_score)
 
     # views over the shared ThresholdPolicy state
     @property
@@ -618,7 +627,7 @@ class LiveInferEngine:
 
         def process(scores: Dict[str, float], t: float) -> None:
             self.debug_data_list.append(dict(time=t, **scores))
-            self._policy.triggered(sum(
+            self._threshold_triggered(sum(
                 v for k_, v in scores.items() if k_ in self.score_heads
             ))
 
@@ -708,7 +717,7 @@ class LiveInferEngine:
                 stream_end_score = sum(
                     v for k, v in scores.items() if k in self.score_heads
                 )
-                if self._policy.triggered(stream_end_score) and not self.grounding_mode:
+                if self._threshold_triggered(stream_end_score) and not self.grounding_mode:
                     # discard not-yet-evaluated block frames, re-run later
                     self._rollback_frames(len(scores_list) - 1 - i)
                     response = self._generate_response()

@@ -14,4 +14,5 @@ from .mmduet import (
     TrainOutput,
 )
 from .lora import init_lora, lora_scale, fold_lora_scale, merge_lora
-from .params import init_mmduet_params, params_from_numpy, train_state_from_numpy
+from .params import (init_clip_params, init_mmduet_params, params_from_numpy,
+                     train_state_from_numpy)

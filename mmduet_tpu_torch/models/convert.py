@@ -23,7 +23,9 @@ default is the card), one layer at a time crossing to it, quantizes there
 with `quant.quantize_params` when asked, and writes the port's checkpoint
 directory (`models.io`).
 
-``convert_clip`` (the CLIP towers) is not ported yet.
+``convert_clip`` maps an HF `CLIPVisionModel` state dict onto `models.clip`'s
+tree; as in the JAX package, `convert_mmduet` and `config_from_hf` route
+SigLIP towers only.
 """
 
 from __future__ import annotations
@@ -142,16 +144,14 @@ def convert_qwen2(sd: StateDict, cfg: Qwen2Config, prefix: str = "model.",
     }
 
 
-def convert_siglip(sd: StateDict, cfg: SiglipConfig, prefix: str = "", device=None) -> Dict:
-    """HF SiglipVisionModel state dict -> vision params."""
-    L, p = cfg.num_layers, prefix
-    e = p + "encoder.layers.{i}."
+def _vit_layers(sd: StateDict, cfg, prefix: str, device) -> Dict:
+    """The encoder layers HF's SigLIP and CLIP vision models share."""
+    e = prefix + "encoder.layers.{i}."
 
     def stack(fmt: str, transpose: bool = False):
-        return _stack(sd, e + fmt, L, transpose, device)
+        return _stack(sd, e + fmt, cfg.num_layers, transpose, device)
 
-    conv = _to(sd[p + "embeddings.patch_embedding.weight"], device)  # (out, C, kh, kw)
-    layers = {
+    return {
         "ln1_scale": stack("layer_norm1.weight"),
         "ln1_bias": stack("layer_norm1.bias"),
         "ln2_scale": stack("layer_norm2.weight"),
@@ -169,10 +169,44 @@ def convert_siglip(sd: StateDict, cfg: SiglipConfig, prefix: str = "", device=No
         "fc2": stack("mlp.fc2.weight", True),
         "fc2_bias": stack("mlp.fc2.bias"),
     }
+
+
+def _patch_embed(sd: StateDict, prefix: str, device) -> torch.Tensor:
+    """The conv patch embed (out, C, kh, kw) as the (C*kh*kw, out) matmul
+    weight of `siglip.patchify`'s (C, ph, pw) order."""
+    conv = _to(sd[prefix + "embeddings.patch_embedding.weight"], device)
+    return _t(conv.reshape(conv.shape[0], -1))
+
+
+def convert_siglip(sd: StateDict, cfg: SiglipConfig, prefix: str = "", device=None) -> Dict:
+    """HF SiglipVisionModel state dict -> vision params."""
+    p = prefix
+    layers = _vit_layers(sd, cfg, p, device)
     return {
-        "patch_embed": _t(conv.reshape(conv.shape[0], -1)),  # (C*kh*kw, out)
+        "patch_embed": _patch_embed(sd, p, device),
         "patch_bias": _to(sd[p + "embeddings.patch_embedding.bias"], device),
         "pos_embed": _to(sd[p + "embeddings.position_embedding.weight"], device),
+        "layers": layers,
+    }
+
+
+def convert_clip(sd: StateDict, cfg, prefix: str = "", device=None) -> Dict:
+    """HF CLIPVisionModel state dict -> `models.clip` params (the reference's
+    standalone towers, `openai/clip-vit-large-patch14-336` and
+    `laion/CLIP-ViT-L-14-DataComp.XL-s13B-b90k`). ``cfg`` is a
+    `config.ClipConfig`. The layout rules of `convert_siglip`, plus the CLS
+    embedding, HF's ``pre_layrnorm`` (its spelling) and the pooled CLS's
+    ``post_layernorm`` (kept, unused); the conv patch embed has no bias."""
+    p = prefix
+    layers = _vit_layers(sd, cfg, p, device)
+    return {
+        "class_embed": _to(sd[p + "embeddings.class_embedding"], device),
+        "patch_embed": _patch_embed(sd, p, device),
+        "pos_embed": _to(sd[p + "embeddings.position_embedding.weight"], device),
+        "pre_ln_scale": _to(sd[p + "pre_layrnorm.weight"], device),
+        "pre_ln_bias": _to(sd[p + "pre_layrnorm.bias"], device),
+        "post_ln_scale": _to(sd[p + "post_layernorm.weight"], device),
+        "post_ln_bias": _to(sd[p + "post_layernorm.bias"], device),
         "layers": layers,
     }
 

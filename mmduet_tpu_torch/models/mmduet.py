@@ -4,7 +4,8 @@ decoder + score heads.
 Port of `mmduet_tpu/models/mmduet.py`:
 
 - ``visual_embed``  — SigLIP patches -> projector MLP -> bilinear 27->7
-  spatial pooling -> 49 tokens per frame;
+  spatial pooling -> 49 tokens per frame; or, with ``vision_arch="clip"``,
+  the CLIP tower's CLS and adaptive-pooled patches -> projector;
 - ``joint_embed``   — text embeddings with ``<image>`` positions replaced
   by frame tokens through a cumsum gather;
 - ``step_forward`` / ``chunk_scores_forward`` / ``frames_block_forward`` —
@@ -15,8 +16,6 @@ Port of `mmduet_tpu/models/mmduet.py`:
   then one commit into the big cache;
 - ``train_forward``  — the full-sequence training forward with the LM and
   video (score-head) losses.
-
-The CLIP tower is not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import torch.nn.functional as F
 
 from ..config import MMDuetConfig
 
-from . import qwen2, siglip
+from . import clip, qwen2, siglip
 from .quant import matmul_f32
 from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
 
@@ -121,20 +120,35 @@ def project(params: Params, features: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_pixels(cfg: MMDuetConfig, frames_uint8: torch.Tensor) -> torch.Tensor:
-    """Pixel normalization of the model's tower (SigLIP: mean/std 0.5)."""
+    """Pixel normalization of the model's tower: SigLIP's mean/std 0.5, or
+    the OpenAI CLIP constants."""
     if cfg.vision_arch == "clip":
-        raise NotImplementedError("the CLIP tower is not ported yet")
+        return clip.normalize_pixels(frames_uint8)
     return siglip.normalize_pixels(frames_uint8)
 
 
 def visual_embed(params: Params, cfg: MMDuetConfig, pixels: torch.Tensor,
                  vision_use_flash: Optional[bool] = None) -> torch.Tensor:
     """Normalized pixels (N, H, W, 3) -> frame token embeddings
-    (N, frame_num_tokens, hidden): SigLIP -> projector -> pooling.
+    (N, frame_num_tokens, hidden).
+
+    - ``siglip`` arch: SigLIP -> projector -> bilinear spatial pooling;
+    - ``clip`` arch (the reference's standalone path): the tower's CLS and
+      adaptive-pooled patches (`clip.standalone_encode`), then the
+      projector; the pooling runs before it, so no `spatial_pool`.
+
     ``vision_use_flash``: the tower's attention route (`siglip._attend`;
     None = kernel D on CUDA tensors)."""
     if cfg.vision_arch == "clip":
-        raise NotImplementedError("the CLIP tower is not ported yet")
+        feats = clip.standalone_encode(
+            params["vision"], cfg.vision, pixels, cfg.frame_token_cls,
+            cfg.frame_token_pooled, use_flash=vision_use_flash)
+        if feats.shape[1] != cfg.frame_num_tokens:
+            raise ValueError(
+                f"clip tower yields {feats.shape[1]} tokens/frame but "
+                f"cfg.frame_num_tokens={cfg.frame_num_tokens}"
+            )
+        return project(params, feats)
     feats = siglip.siglip_encode(params["vision"], cfg.vision, pixels,
                                  use_flash=vision_use_flash)
     return spatial_pool(project(params, feats), cfg)

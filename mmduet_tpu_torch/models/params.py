@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..config import MMDuetConfig, Qwen2Config, SiglipConfig
+from ..config import ClipConfig, MMDuetConfig, Qwen2Config, SiglipConfig
 
 Params = Dict[str, Any]
 
@@ -98,9 +98,10 @@ def _decoder(ini: _Init, cfg: Qwen2Config) -> Params:
     }
 
 
-def _siglip(ini: _Init, cfg: SiglipConfig) -> Params:
+def _vit_layers(ini: _Init, cfg) -> Params:
+    """The layer-stacked encoder layers the SigLIP and CLIP towers share."""
     h, mi, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    layers = {
+    return {
         "ln1_scale": ini.ones((L, h)),
         "ln1_bias": ini.zeros((L, h)),
         "ln2_scale": ini.ones((L, h)),
@@ -118,6 +119,11 @@ def _siglip(ini: _Init, cfg: SiglipConfig) -> Params:
         "fc2": ini.dense((L, mi, h)),
         "fc2_bias": ini.zeros((L, h)),
     }
+
+
+def _siglip(ini: _Init, cfg: SiglipConfig) -> Params:
+    h = cfg.hidden_size
+    layers = _vit_layers(ini, cfg)  # drawn first: the order fixes a seed's weights
     return {
         "patch_embed": ini.dense((3 * cfg.patch_size ** 2, h)),
         "patch_bias": ini.zeros((h,)),
@@ -126,15 +132,40 @@ def _siglip(ini: _Init, cfg: SiglipConfig) -> Params:
     }
 
 
+def _clip(ini: _Init, cfg: ClipConfig) -> Params:
+    h = cfg.hidden_size
+    layers = _vit_layers(ini, cfg)
+    return {
+        "class_embed": ini.normal((h,), 0.02),
+        "patch_embed": ini.dense((3 * cfg.patch_size ** 2, h)),  # HF's conv has no bias
+        "pos_embed": ini.normal((1 + cfg.num_patches, h), 0.02),
+        "pre_ln_scale": ini.ones((h,)),
+        "pre_ln_bias": ini.zeros((h,)),
+        "post_ln_scale": ini.ones((h,)),
+        "post_ln_bias": ini.zeros((h,)),
+        "layers": layers,
+    }
+
+
+def init_clip_params(cfg: ClipConfig, generator: torch.Generator, device,
+                     dtype: torch.dtype = torch.float32) -> Params:
+    """A random CLIP tower (`models.clip`) at the shapes and scales of the
+    JAX package's `clip.init_clip_params`."""
+    return _clip(_Init(generator, device, dtype), cfg)
+
+
 def init_mmduet_params(cfg: MMDuetConfig, generator: torch.Generator, device,
                        dtype: torch.dtype = torch.float32) -> Params:
     """Random weights at the shapes and scales of the JAX package's
     `init_mmduet_params` (its random numbers differ: `jax.random` is not
-    `torch.Generator`). ``generator`` must live on ``device``."""
-    if cfg.vision_arch != "siglip":
-        raise NotImplementedError("the CLIP tower is not ported yet")
+    `torch.Generator`). ``generator`` must live on ``device``.
+
+    ``vision_arch="clip"`` builds a CLIP tower (`init_clip_params`' tree),
+    where the JAX function builds a SigLIP-shaped tower whatever the arch
+    (its own CLIP `visual_embed` cannot run that tree)."""
     ini = _Init(generator, device, dtype)
     h, vh = cfg.text.hidden_size, cfg.vision.hidden_size
+    tower = _clip if cfg.vision_arch == "clip" else _siglip
     return {
         "decoder": _decoder(ini, cfg.text),
         "lm_head": ini.dense((h, cfg.text.vocab_size)),
@@ -146,7 +177,7 @@ def init_mmduet_params(cfg: MMDuetConfig, generator: torch.Generator, device,
             "fc2": ini.dense((h, h)),
             "fc2_bias": ini.zeros((h,)),
         },
-        "vision": _siglip(ini, cfg.vision),
+        "vision": tower(ini, cfg.vision),
     }
 
 

@@ -11,7 +11,7 @@ matmul + softmax + matmul route is its plain version, for CPU tensors
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,15 +34,14 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (out * scale.float() + bias.float()).to(dt)
 
 
-def _linear(y: torch.Tensor, w: Any, bias: torch.Tensor) -> torch.Tensor:
+def _linear(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """``y @ w + bias`` in the activation dtype (f32 accumulation, one
-    rounding, then the bias), as the JAX einsum + astype + bias. An int8
-    leaf ``{"qw", "qs"}`` (`quant.quantize_vision`) is the product with
-    the int8 values cast to the activation dtype, scaled per output
+    rounding, then the bias, if any), as the JAX einsum + astype + bias. An
+    int8 leaf ``{"qw", "qs"}`` (`quant.quantize_vision`) is the product
+    with the int8 values cast to the activation dtype, scaled per output
     channel in f32 before the rounding."""
-    if is_quantized(w):
-        return quantized_matmul(y, w).to(y.dtype) + bias.to(y.dtype)
-    return torch.matmul(y, w) + bias.to(y.dtype)
+    out = quantized_matmul(y, w).to(y.dtype) if is_quantized(w) else torch.matmul(y, w)
+    return out if bias is None else out + bias.to(y.dtype)
 
 
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -79,10 +78,14 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int,
     return flash_vision_attention_ref(q, k, v)
 
 
-def encoder_layer(h: torch.Tensor, p: Params, cfg: SiglipConfig,
+def encoder_layer(h: torch.Tensor, p: Params, cfg,
+                  act: Callable[[torch.Tensor], torch.Tensor],
                   use_flash: Optional[bool] = None) -> torch.Tensor:
-    """One pre-LN ViT encoder layer with the tanh-GELU MLP: LN -> MHA ->
-    residual -> LN -> MLP -> residual."""
+    """One pre-LN ViT encoder layer: LN -> MHA -> residual -> LN -> MLP ->
+    residual. Shared by the SigLIP and CLIP towers, which differ only in
+    the MLP activation ``act`` (tanh-GELU vs quick_gelu), applied in f32
+    and cast back. ``cfg`` needs num_heads / hidden_size /
+    layer_norm_eps."""
     N = h.shape[0]
     nh = cfg.num_heads
     hd = cfg.hidden_size // nh
@@ -96,7 +99,7 @@ def encoder_layer(h: torch.Tensor, p: Params, cfg: SiglipConfig,
 
     y = _layer_norm(h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
     y = _linear(y, p["fc1"], p["fc1_bias"])
-    y = F.gelu(y.float(), approximate="tanh").to(h.dtype)
+    y = act(y.float()).to(h.dtype)
     return h + _linear(y, p["fc2"], p["fc2_bias"])
 
 
@@ -117,8 +120,12 @@ def siglip_encode(
     )
     layers = params["layers"]
     for i in range(num_layers):
-        x = encoder_layer(x, layer_view(layers, i), cfg, use_flash)
+        x = encoder_layer(x, layer_view(layers, i), cfg, _tanh_gelu, use_flash)
     return x
+
+
+def _tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
 
 
 def normalize_pixels(frames_uint8: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,11 @@ card: time them, in turns with other builds of kernel A.
 Times kernel A with a bf16 and with an int8 cache at the main path's
 shapes (the decode step at cache_len 2048 and 24000, the frame step, the
 8- and 32-frame blocks; nh 28, kh 4, hd 128, a 24576-slot cache), the
-wrapper's host time per decode-step call, and kernel D at (32, 729, 16,
-72) beside `scaled_dot_product_attention`; every time beside its roofline
-bound (`ops/bounds.py`). A kernel's ms is its device time: calls captured
+wrapper's host time per decode-step call, and kernel D beside
+`scaled_dot_product_attention` at SigLIP-so400m's (32, 729, 16, 72),
+CLIP-L/14-336's (32, 577, 16, 64) and (32, 576, 16, 64) (the same work
+without the one-row last block of 192 query rows that 577 leaves); every
+time beside its roofline bound (`ops/bounds.py`). A kernel's ms is its device time: calls captured
 in a CUDA graph and replayed back to back, on one layer of the cache (what
 `chip_smoke.py` times; it stays in L2) and, "cold", each call on the next
 of 64 stacked layers (its cache from device memory, as a decoder's is).
@@ -58,7 +60,7 @@ NH, KH, HD, S = 28, 4, 128, 24576
 SHAPES = (("decode step", 1, 31, 11, 10, (2048, 24000)), ("frame step", 64, 64, 53, 0, (2048,)),
           ("8-frame block", 392, 392, 392, 0, (2048,)),
           ("32-frame block", 1568, 1568, 1568, 0, (2048,)))
-VISION = (32, 729, 16, 72)
+VISION = ((32, 729, 16, 72), (32, 577, 16, 64), (32, 576, 16, 64))
 # Stacked layers of the cache: a call of the cold timings reads the next one,
 # so that its cache comes from device memory (64 layers of int8 K and V at
 # cache_len 2048 are 128 MB, against the 50 MB L2), as a decoder's layers do.
@@ -279,13 +281,17 @@ def main() -> int:
                 log(f"kernel A's wrapper, {name}: {med:.2f} us of host time per call (median "
                     f"of 7 runs; least {least:.2f})")
         del q, ck, cv
-    q, k, v = (randn(*VISION) for _ in range(3))
-    times["D"] = graph_ms(lambda: attention.flash_vision_attention(q, k, v))
-    qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
-    times["SDPA"] = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh_, vh))
-    bound_ms, by = bounds.vision_attention_bound(*VISION)
-    log(f"kernel D at {VISION}: {times['D']:.4f} ms, scaled_dot_product_attention "
-        f"{times['SDPA']:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    for i, shape in enumerate(VISION):
+        q, k, v = (randn(*shape) for _ in range(3))
+        key = "" if i == 0 else f" {shape}"  # SigLIP's keys keep their names
+        times["D" + key] = graph_ms(lambda: attention.flash_vision_attention(q, k, v))
+        qh, kh_, vh = (x.transpose(1, 2) for x in (q, k, v))
+        times["SDPA" + key] = graph_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh_, vh))
+        bound_ms, by = bounds.vision_attention_bound(*shape)
+        log(f"kernel D at {shape}: {times['D' + key]:.4f} ms, scaled_dot_product_attention "
+            f"{times['SDPA' + key]:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+        del q, k, v, qh, kh_, vh
     if args.parent:
         sides = {"parent": parent.flash_decode_attention,
                  "change": attention.flash_decode_attention}

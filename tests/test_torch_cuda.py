@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import mmduet_tpu_torch.eval.inference as cli
-from mmduet_tpu_torch.config import TestArgs, tiny_config
+from mmduet_tpu_torch.config import ClipConfig, TestArgs, tiny_config
 from mmduet_tpu_torch.eval.inference import main as cli_main
 from mmduet_tpu_torch.infer import LiveInferEngine
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, qwen2
@@ -889,10 +889,10 @@ def test_kernel_takes_strided_views_and_refuses_broken_rows(dev):
 # kernel D: the ViT tower's attention
 # ---------------------------------------------------------------------------
 
-# (N, T, nh, hd): SigLIP-so400m's heads of 72 with ragged T, CLIP-L's 64,
-# one token, a full-width head, the narrowest head
-VISION_CASES = [(4, 729, 16, 72), (1, 50, 16, 64), (2, 1, 3, 72), (2, 129, 2, 128),
-                (3, 64, 2, 8), (1, 200, 4, 40)]
+# (N, T, nh, hd): SigLIP-so400m's heads of 72 with ragged T, CLIP-L's 64
+# (ViT-L/14 at 224 px and at 336 px: 1 + 24 x 24 tokens), one token, a full-width head, the narrowest head
+VISION_CASES = [(4, 729, 16, 72), (1, 50, 16, 64), (2, 577, 16, 64), (2, 1, 3, 72),
+                (2, 129, 2, 128), (3, 64, 2, 8), (1, 200, 4, 40)]
 
 
 @pytest.mark.parametrize("shape", VISION_CASES, ids=lambda s: "x".join(map(str, s)))
@@ -973,6 +973,51 @@ def test_flash_vision_kernel_refuses_a_gradient(dev):
         with torch.no_grad():
             assert torch.equal(attention.flash_vision_attention(*ops),
                                attention.flash_vision_attention(q, k, v))
+
+
+def test_clip_tower_on_the_card_launches_kernel_d_and_matches_its_plain_version(dev):
+    """The CLIP arch's tower (heads of 64, CLS + 16 patches) on the card:
+    one launch of kernel D a layer, embeddings within bf16 of the plain
+    version's (f32, on the CPU)."""
+    cfg = tiny_config(hidden_size=512, frame_num_tokens=5).replace(
+        vision_arch="clip", frame_token_cls=True, frame_token_pooled=(2, 2),
+        v_placeholder_id=511, eos_token_id=257,
+        vision=ClipConfig(image_size=32, patch_size=8, hidden_size=128,
+                          intermediate_size=256, num_layers=2, num_heads=2))
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                torch.bfloat16)
+    u8 = torch.randint(0, 256, (3, 32, 32, 3), dtype=torch.uint8, device=dev)
+    px = mmduet.normalize_pixels(cfg, u8)
+    before = attention.VISION_LAUNCHES
+    got = mmduet.visual_embed(params, cfg, px.to(torch.bfloat16))
+    assert attention.VISION_LAUNCHES - before == cfg.vision.num_layers
+    assert got.shape == (3, 5, 512) and got.dtype == torch.bfloat16
+    plain = mmduet.visual_embed(_map(lambda t: t.float().cpu(), params), cfg, px.cpu(),
+                                vision_use_flash=False)
+    scale = plain.abs().max().item()
+    assert (got.float().cpu() - plain).abs().max().item() <= 0.05 * scale
+
+
+def test_encode_frames_on_the_card_runs_the_tower_in_bf16(dev):
+    """Feature extraction on the card: an f32 tower is run in bf16 (kernel
+    D takes bf16 only), each batch padded to the batch size, and the
+    features come back to the host as f32, equal to the bf16 tower's."""
+    from mmduet_tpu_torch.data.preprocess import _encode_frames
+    from mmduet_tpu_torch.models import siglip
+
+    cfg = tiny_config()
+    vision = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)["vision"]
+    frames = np.random.RandomState(0).randint(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    before = attention.VISION_LAUNCHES
+    got = _encode_frames(frames, vision, cfg.vision, batch_size=4)
+    assert attention.VISION_LAUNCHES - before == 2 * (cfg.vision.num_layers - 1)
+    assert got.dtype == np.float32 and got.shape == (6, 16, 32)
+    bf16 = _map(lambda t: t.to(torch.bfloat16), vision)
+    padded = np.concatenate([frames, np.zeros_like(frames[:2])])
+    px = siglip.normalize_pixels(torch.from_numpy(padded).to(dev)).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = torch.cat([siglip.siglip_encode(bf16, cfg.vision, px[i:i + 4]) for i in (0, 4)])
+    np.testing.assert_array_equal(got, want[:6].float().cpu().numpy())
 
 
 def test_cli_batch_streams_runs_on_the_card_through_the_kernels(dev, tmp_path, monkeypatch):

@@ -39,6 +39,7 @@ COPIED_MODULES = [
     "data/eval_dataset.py", "data/time_utils.py", "data/video.py",
     "eval/evaluate.py", "eval/dvc.py", "eval/qvh.py", "eval/grounding.py", "eval/magqa.py",
     "eval/captioning.py", "eval/span_utils.py", "eval/openai_batch.py",
+    "demo/__init__.py", "demo/live.py", "demo/app.py", "demo/gradio_app.py",
 ]
 
 
@@ -200,15 +201,46 @@ def _baseline_format(name: str) -> None:
         assert ours(BASELINE_EXAMPLES[5]) is None
 
 
+PREPROCESS_HOST = ["VIDEO_EXTS", "ffmpeg_once", "reencode_video_cv2", "_have_ffmpeg",
+                   "list_videos", "dst_root_for", "sharded_reencode"]
+
+
+def _preprocess_host(name: str, tmp_path) -> None:
+    """A host function of `data/preprocess.py` (the JAX module imports jax
+    in its feature extraction): the same source, and the same result where
+    it runs without a video or ffmpeg."""
+    import mmduet_tpu.data.preprocess as jpre
+    import mmduet_tpu_torch.data.preprocess as tpre
+
+    ours, theirs = getattr(tpre, name), getattr(jpre, name)
+    if name == "VIDEO_EXTS":
+        assert ours == theirs
+        return
+    assert inspect.getsource(ours) == inspect.getsource(theirs)
+    if name == "dst_root_for":
+        for args in (("d/videos/", 2, 384), ("v", None, 32), ("v", 1, None)):
+            assert ours(*args) == theirs(*args)
+    elif name == "list_videos":
+        for rel in ("a.mp4", "sub/b.MKV", "c.txt", "d.webm.json", "e.mov"):
+            (tmp_path / rel).parent.mkdir(parents=True, exist_ok=True)
+            (tmp_path / rel).write_text("")
+        assert ours(str(tmp_path)) == theirs(str(tmp_path)) != []
+    elif name == "_have_ffmpeg":
+        assert ours("definitely-missing-ffmpeg") is theirs("definitely-missing-ffmpeg") is False
+
+
 @pytest.mark.parametrize(
     "case", COPIED_MODULES + ["eval/inference.py helpers", "infer/state.py host policy",
                               "train/loop.py and models/io.py helpers"]
-    + [f"eval/offline_baseline.py {name}" for name in BASELINE_FORMATS])
+    + [f"eval/offline_baseline.py {name}" for name in BASELINE_FORMATS]
+    + [f"data/preprocess.py {name}" for name in PREPROCESS_HOST])
 def test_copied_host_code_equals_the_original(case, tmp_path):
     if case in COPIED_MODULES:
         _module_text(case)
     elif case.startswith("eval/offline_baseline"):
         _baseline_format(case.split()[-1])
+    elif case.startswith("data/preprocess"):
+        _preprocess_host(case.split()[-1], tmp_path)
     elif case.startswith("eval"):
         _cli_helpers()
     elif case.startswith("infer"):
@@ -220,6 +252,7 @@ def test_copied_host_code_equals_the_original(case, tmp_path):
 IMPORT_ALL = """
 import importlib, pkgutil, sys
 import mmduet_tpu_torch, chip_smoke
+import mmduet_tpu_torch.models.clip, mmduet_tpu_torch.data.preprocess, mmduet_tpu_torch.demo.app
 for m in pkgutil.walk_packages(mmduet_tpu_torch.__path__, "mmduet_tpu_torch."):
     importlib.import_module(m.name)
 print(sorted(m for m in sys.modules

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from mmduet_tpu.config import tiny_config
+from mmduet_tpu.models import clip as jclip
 from mmduet_tpu.models import init_mmduet_params as jax_init
 from mmduet_tpu.models import mmduet as jmm
 from mmduet_tpu.models import qwen2 as jq
@@ -131,8 +132,12 @@ def test_qwen2_unported_modes_raise():
                          cache_len=0, attn_mask=torch.ones((1, 4), dtype=torch.bool))
     with pytest.raises(ValueError, match="unknown KV cache quant"):
         tq.init_kv_cache(CFG.text, 1, 8, quant="int4")
-    with pytest.raises(NotImplementedError, match="CLIP"):
-        init_mmduet_params(CFG.replace(vision_arch="clip"), torch.Generator(), "cpu")
+    # the CLIP arch builds the JAX `init_clip_params` tree (tests/test_torch_clip.py)
+    tower = init_mmduet_params(CFG.replace(vision_arch="clip"), torch.Generator(), "cpu")["vision"]
+    want = jclip.init_clip_params(jax.random.PRNGKey(0), CFG.vision)
+    assert jax.tree.map(np.shape, want) == {
+        k: {n: tuple(t.shape) for n, t in v.items()} if isinstance(v, dict) else tuple(v.shape)
+        for k, v in tower.items()}
 
 
 def test_embed_tokens_clamps_placeholder_and_lm_logits():
@@ -196,8 +201,12 @@ def test_visual_embed():
     px = _rng(13).uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
     _close(tmm.visual_embed(TP, CFG, torch.tensor(px)),
            jmm.visual_embed(JP, CFG, jnp.asarray(px)))
-    with pytest.raises(NotImplementedError):
-        tmm.visual_embed(TP, CFG.replace(vision_arch="clip"), torch.tensor(px))
+    # the CLIP arch: 2x2 adaptive-pooled patches, no CLS = 4 tokens a frame
+    clip_cfg = CFG.replace(vision_arch="clip", frame_token_pooled=(2, 2))
+    jp = dict(JP, vision=jclip.init_clip_params(jax.random.PRNGKey(3), CFG.vision))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+    _close(tmm.visual_embed(tp, clip_cfg, torch.tensor(px)),
+           jmm.visual_embed(jp, clip_cfg, jnp.asarray(px)))
 
 
 def test_joint_embed():
