@@ -30,7 +30,11 @@ Phases (any failure ends the run with a nonzero exit):
    either cache; a
    dropped group scale or swapped nibble halves for kernel B) must fail the
    bounds, and so must shards of kernel A' that
-   read another shard's cursors or kv heads. ``--kernels-only`` stops here
+   read another shard's cursors or kv heads. Then kernels A (both caches),
+   B and D again at the shapes a rank of a (1, 2) tensor-parallel mesh
+   gives them (14 query heads over 2 kv heads; the six local weight shapes
+   from 3584 -> 1792 to the LM head's 3584 -> 76032; 8 of 16 heads), timed
+   beside their bounds and the library calls. ``--kernels-only`` stops here
    (no result line);
 3. an HF-format llava-OV directory at the published widths (2 decoder and
    2 vision layers: all of them would write ~16 GB, past the time; random
@@ -91,16 +95,30 @@ Phases (any failure ends the run with a nonzero exit):
    the same two passes as in 3; kernel B's launches must equal seven per
    layer and decoder forward plus one per generated token (the LM head),
    and every attention launch must be of the int8 variant;
-8. small-model checks, card (bf16, kernels) against CPU (f32, plain
+8. tensor-parallel serving: two ranks of a (1, 2) process mesh, spawned
+   from here, share the one card over gloo (NCCL refuses two ranks on one
+   device), each holding its shard (`parallel.shard_params`) of the same
+   seed-0 weights; they run the passes of 4 and 7 and a batched pass (12
+   sessions of random frame embeddings through 8 lanes), which the one
+   process also runs. Both ranks' rows must be the same bits; against the
+   one process, scores within the larger of TP_SCORE_TOL and twice the one
+   process's own spread under a permuted MLP (`permuted_mlp`: the same
+   function, sums in another order), answers equal or differing only at a
+   trigger or a near tie (TP_MARGIN_TOL). Each rank's launches (kernel A
+   direct, no A' shards), peak memory, p50 / p90 per frame and decode
+   tokens/s are printed. Two ranks on one card measure correctness and
+   memory, not a speedup across cards;
+9. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
    against single-stream runs on the card), the offline baseline's prompt
    cache, and one train step's loss and gradient norm; and the inference
    CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
    names kernel A;
-9. one JSON line for the seven kernels (kernel D's entry also holds its
-   ``clip336_*`` numbers and its launches on the CLIP path), then the
-   result line
+10. one JSON line for the seven kernels (kernel D's entry also holds its
+   ``clip336_*`` numbers and its launches on the CLIP path; A, A-int8, B
+   and D their ``tp_local`` numbers and rank 0's launches on the TP path,
+   A' its ``process_mesh`` form), then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -116,6 +134,7 @@ import math
 import os
 import resource
 import shutil
+import socket
 import struct
 import subprocess
 import sys
@@ -329,20 +348,23 @@ TIMED_CACHE_LENS = {"decode step": (2048, 24000)}  # every other shape: 2048
 DROP = {"decode step": slice(256, 512), "8-frame block": slice(640, 704)}  # a split, a key tile
 
 
-def check_attention_kernel(log) -> List[dict]:
+def check_attention_kernel(log, nh: int = 28, kh: int = 4,
+                           cache_lens=CACHE_LENS) -> List[dict]:
     """flash_decode_attention (CUDA) vs flash_decode_attention_ref on the
     card, with a bf16 cache and with the int8 cache that `quantize_kv_rows`
-    makes of it; returns the two kernels' JSON entries (without launches)."""
+    makes of it, at ``nh`` query heads over ``kh`` kv heads (the 7B's, or
+    a rank's under tensor parallelism); returns the two kernels' JSON
+    entries (without launches)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    nh, kh, hd, L, S = 28, 4, 128, 4, 24576
+    hd, L, S = 128, 4, 24576
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
     worst = {"bf16": [0.0, 0.0], "int8": [0.0, 0.0]}  # max|diff|, max ratio
     timed = {}
-    cases = [(shape, cl, 1) for shape in ATTN_SHAPES for cl in CACHE_LENS]
+    cases = [(shape, cl, 1) for shape in ATTN_SHAPES for cl in cache_lens]
     cases.append((ATTN_SHAPES[1], (2047, 9999), 2))  # B=2, two cursors
     for i, ((name, T, Tc, t_real, q_off), cache_len, B) in enumerate(cases):
         layer = 3 if i % 2 else 0
@@ -600,11 +622,29 @@ def check_vision_attention_kernel(log) -> dict:
     """flash_vision_attention (CUDA) vs flash_vision_attention_ref on the
     card; returns kernel D's JSON entry (without launches), with the
     CLIP-L/14-336 shape's numbers as ``clip336_*`` fields."""
+    worst, worst_ratio, timed = check_vision_shapes(log, VISION_SHAPES, VISION_TIMED, seed=6)
+    log(f"flash_vision: {len(VISION_SHAPES)} shapes within 2^-8 |plain| + 2^-9 {bounds.SIGMAS} "
+        f"rms + {bounds.FULL_ABS} (max|diff| {worst}, at most {worst_ratio:.3f} of the bound)")
+    return {
+        "name": "flash_vision_attention",
+        "route": "cuda",
+        "source": "mmduet_tpu_torch/ops/csrc/flash_vision.cu",
+        "replaces": "mmduet_tpu/ops/attention.py:520",
+        "max_abs_err": worst,
+        **timed,
+    }
+
+
+def check_vision_shapes(log, shapes, timed_prefixes: dict, seed: int):
+    """Kernel D against its plain version at each (N, T, nh, hd) of
+    ``shapes``; the shapes of ``timed_prefixes`` are timed (`_time_vision`)
+    and their numbers keyed with their prefix. Returns (max|diff|, the
+    largest share of the bound, the timed numbers)."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(6)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst = worst_ratio = 0.0
     timed = {}
-    for shape in VISION_SHAPES:
+    for shape in shapes:
         q, k, v = (torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
         got = attention.flash_vision_attention(q, k, v)
@@ -618,9 +658,9 @@ def check_vision_attention_kernel(log) -> dict:
                 f"flash_vision kernel vs plain at {shape}: max|diff| {err}, {ratio} times the "
                 f"bound 2^-8 |plain| + 2^-9 {bounds.SIGMAS} rms + {bounds.FULL_ABS}")
         worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-        if shape in VISION_TIMED:
+        if shape in timed_prefixes:
             del want
-            prefix = VISION_TIMED[shape]
+            prefix = timed_prefixes[shape]
             timed.update({prefix + key: x
                           for key, x in _time_vision(q, k, v, rms, got, log).items()})
             if prefix:
@@ -628,16 +668,7 @@ def check_vision_attention_kernel(log) -> dict:
                 timed[prefix + "max_abs_err"] = err
         del q, k, v, got, rms
         torch.cuda.empty_cache()
-    log(f"flash_vision: {len(VISION_SHAPES)} shapes within 2^-8 |plain| + 2^-9 {bounds.SIGMAS} "
-        f"rms + {bounds.FULL_ABS} (max|diff| {worst}, at most {worst_ratio:.3f} of the bound)")
-    return {
-        "name": "flash_vision_attention",
-        "route": "cuda",
-        "source": "mmduet_tpu_torch/ops/csrc/flash_vision.cu",
-        "replaces": "mmduet_tpu/ops/attention.py:520",
-        "max_abs_err": worst,
-        **timed,
-    }
+    return worst, worst_ratio, timed
 
 
 # Kernel B at the 7B decoder's weight shapes (H, O): q/o projections, k/v
@@ -688,11 +719,30 @@ def check_int4_library(y, qw4, qs, want, mag):
 def check_int4_kernel(log) -> dict:
     """int4_matmul (CUDA) vs int4_matmul_ref on the card; returns kernel
     B's JSON entry (without launches)."""
+    worst, worst_ratio, timed = check_int4_shapes(log, INT4_SHAPES, INT4_ROWS, seed=3)
+    n_cases = len(INT4_SHAPES) * len(INT4_ROWS)
+    log(f"int4_matmul: {n_cases} cases within {bounds.B_REL} * sum|y||w| + {bounds.B_ABS} "
+        f"(max|diff| {worst}, at most {worst_ratio:.4f} of the bound)")
+    return {
+        "name": "int4_matmul",
+        "route": "cuda",
+        "source": "mmduet_tpu_torch/ops/csrc/int4_matmul.cu",
+        "replaces": "mmduet_tpu/ops/quant_matmul.py:108",
+        "max_abs_err": worst,
+        **timed[INT4_ENTRY],
+    }
+
+
+def check_int4_shapes(log, shapes, rows, seed: int):
+    """Kernel B against its plain version at each (H, O) of ``shapes`` and
+    each row count of ``rows``, the bound's tightness at the fourth shape,
+    the times at `INT4_TIMED_ROWS`; returns (max|diff|, the largest share
+    of the bound, {((H, O), R): times})."""
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     worst = worst_ratio = 0.0
-    entry = None
-    for H, O in INT4_SHAPES:
+    timed = {}
+    for H, O in shapes:
         w = torch.randn((H, O), generator=gen, device=dev, dtype=torch.bfloat16) / math.sqrt(H)
         leaf = quant.quantize_weight_int4(w, 0)
         leaf8 = quant.quantize_weight(w, 0)
@@ -701,7 +751,7 @@ def check_int4_kernel(log) -> dict:
         # weight in device memory, not in the 50 MB L2, as a layer's does
         n_copies = max(1, min(8, -(-(120 << 20) // qw4.numel())))
         copies = [(qw4.clone(), qs.clone()) for _ in range(n_copies)]
-        for R in INT4_ROWS:
+        for R in rows:
             y = torch.randn((R, H), generator=gen, device=dev, dtype=torch.bfloat16)
             got = quant_matmul.int4_matmul(y, qw4, qs)
             want = quant_matmul.int4_matmul_ref(y, qw4, qs)
@@ -714,7 +764,7 @@ def check_int4_kernel(log) -> dict:
                     f"int4_matmul kernel vs plain: R={R} H={H} O={O}: max|diff| {err}, {ratio} "
                     f"times the bound {bounds.B_REL} * sum|y||w| + {bounds.B_ABS}")
             worst, worst_ratio = max(worst, err), max(worst_ratio, ratio)
-            if (H, O) == INT4_SHAPES[3] and R in (1, 392):
+            if (H, O) == shapes[3] and R in (1, 392):
                 # the bound is tight: plain versions with one fault fail it
                 factors = {kind: bounds.int4_matmul_ratio(
                     got, bounds.int4_matmul_mutated(y, qw4, qs, kind), mag)
@@ -727,23 +777,11 @@ def check_int4_kernel(log) -> dict:
                     f"dropped / the nibble halves swapped fail the bound by "
                     f"{factors['scale']:.0f}x / {factors['halves']:.0f}x")
             if R in INT4_TIMED_ROWS:
-                timed = time_int4(log, y, w, leaf8, qw4, qs, copies, want, mag)
-                if ((H, O), R) == INT4_ENTRY:
-                    entry = timed
+                timed[(H, O), R] = time_int4(log, y, w, leaf8, qw4, qs, copies, want, mag)
             del y, got, want, mag
         del w, leaf, leaf8, qw4, qs, copies
         torch.cuda.empty_cache()
-    n_cases = len(INT4_SHAPES) * len(INT4_ROWS)
-    log(f"int4_matmul: {n_cases} cases within {bounds.B_REL} * sum|y||w| + {bounds.B_ABS} "
-        f"(max|diff| {worst}, at most {worst_ratio:.4f} of the bound)")
-    return {
-        "name": "int4_matmul",
-        "route": "cuda",
-        "source": "mmduet_tpu_torch/ops/csrc/int4_matmul.cu",
-        "replaces": "mmduet_tpu/ops/quant_matmul.py:108",
-        "max_abs_err": worst,
-        **entry,
-    }
+    return worst, worst_ratio, timed
 
 
 def time_int4(log, y, w, leaf8, qw4, qs, copies, want, mag) -> dict:
@@ -1113,18 +1151,71 @@ def full_width_model(log):
     return cfg, tok, params
 
 
-def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
+class TokenRecorder:
+    """While entered, records each greedy step's top-2 logits of every lane:
+    `mmduet.decode_loop` is wrapped to open a record per call (which lanes
+    decode, and for whom: ``owners()`` gives each lane's session at the
+    call), and the `gather_vocab` it takes whole logit rows from (on one
+    process the identity) to add each step's top-2. They stay on the
+    device until `steps` reads them, so recording adds no host sync."""
+
+    def __init__(self, eos_id: int, owners=lambda: [0]):
+        self.eos_id, self.owners, self.calls = eos_id, owners, []
+
+    def __enter__(self):
+        self._decode, self._gather = mmduet.decode_loop, mmduet.gather_vocab
+
+        def decode(*args, **kw):
+            active = kw.get("active", args[7] if len(args) > 7 else None)
+            owners = list(self.owners())
+            self.calls.append((owners, [True] * len(owners) if active is None
+                               else [bool(a) for a in active], []))
+            return self._decode(*args, **kw)
+
+        def gather(logits, vocab_size):
+            full = self._gather(logits, vocab_size)
+            if self.calls:
+                self.calls[-1][2].append(torch.topk(full.float(), 2, dim=-1))
+            return full
+
+        mmduet.decode_loop, mmduet.gather_vocab = decode, gather
+        return self
+
+    def __exit__(self, *exc):
+        mmduet.decode_loop, mmduet.gather_vocab = self._decode, self._gather
+
+    def steps(self, session=0) -> list:
+        """[(token, top-1 minus top-2 logit)] of ``session``'s greedy steps,
+        call by call, each call's up to its end of sequence."""
+        out = []
+        for owners, active, tops in self.calls:
+            for b, (owner, on) in enumerate(zip(owners, active)):
+                if owner != session or not on:
+                    continue
+                for t in tops:
+                    tok = int(t.indices[b, 0])
+                    out.append((tok, float(t.values[b, 0] - t.values[b, 1])))
+                    if tok == self.eos_id:
+                        break
+        return out
+
+
+def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict:
     """The 7B-width serving path: generation pass, then grounding pass.
     Every kernel count of the path is set to 0 just before the passes and
-    read just after them; returns the counts and the passes' numbers."""
+    read just after them; returns the counts and the passes' numbers, and
+    in ``passes`` each pass's per-frame scores, answers and greedy steps
+    (`TokenRecorder`). ``mesh``: a rank's process mesh, ``params`` its
+    local tree."""
     frames = np.random.RandomState(0).randint(
         0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
 
     gen = LiveInferEngine(params, cfg, tok, _args(stream_end_score_sum_threshold=1.0),
-                          kv_cache_quant=kv_cache_quant)
+                          kv_cache_quant=kv_cache_quant, mesh=mesh)
     ground = LiveInferEngine(params, cfg, tok, _args(
-        stream_end_score_sum_threshold=1.0, grounding_mode=True), kv_cache_quant=kv_cache_quant)
+        stream_end_score_sum_threshold=1.0, grounding_mode=True), kv_cache_quant=kv_cache_quant,
+        mesh=mesh)
     gen.input_video_stream(frames[:32])  # warm-up (cuBLAS handles, allocator)
     torch.cuda.synchronize()
     gen.reset()
@@ -1140,12 +1231,19 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
         t_vision = time.perf_counter() - t0
         engine.input_query_stream(query)
         t0 = time.perf_counter()
-        responses = engine.inference()
-        torch.cuda.synchronize()
+        with TokenRecorder(tok.eos_token_id) as rec:
+            responses = engine.inference()
+            torch.cuda.synchronize()
         stats[name] = dict(
             launches=attention.LAUNCHES - before, responses=responses,
             vision_s=t_vision, stream_s=time.perf_counter() - t0,
             p50_ms=float(np.percentile(engine.frame_latencies_ms, 50)),
+            p90_ms=float(np.percentile(engine.frame_latencies_ms, 90)),
+            scores=[[d["informative_score"], d["relevance_score"]]
+                    for d in engine.debug_data_list],
+            answers=[[float(r["time"]), r["content"]] for r in responses
+                     if r["role"] == "assistant"],
+            steps=rec.steps(),
         )
         _check_pass(engine, name, stats[name]["launches"], responses, QUERY)
     counts = _kernel_counts()  # the main path ends here
@@ -1162,9 +1260,11 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None) -> dict:
         f"generated")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"peak device memory (streaming passes): {peak_gib:.2f} GiB")
+    passes = {name: {k: s[k] for k in ("scores", "answers", "steps", "p50_ms", "p90_ms")}
+              for name, s in stats.items()}
     return dict(counts, p50_ms=stats["generation"]["p50_ms"],
                 grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib,
-                decode_tokens_per_s=_time_decode(gen, cfg, log))
+                decode_tokens_per_s=_time_decode(gen, cfg, log), passes=passes)
 
 
 def _check_counts(params, cfg, counts: dict, tokens_generated: int, kv_cache_quant) -> None:
@@ -2442,6 +2542,326 @@ def quantize_on_card(params, log):
     return params
 
 
+# --- tensor-parallel serving: two ranks of a (1, 2) process mesh on the one
+# card, over gloo (NCCL refuses two ranks on one device). They measure
+# correctness and each rank's memory, not a speedup across cards.
+
+TP_RANKS = 2
+# kernel B at the shapes a rank of a (1, 2) mesh gives it (H, O): q_proj,
+# k/v_proj, o_proj, gate/up_proj, down_proj, the LM head
+TP_INT4_SHAPES = ((3584, 1792), (3584, 256), (1792, 3584), (3584, 9472), (9472, 3584),
+                  (3584, 76032))
+TP_INT4_ROWS = (1, 392, 1568)
+TP_CACHE_LENS = (0, 2047, 2048, 24000)
+# kernel D at a rank's 8 of 16 heads: SigLIP-so400m and CLIP-L/14-336
+TP_VISION_SHAPES = ((32, 729, 8, 72), (32, 577, 8, 64))
+TP_SCORE_TOL = 2e-2  # per-frame score probability, a rank against one process, bf16:
+# the floor of the bound; the bound is the larger of it and twice the one
+# process's own spread under a reordered sum (`spread_under_permuted_mlp`)
+TP_MARGIN_TOL = 0.5  # a differing token is a near tie: the one process's top-2 logits
+# were closer than this at the first token that differs
+TP_BATCH_SESSIONS, TP_BATCH_FRAMES = 12, (16, 33)
+
+
+def check_tp_kernels(log) -> dict:
+    """Kernels A (bf16 and int8 cache), B and D held against their plain
+    versions, and timed beside their bounds, at the shapes each rank of a
+    (1, 2) mesh gives them: A at 14 query heads over 2 kv heads, B at the
+    six local weight shapes, D at 8 of 16 heads. Returns the numbers for
+    the kernels line."""
+    tp_log = lambda msg: log(f"rank-local shapes of a (1, {TP_RANKS}) mesh: {msg}")  # noqa: E731
+    dec, dec_int8 = check_attention_kernel(tp_log, nh=14, kh=2, cache_lens=TP_CACHE_LENS)
+    worst, worst_ratio, b_timed = check_int4_shapes(tp_log, TP_INT4_SHAPES, TP_INT4_ROWS, seed=13)
+    tp_log(f"int4_matmul: {len(TP_INT4_SHAPES) * len(TP_INT4_ROWS)} cases within the bound "
+           f"(max|diff| {worst}, at most {worst_ratio:.4f} of it)")
+    d_worst, d_ratio, d_timed = check_vision_shapes(
+        tp_log, TP_VISION_SHAPES, {TP_VISION_SHAPES[0]: "", TP_VISION_SHAPES[1]: "clip336_"},
+        seed=16)
+    tp_log(f"flash_vision: {len(TP_VISION_SHAPES)} shapes within the bound (max|diff| "
+           f"{d_worst}, at most {d_ratio:.3f} of it)")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return {
+        "attention": {"heads": [14, 2], **{k: dec[k] for k in keys}},
+        "attention_int8": {"heads": [14, 2], **{k: dec_int8[k] for k in keys}},
+        "int4_matmul": {"max_abs_err": worst, "shapes": [
+            {"H": H, "O": O, "rows": R, **t} for ((H, O), R), t in b_timed.items()]},
+        "vision": {"max_abs_err": d_worst, "shape": list(TP_VISION_SHAPES[0]), **d_timed},
+    }
+
+
+def _tp_sessions(cfg) -> list:
+    """The TP batched pass's sessions: random post-projector frame
+    embeddings from a seed (the tower runs in the streaming passes), one
+    query at t = 0."""
+    lengths = np.random.RandomState(9).randint(*TP_BATCH_FRAMES, TP_BATCH_SESSIONS)
+    out = []
+    for i, n in enumerate(lengths):
+        g = torch.Generator().manual_seed(200 + i)
+        embeds = 0.05 * torch.randn((int(n), cfg.frame_num_tokens, cfg.text.hidden_size),
+                                    generator=g)
+        out.append({"frame_embeds": embeds.to(torch.bfloat16), "fps": 2.0,
+                    "conversation": [{"role": "user", "content": QUERY, "time": 0.0}]})
+    return out
+
+
+def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
+    """`BatchedStreamEngine.serve()` of `_tp_sessions` through 8 lanes in
+    generation mode: per session its scores and answers, with the pass's
+    counts, wall time and peak memory."""
+    engine = BatchedStreamEngine(
+        params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
+        n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1)
+    sessions = _tp_sessions(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with TokenRecorder(tok.eos_token_id, owners=lambda: engine._lane_sess) as rec:
+        results = {i: (resp, debug) for i, resp, debug in engine.serve(sessions)}
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    n_frames = sum(len(x["frame_embeds"]) for x in sessions)
+    out = {str(i): {"scores": [[d["informative_score"], d["relevance_score"]] for d in debug],
+                    "answers": [[float(r["time"]), r["content"]] for r in resp
+                                if r["role"] == "assistant"],
+                    "steps": rec.steps(i)}
+           for i, (resp, debug) in sorted(results.items())}
+    if len(out) != len(sessions) or any(len(out[str(i)]["scores"]) != len(x["frame_embeds"])
+                                        for i, x in enumerate(sessions)):
+        raise AssertionError("TP batched pass: a session retired without its score rows")
+    log(f"batched serve at B={BATCH_LANES} (mesh {dict(mesh.shape) if mesh else None}): "
+        f"{len(sessions)} sessions, {n_frames} frames in {wall:.3f} s = {n_frames / wall:.2f} "
+        f"frames/s, {engine.tokens_generated} tokens; launches {counts}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del engine
+    torch.cuda.empty_cache()
+    return {"sessions": out, "counts": counts, "frames_per_s": n_frames / wall,
+            "peak_gib": peak_gib}
+
+
+def tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of the TP phase (a spawned process): joins the gloo group,
+    builds its shard of the 7B-width model (seed 0, the weights of the one
+    process's run; the ranks build one after the other, each freeing the
+    whole tree before the next builds it), runs the bf16 passes, the
+    batched pass, then its shard quantized to int4 with an int8 cache, and
+    writes its results to ``out_dir/rank<r>.json``."""
+    from mmduet_tpu_torch.parallel import initialize_distributed, shard_params
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(TP_RANKS), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def log(msg):
+        print(f"[TP rank {rank}/{TP_RANKS}] {msg}", flush=True)
+
+    initialize_distributed("gloo")
+    mesh = make_mesh((1, TP_RANKS), device="cuda:0")  # both ranks share the one card
+    dist = torch.distributed
+    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
+    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
+                                 eos_token_id=tok.eos_token_id)
+    params = None
+    for turn in range(TP_RANKS):
+        if turn == rank:
+            whole = init_mmduet_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                       torch.device("cuda"), torch.bfloat16)
+            params = shard_params(whole, mesh)
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log(f"local tree: {quant.param_bytes(params) / 1e9:.3f} GB on {mesh.device}")
+    torch.cuda.reset_peak_memory_stats()
+    dense = run_main_path(cfg, tok, params, log, mesh=mesh)
+    batched = run_tp_batched(cfg, tok, params, log, mesh=mesh)
+    params = quant.quantize_params(params, bits=4, donate=True)
+    torch.cuda.empty_cache()
+    quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8", mesh=mesh)
+    result = {"dense": dense, "quantized": quantized, "batched": batched}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()  # no rank leaves while another reads its last collective
+    dist.destroy_process_group()
+
+
+def compare_tp_pass(name: str, got: dict, want: dict, log, tol: float = TP_SCORE_TOL,
+                    margin_tol: float = TP_MARGIN_TOL) -> float:
+    """A rank's pass against the one process's: per-frame scores within
+    ``tol`` up to the first answer that differs (after it the two streams
+    hold different tokens). An answer may differ two ways: at another frame
+    (a trigger: the scores up to it are held), or in its text, where the
+    first greedy step that differs must be a near tie, the one process's
+    top-2 logits closer than ``margin_tol`` (another order of an f32 sum
+    can flip it). Returns the largest score difference."""
+    upto, what = len(want["scores"]), "equal"
+    pairs = list(zip(got["answers"], want["answers"]))
+    index = next((i for i, (g, w) in enumerate(pairs) if g != w), None)
+    if index is None and len(got["answers"]) != len(want["answers"]):
+        index = len(pairs)
+    if index is not None:
+        times = [x[index][0] for x in (got["answers"], want["answers"]) if index < len(x)]
+        upto = int(round(min(times) * 2.0)) + 1  # the frames up to the answer, at 2 fps
+        if index < len(pairs) and pairs[index][0][0] == pairs[index][1][0]:
+            steps = next((i for i, (g, w) in enumerate(zip(got["steps"], want["steps"]))
+                          if g[0] != w[0]), None)
+            if steps is None:
+                raise AssertionError(f"TP {name}: answer {index} differs, no greedy step does")
+            margin = want["steps"][steps][1]
+            what = (f"answer {index} differs in its text ({pairs[index][0][1]!r} against "
+                    f"{pairs[index][1][1]!r}); its first differing greedy step, {steps}, is "
+                    f"where the one process's top-2 logits are {margin:.4f} apart (the rank's "
+                    f"{got['steps'][steps][1]:.4f})")
+            if margin > margin_tol:
+                raise AssertionError(f"TP {name}: {what}, more than {margin_tol}")
+        else:
+            what = (f"answer {index} comes at another frame ("
+                    f"{[x[index][0] if index < len(x) else None for x in (got['answers'], want['answers'])]}"
+                    " s): a trigger, held through the scores before it")
+    g, w = np.asarray(got["scores"][:upto]), np.asarray(want["scores"][:upto])
+    if g.shape != w.shape:
+        raise AssertionError(f"TP {name}: {g.shape} score rows against {w.shape}")
+    worst = float(np.abs(g - w).max()) if g.size else 0.0
+    log(f"TP {name}: {upto} frames' scores within {worst:.3g} of the one process's "
+        f"(bound {tol:.3g}); answers {what}")
+    if not worst <= tol:
+        raise AssertionError(f"TP {name}: a per-frame score differs by {worst} > {tol}")
+    return worst
+
+
+class permuted_mlp:
+    """While entered, the MLP's intermediate units of every layer are in
+    another order (gate and up columns, down rows, by one seeded
+    permutation): the same function, the down projection's sums over its
+    inputs in another order. That is the kind of difference a rank's
+    partial sums make, so the one process's scores under it measure how
+    far bf16 rounding alone moves them at this width."""
+
+    def __init__(self, params, seed: int = 5):
+        self.layers = params["decoder"]["layers"]
+        n = self.layers["gate_proj"].shape[-1]
+        self.perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).cuda()
+        self.inv = torch.argsort(self.perm)
+
+    def _apply(self, perm):
+        with torch.no_grad():
+            for i in range(self.layers["gate_proj"].shape[0]):
+                for name in ("gate_proj", "up_proj"):
+                    self.layers[name][i].copy_(self.layers[name][i][:, perm])
+                self.layers["down_proj"][i].copy_(self.layers["down_proj"][i][perm])
+
+    def __enter__(self):
+        self._apply(self.perm)
+        return self
+
+    def __exit__(self, *exc):
+        self._apply(self.inv)
+
+
+def spread_under_permuted_mlp(cfg, tok, params, log, dense: dict, batched: dict) -> float:
+    """The one process's largest per-frame score difference between its
+    runs (``dense``'s two passes, ``batched``) and the same runs under
+    `permuted_mlp`: the rounding-only spread the TP bound is scaled by."""
+    with permuted_mlp(params):
+        again = run_main_path(cfg, tok, params, log)
+        again_b = run_tp_batched(cfg, tok, params, log)
+    unbounded = dict(tol=math.inf, margin_tol=math.inf)  # measured, not held
+    worst = [compare_tp_pass(f"rounding spread, {p} (one process, MLP permuted)",
+                             again["passes"][p], dense["passes"][p], log, **unbounded)
+             for p in ("generation", "grounding")]
+    worst += [compare_tp_pass(f"rounding spread, batched session {i} (one process, MLP "
+                              "permuted)", again_b["sessions"][i], sess, log, **unbounded)
+              for i, sess in batched["sessions"].items()]
+    log(f"the one process's score spread under a permuted MLP: at most {max(worst):.4g}")
+    return max(worst)
+
+
+def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: float) -> dict:
+    """Two ranks on the one card, started here (spawned); each rank's
+    passes against the one process's runs of this script (``dense``,
+    ``quantized``, ``batched_ref``), with scores within the larger of
+    TP_SCORE_TOL and twice the one process's own rounding ``spread``, and
+    the ranks' rows against each other. A rank that fails fails the phase;
+    both are stopped at the end."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="tp.", dir=_build.BUILD_DIR)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=tp_rank, args=(r, port, out_dir)) for r in range(TP_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TP_RANKS:
+        raise AssertionError(f"TP phase: rank exit codes {codes}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir)
+    wall = time.perf_counter() - t0
+
+    def rows(x):
+        return {run: {p: {k: v for k, v in x[run]["passes"][p].items()
+                          if k in ("scores", "answers", "steps")} for p in x[run]["passes"]}
+                for run in ("dense", "quantized")} | {"batched": x["batched"]["sessions"]}
+
+    if any(rows(x) != rows(ranks[0]) for x in ranks[1:]):
+        raise AssertionError("TP phase: the ranks' rows differ")
+    log(f"TP phase: {TP_RANKS} ranks in {wall:.1f} s; both ranks' scores, answers and greedy "
+        "steps are the same bits")
+    r0 = ranks[0]
+    tol = max(TP_SCORE_TOL, 2 * spread)
+    worst, failed = {}, []
+    pairs = [(f"{run} {p}", r0[run]["passes"][p], ref["passes"][p])
+             for run, ref in (("dense", dense), ("quantized", quantized))
+             for p in ("generation", "grounding")]
+    pairs += [(f"batched session {i}", r0["batched"]["sessions"][i], sess)
+              for i, sess in batched_ref["sessions"].items()]
+    for name, got, want in pairs:
+        try:  # every comparison is printed before the first failure is raised
+            worst[name] = compare_tp_pass(name, got, want, log, tol=tol)
+        except AssertionError as e:
+            failed.append(e)
+    if failed:
+        raise failed[0]
+    layers, v_layers = 28, 26
+    for r, x in enumerate(ranks):
+        for run in ("dense", "quantized"):
+            c = {k: x[run][k] for k in ("attention", "attention_int8", "attention_sharded",
+                                        "vision", "int4_matmul")}
+            if c["attention_sharded"] or c["vision"] != v_layers * 4 or c["attention"] % layers:
+                raise AssertionError(f"TP rank {r} {run}: launches {c}; want kernel A launched "
+                                     f"directly (no A' shards), {v_layers} x 4 of kernel D")
+            log(f"TP rank {r} {run}: launches {c} (kernel A {c['attention'] // layers} times a "
+                f"layer); generation p50 / p90 {x[run]['passes']['generation']['p50_ms']:.3f} / "
+                f"{x[run]['passes']['generation']['p90_ms']:.3f} ms per frame, grounding "
+                f"{x[run]['passes']['grounding']['p50_ms']:.3f} / "
+                f"{x[run]['passes']['grounding']['p90_ms']:.3f}; decode "
+                f"{x[run]['decode_tokens_per_s']:.2f} tokens/s; peak {x[run]['peak_gib']:.2f} GiB")
+        log(f"TP rank {r} batched: {x['batched']['frames_per_s']:.2f} frames/s, peak "
+            f"{x['batched']['peak_gib']:.2f} GiB, launches {x['batched']['counts']}")
+    return {"ranks": ranks, "worst": worst, "wall_s": wall, "tol": tol}
+
+
+TP_TIMEOUT_S = 600
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2465,6 +2885,7 @@ def main(argv=None) -> int:
     full_fwd, full_bwd = check_full_attention_kernel(log)
     sharded = check_sharded_attention_kernel(log)
     vision = check_vision_attention_kernel(log)
+    tp_kernels = check_tp_kernels(log)
     if opts.kernels_only:
         log(f"kernels checked in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2504,6 +2925,8 @@ def main(argv=None) -> int:
         f"{batched['grounding_ms_per_frame']:.3f} vs p50 {dense['grounding_p50_ms']:.3f}; decode "
         f"tokens/s {batched['decode_tokens_per_s']:.2f} vs {dense['decode_tokens_per_s']:.2f}")
     del batched, meshed, batched_int8
+    tp_batched_ref = run_tp_batched(cfg, tok, params, log)  # the TP phase's one process
+    tp_spread = spread_under_permuted_mlp(cfg, tok, params, log, dense, tp_batched_ref)
     params = quantize_on_card(params, log)
     quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
     dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
@@ -2515,6 +2938,16 @@ def main(argv=None) -> int:
             f"{dense[key]:.3f}")
     del params
     torch.cuda.empty_cache()
+    tp = run_tp_phase(log, dense, quantized, tp_batched_ref, tp_spread)
+    r0 = tp["ranks"][0]
+    for entry, key, run in ((dec, "attention", "dense"), (dec_int8, "attention_int8", "quantized"),
+                            (int4, "int4_matmul", "quantized"), (vision, "vision", "dense")):
+        # the rank-local shapes' numbers, and rank 0's launches on the TP path
+        entry["tp_local"] = dict(tp_kernels[key], launches=r0[run][key]
+                                 + (r0["quantized"]["vision"] if key == "vision" else 0))
+    sharded["process_mesh"] = {  # A' on a process mesh: kernel A once a rank and layer
+        "launches": r0["dense"]["attention"], "layers": cfg.text.num_layers,
+        **{k: tp_kernels["attention"][k] for k in ("ms", "bound_ms", "bound_by")}}
     check_small_input(log)
     check_small_input(log, quantized=True)
     check_small_batched(log)

@@ -37,9 +37,23 @@ cuda``). ``--is_online_model false`` runs the offline whole-video baseline
 checkpoint becomes a ``--checkpoint`` directory through
 `python -m mmduet_tpu_torch.models.convert`.
 
+``--mesh_model N`` serves tensor-parallel, one process per rank, each
+holding its shard (`parallel.shard_params`) on its own device::
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m mmduet_tpu_torch.eval.inference --mesh_model N ... \
+        [--dist_backend nccl|gloo] [--device cuda|cuda:0|cpu]
+
+The single-stream, ``--batch_streams`` and ``--is_online_model false``
+routes all take it, and their rows equal one process's. ``--dist_backend``
+(default ``nccl``) is the backend named to `torch.distributed`: ``nccl``
+where each rank has its own card (``--device cuda`` is then
+``cuda:LOCAL_RANK``), ``gloo`` on the CPU and for ranks that share one
+card (``--device cuda:0``; NCCL refuses two ranks on one device). Rank 0
+alone writes the output file.
+
 ``--device`` defaults to ``cuda``; nothing switches to the CPU on its
-own. Not ported yet (each raises): ``--mesh_model`` / ``--mesh_data`` > 1
-(serving over several cards).
+own. Not ported yet (it raises): ``--mesh_data`` > 1 (lanes over cards).
 
 `round_floats`, `_argparser`, `_test_args` and `_make_dataset` are the
 JAX CLI's host helpers, copied (its `build_argparser` under the name
@@ -188,28 +202,57 @@ def build_argparser() -> argparse.ArgumentParser:
     p = _argparser()
     p.description = "MMDuet streaming inference (PyTorch port)"
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default cuda)")
+                   help="torch device to run on (default cuda; with --mesh_model, "
+                        "cuda:LOCAL_RANK)")
+    p.add_argument("--dist_backend", type=str, default="nccl", choices=("nccl", "gloo"),
+                   help="with --mesh_model N: the torch.distributed backend (nccl: a card "
+                        "per rank; gloo: CPU ranks, or ranks sharing one card)")
     return p
 
 
 def _not_ported(args) -> None:
-    unported = {
-        "--mesh_model > 1": args.mesh_model > 1,
-        "--mesh_data > 1": args.mesh_data > 1,
-    }
-    for flag, given in unported.items():
-        if given:
-            raise SystemExit(f"{flag} is not yet ported to mmduet_tpu_torch")
+    if args.mesh_data > 1:
+        raise SystemExit("--mesh_data > 1 is not yet ported to mmduet_tpu_torch")
 
 
-def _load_model(args):
-    """(cfg, params, lora, tokenizer) from --tiny_random / --checkpoint."""
+def _make_mesh(args):
+    """This rank's (1, --mesh_model) process mesh, or None for one process."""
+    if args.mesh_model <= 1:
+        return None
+    from ..parallel import initialize_distributed, make_mesh
+
+    if "RANK" not in os.environ:
+        raise SystemExit(
+            f"--mesh_model {args.mesh_model} runs one process per rank: start it with "
+            f"python -m torch.distributed.run --nproc_per_node {args.mesh_model} "
+            "-m mmduet_tpu_torch.eval.inference ...")
+    initialize_distributed(args.dist_backend)
+    device = torch.device(args.device)
+    # a bare "cuda" is each rank's own card; "cuda:i" or "cpu" is named
+    return make_mesh((1, args.mesh_model),
+                     device=None if device == torch.device("cuda") else device)
+
+
+def _leave_group() -> None:
+    """After the last collective: wait for every rank, then leave the group
+    (a rank that exits while another still reads its last collective
+    aborts that rank)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _load_model(args, mesh=None):
+    """(cfg, params, lora, tokenizer) from --tiny_random / --checkpoint;
+    under ``mesh``, the parameters are this rank's local tree."""
     from ..config import tiny_config
     from ..models import init_mmduet_params
     from ..models.io import load_checkpoint
+    from ..parallel import shard_params
     from ..stream import CharTokenizer, HFTokenizerAdapter
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     lora = None
     if args.tiny_random:
         # head_dim 128 in bf16 on a GPU: the width and dtype the CUDA
@@ -218,9 +261,11 @@ def _load_model(args):
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         gen = torch.Generator(device=device).manual_seed(0)
         params = init_mmduet_params(cfg, gen, device, dtype)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         tokenizer = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
     elif args.checkpoint:
-        cfg, params, lora = load_checkpoint(args.checkpoint, device)
+        cfg, params, lora = load_checkpoint(args.checkpoint, device, mesh=mesh)
         tokenizer = HFTokenizerAdapter.from_pretrained(
             args.checkpoint, frame_num_tokens=cfg.frame_num_tokens,
             v_placeholder=cfg.v_placeholder,
@@ -238,16 +283,27 @@ def _load_model(args):
 
 
 def build_engine(args):
+    """The single-stream engine of the CLI's arguments (on this rank's
+    process mesh with ``--mesh_model``)."""
     from ..infer import LiveInferEngine
 
-    cfg, params, lora, tokenizer = _load_model(args)
+    mesh = _make_mesh(args)
+    cfg, params, lora, tokenizer = _load_model(args, mesh)
     return LiveInferEngine(
         params, cfg, tokenizer, _test_args(args, cfg), lora=lora,
         # saved adapters are scale-folded (`lora.fold_lora_scale`), so the
         # runtime scale is exactly 1.0
         lora_scale=1.0 if lora is not None else 0.0,
-        kv_cache_quant=args.kv_cache_quant,
+        kv_cache_quant=args.kv_cache_quant, mesh=mesh,
     )
+
+
+def _output(args, mesh):
+    """The output file, opened for writing on rank 0 (or one process);
+    the other ranks of a mesh write to os.devnull."""
+    if mesh is not None and mesh.coords != (0, 0):
+        return open(os.devnull, "w")
+    return open(args.output_fname, "w")
 
 
 def _prewarm(args, engine) -> None:
@@ -266,10 +322,11 @@ def _run_batched(args) -> None:
     latencies are not observable when B streams share one dispatch)."""
     from ..infer import BatchedStreamEngine
 
-    cfg, params, lora, tokenizer = _load_model(args)
+    mesh = _make_mesh(args)
+    cfg, params, lora, tokenizer = _load_model(args, mesh)
     B = args.batch_streams
     engine = BatchedStreamEngine(
-        params, cfg, tokenizer, _test_args(args, cfg), n_streams=B,
+        params, cfg, tokenizer, _test_args(args, cfg), n_streams=B, mesh=mesh,
         gen_coalesce_rounds=args.gen_coalesce_rounds,
         kv_cache_quant=args.kv_cache_quant,
         lora=lora, lora_scale=1.0 if lora is not None else 0.0,
@@ -311,7 +368,7 @@ def _run_batched(args) -> None:
     # order; consumers key on question_id). Each line reports the
     # run-aggregate per-frame wall over all frames served SO FAR (the
     # final line's value is the whole-run aggregate).
-    with open(args.output_fname, "w") as f_out:
+    with _output(args, mesh) as f_out:
         for idx, responses, debug in engine.serve(session_iter()):
             n_frames_total += len(debug)
             dt_ms = (time.perf_counter() - t0) * 1000
@@ -344,7 +401,8 @@ def _run_offline_baseline(args) -> None:
     from ..config import TestArgs
     from .offline_baseline import OfflineBaselineRunner
 
-    cfg, params, lora, tokenizer = _load_model(args)
+    mesh = _make_mesh(args)
+    cfg, params, lora, tokenizer = _load_model(args, mesh)
     test_args = TestArgs(
         frame_fps=args.frame_fps,
         frame_resolution=args.frame_resolution or cfg.frame_resolution,
@@ -355,14 +413,14 @@ def _run_offline_baseline(args) -> None:
     )
     runner = OfflineBaselineRunner(
         params, cfg, tokenizer, test_args, lora=lora,
-        lora_scale=1.0 if lora is not None else 0.0,
+        lora_scale=1.0 if lora is not None else 0.0, mesh=mesh,
     )
     dataset = _make_dataset(args, cfg.frame_resolution)
 
     n_done = 0
     t_start = time.perf_counter()
     samples = dataset if args.no_prefetch else dataset.prefetch()
-    with open(args.output_fname, "w") as f_out:
+    with _output(args, mesh) as f_out:
         for i, sample in enumerate(samples):
             if sample.frames is None:
                 print(f"skipping {sample.question_id}: {sample.error}", file=sys.stderr)
@@ -409,6 +467,11 @@ def main(argv=None) -> None:
 
 
 def _main_inner(args) -> None:
+    _run(args)
+    _leave_group()  # after a failure the process exits and its launcher ends the others
+
+
+def _run(args) -> None:
     if not args.is_online_model:
         return _run_offline_baseline(args)
     if args.batch_streams > 1:
@@ -420,7 +483,7 @@ def _main_inner(args) -> None:
     n_done = 0
     t_start = time.perf_counter()
     samples = dataset if args.no_prefetch else dataset.prefetch()
-    with open(args.output_fname, "w") as f_out:
+    with _output(args, engine.mesh) as f_out:
         for i, sample in enumerate(samples):
             if sample.frames is None:
                 print(f"skipping {sample.question_id}: {sample.error}", file=sys.stderr)

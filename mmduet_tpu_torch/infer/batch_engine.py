@@ -31,6 +31,12 @@ CUDA device, also under a mesh; a ``mesh`` lies on one device
 unsharded kernel). `BatchedStreamEngine.prewarm` pays before the first
 group what its first calls would (the kernels' builds, their scratch,
 cuBLAS's handles, the allocator's pool).
+
+Under a `parallel.ProcessMesh` (one process per card, model axis only)
+each rank holds its local tree and a cache of its own kv heads, as
+`LiveInferEngine` does; every rank runs the same host loop on values the
+collectives made equal. Lanes over ranks (a data axis) are not yet
+ported and raise.
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ import torch
 
 from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
 from ..models import mmduet
-from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..models.qwen2 import embed_tokens, ints_to
 from ..ops import _build
 from ..parallel import serving_shard_ctx
 from .state import (
@@ -54,6 +60,7 @@ from .state import (
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
+    serving_cache,
     staged_visual_encode,
     validate_threshold_args,
 )
@@ -86,7 +93,9 @@ class BatchedStreamScorer:
         """``mesh``: a (data, model) `parallel.Mesh` on the parameters'
         device. The parameters stay whole; the streaming attention runs
         per shard: kv heads (with their query heads) over ``model`` and,
-        when ``data`` divides ``n_streams``, lanes over ``data``."""
+        when ``data`` divides ``n_streams``, lanes over ``data``. Or this
+        rank's `parallel.ProcessMesh` (model axis only), with ``params``
+        its local tree (`parallel.shard_params`)."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -131,9 +140,9 @@ class BatchedStreamScorer:
         # FIRST: at protocol scale old and new caches beside the weights
         # would not fit the card together
         self._cache = None
-        self._cache = init_kv_cache(
-            self.cfg.text, self.B, self._cache_size, self.dtype, self.device,
-            quant=self.kv_cache_quant,
+        self._cache = serving_cache(
+            self.cfg.text, self.params["decoder"], self.B, self._cache_size, self.dtype,
+            self.device, quant=self.kv_cache_quant,
         )
         self._cursor = np.zeros((self.B,), np.int64)  # host-authoritative
         self._frame_embeds: Optional[torch.Tensor] = None

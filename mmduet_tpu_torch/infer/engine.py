@@ -30,6 +30,16 @@ of the ``model`` axis (`ops.attention.flash_decode_attention_sharded`,
 bit-equal to the unsharded kernel). The vision tower's attention is kernel
 D on a CUDA device, also under a mesh.
 
+Tensor-parallel serving, one process per card: with ``mesh`` this rank's
+`parallel.ProcessMesh` (data 1, model N) and ``params`` its local tree
+(`parallel.shard_params`), the engine keeps a cache of the rank's own kv
+heads and launches kernels A, B and D on its shards directly; the
+collectives of `parallel.collectives` join the ranks inside the forwards.
+Every rank runs this same host loop, and every host decision (trigger,
+rollback, stop token) is taken from values the collectives made the same
+bits on every rank (scores from the reduced hidden states, tokens from the
+gathered logits). `prewarm` also pays the group's first collectives.
+
 Live sources: `append_frames` / `append_frame_embeds` add frames to a
 running session (chunked feeding equals one-shot feeding), and
 `stream_video` encodes chunk i+1 while chunk i is decoded. On a CUDA
@@ -54,7 +64,7 @@ import torch
 from ..config import MMDuetConfig, TestArgs
 
 from ..models import mmduet
-from ..models.qwen2 import embed_tokens, init_kv_cache, ints_to
+from ..models.qwen2 import embed_tokens, ints_to
 from ..ops import _build
 from ..parallel import serving_shard_ctx
 from .state import (
@@ -66,6 +76,7 @@ from .state import (
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
+    serving_cache,
     upload_pixels,
     validate_threshold_args,
     staged_visual_encode,
@@ -155,9 +166,9 @@ class LiveInferEngine:
 
     @torch.inference_mode()
     def reset(self):
-        self.state = StreamState(init_kv_cache(
-            self.cfg.text, 1, self._cache_size, self.dtype, self.device,
-            quant=self.kv_cache_quant,
+        self.state = StreamState(serving_cache(
+            self.cfg.text, self.params["decoder"], 1, self._cache_size, self.dtype,
+            self.device, quant=self.kv_cache_quant,
         ))
         self.query_queue = collections.deque()
         self.frame_embeds: Optional[torch.Tensor] = None  # (T, ft, H)

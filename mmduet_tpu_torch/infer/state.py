@@ -1,6 +1,10 @@
 """Streaming state: preallocated KV cache + cursor + shape buckets, and
 the host-side policy code the engines share.
 
+`serving_cache` makes an engine's cache with the kv heads of its
+parameters: a rank's own under tensor parallelism (the model axis of
+`parallel.sharding.kv_cache_sharding`).
+
 `upload_pixels` puts pixels in pinned host memory and copies them
 ``non_blocking`` on a given CUDA stream; `encode_uploaded` encodes them at
 the one batch shape (`LiveInferEngine.stream_video`).
@@ -21,7 +25,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.qwen2 import KVCache
+from ..config import Qwen2Config
+from ..models.qwen2 import KVCache, init_kv_cache
 
 # Default prefill bucket widths. Frame steps are 49(+small joiner) tokens;
 # query turns vary; the system-prompt opener can be larger.
@@ -47,6 +52,19 @@ def pad_chunk(embeds: torch.Tensor, bucket: int) -> torch.Tensor:
     return torch.cat(
         [embeds, embeds.new_zeros((bucket - t, h))], dim=0
     )
+
+
+def serving_cache(cfg: Qwen2Config, decoder, batch: int, max_len: int, dtype: torch.dtype,
+                  device, quant: Optional[str] = None) -> KVCache:
+    """A zero (L, batch, kh, max_len, hd) cache, bf16 or int8, with kh the
+    kv heads of the ``decoder`` tree's k projection (whose output dim is
+    last in every leaf layout): ``cfg.num_kv_heads``, or a rank's part of
+    them in its local tree."""
+    k_proj = decoder["layers"]["k_proj"]
+    out = (k_proj["qw4"] if "qw4" in k_proj else k_proj["qw"]) if isinstance(k_proj, dict) \
+        else k_proj
+    return init_kv_cache(cfg, batch, max_len, dtype, device, quant=quant,
+                         num_kv_heads=out.shape[-1] // cfg.head_dim)
 
 
 def _frames_array(video_frames) -> np.ndarray:

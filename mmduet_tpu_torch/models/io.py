@@ -51,11 +51,28 @@ def save_checkpoint(ckpt_dir: str, cfg: MMDuetConfig, params, lora=None) -> None
     save_config(cfg, os.path.join(ckpt_dir, "config.json"))
 
 
-def load_checkpoint(ckpt_dir: str, device=None) -> Tuple[MMDuetConfig, Any, Optional[Any]]:
+def load_checkpoint(ckpt_dir: str, device=None,
+                    mesh=None) -> Tuple[MMDuetConfig, Any, Optional[Any]]:
     """(cfg, params, lora) of a checkpoint directory, with every tensor on
     ``device``: by default the current CUDA device. With no device named
     and no CUDA device it raises `RuntimeError`; the CPU is used only when
-    the caller names it (``device="cpu"``), never as a quiet fallback."""
+    the caller names it (``device="cpu"``), never as a quiet fallback.
+
+    With ``mesh`` (this rank's `parallel.ProcessMesh`) the parameters are
+    the rank's local tree (`parallel.shard_params`) on ``mesh.device``:
+    every rank maps the same file into host memory and copies only its
+    shard to its device. The adapter stays whole (the rules keep LoRA
+    whole)."""
+    if mesh is not None:
+        from ..parallel.sharding import shard_params
+
+        cfg = load_config(os.path.join(ckpt_dir, "config.json"))
+        tree = torch.load(os.path.join(ckpt_dir, PARAMS_FILE), map_location="cpu",
+                          weights_only=True, mmap=True)
+        lora = tree["lora"]
+        if lora is not None:
+            lora = shard_params(lora, mesh)
+        return cfg, shard_params(tree["params"], mesh), lora
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from ..config import MMDuetConfig
 
+from ..parallel.collectives import cut, gather_vocab
 from . import clip, qwen2, siglip
 from .quant import matmul_f32
 from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
@@ -111,12 +112,16 @@ def spatial_pool(features: torch.Tensor, cfg: MMDuetConfig) -> torch.Tensor:
 def project(params: Params, features: torch.Tensor) -> torch.Tensor:
     """2-layer MLP projector (LLaVA mm_projector) with exact GELU, in the
     features' dtype (f32 features over bf16 weights compute in f32, as the
-    JAX einsum promotes them)."""
+    JAX einsum promotes them). Under tensor parallelism ``fc1`` is cut on
+    its outputs and the square (H, H) ``fc2`` on its inputs: its partial
+    product is summed over the model axis, then ``fc2_bias`` is added."""
     p = params["projector"]
     dt = features.dtype
     x = siglip._linear(features, p["fc1"].to(dt), p["fc1_bias"])
     x = F.gelu(x.float(), approximate="none").to(dt)
-    return siglip._linear(x, p["fc2"].to(dt), p["fc2_bias"])
+    fc2 = p["fc2"]
+    return siglip._linear(x, fc2.to(dt), p["fc2_bias"],
+                          partial=cut(fc2.shape[0], fc2.shape[1], "projector fc2"))
 
 
 def normalize_pixels(cfg: MMDuetConfig, frames_uint8: torch.Tensor) -> torch.Tensor:
@@ -262,13 +267,16 @@ def _positions(cache_len: Sequence[int], T: int, device) -> torch.Tensor:
             + torch.arange(T, device=device)[None, :])
 
 
-def _score_output(params: Params, last: torch.Tensor, kv_cache: KVCache,
+def _score_output(params: Params, cfg: MMDuetConfig, last: torch.Tensor, kv_cache: KVCache,
                   compute_lm_logits: bool) -> StepOutput:
+    """The score heads (whole on every rank) and, if asked, the whole
+    vocabulary's logits (`gather_vocab` from a rank's slice)."""
     inf = torch.softmax(_head(params["informative_head"], last)[:, 0], dim=-1)[:, 1]
     rel = torch.softmax(_head(params["relevance_head"], last)[:, 0], dim=-1)[:, 1]
     logits = None
     if compute_lm_logits:
-        logits = qwen2.lm_logits(params["lm_head"], last)[:, 0]
+        logits = gather_vocab(qwen2.lm_logits(params["lm_head"], last)[:, 0],
+                              cfg.text.vocab_size)
     return StepOutput(logits, inf, rel, kv_cache)
 
 
@@ -296,7 +304,7 @@ def step_forward(
         shard_ctx=shard_ctx, commit=commit,
     )
     last = torch.stack([hidden[b, t - 1] for b, t in enumerate(tr)])[:, None]
-    return _score_output(params, last, kv_cache, compute_lm_logits)
+    return _score_output(params, cfg, last, kv_cache, compute_lm_logits)
 
 
 def chunk_scores_forward(
@@ -463,7 +471,7 @@ def decode_loop(
             kv_cache=cache, cache_len=base, lora=lora, lora_scale=lora_scale,
             t_real=1, scratch=scratch, scratch_len=i - 1, shard_ctx=shard_ctx,
         )
-        logits = qwen2.lm_logits(params["lm_head"], hidden[:, :1])[:, 0]
+        logits = gather_vocab(qwen2.lm_logits(params["lm_head"], hidden[:, :1])[:, 0], V)
         tok = torch.argmax(penalized(logits), dim=-1).tolist()
         for b in range(B):
             if not done[b]:

@@ -23,6 +23,15 @@ chunk.
 Full mode (``kv_cache=None``): causal attention over the chunk with
 ``attn_mask`` for padding, through `ops.attention.flash_full_attention`
 (kernel C on CUDA, forward and backward) or the masked plain attention.
+
+Tensor parallelism: on a rank of a process mesh ``params`` is the rank's
+local tree (`parallel.sharding.shard_params`). Head counts come from the
+leaves' shapes; the f32 partial products of a row-cut ``o_proj`` /
+``down_proj`` and of a vocabulary-cut embedding are summed over the model
+axis (`parallel.collectives.reduce_model`) before their one rounding, so a
+rank's hidden states differ from one device's only by the order of that
+sum, and are the same bits on every rank. `lm_logits` gives the rank's
+vocabulary slice (`collectives.gather_vocab` makes whole rows).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from ..config import Qwen2Config
 
 from ..ops.attention import (KernelRefused, ShardCtx, attend, flash_decode_attention,
                              flash_decode_attention_sharded, flash_full_attention)
+from ..parallel.collectives import cut, model_axis, reduce_model
 from .quant import is_quantized, layer_view, quantized_matmul, unpack_int4
 
 Params = Dict[str, Any]
@@ -91,9 +101,12 @@ def dequantize_kv(leaf, dtype: torch.dtype = torch.float32) -> torch.Tensor:
 def init_kv_cache(
     cfg: Qwen2Config, batch: int, max_len: int,
     dtype: torch.dtype = torch.bfloat16, device=None,
-    quant: Optional[str] = None,
+    quant: Optional[str] = None, num_kv_heads: Optional[int] = None,
 ) -> KVCache:
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+    """A zero cache; ``num_kv_heads`` (default ``cfg.num_kv_heads``) is a
+    rank's local count under tensor parallelism."""
+    kh = cfg.num_kv_heads if num_kv_heads is None else num_kv_heads
+    shape = (cfg.num_layers, batch, kh, max_len, cfg.head_dim)
     if quant == "int8":
         def leaf():
             return {"qw": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -167,26 +180,47 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _proj(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor] = None,
-          lora_ab: Optional[Params] = None, lora_scale: float = 0.0) -> torch.Tensor:
+          lora_ab: Optional[Params] = None, lora_scale: float = 0.0,
+          partial: bool = False) -> torch.Tensor:
     """``y @ w`` in the activation dtype (f32 accumulation, one rounding,
     as the JAX einsum + astype), plus the bias in that dtype; ``w`` is a
     dense tensor or a quantized leaf (`quant.quantized_matmul`).
 
     With an adapter ``{"a": (in, r), "b": (r, out)}`` the low-rank term
     ``lora_scale * (y @ a) @ b`` is added to the f32 base product before
-    the rounding, as the JAX projection does."""
-    if lora_ab is None and not is_quantized(w):
+    the rounding, as the JAX projection does; on a cut projection the rank
+    takes its part of the whole adapter (`_local_adapter`). ``partial``:
+    ``y`` and ``w`` are this rank's slice of the input dim, and the f32
+    product (with the adapter's partial term) is summed over the model axis
+    before the rounding."""
+    if lora_ab is None and not is_quantized(w) and not partial:
         out = torch.matmul(y, w)
     else:
         out = quantized_matmul(y, w)
         if lora_ab is not None:
-            delta = torch.matmul(torch.matmul(y.float(), lora_ab["a"].float()),
-                                 lora_ab["b"].float())
+            a, b = _local_adapter(lora_ab, y.shape[-1], out.shape[-1])
+            delta = torch.matmul(torch.matmul(y.float(), a.float()), b.float())
             out = out + lora_scale * delta
+        if partial:
+            out = reduce_model(out)
         out = out.to(y.dtype)
     if bias is not None:
         out = out + bias.to(y.dtype)
     return out
+
+
+def _local_adapter(ab: Params, n_in: int, n_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's part of a whole adapter on a projection with ``n_in``
+    inputs and ``n_out`` outputs: the columns of ``b`` of an output-cut
+    projection (q/k/v/gate/up), the rows of ``a`` of an input-cut one
+    (o/down)."""
+    a, b = ab["a"], ab["b"]
+    rank, _ = model_axis()
+    if cut(n_in, a.shape[0], "LoRA a"):
+        a = a[rank * n_in:(rank + 1) * n_in]
+    if cut(n_out, b.shape[-1], "LoRA b"):
+        b = b[:, rank * n_out:(rank + 1) * n_out]
+    return a, b
 
 
 def _layer_lora(lora: Optional[Params], i: int) -> Params:
@@ -197,28 +231,34 @@ def _layer_lora(lora: Optional[Params], i: int) -> Params:
 def _qkv(x: torch.Tensor, p: Params, lo: Params, lora_scale: float,
          cfg: Qwen2Config, cos: torch.Tensor, sin: torch.Tensor):
     """Input norm, the q/k/v projections (with their adapters) and RoPE:
-    q (B, T, nh, hd), k and v (B, T, kh, hd)."""
+    q (B, T, nh, hd), k and v (B, T, kh, hd), with the head counts of the
+    leaves (a rank's own under tensor parallelism)."""
     B, T, _ = x.shape
-    nh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     y = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
     q = _proj(y, p["q_proj"], p.get("q_bias"), lo.get("q_proj"), lora_scale)
     k = _proj(y, p["k_proj"], p.get("k_bias"), lo.get("k_proj"), lora_scale)
     v = _proj(y, p["v_proj"], p.get("v_bias"), lo.get("v_proj"), lora_scale)
-    q = apply_rope(q.reshape(B, T, nh, hd), cos, sin)
-    k = apply_rope(k.reshape(B, T, kh, hd), cos, sin)
-    return q, k, v.reshape(B, T, kh, hd)
+    q = apply_rope(q.reshape(B, T, -1, hd), cos, sin)
+    k = apply_rope(k.reshape(B, T, -1, hd), cos, sin)
+    return q, k, v.reshape(B, T, -1, hd)
 
 
 def _out_mlp(x: torch.Tensor, attn: torch.Tensor, p: Params, lo: Params,
              lora_scale: float, cfg: Qwen2Config) -> torch.Tensor:
-    """The attention output projection and the MLP block, with residuals."""
+    """The attention output projection and the MLP block, with residuals;
+    a rank's slice of the heads (of the intermediate dim) makes o_proj's
+    (down_proj's) product partial, summed over the model axis."""
     B, T, _ = x.shape
-    x = x + _proj(attn.reshape(B, T, -1), p["o_proj"], None, lo.get("o_proj"), lora_scale)
+    attn = attn.reshape(B, T, -1)
+    x = x + _proj(attn, p["o_proj"], None, lo.get("o_proj"), lora_scale,
+                  partial=cut(attn.shape[-1], cfg.num_heads * cfg.head_dim, "o_proj"))
     y = rms_norm(x, p["post_attn_norm"], cfg.rms_norm_eps)
     gate = _proj(y, p["gate_proj"], None, lo.get("gate_proj"), lora_scale)
     up = _proj(y, p["up_proj"], None, lo.get("up_proj"), lora_scale)
     act = F.silu(gate.float()).to(x.dtype) * up
-    return x + _proj(act, p["down_proj"], None, lo.get("down_proj"), lora_scale)
+    return x + _proj(act, p["down_proj"], None, lo.get("down_proj"), lora_scale,
+                     partial=cut(act.shape[-1], cfg.intermediate_size, "down_proj"))
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +473,26 @@ def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
 def embed_tokens(params: Params, input_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:
     """Token embedding with the reference's clamp trick: the `<image>`
     placeholder id may be >= the embedding rows and gets clamped; its
-    embedding is always overwritten by visual features."""
+    embedding is always overwritten by visual features.
+
+    A rank's vocabulary slice of the table (tensor parallelism): the ids
+    of its rows are looked up, the others give zeros, and the sum over the
+    model axis (exact: one row is not zero) makes every rank's rows."""
     ids = input_ids.clamp(0, vocab_size - 1)
     emb = params["embed"]
+    rows = (emb["qw4"] if "qw4" in emb else emb["qw"]) if isinstance(emb, dict) else emb
+    n_rows = rows.shape[0]
+    if not cut(n_rows, vocab_size, "embed"):
+        return _lookup(emb, ids)
+    local = ids - model_axis()[0] * n_rows
+    hit = (local >= 0) & (local < n_rows)
+    out = _lookup(emb, local.clamp(0, n_rows - 1))
+    out = torch.where(hit[..., None], out, torch.zeros_like(out))
+    return reduce_model(out).to(out.dtype)
+
+
+def _lookup(emb: Any, ids: torch.Tensor) -> torch.Tensor:
+    """The rows ``ids`` of a dense, int8 or int4 embedding table."""
     if isinstance(emb, dict) and "qw4" in emb:
         # int4 per row group: qw4 packed (V, G, g/2), qs (V, G, 1). Gather
         # the packed rows, then unpack the nibbles of the gathered rows only.
@@ -450,5 +507,6 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, vocab_size: int) -> to
 
 def lm_logits(lm_head: Any, hidden: torch.Tensor) -> torch.Tensor:
     """(B, T, H) @ (H, V) -> f32 logits, for a dense, int8 or grouped int4
-    LM head (`quant.quantized_matmul`)."""
+    LM head (`quant.quantized_matmul`); on a rank of a vocabulary-cut head,
+    its (B, T, V / n) slice."""
     return quantized_matmul(hidden, lm_head)

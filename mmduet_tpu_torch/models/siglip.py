@@ -7,6 +7,12 @@ as a loop, features taken at layer -2 by running only the first
 `ops.attention.flash_vision_attention` (kernel D on CUDA tensors); the
 matmul + softmax + matmul route is its plain version, for CPU tensors
 (`_attend`).
+
+On a rank of a process mesh the layers are the rank's local leaves
+(`parallel.sharding.shard_params`): its heads and its part of the MLP's
+intermediate dim. The f32 products of ``o_proj`` and ``fc2`` are then
+summed over the model axis before their rounding, and the whole
+``o_bias`` / ``fc2_bias`` is added once, after the sum.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from ..config import SiglipConfig
 from ..ops.attention import (KernelRefused, flash_vision_attention,
                              flash_vision_attention_ref)
+from ..parallel.collectives import cut, reduce_model
 from .quant import is_quantized, layer_view, quantized_matmul
 
 Params = Dict[str, Any]
@@ -34,13 +41,19 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (out * scale.float() + bias.float()).to(dt)
 
 
-def _linear(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _linear(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor],
+            partial: bool = False) -> torch.Tensor:
     """``y @ w + bias`` in the activation dtype (f32 accumulation, one
     rounding, then the bias, if any), as the JAX einsum + astype + bias. An
     int8 leaf ``{"qw", "qs"}`` (`quant.quantize_vision`) is the product
     with the int8 values cast to the activation dtype, scaled per output
-    channel in f32 before the rounding."""
-    out = quantized_matmul(y, w).to(y.dtype) if is_quantized(w) else torch.matmul(y, w)
+    channel in f32 before the rounding. ``partial``: ``y`` and ``w`` are a
+    rank's slice of the input dim; the f32 product is summed over the model
+    axis before the rounding and the bias."""
+    if partial:
+        out = reduce_model(quantized_matmul(y, w)).to(y.dtype)
+    else:
+        out = quantized_matmul(y, w).to(y.dtype) if is_quantized(w) else torch.matmul(y, w)
     return out if bias is None else out + bias.to(y.dtype)
 
 
@@ -85,22 +98,24 @@ def encoder_layer(h: torch.Tensor, p: Params, cfg,
     residual. Shared by the SigLIP and CLIP towers, which differ only in
     the MLP activation ``act`` (tanh-GELU vs quick_gelu), applied in f32
     and cast back. ``cfg`` needs num_heads / hidden_size /
-    layer_norm_eps."""
-    N = h.shape[0]
-    nh = cfg.num_heads
-    hd = cfg.hidden_size // nh
+    intermediate_size / layer_norm_eps; the leaves' head count may be a
+    rank's own (their products then partial, summed over the model axis)."""
+    N, T, C = h.shape
+    hd = cfg.hidden_size // cfg.num_heads
 
     y = _layer_norm(h, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
-    q = _linear(y, p["q_proj"], p["q_bias"]).reshape(N, -1, nh, hd)
-    k = _linear(y, p["k_proj"], p["k_bias"]).reshape(N, -1, nh, hd)
-    v = _linear(y, p["v_proj"], p["v_bias"]).reshape(N, -1, nh, hd)
-    attn = _attend(q, k, v, hd, use_flash).reshape(N, -1, nh * hd)
-    h = h + _linear(attn, p["o_proj"], p["o_bias"])
+    q = _linear(y, p["q_proj"], p["q_bias"]).reshape(N, T, -1, hd)
+    k = _linear(y, p["k_proj"], p["k_bias"]).reshape(N, T, -1, hd)
+    v = _linear(y, p["v_proj"], p["v_bias"]).reshape(N, T, -1, hd)
+    attn = _attend(q, k, v, hd, use_flash).reshape(N, T, -1)
+    h = h + _linear(attn, p["o_proj"], p["o_bias"],
+                    partial=cut(attn.shape[-1], C, "vision o_proj"))
 
     y = _layer_norm(h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
     y = _linear(y, p["fc1"], p["fc1_bias"])
     y = act(y.float()).to(h.dtype)
-    return h + _linear(y, p["fc2"], p["fc2_bias"])
+    return h + _linear(y, p["fc2"], p["fc2_bias"],
+                       partial=cut(y.shape[-1], cfg.intermediate_size, "vision fc2"))
 
 
 def siglip_encode(

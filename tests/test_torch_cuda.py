@@ -1182,3 +1182,65 @@ def test_converter_needs_no_safetensors_and_loads_onto_the_card(dev, tmp_path, m
     for key, leaf in want.items():
         assert got[key].is_cuda, key
         assert got[key].dtype == leaf.dtype and torch.equal(got[key], leaf), key
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: kernels A, B and D at the shapes each rank of a
+# (1, 2) mesh gives them at the 7B widths
+# ---------------------------------------------------------------------------
+
+# kernel A at a rank's 14 query heads over 2 kv heads: a decode step, a
+# joiner + frame step and an 8-frame block
+TP_A_CASES = [
+    ("tp_decode_step", 1, 1, 31, 14, 2, 4096, 2, 1, (2047,), (11,), (10,)),
+    ("tp_frame_step", 1, 64, 64, 14, 2, 4096, 2, 0, (3000,), (53,), (0,)),
+    ("tp_8_frame_block", 1, 392, 392, 14, 2, 4096, 2, 1, (3000,), (392,), (0,)),
+]
+
+
+@pytest.mark.parametrize("case", TP_A_CASES, ids=[c[0] for c in TP_A_CASES])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16_cache", "int8_cache"])
+def test_kernel_a_at_a_ranks_heads_matches_plain_version(case, quantized, dev):
+    name, B, T, Tc, nh, kh, S, L, layer, cl, tr, qo = case
+    q, k, v, ck, cv, lanes = _decode_inputs(case, dev)
+    scales = {}
+    if quantized:
+        (k, ks), (v, vs) = qwen2.quantize_kv_rows(k), qwen2.quantize_kv_rows(v)
+        scales = dict(k_scale=ks, v_scale=vs)
+    before = attention.LAUNCHES, attention.INT8_LAUNCHES
+    got = attention.flash_decode_attention(q, k, v, ck, cv, lanes[0], lanes[1], layer,
+                                           q_offset=lanes[2], **scales)
+    assert (attention.LAUNCHES, attention.INT8_LAUNCHES) == (before[0] + 1,
+                                                            before[1] + quantized)
+    up = (q.float(), k if quantized else k.float(), v if quantized else v.float(),
+          ck.float(), cv.float(), lanes[0], lanes[1], layer, lanes[2])
+    want = attention.flash_decode_attention_ref(*up, **scales)
+    rms = bounds.decode_attention_rms(*up, **scales)
+    torch.cuda.synchronize()
+    for b, n in enumerate(tr):
+        assert bounds.row_ratio(got[b, :n], want[b, :n], rms[b, :n]) <= 1.0, (name, b)
+
+
+# kernel B at the local (H, O) of q, k/v, o, gate/up, down and the LM head
+TP_B_CASES = [(f"tp_{what}_{rows}", (rows,), H, O, 128)
+              for what, H, O in (("q", 3584, 1792), ("kv", 3584, 256), ("o", 1792, 3584),
+                                 ("gate_up", 3584, 9472), ("down", 9472, 3584),
+                                 ("lm_head", 3584, 76032))
+              for rows in (1, 392)]
+
+
+@pytest.mark.parametrize("case", TP_B_CASES, ids=[c[0] for c in TP_B_CASES])
+def test_kernel_b_at_a_ranks_weight_shapes_matches_plain_version(case, dev):
+    y, qw4, qs = _int4_inputs(case, dev)
+    before = quant_matmul.B_LAUNCHES
+    got = quant_matmul.int4_matmul(y, qw4, qs)
+    assert quant_matmul.B_LAUNCHES == before + 1
+    want = quant_matmul.int4_matmul_ref(y, qw4, qs)
+    torch.cuda.synchronize()
+    assert bounds.int4_matmul_ratio(got, want, bounds.int4_matmul_magnitude(y, qw4, qs)) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(2, 729, 8, 72), (2, 577, 8, 64)],
+                         ids=["siglip_8_heads", "clip336_8_heads"])
+def test_kernel_d_at_a_ranks_heads_matches_plain_version(shape, dev):
+    test_flash_vision_kernel_matches_plain_version(shape, dev)

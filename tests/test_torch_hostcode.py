@@ -63,8 +63,11 @@ def _cli_helpers() -> None:
     argv = ["--test_fname", "t", "--input_dir", "i", "--output_fname", "o",
             "--kv_cache_quant", "int8", "--threshold_z", "0.5", "--grounding_mode", "true"]
     t_args, j_args = tcli.build_argparser().parse_args(argv), jcli.build_argparser().parse_args(argv)
-    assert t_args.device == "cuda"
-    assert {k: v for k, v in vars(t_args).items() if k != "device"} == vars(j_args)
+    assert t_args.device == "cuda" and t_args.dist_backend == "nccl"
+    # the port's own flags: --device, and --dist_backend (its ranks are
+    # processes of torch.distributed)
+    assert {k: v for k, v in vars(t_args).items()
+            if k not in ("device", "dist_backend")} == vars(j_args)
     assert (dataclasses.asdict(tcli._test_args(t_args, CFG))
             == dataclasses.asdict(jcli._test_args(j_args, CFG)))
 
