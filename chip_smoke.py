@@ -31,10 +31,11 @@ Phases (any failure ends the run with a nonzero exit):
    dropped group scale or swapped nibble halves for kernel B) must fail the
    bounds, and so must shards of kernel A' that
    read another shard's cursors or kv heads. Then kernels A (both caches),
-   B and D again at the shapes a rank of a (1, 2) tensor-parallel mesh
+   B, C and D again at the shapes a rank of a (1, 2) tensor-parallel mesh
    gives them (14 query heads over 2 kv heads; the six local weight shapes
-   from 3584 -> 1792 to the LM head's 3584 -> 76032; 8 of 16 heads), timed
-   beside their bounds and the library calls. ``--kernels-only`` stops here
+   from 3584 -> 1792 to the LM head's 3584 -> 76032; C forward and backward
+   at one sample of the 2944-token bucket; 8 of 16 heads), timed beside
+   their bounds and the library calls. ``--kernels-only`` stops here
    (no result line);
 3. an HF-format llava-OV directory at the published widths (2 decoder and
    2 vision layers: all of them would write ~16 GB, past the time; random
@@ -108,17 +109,31 @@ Phases (any failure ends the run with a nonzero exit):
    direct, no A' shards), peak memory, p50 / p90 per frame and decode
    tokens/s are printed. Two ranks on one card measure correctness and
    memory, not a speedup across cards;
-9. small-model checks, card (bf16, kernels) against CPU (f32, plain
+9. the training mesh: 2 decoder layers at the 7B widths (the full
+   SigLIP tower), LoRA r 16 / alpha 32, A = 2 micro-batches of two duet
+   samples with other lengths, frames and label counts in the 2944-token
+   bucket; the one process takes a warm-up and 2 steps, and again under a
+   permuted MLP (its own rounding spread); then ranks spawned on the one
+   card over gloo, (2, 1) replicate (ZeRO-2) and (2, 2) fsdp + TP + ZeRO-2,
+   take the same steps: every rank's metrics the same bits, each step's
+   metrics and the update of the gathered trainable leaves within the
+   larger of a floor and twice the one process's own spread, kernel C's and D's launches
+   a rank as its shapes imply, each rank's peak memory and s/step
+   (gloo-bound) printed; the (2, 2) ranks' checkpoint of step 1, resumed in
+   the one process, gives its step 2;
+10. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
    against single-stream runs on the card), the offline baseline's prompt
    cache, and one train step's loss and gradient norm; and the inference
    CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
    names kernel A;
-10. one JSON line for the seven kernels (kernel D's entry also holds its
+11. one JSON line for the seven kernels (kernel D's entry also holds its
    ``clip336_*`` numbers and its launches on the CLIP path; A, A-int8, B
    and D their ``tp_local`` numbers and rank 0's launches on the TP path,
-   A' its ``process_mesh`` form), then the result line
+   C's two entries theirs at a rank's heads and the (2, 2) rank 0's
+   launches on the training mesh, A' its ``process_mesh`` form), then the
+   result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -423,10 +438,18 @@ def check_attention_kernel(log, nh: int = 28, kh: int = 4,
                     lambda: attention.flash_decode_attention_ref(*args, **scales), 3)
                 bound_ms, bound_by = bounds.decode_attention_bound(
                     B, T, nh, kh, hd, cache_len, t_real, q_off, int8=variant == "int8")
-                timed[variant, name, cache_len] = (ms, plain_ms, bound_ms, bound_by)
+                library_ms = lib_ratio = None
+                if variant == "bf16":  # the library takes no per-token scales
+                    library_ms, lib_ratio = _time_sdpa_decode(
+                        q, k_cache, v_cache, ck, cv, layer, cache_len, t_real, q_off,
+                        want[:, real], rms[:, real])
+                timed[variant, name, cache_len] = (ms, plain_ms, bound_ms, bound_by, library_ms)
                 log(f"flash_decode {name}, {variant} cache: T={T} Tc={Tc} cache_len={cache_len} "
                     f"kernel {ms:.4f} ms (eager through the wrapper {eager_ms:.4f}), plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+                    + ("" if library_ms is None else
+                       f", scaled_dot_product_attention (explicit mask, enable_gqa) "
+                       f"{library_ms:.4f} ms, its output {lib_ratio:.3f} of the row bound"))
                 if name == "decode step" and cache_len == 2048:
                     log(f"flash_decode {name}, {variant} cache: the wrapper's host time "
                         f"{_host_us(call):.2f} us per call")
@@ -440,10 +463,10 @@ def check_attention_kernel(log, nh: int = 28, kh: int = 4,
             f"{worst[variant][0]}, at most {worst[variant][1]} of the row bound)")
         for name, *_ in ATTN_SHAPES:
             for cache_len in TIMED_CACHE_LENS.get(name, (2048,)):
-                ms, _, bound_ms, bound_by = timed[variant, name, cache_len]
+                ms, _, bound_ms, bound_by, _ = timed[variant, name, cache_len]
                 log(f"flash_decode, {variant} cache, {name} at cache_len {cache_len}: {ms:.4f} ms,"
                     f" bound {bound_ms:.5f} ms ({bound_by}), {ms / bound_ms:.1f}x the bound")
-        ms, plain_ms, bound_ms, bound_by = timed[variant, "8-frame block", 2048]
+        ms, plain_ms, bound_ms, bound_by, library_ms = timed[variant, "8-frame block", 2048]
         entries.append({
             "name": label,
             "route": "cuda",
@@ -454,9 +477,44 @@ def check_attention_kernel(log, nh: int = 28, kh: int = 4,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call attends a cursor-bounded cache + chunk
+            # bf16: one SDPA call over the cache prefix and the chunk; int8: none takes
+            # per-token scales
+            "library_ms": library_ms,
         })
     return entries
+
+
+def _time_sdpa_decode(q, k_cache, v_cache, ck, cv, layer: int, cache_len: int, t_real: int,
+                      q_off: int, want, rms) -> tuple:
+    """The library's yardstick for kernel A with a bf16 cache, timed here
+    and called nowhere in the port: one `scaled_dot_product_attention` over
+    the cache's first ``cache_len`` slots of ``layer`` and the chunk (the
+    two concatenated beforehand, outside the timing), with an explicit
+    boolean mask (every cache slot; chunk col j for query row t iff j <=
+    q_off + t and j < t_real) and ``enable_gqa``. Returns (its ms by CUDA
+    graph replay, its real rows' largest ratio to kernel A's row bound
+    against the plain version, which must be <= 1: the same function)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    T, Tc, dev = q.shape[1], ck.shape[2], q.device
+    k = torch.cat([k_cache[layer, :, :, :cache_len], ck], dim=2)
+    v = torch.cat([v_cache[layer, :, :, :cache_len], cv], dim=2)
+    row, col = torch.arange(T, device=dev)[:, None], torch.arange(Tc, device=dev)[None]
+    mask = torch.cat([torch.ones((T, cache_len), dtype=torch.bool, device=dev),
+                      (col <= q_off + row) & (col < t_real)], dim=1)
+    qh = q.transpose(1, 2)
+    try:
+        sdpa(qh, k, v, attn_mask=mask, enable_gqa=True)
+        kw = dict(attn_mask=mask, enable_gqa=True)
+    except TypeError:  # an older PyTorch: the kv heads repeated beforehand
+        rep = q.shape[2] // k.shape[1]
+        k, v = (x.repeat_interleave(rep, dim=1) for x in (k, v))
+        kw = dict(attn_mask=mask)
+    out = sdpa(qh, k, v, **kw).transpose(1, 2)[:, :t_real]
+    ratio = bounds.row_ratio(out, want, rms)
+    if not ratio <= 1.0:
+        raise AssertionError(f"scaled_dot_product_attention at T={T} cache_len={cache_len}: "
+                             f"{ratio} of kernel A's row bound: not the same function")
+    return _graph_ms(lambda: sdpa(qh, k, v, **kw)), ratio
 
 
 # Kernel A' at B = 8 lanes with a cursor of its own each; (data, model) mesh
@@ -837,17 +895,18 @@ LSE_TOL = 1e-3  # natural-log units: the kernel sums exp2 of f32 scores of the s
 DROP_TILE = 20  # the tile [64 * 20, 64 * 21) of the mutated plain versions
 
 
-def check_full_attention_kernel(log) -> List[dict]:
+def check_full_attention_kernel(log, nh: int = 28, kh: int = 4,
+                                cases=FULL_CASES) -> List[dict]:
     """flash_full_attention (CUDA, forward and backward) vs
-    flash_full_attention_ref on the card; returns kernel C's two JSON
-    entries (without launches)."""
+    flash_full_attention_ref on the card, at ``nh`` query heads over ``kh``
+    kv heads; returns kernel C's two JSON entries (without launches)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-    nh, kh, hd = 28, 4, 128
+    hd = 128
     worst = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}  # max|diff|, max ratio
     worst_lse = 0.0
     timed = library = None
-    for T, n_real, side in FULL_CASES:
+    for T, n_real, side in cases:
         B = len(n_real)
 
         def randn(*shape):
@@ -891,7 +950,7 @@ def check_full_attention_kernel(log) -> List[dict]:
             t = _time_full(q, k, v, mask, dout)
             lib = _time_sdpa(q, k, v, dout)
             each = _time_full_backward_kernels(q, k, v, mask, dout)
-            log(f"flash_full T={T} ({side}-padded, nh 28, kh 4, hd 128, bf16): forward kernel "
+            log(f"flash_full T={T} ({side}-padded, nh {nh}, kh {kh}, hd 128, bf16): forward kernel "
                 f"{t['fwd'][0]:.4f} ms, plain {t['fwd'][1]:.4f} ms; backward kernel "
                 f"{t['bwd'][0]:.4f} ms, plain {t['bwd'][1]:.4f} ms; forward+backward "
                 f"kernel {t['fwd+bwd'][0]:.4f} ms, plain {t['fwd+bwd'][1]:.4f} ms; "
@@ -903,7 +962,7 @@ def check_full_attention_kernel(log) -> List[dict]:
                 timed, library = t, lib
         del q, k, v, dout, leaves, got, got_grads, want, want_grads, rms, outputs
         torch.cuda.empty_cache()
-    log(f"flash_full: {len(FULL_CASES)} cases, o within the bound at most "
+    log(f"flash_full: {len(cases)} cases, o within the bound at most "
         f"{worst['fwd'][1]:.3f} of it (max|diff| {worst['fwd'][0]}); dq, dk, dv at most "
         f"{worst['bwd'][1]:.3f} of it (max|diff| {worst['bwd'][0]}); the saved log-sum-exp "
         f"within {worst_lse:.2e} of the plain one (<= {LSE_TOL}); two forward and two "
@@ -2561,13 +2620,16 @@ TP_SCORE_TOL = 2e-2  # per-frame score probability, a rank against one process, 
 TP_MARGIN_TOL = 0.5  # a differing token is a near tie: the one process's top-2 logits
 # were closer than this at the first token that differs
 TP_BATCH_SESSIONS, TP_BATCH_FRAMES = 12, (16, 33)
+# kernel C at a rank's 14 of 28 query heads over 2 of 4 kv heads, one sample
+# of the 2944-token bucket (the training mesh's (2, 2) layout)
+TP_FULL_CASES = ((2944, (2700,), "right"),)
 
 
 def check_tp_kernels(log) -> dict:
-    """Kernels A (bf16 and int8 cache), B and D held against their plain
+    """Kernels A (bf16 and int8 cache), B, C and D held against their plain
     versions, and timed beside their bounds, at the shapes each rank of a
-    (1, 2) mesh gives them: A at 14 query heads over 2 kv heads, B at the
-    six local weight shapes, D at 8 of 16 heads. Returns the numbers for
+    (x, 2) mesh gives them: A and C at 14 query heads over 2 kv heads, B at
+    the six local weight shapes, D at 8 of 16 heads. Returns the numbers for
     the kernels line."""
     tp_log = lambda msg: log(f"rank-local shapes of a (1, {TP_RANKS}) mesh: {msg}")  # noqa: E731
     dec, dec_int8 = check_attention_kernel(tp_log, nh=14, kh=2, cache_lens=TP_CACHE_LENS)
@@ -2579,8 +2641,11 @@ def check_tp_kernels(log) -> dict:
         seed=16)
     tp_log(f"flash_vision: {len(TP_VISION_SHAPES)} shapes within the bound (max|diff| "
            f"{d_worst}, at most {d_ratio:.3f} of it)")
+    c_fwd, c_bwd = check_full_attention_kernel(tp_log, nh=14, kh=2, cases=TP_FULL_CASES)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return {
+        "full_fwd": {"heads": [14, 2], **{k: c_fwd[k] for k in keys}},
+        "full_bwd": {"heads": [14, 2], **{k: c_bwd[k] for k in keys}},
         "attention": {"heads": [14, 2], **{k: dec[k] for k in keys}},
         "attention_int8": {"heads": [14, 2], **{k: dec_int8[k] for k in keys}},
         "int4_matmul": {"max_abs_err": worst, "shapes": [
@@ -2736,27 +2801,39 @@ class permuted_mlp:
     permutation): the same function, the down projection's sums over its
     inputs in another order. That is the kind of difference a rank's
     partial sums make, so the one process's scores under it measure how
-    far bf16 rounding alone moves them at this width."""
+    far bf16 rounding alone moves them at this width. With ``tower`` the
+    vision tower's MLP units are permuted too (fc1 and its bias, fc2 rows;
+    a permutation of their own), as a rank's partial sums reorder the
+    tower's under tensor parallelism. ``perm`` / ``inv`` are the
+    decoder's."""
 
-    def __init__(self, params, seed: int = 5):
-        self.layers = params["decoder"]["layers"]
-        n = self.layers["gate_proj"].shape[-1]
-        self.perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed)).cuda()
-        self.inv = torch.argsort(self.perm)
+    def __init__(self, params, seed: int = 5, tower: bool = False):
+        stacks = [(params["decoder"]["layers"], ("gate_proj", "up_proj"), "down_proj")]
+        if tower:
+            stacks.append((params["vision"]["layers"], ("fc1", "fc1_bias"), "fc2"))
+        self.stacks = []
+        for i, (layers, cols, rows) in enumerate(stacks):
+            n = layers[rows].shape[1]
+            perm = torch.randperm(n, generator=torch.Generator().manual_seed(seed + i)).to(
+                layers[rows].device)
+            self.stacks.append((layers, cols, rows, perm, torch.argsort(perm)))
+        self.perm, self.inv = self.stacks[0][3:]
 
-    def _apply(self, perm):
+    def _apply(self, which: int):
         with torch.no_grad():
-            for i in range(self.layers["gate_proj"].shape[0]):
-                for name in ("gate_proj", "up_proj"):
-                    self.layers[name][i].copy_(self.layers[name][i][:, perm])
-                self.layers["down_proj"][i].copy_(self.layers["down_proj"][i][perm])
+            for layers, cols, rows, *perms in self.stacks:
+                perm = perms[which]
+                for i in range(layers[rows].shape[0]):
+                    for name in cols:
+                        layers[name][i].copy_(layers[name][i][..., perm])
+                    layers[rows][i].copy_(layers[rows][i][perm])
 
     def __enter__(self):
-        self._apply(self.perm)
+        self._apply(0)
         return self
 
     def __exit__(self, *exc):
-        self._apply(self.inv)
+        self._apply(1)
 
 
 def spread_under_permuted_mlp(cfg, tok, params, log, dense: dict, batched: dict) -> float:
@@ -2862,6 +2939,341 @@ def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: f
 TP_TIMEOUT_S = 600
 
 
+# --- the training mesh: LoRA training on process meshes whose ranks share
+# the one card over gloo, (2, 1) replicate (ZeRO-2) and (2, 2) fsdp + TP +
+# ZeRO-2, against the one process on the same weights and batches. Every
+# collective crosses the host, so the ranks' times are gloo-bound: they
+# measure correctness and memory a rank, not a speedup across cards.
+
+TM_LAYERS = 2  # decoder layers at the 7B widths: up to four ranks share the card
+TM_LAYOUTS = (((2, 1), "replicate"), ((2, 2), "fsdp"))
+TM_STEPS, TM_ACCUM = 2, 2  # after a discarded warm-up step of one micro-batch
+# the stream turns (frames each) of a micro-batch's two samples: the first
+# pads the micro-batch to the 2944-token bucket, the second is shorter and
+# holds an answer less (the global token mean is exercised)
+TM_TURNS = ((8, 9, 9), (10, 8))
+TM_T = 2944
+TM_METRIC_FLOOR = 1e-3  # a metric's relative difference, a rank against the one process
+TM_UPDATE_FLOOR = 1e-2  # the trainable tree's update (after the last step less before
+# the first), the 2-norm of its difference over its own: Adam moves each element by
+# about lr whatever the gradient's size, so an element whose gradient is near zero
+# may move the other way in another summation order. Each bound is the larger of
+# its floor and twice the one process's own spread under a permuted MLP (`tm_spread`)
+TM_TIMEOUT_S = 480
+
+
+def tm_model(dev):
+    """The training mesh's model: the 7B widths (Qwen2-7B, SigLIP-so400m)
+    cut to TM_LAYERS decoder layers, random bf16 weights from seed 0, and a
+    LoRA r 16 adapter on the seven projections whose b is random too (a
+    fresh b is 0, which leaves a's gradient 0)."""
+    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
+    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
+                                 eos_token_id=tok.eos_token_id)
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=TM_LAYERS))
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                torch.bfloat16)
+    lora = init_lora(torch.Generator(device=dev).manual_seed(1), cfg.text, rank=16, device=dev)
+    g = torch.Generator().manual_seed(2)
+    for ab in lora.values():
+        ab["b"] = (0.01 * torch.randn(ab["b"].shape, generator=g)).to(dev)
+    return cfg, tok, params, lora
+
+
+def tm_args() -> TrainArgs:
+    """LoRA r 16 / alpha 32, remat on, a constant lr of 2e-5 (both measured
+    steps move the leaves)."""
+    return TrainArgs(lr_schedule="constant")
+
+
+def tm_batches(cfg, tok) -> list:
+    """[warm-up, step 1, step 2]: micro-batches of the two TM_TURNS duet
+    samples, collated as the CLI collates (length and frame buckets), as
+    CPU tensors; the warm-up holds one micro-batch, the steps TM_ACCUM."""
+    from mmduet_tpu_torch.data.collator import Collator, stack_accum
+    from mmduet_tpu_torch.train.duet import duet_sample
+    from mmduet_tpu_torch.train.loop import parse_length_buckets
+
+    collator = Collator(tok, seq_len=5924, max_frames=200, frame_size=cfg.frame_resolution,
+                        buckets=parse_length_buckets("auto", 5924),
+                        frame_buckets=parse_length_buckets("auto", 200, quantum=8))
+    rng = np.random.RandomState(3)
+    idx = iter(range(1000))
+
+    def micro():
+        return collator([duet_sample(tok, rng, next(idx), turns, cfg.frame_resolution)
+                         for turns in TM_TURNS])
+
+    out = []
+    for n in [1] + [TM_ACCUM] * TM_STEPS:
+        batch = stack_accum([micro() for _ in range(n)])
+        out.append({k: torch.from_numpy(v) for k, v in batch.items()
+                    if k not in ("sample_idxs", "num_frames", "n_real_tokens")})
+    if any(b["input_ids"].shape[-1] != TM_T for b in out):
+        raise AssertionError(f"training mesh: batches of {[b['input_ids'].shape for b in out]}, "
+                             f"want the {TM_T}-token bucket")
+    return out
+
+
+def _flat_cpu(tree) -> dict:
+    """{"lora/q_proj/a": f32 CPU copy, ...} of a trainable tree."""
+    return {k.lstrip("/"): v.detach().float().cpu() for k, v in _flat(tree)}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tm_one_process(cfg, params, lora, batches, dev) -> dict:
+    """The one process's run on ``dev``: a discarded warm-up, then TM_STEPS
+    steps; each step's metrics and s, the trainable leaves after the last."""
+    args = tm_args()
+    tx, sched = make_optimizer(args, TM_STEPS + 1)
+    step = make_train_step(cfg, args, tx, sched)
+    cuda = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+    state = init_train_state(params, lora, tx)
+    step(state, params, cuda[0])  # warm-up, discarded
+    metrics, times, states = [], [], [state]
+    for batch in cuda[1:]:
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, params, batch)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+        states.append(state)
+    return {"metrics": metrics, "s": times, "trainable": _flat_cpu(state.trainable),
+            "initial": _flat_cpu(states[0].trainable), "states": states, "step": step}
+
+
+def tm_diff(got: dict, want: dict) -> tuple:
+    """(the largest relative difference of a metric over the steps, the
+    2-norm of the difference of the two runs' updates of the trainable
+    tree over the 2-norm of ``want``'s update) between two runs from
+    ``want["initial"]``."""
+    metric = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got["metrics"], want["metrics"])
+                 for k in ("loss", "lm_loss", "video_loss", "grad_norm"))
+    diff = sum(float(((got["trainable"][k] - w) ** 2).sum()) for k, w in want["trainable"].items())
+    moved = sum(float(((w - want["initial"][k]) ** 2).sum())
+                for k, w in want["trainable"].items())
+    return metric, math.sqrt(diff / moved)
+
+
+def tm_spread(cfg, params, lora, batches, ref, dev, log) -> tuple:
+    """The one process's own spread: the same run under `permuted_mlp`,
+    the tower's MLP too (the adapters of gate / up / down permuted with the
+    decoder's, and back after), against ``ref``. The rounding-only
+    difference the bounds are scaled by."""
+    perm_cols = {"gate_proj": "b", "up_proj": "b"}
+    with permuted_mlp(params, tower=True) as pm:
+        permuted = {n: dict(ab) for n, ab in lora.items()}
+        for n, key in perm_cols.items():
+            permuted[n]["b"] = permuted[n]["b"][..., pm.perm]
+        permuted["down_proj"]["a"] = permuted["down_proj"]["a"][:, pm.perm]
+        run = tm_one_process(cfg, params, permuted, batches, dev)
+        inv = pm.inv.cpu()
+    for n in perm_cols:
+        run["trainable"][f"lora/{n}/b"] = run["trainable"][f"lora/{n}/b"][..., inv]
+    run["trainable"]["lora/down_proj/a"] = run["trainable"]["lora/down_proj/a"][:, inv]
+    spread = tm_diff(run, ref)
+    log(f"training mesh: the one process's spread under permuted decoder and tower MLPs: "
+        f"metrics "
+        f"{spread[0]:.4g} relative, the trainable update {spread[1]:.4g} of its norm")
+    return spread
+
+
+def tm_rank(rank: int, shape: tuple, mode: str, port: int, out_dir: str, dev: str) -> None:
+    """One rank of a training-mesh launch (a spawned process): joins the
+    gloo group, builds its shard of `tm_model` (the ranks build one after
+    the other), takes a warm-up and TM_STEPS steps of the batches in
+    ``out_dir/inputs.pt`` (the (2, 2) ranks save the whole state after step
+    1), and writes ``out_dir/rank<r>.json``; rank 0 also writes the
+    gathered trainable leaves."""
+    from mmduet_tpu_torch.parallel import initialize_distributed, shard_params, shard_train_state
+    from mmduet_tpu_torch.parallel.sharding import gather_trainable
+    from mmduet_tpu_torch.train.checkpoint import save_train_state
+
+    world = shape[0] * shape[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed("gloo")
+    mesh = make_mesh(shape, device=dev)  # every rank shares the one card
+    dist = torch.distributed
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    args = tm_args()
+    tx, sched = make_optimizer(args, TM_STEPS + 1)
+    for turn in range(world):
+        if turn == rank:
+            cfg, _, whole, lora = tm_model(dev)
+            params = shard_params(whole, mesh, mode=mode)
+            state = shard_train_state(init_train_state(whole, lora, tx), mesh)
+            del whole, lora
+            if cuda:
+                torch.cuda.empty_cache()
+        dist.barrier()
+    batches = [{k: v.to(dev) for k, v in b.items()}
+               for b in torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)]
+    step = make_train_step(cfg, args, tx, sched, mesh=mesh)
+    step(state, params, batches[0])  # warm-up, discarded
+    _sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    attention.FULL_FWD_LAUNCHES = attention.FULL_BWD_LAUNCHES = attention.VISION_LAUNCHES = 0
+    metrics, times = [], []
+    for i, batch in enumerate(batches[1:]):
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, params, batch)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i == 0 and mode == "fsdp":
+            save_train_state(os.path.join(out_dir, "ckpt"), 1, state, mesh=mesh)
+    launches = {"full_fwd": attention.FULL_FWD_LAUNCHES, "full_bwd": attention.FULL_BWD_LAUNCHES,
+                "vision": attention.VISION_LAUNCHES}
+    result = {"metrics": metrics, "s": times, "launches": launches,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+              "local_gb": quant.param_bytes(params) / 1e9}
+    trainable = _flat_cpu(gather_trainable(state.trainable, mesh, to="cpu"))
+    if rank == 0:
+        torch.save(trainable, os.path.join(out_dir, "trainable.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()  # no rank leaves while another reads its last collective
+    dist.destroy_process_group()
+
+
+def tm_launch(shape: tuple, mode: str, out_dir: str, dev: str) -> list:
+    """The ranks of one layout, spawned on the one card; their results. A
+    rank that fails fails the phase; all are stopped at the end."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    world = shape[0] * shape[1]
+    procs = [ctx.Process(target=tm_rank, args=(r, shape, mode, port, out_dir, dev))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + TM_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"training mesh {shape} {mode}: rank exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    out[0]["trainable"] = torch.load(os.path.join(out_dir, "trainable.pt"), weights_only=True)
+    return out
+
+
+def run_train_mesh_phase(log, dev=torch.device("cuda")) -> dict:
+    """The training mesh at the 7B widths: the one process's run and its
+    spread, then each of TM_LAYOUTS's ranks against it (every rank's
+    metrics the same bits, each step's metrics and the gathered trainable
+    leaves within the bound, kernel C's and D's launches a rank as the
+    rank's shapes imply), and the (2, 2) ranks' checkpoint of step 1
+    resumed in the one process to its uninterrupted step 2. Returns the
+    (2, 2) rank 0's launches of kernels C and D."""
+    t0 = time.perf_counter()
+    cuda = dev.type == "cuda"
+    cfg, tok, params, lora = tm_model(dev)
+    batches = tm_batches(cfg, tok)
+    real = [[int(x) for x in b["attn_mask"].sum(-1).flatten()] for b in batches[1:]]
+    labels = [[int(x) for x in (b["labels"] != -100).sum(-1).flatten()] for b in batches[1:]]
+    log(f"training mesh: {TM_LAYERS} decoder layers at the 7B widths, A={TM_ACCUM} x B=2, "
+        f"T={TM_T}, frames per sample {[sum(t) for t in TM_TURNS]}, real tokens per sample "
+        f"{real}, LM labels per sample {labels}")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ref = tm_one_process(cfg, params, lora, batches, dev)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    log(f"training mesh, one process: {[round(t, 3) for t in ref['s']]} s/step, peak "
+        f"{one_peak:.2f} GiB; " + "; ".join(
+            f"step {i + 1} loss {m['loss']:.6f} lm {m['lm_loss']:.6f} video "
+            f"{m['video_loss']:.6f} grad_norm {m['grad_norm']:.6f}"
+            for i, m in enumerate(ref["metrics"])))
+    spread = tm_spread(cfg, params, lora, batches, ref, dev, log)
+    bound = (max(TM_METRIC_FLOOR, 2 * spread[0]), max(TM_UPDATE_FLOOR, 2 * spread[1]))
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="tm.", dir=_build.BUILD_DIR)
+    torch.save(batches, os.path.join(out_dir, "inputs.pt"))
+    if cuda:
+        torch.cuda.empty_cache()
+    layers, v_layers = cfg.text.num_layers, cfg.vision.num_layers - 1
+    calls = layers * TM_ACCUM * TM_STEPS
+    want = {"full_fwd": 2 * calls, "full_bwd": len(attention.FULL_BWD_KERNELS) * calls,
+            "vision": v_layers * TM_ACCUM * TM_STEPS}
+    launches = None
+    for shape, mode in TM_LAYOUTS:
+        name = f"({shape[0]}, {shape[1]}) {mode}"
+        run_dir = os.path.join(out_dir, f"{shape[0]}x{shape[1]}")
+        os.makedirs(run_dir)
+        os.link(os.path.join(out_dir, "inputs.pt"), os.path.join(run_dir, "inputs.pt"))
+        t1 = time.perf_counter()
+        # every rank on the one card ("cuda:0"; gloo: NCCL refuses two ranks on one device)
+        ranks = tm_launch(shape, mode, run_dir, "cuda:0" if cuda else "cpu")
+        wall = time.perf_counter() - t1
+        if any(r["metrics"] != ranks[0]["metrics"] for r in ranks[1:]):
+            raise AssertionError(f"training mesh {name}: the ranks' metrics differ")
+        diff = tm_diff(ranks[0], ref)
+        for r, x in enumerate(ranks):
+            if x["launches"] != want:
+                raise AssertionError(f"training mesh {name} rank {r}: launches "
+                                     f"{x['launches']}, want {want} (kernel C twice a layer "
+                                     f"forward under remat and four backward kernels, kernel D "
+                                     f"{v_layers} times a micro-batch)")
+            log(f"training mesh {name} rank {r}: {[round(t, 3) for t in x['s']]} s/step "
+                f"(gloo-bound: every collective crosses the host; the one process "
+                f"{[round(t, 3) for t in ref['s']]}), peak {x['peak_gib']:.2f} GiB (one process "
+                f"{one_peak:.2f}), local tree {x['local_gb']:.3f} GB, launches {x['launches']}")
+        log(f"training mesh {name}: {len(ranks)} ranks in {wall:.1f} s, every rank's metrics "
+            f"the same bits; against the one process: metrics within {diff[0]:.4g} relative "
+            f"(bound {bound[0]:.4g}), the trainable update within {diff[1]:.4g} of its norm "
+            f"(bound {bound[1]:.4g}); " + "; ".join(
+                f"step {i + 1} loss {m['loss']:.6f} grad_norm {m['grad_norm']:.6f}"
+                for i, m in enumerate(ranks[0]["metrics"])))
+        if not (diff[0] <= bound[0] and diff[1] <= bound[1]):
+            raise AssertionError(f"training mesh {name}: {diff} against the bound {bound}")
+        if mode == "fsdp":
+            launches = ranks[0]["launches"]
+            resume_dir = os.path.join(run_dir, "ckpt", "checkpoint-1")
+    # the (2, 2) ranks' whole state of step 1, resumed in the one process
+    from mmduet_tpu_torch.train.checkpoint import restore_train_state
+
+    state = restore_train_state(resume_dir, ref["states"][1])
+    if state.step != 1:
+        raise AssertionError(f"training mesh: the checkpoint holds step {state.step}")
+    state, m = ref["step"](state, params, {k: v.to(dev) for k, v in batches[2].items()})
+    resumed = tm_diff({"metrics": [ref["metrics"][0], m],
+                       "trainable": _flat_cpu(state.trainable)}, ref)
+    log(f"training mesh: the (2, 2) ranks' checkpoint of step 1, resumed in the one process: "
+        f"step 2 within {resumed[0]:.4g} / {resumed[1]:.4g} of the uninterrupted one (bound "
+        f"{bound[0]:.4g} / {bound[1]:.4g})")
+    if not (resumed[0] <= bound[0] and resumed[1] <= bound[1]):
+        raise AssertionError(f"training mesh: the resumed step 2 is {resumed} off")
+    shutil.rmtree(out_dir)
+    del params, lora, ref, state
+    if cuda:
+        torch.cuda.empty_cache()
+    log(f"training mesh phase in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2948,6 +3360,11 @@ def main(argv=None) -> int:
     sharded["process_mesh"] = {  # A' on a process mesh: kernel A once a rank and layer
         "launches": r0["dense"]["attention"], "layers": cfg.text.num_layers,
         **{k: tp_kernels["attention"][k] for k in ("ms", "bound_ms", "bound_by")}}
+    tm_launches = run_train_mesh_phase(log)
+    for entry, key in ((full_fwd, "full_fwd"), (full_bwd, "full_bwd")):
+        # the rank-local shape's numbers, and the (2, 2) rank 0's launches
+        entry["tp_local"] = dict(tp_kernels[key], launches=tm_launches[key])
+    vision["tp_local"]["train_mesh_launches"] = tm_launches["vision"]
     check_small_input(log)
     check_small_input(log, quantized=True)
     check_small_batched(log)

@@ -233,16 +233,6 @@ def _make_mesh(args):
                      device=None if device == torch.device("cuda") else device)
 
 
-def _leave_group() -> None:
-    """After the last collective: wait for every rank, then leave the group
-    (a rank that exits while another still reads its last collective
-    aborts that rank)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        dist.barrier()
-        dist.destroy_process_group()
-
-
 def _load_model(args, mesh=None):
     """(cfg, params, lora, tokenizer) from --tiny_random / --checkpoint;
     under ``mesh``, the parameters are this rank's local tree."""
@@ -467,8 +457,10 @@ def main(argv=None) -> None:
 
 
 def _main_inner(args) -> None:
+    from ..parallel.mesh import leave_group
+
     _run(args)
-    _leave_group()  # after a failure the process exits and its launcher ends the others
+    leave_group()  # after a failure the process exits and its launcher ends the others
 
 
 def _run(args) -> None:

@@ -51,8 +51,8 @@ def save_checkpoint(ckpt_dir: str, cfg: MMDuetConfig, params, lora=None) -> None
     save_config(cfg, os.path.join(ckpt_dir, "config.json"))
 
 
-def load_checkpoint(ckpt_dir: str, device=None,
-                    mesh=None) -> Tuple[MMDuetConfig, Any, Optional[Any]]:
+def load_checkpoint(ckpt_dir: str, device=None, mesh=None,
+                    param_mode: str = "replicate") -> Tuple[MMDuetConfig, Any, Optional[Any]]:
     """(cfg, params, lora) of a checkpoint directory, with every tensor on
     ``device``: by default the current CUDA device. With no device named
     and no CUDA device it raises `RuntimeError`; the CPU is used only when
@@ -61,8 +61,8 @@ def load_checkpoint(ckpt_dir: str, device=None,
     With ``mesh`` (this rank's `parallel.ProcessMesh`) the parameters are
     the rank's local tree (`parallel.shard_params`) on ``mesh.device``:
     every rank maps the same file into host memory and copies only its
-    shard to its device. The adapter stays whole (the rules keep LoRA
-    whole)."""
+    shard to its device, cut by ``param_mode`` (``fsdp``: over the data
+    axis too). The adapter stays whole (the rules keep LoRA whole)."""
     if mesh is not None:
         from ..parallel.sharding import shard_params
 
@@ -72,7 +72,7 @@ def load_checkpoint(ckpt_dir: str, device=None,
         lora = tree["lora"]
         if lora is not None:
             lora = shard_params(lora, mesh)
-        return cfg, shard_params(tree["params"], mesh), lora
+        return cfg, shard_params(tree["params"], mesh, mode=param_mode), lora
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -28,9 +28,10 @@ import torch.nn.functional as F
 
 from ..config import MMDuetConfig
 
-from ..parallel.collectives import cut, gather_vocab
+from ..parallel.collectives import (copy_to_model, cut, gather_vocab, max_model, model_axis,
+                                    reduce_model, sum_data, whole_over_data)
 from . import clip, qwen2, siglip
-from .quant import matmul_f32
+from .quant import matmul_f32, out_width
 from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
 
 Params = Dict[str, Any]
@@ -117,9 +118,11 @@ def project(params: Params, features: torch.Tensor) -> torch.Tensor:
     product is summed over the model axis, then ``fc2_bias`` is added."""
     p = params["projector"]
     dt = features.dtype
+    fc2 = p["fc2"]
+    if cut(fc2.shape[0], fc2.shape[1], "projector fc2"):
+        features = copy_to_model(features)
     x = siglip._linear(features, p["fc1"].to(dt), p["fc1_bias"])
     x = F.gelu(x.float(), approximate="none").to(dt)
-    fc2 = p["fc2"]
     return siglip._linear(x, fc2.to(dt), p["fc2_bias"],
                           partial=cut(fc2.shape[0], fc2.shape[1], "projector fc2"))
 
@@ -195,16 +198,46 @@ def _head(w: torch.Tensor, hidden: torch.Tensor) -> torch.Tensor:
     return matmul_f32(hidden, w)
 
 
-def masked_ce(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_ce(logits: torch.Tensor, labels: torch.Tensor,
+              vocab_size: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean cross-entropy over labels != -100. Returns (loss, count); the
-    loss is 0 when no label counts."""
+    loss is 0 when no label counts.
+
+    On a rank of a process mesh the mean is the global batch's: the count
+    is summed over the data axis (`collectives.sum_data`), so each rank's
+    loss is its share, the sum of its nll over the global count (the sum
+    of the shares over ``data`` is the loss of the whole batch), and
+    ``count`` is the global count. Logits that are a rank's slice of
+    ``vocab_size`` (a vocabulary-cut LM head) take the vocabulary-parallel
+    cross-entropy (`_vocab_parallel_nll`)."""
     mask = labels != -100
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
-    count = mask.sum()
+    if vocab_size is not None and cut(logits.shape[-1], vocab_size, "LM logits"):
+        nll = _vocab_parallel_nll(logits, safe)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    count = sum_data(mask.sum())
     loss = (nll * mask).sum() / count.clamp(min=1)
     return torch.where(count > 0, loss, torch.zeros_like(loss)), count
+
+
+def _vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position ``logsumexp(row) - row[target]`` of whole-vocabulary rows
+    from this rank's (..., V / n) slice of them, as Megatron's
+    vocabulary-parallel cross-entropy: the row maximum, the sum of the
+    exponentials and the target's logit are each a sum over the model axis
+    (the maximum is a constant of the gradient; the two sums are
+    differentiable, `reduce_model`), so no rank holds a whole row."""
+    x = logits.float()
+    n = x.shape[-1]
+    shifted = x - max_model(x.detach().amax(dim=-1))[..., None]
+    sum_exp = reduce_model(torch.exp(shifted).sum(dim=-1))
+    local = targets - model_axis()[0] * n
+    hit = (local >= 0) & (local < n)
+    picked = torch.gather(shifted, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    target = reduce_model(torch.where(hit, picked, torch.zeros_like(picked)))
+    return torch.log(sum_exp) - target
 
 
 class TrainOutput(NamedTuple):
@@ -233,8 +266,16 @@ def train_forward(
     """Full-sequence training forward. Labels are pre-shifted by the
     collator; positions are ``cumsum(attn_mask) - 1``. The loss is
     ``lm_loss_weight * lm_loss + video_loss_weight * video_loss``, the
-    video loss one cross-entropy over both score heads' labels."""
-    embeds = joint_embed(params, cfg, input_ids, frame_embeds)
+    video loss one cross-entropy over both score heads' labels.
+
+    On a rank of a process mesh: each loss is the rank's share of the
+    global batch's (`masked_ce`); a vocabulary-cut LM head gives the rank's
+    slice of ``lm_logits`` (its input through `copy_to_model`); the frozen
+    embedding and LM head, where cut over the data axis, are gathered right
+    before they are used."""
+    dec = dict(params["decoder"], embed=whole_over_data(params["decoder"]["embed"]))
+    embeds = joint_embed(dict(params, decoder=dec), cfg, input_ids, frame_embeds)
+    del dec
     positions = torch.cumsum(attn_mask.int(), dim=1) - 1
     hidden, _ = qwen2.qwen2_forward(
         params["decoder"], cfg.text, embeds, positions,
@@ -242,11 +283,15 @@ def train_forward(
         use_flash=use_flash,
     )
     head_hidden = hidden.detach() if cfg.video_head_stop_grad else hidden
-    lm = qwen2.lm_logits(params["lm_head"], hidden)
+    lm_head = whole_over_data(params["lm_head"])
+    if cut(out_width(lm_head), cfg.text.vocab_size, "lm_head"):
+        hidden = copy_to_model(hidden)
+    lm = qwen2.lm_logits(lm_head, hidden)
+    del lm_head
     inf = _head(params["informative_head"], head_hidden)
     rel = _head(params["relevance_head"], head_hidden)
 
-    lm_loss, _ = masked_ce(lm, labels)
+    lm_loss, _ = masked_ce(lm, labels, cfg.text.vocab_size)
     video_loss, _ = masked_ce(
         torch.cat([inf, rel], dim=0),
         torch.cat([informative_labels, relevance_labels], dim=0),

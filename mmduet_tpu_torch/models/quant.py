@@ -127,6 +127,14 @@ def is_quantized(leaf: Any) -> bool:
     return isinstance(leaf, dict) and "qs" in leaf and ("qw" in leaf or "qw4" in leaf)
 
 
+def out_width(w: Any) -> int:
+    """The output width of a dense or quantized (in, out) weight leaf (the
+    last dim of its values)."""
+    if isinstance(w, dict):
+        w = w["qw4"] if "qw4" in w else w["qw"]
+    return w.shape[-1]
+
+
 def layer_view(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a tree of layer-stacked leaves: views, also of the
     tensors inside quantized leaves."""

@@ -31,7 +31,15 @@ leaves' shapes; the f32 partial products of a row-cut ``o_proj`` /
 axis (`parallel.collectives.reduce_model`) before their one rounding, so a
 rank's hidden states differ from one device's only by the order of that
 sum, and are the same bits on every rank. `lm_logits` gives the rank's
-vocabulary slice (`collectives.gather_vocab` makes whole rows).
+vocabulary slice (`collectives.gather_vocab` makes whole rows). Under
+autograd the normed inputs of q/k/v and of gate/up pass through
+`collectives.copy_to_model` (the sum of their cotangents over the model
+axis), and the reduces are differentiable; a whole adapter's gradient is
+then the rank's part of it (the columns or rows it used, or a partial sum),
+which the training step sums over the model axis. In full mode, leaves cut
+over the data axis (``--param_mode fsdp``) are gathered one layer at a time
+inside the layer (`collectives.data_gatherer`), so under remat they are
+gathered again in its recompute.
 """
 
 from __future__ import annotations
@@ -47,8 +55,9 @@ from ..config import Qwen2Config
 
 from ..ops.attention import (KernelRefused, ShardCtx, attend, flash_decode_attention,
                              flash_decode_attention_sharded, flash_full_attention)
-from ..parallel.collectives import cut, model_axis, reduce_model
-from .quant import is_quantized, layer_view, quantized_matmul, unpack_int4
+from ..parallel.collectives import (copy_to_model, cut, data_gatherer, model_axis,
+                                    reduce_model)
+from .quant import is_quantized, layer_view, out_width, quantized_matmul, unpack_int4
 
 Params = Dict[str, Any]
 Lanes = Union[int, Sequence[int], torch.Tensor]
@@ -236,6 +245,8 @@ def _qkv(x: torch.Tensor, p: Params, lo: Params, lora_scale: float,
     B, T, _ = x.shape
     hd = cfg.head_dim
     y = rms_norm(x, p["input_norm"], cfg.rms_norm_eps)
+    if cut(out_width(p["q_proj"]), cfg.num_heads * hd, "q_proj"):
+        y = copy_to_model(y)
     q = _proj(y, p["q_proj"], p.get("q_bias"), lo.get("q_proj"), lora_scale)
     k = _proj(y, p["k_proj"], p.get("k_bias"), lo.get("k_proj"), lora_scale)
     v = _proj(y, p["v_proj"], p.get("v_bias"), lo.get("v_proj"), lora_scale)
@@ -254,6 +265,8 @@ def _out_mlp(x: torch.Tensor, attn: torch.Tensor, p: Params, lo: Params,
     x = x + _proj(attn, p["o_proj"], None, lo.get("o_proj"), lora_scale,
                   partial=cut(attn.shape[-1], cfg.num_heads * cfg.head_dim, "o_proj"))
     y = rms_norm(x, p["post_attn_norm"], cfg.rms_norm_eps)
+    if cut(out_width(p["gate_proj"]), cfg.intermediate_size, "gate_proj"):
+        y = copy_to_model(y)
     gate = _proj(y, p["gate_proj"], None, lo.get("gate_proj"), lora_scale)
     up = _proj(y, p["up_proj"], None, lo.get("up_proj"), lora_scale)
     act = F.silu(gate.float()).to(x.dtype) * up
@@ -420,7 +433,11 @@ def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
         if attn_mask is not None:  # padding neither attends nor is attended
             mask = mask & attn_mask[:, None, :] & attn_mask[:, :, None]
 
+    layers = params["layers"]
+    whole = data_gatherer(layers)  # the identity unless leaves are cut over data
+
     def layer(x, p, lo):
+        p = whole(p)
         q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
         if use_flash:
             attn = flash_full_attention(q, k, v, attn_mask)
@@ -429,7 +446,6 @@ def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
         return _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
     x = embeds
-    layers = params["layers"]
     for i in range(layers["input_norm"].shape[0]):
         p = layer_view(layers, i)
         lo = _layer_lora(lora, i)

@@ -12,7 +12,11 @@ On a rank of a process mesh the layers are the rank's local leaves
 (`parallel.sharding.shard_params`): its heads and its part of the MLP's
 intermediate dim. The f32 products of ``o_proj`` and ``fc2`` are then
 summed over the model axis before their rounding, and the whole
-``o_bias`` / ``fc2_bias`` is added once, after the sum.
+``o_bias`` / ``fc2_bias`` is added once, after the sum; under autograd
+the normed inputs of q/k/v and fc1 pass through
+`collectives.copy_to_model`. Leaves cut over the data axis (``--param_mode
+fsdp``: the frozen tower in training) are gathered right before their
+layer runs (`collectives.data_gatherer`).
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import torch.nn.functional as F
 from ..config import SiglipConfig
 from ..ops.attention import (KernelRefused, flash_vision_attention,
                              flash_vision_attention_ref)
-from ..parallel.collectives import cut, reduce_model
-from .quant import is_quantized, layer_view, quantized_matmul
+from ..parallel.collectives import (copy_to_model, cut, data_gatherer, reduce_model,
+                                    whole_over_data)
+from .quant import is_quantized, layer_view, out_width, quantized_matmul
 
 Params = Dict[str, Any]
 
@@ -103,7 +108,9 @@ def encoder_layer(h: torch.Tensor, p: Params, cfg,
     N, T, C = h.shape
     hd = cfg.hidden_size // cfg.num_heads
 
+    heads_cut = cut(out_width(p["q_proj"]), C, "vision q_proj")
     y = _layer_norm(h, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
+    y = copy_to_model(y) if heads_cut else y
     q = _linear(y, p["q_proj"], p["q_bias"]).reshape(N, T, -1, hd)
     k = _linear(y, p["k_proj"], p["k_bias"]).reshape(N, T, -1, hd)
     v = _linear(y, p["v_proj"], p["v_bias"]).reshape(N, T, -1, hd)
@@ -112,6 +119,8 @@ def encoder_layer(h: torch.Tensor, p: Params, cfg,
                     partial=cut(attn.shape[-1], C, "vision o_proj"))
 
     y = _layer_norm(h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
+    if cut(out_width(p["fc1"]), cfg.intermediate_size, "vision fc1"):
+        y = copy_to_model(y)
     y = _linear(y, p["fc1"], p["fc1_bias"])
     y = act(y.float()).to(h.dtype)
     return h + _linear(y, p["fc2"], p["fc2_bias"],
@@ -126,16 +135,17 @@ def siglip_encode(
     use_flash: Optional[bool] = None,  # None = auto (kernel D on CUDA tensors)
 ) -> torch.Tensor:
     """Encode frames -> patch features (N, num_patches, hidden)."""
-    x = _linear(patchify(images, cfg.patch_size), params["patch_embed"],
+    x = _linear(patchify(images, cfg.patch_size), whole_over_data(params["patch_embed"]),
                 params["patch_bias"])
-    x = x + params["pos_embed"].to(x.dtype)[None]
+    x = x + whole_over_data(params["pos_embed"]).to(x.dtype)[None]
     num_layers = (
         cfg.num_layers + feature_layer + 1 if feature_layer < 0
         else feature_layer + 1
     )
     layers = params["layers"]
+    whole = data_gatherer(layers)
     for i in range(num_layers):
-        x = encoder_layer(x, layer_view(layers, i), cfg, _tanh_gelu, use_flash)
+        x = encoder_layer(x, whole(layer_view(layers, i)), cfg, _tanh_gelu, use_flash)
     return x
 
 

@@ -112,6 +112,15 @@ def initialize_distributed(backend: str, **kwargs) -> None:
     dist.init_process_group(backend=backend, init_method="env://", **kwargs)
 
 
+def leave_group() -> None:
+    """After a process's last collective: wait for every rank, then leave
+    the group (a rank that exits while another still reads its last
+    collective aborts that rank). Nothing to do without a group."""
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def _process_mesh(shape: Optional[Tuple[int, int]], device) -> ProcessMesh:
     world, rank = dist.get_world_size(), dist.get_rank()
     shape = (world, 1) if shape is None else tuple(shape)
@@ -135,6 +144,7 @@ def _process_mesh(shape: Optional[Tuple[int, int]], device) -> ProcessMesh:
     d, m = divmod(rank, model_n)
     mesh = ProcessMesh(shape, (d, m), device, model_groups[d], data_groups[m])
     collectives.bind_model_axis(mesh.model_group, m, model_n)
+    collectives.bind_data_axis(mesh.data_group, d, data_n)
     return mesh
 
 
@@ -150,8 +160,9 @@ def make_mesh(
       `torch.distributed` group (`initialize_distributed`): a
       `ProcessMesh` over the group's ranks, on ``device`` (default:
       ``cuda:LOCAL_RANK``). Every rank calls it with the same ``shape``.
-      It binds this process's model axis (`collectives.bind_model_axis`):
-      one process is one rank, and every forward it runs is on its shard.
+      It binds this process's model and data axes
+      (`collectives.bind_model_axis`, `bind_data_axis`): one process is
+      one rank, and every forward it runs is on its shard.
     - Otherwise: a one-device `Mesh` over ``devices`` (default: the current
       CUDA device), whose entries must all be the same device.
 

@@ -19,7 +19,15 @@ with one axis name or None per dim (the JAX `PartitionSpec`'s entries):
   whole.
 
 XLA derives the collectives from these specs; the port's ranks compute
-on their local trees (`shard_params`) and call `parallel.collectives`.
+on their local trees (`shard_params`, which tags each local leaf with its
+spec, ``collectives.SPEC_ATTR``) and call `parallel.collectives`. Training
+(`shard_train_state`) keeps the trainable leaves whole over ``data`` and
+cuts each optimizer moment over ``data`` inside the rank's trainable
+block (`moment_spec`), where the JAX package cuts the whole moment: it
+keeps global arrays, so its cut is a layout, and the port's is the one
+whose blocks line up with the rank's trainable leaves under tensor
+parallelism. `gather_params` / `gather_train_state` are the inverses,
+for checkpoints.
 One leaf differs from the JAX layout: an int4 leaf cut on its input dim
 (o_proj, down_proj, fc2). The JAX spec cuts its packed ``g/2`` axis, whose
 byte j holds input values j and j + g/2 of a group (split-halves order),
@@ -36,6 +44,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..models.quant import pack_int4, unpack_int4
+from .collectives import SPEC_ATTR, data_axis, gather, model_axis, sum_bits
 from .mesh import DATA_AXIS, MODEL_AXIS, ProcessMesh
 
 Spec = Tuple[Optional[str], ...]
@@ -200,6 +209,14 @@ def _placed(x: torch.Tensor, device) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device=device).copy_(x)
 
 
+def _tagged(x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """``x`` with its spec as an attribute (Megatron tags its parameters
+    the same way): the model gathers the leaves it finds cut over
+    ``data`` (`collectives.data_gatherer`), `gather_params` every cut."""
+    setattr(x, SPEC_ATTR, spec)
+    return x
+
+
 def _int4_input_cut(leaf: Dict[str, torch.Tensor], rank: int, n: int) -> Dict[str, torch.Tensor]:
     """Rank ``rank``'s contiguous 1/n of the input rows of an int4 leaf
     (``qw4`` (..., G, g/2, O) in split-halves order, ``qs`` (..., G, 1, O)),
@@ -244,29 +261,178 @@ def shard_params(params: Any, mesh: ProcessMesh, mode: str = "replicate") -> Any
                 if DATA_AXIS in spec:
                     raise ValueError(f"{path}: an int4 serving leaf under fsdp (a training mode)")
                 local = _int4_input_cut(tree, mesh.index(MODEL_AXIS), model_n)
+                # no spec tag: its rows are a repacking, not a block of the leaf
                 return {k: _placed(t, mesh.device) for k, t in local.items()}
         if isinstance(tree, dict):
             return {k: walk(v, f"{path}/{k}" if path else str(k)) for k, v in tree.items()}
         if torch.is_tensor(tree):
             spec = _spec_for(path, tuple(tree.shape), data_n, model_n, mode)
-            return _placed(_local(tree, spec, mesh), mesh.device)
+            return _tagged(_placed(_local(tree, spec, mesh), mesh.device), spec)
         return tree
 
     return walk(params, "")
 
 
+def moment_spec(shape, data_n: int) -> Spec:
+    """The ZeRO-2 cut of an optimizer moment over ``data``, taken on the
+    rank's trainable block of ``shape`` (its largest divisible dim); ()
+    where nothing divides or the data axis is 1."""
+    return _zero_spec(shape, data_n) if data_n > 1 and len(shape) >= 1 else ()
+
+
+def data_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's `moment_spec` block of ``x`` (a trainable leaf, its
+    gradient or a moment, at the trainable block's shape): a view."""
+    return _local(x, moment_spec(tuple(x.shape), mesh.shape[DATA_AXIS]), mesh)
+
+
 def shard_train_state(state: Any, mesh: ProcessMesh, param_mode: str = "replicate") -> Any:
     """This rank's local `train.step.TrainState`: the trainable leaves by
-    the parameter rules, the optimizer state ZeRO-2, the step as it is."""
-    data_n = mesh.shape[DATA_AXIS]
+    the parameter rules (tensor parallelism; whole over ``data``, as the
+    JAX CLI keeps them), each moment the same block cut again over
+    ``data`` (`moment_spec`: ZeRO-2), the count and the step as they are.
 
-    def leaf(_, x):
+    The JAX package cuts each whole moment on its own largest dim, which
+    on a (2, 2) mesh would give rank (d, m) moment columns of half d beside
+    trainable columns of half m; the port cuts inside the trainable block,
+    so each rank's moments pair with its trainable elements (the JAX
+    arrays are global, so this is a local layout, not another result)."""
+    if param_mode != "replicate" and mesh.shape[DATA_AXIS] > 1:
+        raise ValueError("shard_train_state: the trainable leaves stay whole over data "
+                         "(ZeRO-2); --param_mode fsdp cuts the frozen base (shard_params)")
+    trainable = shard_params(state.trainable, mesh)
+
+    def moments(tree):
+        return _map(lambda _, x: _placed(data_block(x, mesh), mesh.device),
+                    shard_params(tree, mesh))
+
+    opt = {k: (moments(v) if k in ("mu", "nu") else v) for k, v in state.opt_state.items()}
+    return type(state)(step=state.step, trainable=trainable, opt_state=opt)
+
+
+# ---------------------------------------------------------------------------
+# Whole trees from the ranks' blocks (the inverses, for checkpoints)
+# ---------------------------------------------------------------------------
+
+
+def _whole(x: torch.Tensor, spec: Spec) -> torch.Tensor:
+    """The whole of a local leaf under ``spec`` (a zero-filled sum over each
+    axis it names, in dim order)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = gather(x, dim, axis)
+    return x
+
+
+def gather_params(params: Any, to=None, keep: bool = True) -> Any:
+    """The whole tree of a rank's local ``params`` (`shard_params`), leaf by
+    leaf: each leaf gathered over the axes its spec tag names, then moved
+    to ``to`` (a device; None keeps it where it is). Every rank of the
+    mesh calls it (each gather is a collective); a rank that passes
+    ``keep=False`` drops each leaf after its gather (None in the tree). An
+    int4 leaf cut on its input rows (serving's repacking) raises."""
+
+    def leaf(path, x):
         if not torch.is_tensor(x):
             return x
-        return _placed(_local(x, _opt_spec(x, data_n), mesh), mesh.device)
+        spec = getattr(x, SPEC_ATTR, None)
+        if spec is None:
+            if model_axis()[1] > 1 or data_axis()[1] > 1:
+                raise ValueError(f"{path}: no spec tag (an int4 leaf cut on its input rows, "
+                                 "or a tree that shard_params did not make)")
+            spec = ()
+        out = _whole(x, spec)
+        if not keep:
+            return None
+        return out if to is None else out.to(to)
 
-    return type(state)(
-        step=state.step,
-        trainable=shard_params(state.trainable, mesh, mode=param_mode),
-        opt_state=_map(leaf, state.opt_state),
-    )
+    return _map(leaf, params)
+
+
+def _projector_whole(path: str, shape: Tuple[int, ...], width: int) -> Tuple[int, ...]:
+    """A trainable leaf's whole shape: the projector's fc1 / fc1_bias
+    (outputs) and fc2 (inputs) hold ``width`` values on their cut dim."""
+    name = path.split("/")[-1]
+    if not path.startswith("projector/") or name == "fc2_bias":
+        return shape
+    dim = 0 if name == "fc2" else len(shape) - 1
+    return tuple(width if i == dim else n for i, n in enumerate(shape))
+
+
+def trainable_specs(trainable: Any, mesh) -> Any:
+    """The specs of a rank's local trainable tree (`shard_train_state`):
+    the parameter rules on the whole tree's shapes. Only the projector is
+    cut (over ``model``, on the text width, which ``fc2_bias`` holds
+    whole); the adapters and the score heads stay whole."""
+    width = trainable["projector"]["fc2_bias"].shape[-1]
+    data_n, model_n = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    return _map(lambda path, x: _spec_for(path, _projector_whole(path, _shape(x), width),
+                                          data_n, model_n, "replicate"), trainable)
+
+
+def lora_cut_over_model(lora: Any, mesh) -> Dict[str, bool]:
+    """Per adapted projection, whether its base weight is cut over
+    ``model`` (the whole adapter's shapes give the weight's: (L, in, out)).
+    A rank's gradient of such an adapter is its part of the whole: summed
+    over ``model`` after accumulation (`train.step`)."""
+    model_n = mesh.shape[MODEL_AXIS]
+    return {name: MODEL_AXIS in _spec_for(
+        f"decoder/layers/{name}", (ab["a"].shape[0], ab["a"].shape[1], ab["b"].shape[-1]),
+        1, model_n, "replicate") for name, ab in lora.items()}
+
+
+def gather_data_blocks(blocks: Any, like: Any, mesh) -> Any:
+    """Whole-over-``data`` leaves of the shapes of ``like`` from this
+    rank's `data_block` of each: one zero-filled sum over ``data`` per
+    dtype. Blocks that are not cut (``moment_spec`` ()) are taken as they
+    are."""
+    data_n = mesh.shape[DATA_AXIS]
+    pairs = list(zip(_leaves(blocks), _leaves(like)))
+    out: Dict[int, torch.Tensor] = {}
+    by_dtype: Dict[torch.dtype, list] = {}
+    for i, (b, ref) in enumerate(pairs):
+        if moment_spec(tuple(ref.shape), data_n):
+            by_dtype.setdefault(b.dtype, []).append(i)
+        else:
+            out[i] = b
+    for dtype, idx in by_dtype.items():
+        fulls = [torch.zeros(pairs[i][1].shape, dtype=dtype, device=pairs[i][0].device)
+                 for i in idx]
+        for i, full in zip(idx, fulls):
+            data_block(full, mesh).copy_(pairs[i][0])
+        flat = sum_bits(DATA_AXIS, torch.cat([f.reshape(-1) for f in fulls]))
+        for i, part in zip(idx, torch.split(flat, [f.numel() for f in fulls])):
+            out[i] = part.view(pairs[i][1].shape)
+    it = iter(out[i] for i in range(len(pairs)))
+    return _map(lambda _, x: next(it) if torch.is_tensor(x) else x, like)
+
+
+def gather_trainable(tree: Any, mesh, to=None) -> Any:
+    """The whole of a tree of a rank's trainable-shaped leaves (the
+    trainable leaves, their gradients, moments gathered over ``data``):
+    each leaf gathered over ``model`` by `trainable_specs`, then moved to
+    ``to``. Every rank calls it."""
+    flat = iter(_leaves(trainable_specs(tree, mesh)))
+
+    def leaf(_, x):
+        out = _whole(x, next(flat))
+        return out if to is None else out.to(to)
+
+    return _map(leaf, tree)
+
+
+def gather_train_state(state: Any, mesh, to=None) -> Any:
+    """The whole `train.step.TrainState` of a rank's local one
+    (`shard_train_state`): the moments gathered over ``data`` into the
+    trainable block, then every trainable-shaped leaf over ``model``;
+    moved to ``to`` (None keeps the device). Every rank calls it."""
+    opt = {k: (gather_trainable(gather_data_blocks(v, state.trainable, mesh), mesh, to)
+               if k in ("mu", "nu") else v) for k, v in state.opt_state.items()}
+    return type(state)(step=state.step, trainable=gather_trainable(state.trainable, mesh, to),
+                       opt_state=opt)
+
+
+def _leaves(tree: Any):
+    """The tensors of nested dicts, in key order (`_map`'s order)."""
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)

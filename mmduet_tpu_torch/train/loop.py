@@ -1,6 +1,8 @@
-"""Training CLI: LoRA fine-tuning of MMDuet on one device.
+"""Training CLI: LoRA fine-tuning of MMDuet on one device or on a process
+mesh.
 
-Port of `mmduet_tpu/train/loop.py` (same flags, plus ``--device``):
+Port of `mmduet_tpu/train/loop.py` (same flags, plus ``--device`` and
+``--dist_backend``):
 
     python -m mmduet_tpu_torch.train.loop --dataset_config configs/datasets/x.json \
         --checkpoint <base-ckpt-dir> --output_dir outputs/run1 ...
@@ -16,9 +18,26 @@ step. Metrics stream to stdout and ``<output>/log.jsonl`` under the JAX
 CLI's keys. On a GPU the decoder's attention is kernel C, which takes
 bf16 only, so ``--bf16 false`` runs on the CPU alone. A batch whose step
 raises is skipped, as in JAX, except when a kernel refused its operands or
-failed to launch (`ops.attention.KernelError`): that ends the run. Not
-ported yet: a mesh (``--mesh_data``/``--mesh_model`` other than 1) and
-``--param_mode fsdp``; both raise.
+failed to launch (`ops.attention.KernelError`): that ends the run.
+
+A (data, model) mesh runs one process per rank, started as the reference
+starts its training:
+
+    python -m torch.distributed.run --nproc_per_node N -m mmduet_tpu_torch.train.loop \
+        --mesh_data D --mesh_model M [--param_mode replicate|fsdp] \
+        [--dist_backend nccl|gloo] [--device cuda|cuda:0|cpu] ...
+
+``D`` defaults to N / M, and D x M must be N. ``--param_mode replicate``
+is ZeRO-2 (optimizer state cut over ``data``), ``fsdp`` also cuts the
+frozen base over ``data`` (gathered where it is used); ``M`` > 1 is tensor
+parallelism. The global batch is ``--per_device_batch_size`` x D: every
+rank builds it and runs its part (`train.step`). ``nccl`` needs a card a
+rank (``--device cuda`` is ``cuda:LOCAL_RANK``); ``gloo`` runs CPU ranks
+(``--device cpu``) or ranks sharing one card (``--device cuda:0``).
+Rank 0 alone prints, writes ``log.jsonl``, the checkpoints (the whole
+state, `train.checkpoint`) and ``final/`` (the base gathered leaf by leaf
+to the host). A step that raises on a mesh ends the run: a rank that
+skipped a batch alone would leave the others' collectives waiting.
 
 ``parse_length_buckets``, ``synthetic_batches``, ``real_batches``,
 ``_prefetch_map`` and ``_accumulate`` are copies of the JAX module's host
@@ -89,7 +108,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--dataloader_num_workers", type=int, default=4)
     p.add_argument("--bf16", type=lambda s: s.lower() == "true", default=True)
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to train on (cuda, cuda:N or cpu)")
+                   help="torch device to train on (cuda, cuda:N or cpu; on a mesh, "
+                        "cuda is cuda:LOCAL_RANK)")
+    p.add_argument("--dist_backend", type=str, default="nccl", choices=("nccl", "gloo"),
+                   help="on a mesh: the torch.distributed backend (nccl: a card per rank; "
+                        "gloo: CPU ranks, or ranks sharing one card)")
     return p
 
 
@@ -236,17 +259,51 @@ def _to_device(batch, device) -> dict:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
 
 
+def _make_mesh(args):
+    """This rank's (data, model) process mesh under torch.distributed.run,
+    or None for one process (where --mesh_data / --mesh_model > 1 say how
+    to start it)."""
+    if "WORLD_SIZE" not in os.environ:
+        if (args.mesh_data or 1) > 1 or args.mesh_model > 1:
+            n = (args.mesh_data or 1) * args.mesh_model
+            raise SystemExit(
+                f"--mesh_data {args.mesh_data or 1} --mesh_model {args.mesh_model} runs one "
+                f"process per rank: start it with python -m torch.distributed.run "
+                f"--nproc_per_node {n} -m mmduet_tpu_torch.train.loop ...")
+        return None
+    from ..parallel import initialize_distributed, make_mesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    data_n = args.mesh_data or world // args.mesh_model
+    if data_n * args.mesh_model != world:
+        # strict, as make_mesh (the JAX CLI only warns and idles devices)
+        raise SystemExit(f"mesh ({data_n} x {args.mesh_model}) != {world} ranks")
+    initialize_distributed(args.dist_backend)
+    device = torch.device(args.device)
+    # a bare "cuda" is each rank's own card; "cuda:i" or "cpu" is named
+    return make_mesh((data_n, args.mesh_model),
+                     device=None if device == torch.device("cuda") else device)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if (args.mesh_data or 1) != 1 or args.mesh_model != 1 or args.param_mode == "fsdp":
-        raise SystemExit("a device mesh (--mesh_data/--mesh_model) and --param_mode "
-                         "fsdp are not yet ported: the port trains on one device")
     device = torch.device(args.device)
     if device.type == "cuda" and not args.bf16:
         raise SystemExit("--bf16 false: the GPU's training attention (kernel C) takes "
                          "bfloat16 only; f32 base params run with --device cpu")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: torch.cuda.is_available() is false")
+    from ..parallel.mesh import leave_group
+
+    mesh = _make_mesh(args)
+    _train(args, mesh)
+    leave_group()  # after a failure the process exits and its launcher ends the others
+
+
+def _train(args, mesh) -> None:
+    device = torch.device(args.device) if mesh is None else mesh.device
+    rank0 = mesh is None or mesh.coords == (0, 0)
+    log = print if rank0 else (lambda *a, **k: None)
 
     from ..config import TrainArgs, tiny_config
     from ..stream import CharTokenizer, HFTokenizerAdapter
@@ -255,8 +312,11 @@ def main(argv=None):
     from ..models.io import load_checkpoint, save_checkpoint
     from ..models.lora import fold_lora_scale, init_lora, lora_scale
     from ..ops.attention import KernelError
+    from ..parallel import DATA_AXIS, shard_params, shard_train_state
+    from ..parallel.collectives import carry_spec
+    from ..parallel.sharding import gather_params, gather_train_state
     from .checkpoint import latest_checkpoint, restore_train_state, save_train_state
-    from .optimizer import make_optimizer, merge_trainable, tree_map
+    from .optimizer import FINETUNE_KEYS, make_optimizer, merge_trainable, tree_map
     from .step import init_train_state, make_train_step
 
     os.makedirs(args.output_dir, exist_ok=True)
@@ -270,9 +330,12 @@ def main(argv=None):
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
         params = init_mmduet_params(
             cfg, torch.Generator(device=device).manual_seed(args.seed), device, dtype)
+        if mesh is not None:
+            params = shard_params(params, mesh, mode=args.param_mode)
         tokenizer = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
     elif args.checkpoint:
-        cfg, params, _ = load_checkpoint(args.checkpoint, device)
+        cfg, params, _ = load_checkpoint(args.checkpoint, device, mesh=mesh,
+                                         param_mode=args.param_mode)
         tokenizer = HFTokenizerAdapter.from_pretrained(
             args.checkpoint, frame_num_tokens=cfg.frame_num_tokens,
             v_placeholder=cfg.v_placeholder,
@@ -288,7 +351,8 @@ def main(argv=None):
     # --bf16 false: full-f32 base params (precision-debug mode). Trainable
     # params and gradient accumulation are f32 either way.
     if not args.bf16:
-        params = tree_map(lambda x: x.float() if x.dtype == torch.bfloat16 else x, params)
+        params = tree_map(lambda x: carry_spec(x.float(), x) if x.dtype == torch.bfloat16
+                          else x, params)
 
     # --- data ------------------------------------------------------------
     train_args = TrainArgs(
@@ -303,7 +367,8 @@ def main(argv=None):
         max_num_frames=args.max_num_frames,
         output_dir=args.output_dir,
     )
-    B = args.per_device_batch_size
+    data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    B = args.per_device_batch_size * data_n  # the global batch, as the JAX CLI
     A = args.grad_accum_steps
     seq_len = args.seq_len or (args.max_num_frames * cfg.frame_num_tokens + 1024)
 
@@ -340,7 +405,7 @@ def main(argv=None):
             ),
         )
         if collator.buckets and resume_step:
-            print("WARNING: resume with length buckets: step grouping "
+            log("WARNING: resume with length buckets: step grouping "
                   "near the interruption point is approximate "
                   "(bounded by one partial accum group per bucket)")
         steps_per_epoch = len(dataset) // (B * A)
@@ -353,26 +418,30 @@ def main(argv=None):
     tx, sched = make_optimizer(train_args, total_steps)
     lora = init_lora(torch.Generator(device=device).manual_seed(args.seed + 1), cfg.text,
                      rank=args.lora_r, device=device)
-    state = init_train_state(params, lora, tx)
+    if mesh is None:
+        state = init_train_state(params, lora, tx)
+    else:  # from the whole trainable leaves (the local base holds blocks of them)
+        whole = gather_params({k: params[k] for k in FINETUNE_KEYS})
+        state = shard_train_state(init_train_state(whole, lora, tx), mesh)
     if resume:
-        print(f"resuming from {resume}")
-        state = restore_train_state(resume, state)
-    step_fn = make_train_step(cfg, train_args, tx, sched)
+        log(f"resuming from {resume}")
+        state = restore_train_state(resume, state, mesh=mesh)
+    step_fn = make_train_step(cfg, train_args, tx, sched, mesh=mesh)
 
     # --- loop ------------------------------------------------------------
     log_path = os.path.join(args.output_dir, "log.jsonl")
-    log_f = open(log_path, "a")
+    log_f = open(log_path, "a") if rank0 else open(os.devnull, "w")
     t_last = time.perf_counter()
     done = state.step
     if done:
         # resume: fast-forward past the batches the interrupted run consumed
-        print(f"resume: skipping {done} already-consumed optimizer batches")
+        log(f"resume: skipping {done} already-consumed optimizer batches")
         if args.synthetic_steps:
             for _ in range(done):
                 if next(batches, None) is None:
                     break
         elif done != resume_step:
-            print(f"WARNING: restored step {done} != checkpoint-name step "
+            log(f"WARNING: restored step {done} != checkpoint-name step "
                   f"{resume_step}; data order will not match the original run")
     real_toks = padded_toks = 0  # since the last log line
     for batch in batches:
@@ -390,6 +459,8 @@ def main(argv=None):
         except KernelError:
             raise  # a fault of the run, not of this batch
         except Exception as e:  # fault tolerance: skip the batch
+            if mesh is not None:
+                raise  # the other ranks' collectives would wait for this one
             print(f"step {done} failed: {type(e).__name__}: {e}; skipping")
             continue
         if done % args.logging_steps == 0 or done == total_steps:
@@ -403,16 +474,23 @@ def main(argv=None):
                 rec["real_tok_s"] = round(real_toks / dt, 1)
                 rec["pad_frac"] = round(1.0 - real_toks / padded_toks, 3)
                 real_toks = padded_toks = 0
-            print(json.dumps(rec))
+            log(json.dumps(rec))
             log_f.write(json.dumps(rec) + "\n")
             log_f.flush()
         if args.save_steps and done % args.save_steps == 0:
-            path = save_train_state(args.output_dir, done, state, args.save_total_limit)
-            print(f"saved {path}")
+            path = save_train_state(args.output_dir, done, state, args.save_total_limit,
+                                    mesh=mesh)
+            log(f"saved {path}")
     log_f.close()
 
     # final model: the trainable leaves folded back into a full checkpoint,
-    # alpha/r folded into b (the saved adapter serves at lora_scale=1.0)
+    # alpha/r folded into b (the saved adapter serves at lora_scale=1.0);
+    # on a mesh every rank gathers, rank 0 writes
+    if mesh is not None:
+        params = gather_params(params, to="cpu", keep=rank0)
+        state = gather_train_state(state, mesh, to="cpu")
+    if not rank0:
+        return
     final_dir = os.path.join(args.output_dir, "final")
     save_checkpoint(
         final_dir, cfg, merge_trainable(params, state.trainable),

@@ -29,6 +29,8 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from ..config import TrainArgs
+from ..parallel.collectives import sum_model
+from ..parallel.sharding import data_block, gather_data_blocks
 
 FINETUNE_KEYS = ("projector", "informative_head", "relevance_head")
 MAX_GRAD_NORM = 1.0
@@ -110,9 +112,38 @@ def tree_map(fn, tree, *rest):
             else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, f32 (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(x.float() * x.float()) for x in tree_leaves(tree)))
+def global_norm(tree, cut=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, f32 (optax.global_norm).
+
+    On a rank of a process mesh, ``cut`` (a tree of bools of the same
+    structure) marks the leaves the rank holds a part of over the model
+    axis: their squares are summed over that axis, the others' are not
+    (each rank holds them whole), so every rank gets the norm of the whole
+    tree."""
+    def sq(x):
+        return torch.sum(x.float() * x.float())
+
+    if cut is None:
+        return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    pairs = list(zip(tree_leaves(tree), tree_leaves(cut)))
+    zero = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
+    whole = sum((sq(x) for x, c in pairs if not c), zero)
+    parts = sum((sq(x) for x, c in pairs if c), zero.clone())
+    return torch.sqrt(whole + sum_model(parts))
+
+
+def zero2_update(tx: "AdamW", grads: Dict, state: Dict, trainable: Dict, norm: torch.Tensor,
+                 mesh) -> Tuple[Dict, Dict]:
+    """The ZeRO-2 update of a rank of ``mesh``: ``state`` holds the rank's
+    moment blocks (`parallel.sharding.shard_train_state`); the rank updates
+    the same block of the averaged gradient and of each trainable leaf,
+    then the updated blocks are gathered over the data axis. AdamW is
+    elementwise, so the result is the bits of the update of whole leaves."""
+    def blocks(tree):
+        return tree_map(lambda x: data_block(x, mesh), tree)
+
+    new, state = tx.update(blocks(grads), state, blocks(trainable), norm)
+    return gather_data_blocks(new, trainable, mesh), state
 
 
 class AdamW(NamedTuple):

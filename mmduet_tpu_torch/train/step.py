@@ -1,7 +1,7 @@
 """The training step: gradient accumulation over micro-batches, one AdamW
 update, and the non-finite guard.
 
-Port of `mmduet_tpu/train/step.py` on one device:
+Port of `mmduet_tpu/train/step.py`:
 
 - one call consumes a whole accumulation window of A micro-batches (a
   host loop where JAX scans on device); gradients and metrics are
@@ -14,14 +14,35 @@ Port of `mmduet_tpu/train/step.py` on one device:
   sched(state.step)`` and the optimizer's count part, as in JAX.
 
 ``use_flash="auto"`` resolves to `qwen2_forward`'s own auto: kernel C for
-every CUDA tensor. The JAX step resolves it to the plain attention, on the
-strength of a TPU timing that does not carry to the GPU; on the CPU both
-take the plain path.
+every CUDA tensor, under a mesh too (on each rank's heads). The JAX step
+resolves it to the plain attention, on the strength of a TPU timing that
+does not carry to the GPU, and has no flash route under a mesh; on the
+CPU both take the plain path.
+
+Under a process mesh (``mesh=``, a `parallel.ProcessMesh`, one process per
+rank; the base tree from `parallel.shard_params`, the state from
+`parallel.shard_train_state`), every rank is called with the same global
+batch and computes the step the one process computes on it, as the JAX
+step under ``mesh=`` does:
+
+- the rank runs its part of the batch dim (dim 1) of every (A, B, T) leaf,
+  the data cut of JAX's `batch_shardings`, and the frames of its own
+  samples (the frame slots its placeholders count: the dim-1 cut of an
+  (A, N, ...) leaf when every sample holds N / B slots);
+- each loss is the rank's share of the global token mean
+  (`models.mmduet.masked_ce`); gradients are summed over ``data`` once
+  after the A micro-batches, then divided by A; a whole adapter of a
+  projection cut over ``model`` has a partial gradient on each rank
+  (`parallel.sharding.lora_cut_over_model`), summed over ``model``;
+- the gradient norm is the whole tree's (`optimizer.global_norm` with the
+  leaves cut over ``model``), and metrics are read only from reduced
+  values, so every rank reports the same bits and skips together;
+- the update is ZeRO-2 (`optimizer.zero2_update`) where ``data`` > 1.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,10 +50,14 @@ from ..config import MMDuetConfig, TrainArgs
 
 from ..models import mmduet, siglip
 from ..models.lora import lora_scale
+from ..parallel.collectives import sum_data, sum_flat, sum_model
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.sharding import lora_cut_over_model, trainable_specs
 from .optimizer import (AdamW, Schedule, global_norm, merge_trainable, trainable_params,
-                        tree_leaves, tree_map)
+                        tree_leaves, tree_map, zero2_update)
 
 METRIC_KEYS = ("loss", "lm_loss", "video_loss")
+_FRAME_KEYS = ("frames", "vision_feats")
 
 
 class TrainState(NamedTuple):
@@ -60,32 +85,48 @@ def _frame_embeds(params: Dict, cfg: MMDuetConfig, micro: Dict) -> Optional[torc
     return mmduet.spatial_pool(mmduet.project(params, feats), cfg)
 
 
-def make_train_step(
-    cfg: MMDuetConfig,
-    args: TrainArgs,
-    tx: AdamW,
-    lr_sched: Optional[Schedule] = None,
-    use_flash: Any = "auto",
-):
-    """Build ``train_step(state, base_params, batch) -> (state, metrics)``.
+def _rank_micro(batch: Dict, a: int, cfg: MMDuetConfig, mesh) -> Dict:
+    """Micro-batch ``a`` of the global ``batch``, or this rank's part of it:
+    its samples' rows and their frames. A rank whose samples hold no frame
+    while others' do runs the tower on one unused slot, so that every rank
+    of the data axis runs the same collectives."""
+    micro = {k: v[a] for k, v in batch.items()}
+    data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if data_n == 1:
+        return micro
+    B = micro["input_ids"].shape[0]
+    if B % data_n:
+        raise ValueError(f"a micro-batch of {B} samples over a data axis of {data_n}")
+    per, d = B // data_n, mesh.index(DATA_AXIS)
+    rows = slice(d * per, (d + 1) * per)
+    frames = [k for k in _FRAME_KEYS if k in micro]
+    if frames:
+        counts = ((micro["input_ids"] == cfg.v_placeholder_id).sum(-1)
+                  // cfg.frame_num_tokens).tolist()
+        start, n = sum(counts[:rows.start]), sum(counts[rows])
+        span = slice(start, start + n) if n else slice(0, 1)
+    return {k: (v[span] if k in frames else v[rows]) for k, v in micro.items()}
 
-    ``batch`` holds tensors on the model's device with a leading
-    accumulation dim A: input_ids / attn_mask / labels /
-    informative_labels / relevance_labels (A, B, T), and optionally frames
-    (A, N, H, W, 3) uint8 or vision_feats (A, N, P, C). ``metrics`` are
-    host floats under the JAX step's keys."""
+
+def make_grad_fn(cfg: MMDuetConfig, args: TrainArgs, mesh=None,
+                 use_flash: Any = "auto") -> Callable[[Any, Dict, Dict], Tuple[Any, Dict]]:
+    """``grads(trainable, base_params, batch) -> (grads, metrics)``: the
+    f32 gradients of the trainable leaves and the losses, averaged over the
+    A micro-batches, on a mesh reduced to the whole batch's (the rank's
+    local blocks of the whole gradients; metrics as tensors, the same bits
+    on every rank)."""
     scale = lora_scale(args.lora_r, args.lora_alpha)
     remat = args.gradient_checkpointing
     flash = None if use_flash == "auto" else use_flash
 
-    def train_step(state: TrainState, base_params: Dict, batch: Dict):
+    def grads_of(trainable: Any, base_params: Dict, batch: Dict) -> Tuple[Any, Dict]:
         A = batch["input_ids"].shape[0]
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), state.trainable)
+                                               device=p.device), trainable)
         sums = {k: 0.0 for k in METRIC_KEYS}
         for a in range(A):
-            micro = {k: v[a] for k, v in batch.items()}
-            leaves = tree_map(lambda p: p.detach().requires_grad_(True), state.trainable)
+            micro = _rank_micro(batch, a, cfg, mesh)
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
             params = merge_trainable(base_params, leaves)
             out = mmduet.train_forward(
                 params, cfg, micro["input_ids"], micro["attn_mask"],
@@ -100,12 +141,70 @@ def make_train_step(
             grads = tree_map(lambda acc: _add(acc, next(got)), grads)
             for k in METRIC_KEYS:
                 sums[k] = sums[k] + getattr(out, k).detach().float()
-        grads = tree_map(lambda g: g / A, grads)
-        metrics = {k: v / A for k, v in sums.items()}
+        if mesh is not None:
+            grads = _reduce_grads(grads, mesh)
+            total = sum_data(torch.stack([sums[k] for k in METRIC_KEYS]))
+            sums = dict(zip(METRIC_KEYS, total.unbind()))
+        return tree_map(lambda g: g / A, grads), {k: v / A for k, v in sums.items()}
 
-        grad_norm = global_norm(grads)
+    return grads_of
+
+
+def _reduce_grads(grads: Dict, mesh) -> Dict:
+    """A rank's accumulated gradients made the whole batch's: every leaf
+    summed over ``data`` and the adapters of cut projections over
+    ``model``, one collective each."""
+    flat = list(tree_leaves(grads))
+    it = iter(sum_flat(flat, sum_data))
+    grads = tree_map(lambda _: next(it), grads)
+    summed = [name for name, c in lora_cut_over_model(grads["lora"], mesh).items() if c]
+    parts = [grads["lora"][n][k] for n in summed for k in ("a", "b")]
+    it = iter(sum_flat(parts, sum_model))
+    lora = dict(grads["lora"])
+    for n in summed:
+        lora[n] = {k: next(it) for k in ("a", "b")}
+    return dict(grads, lora=lora)
+
+
+def make_train_step(
+    cfg: MMDuetConfig,
+    args: TrainArgs,
+    tx: AdamW,
+    lr_sched: Optional[Schedule] = None,
+    use_flash: Any = "auto",
+    mesh=None,
+):
+    """Build ``train_step(state, base_params, batch) -> (state, metrics)``.
+
+    ``batch`` holds tensors on the model's device with a leading
+    accumulation dim A: input_ids / attn_mask / labels /
+    informative_labels / relevance_labels (A, B, T), and optionally frames
+    (A, N, H, W, 3) uint8 or vision_feats (A, N, P, C). ``metrics`` are
+    host floats under the JAX step's keys. With ``mesh`` (this rank's
+    `parallel.ProcessMesh`), ``state`` and ``base_params`` are the rank's
+    local trees and ``batch`` is the global batch (see the module's
+    docstring)."""
+    if mesh is not None:
+        model_n = mesh.shape[MODEL_AXIS]
+        t = cfg.text
+        if any(n % model_n for n in (t.num_heads, t.num_kv_heads, t.intermediate_size)):
+            raise ValueError(f"mesh {mesh.shape}: {t.num_heads} heads, {t.num_kv_heads} kv "
+                             f"heads and {t.intermediate_size} MLP units must divide the "
+                             "model axis")
+    grads_of = make_grad_fn(cfg, args, mesh, use_flash)
+    zero2 = mesh is not None and mesh.shape[DATA_AXIS] > 1
+
+    def train_step(state: TrainState, base_params: Dict, batch: Dict):
+        grads, metrics = grads_of(state.trainable, base_params, batch)
+        cut = None
+        if mesh is not None:
+            cut = tree_map(lambda s: MODEL_AXIS in s, trainable_specs(state.trainable, mesh))
+        grad_norm = global_norm(grads, cut)
         finite = bool(torch.isfinite(metrics["loss"]) & torch.isfinite(grad_norm))
-        if finite:
+        if finite and zero2:
+            trainable, opt_state = zero2_update(tx, grads, state.opt_state, state.trainable,
+                                                grad_norm, mesh)
+        elif finite:
             trainable, opt_state = tx.update(grads, state.opt_state, state.trainable, grad_norm)
         else:  # skip the update, keep the state; the step still advances
             trainable, opt_state = state.trainable, state.opt_state

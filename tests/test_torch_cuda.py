@@ -1244,3 +1244,106 @@ def test_kernel_b_at_a_ranks_weight_shapes_matches_plain_version(case, dev):
                          ids=["siglip_8_heads", "clip336_8_heads"])
 def test_kernel_d_at_a_ranks_heads_matches_plain_version(shape, dev):
     test_flash_vision_kernel_matches_plain_version(shape, dev)
+
+
+# ---------------------------------------------------------------------------
+# the training mesh: kernel C at a rank's heads, the collectives of training
+# on CUDA tensors under gloo, the train CLI on ranks sharing the card
+# ---------------------------------------------------------------------------
+
+# kernel C at a rank's 14 of 28 query heads over 2 of 4 kv heads
+TP_FULL_CASES = [
+    ("tp_one_sample", 1, 700, 14, 2, "right", (650,)),
+    ("tp_two_left_pad_lengths", 2, 400, 14, 2, "left", (390, 120)),
+]
+
+
+@pytest.mark.parametrize("case", TP_FULL_CASES, ids=[c[0] for c in TP_FULL_CASES])
+def test_flash_full_kernel_at_a_ranks_heads_matches_plain_version(case, dev):
+    test_flash_full_kernel_matches_plain_version(case, dev)
+
+
+def _collectives_rank(rank: int, port: int, out: str) -> None:
+    """One of two ranks of a (1, 2) mesh on the one card over gloo: g
+    (`reduce_model`), f (`copy_to_model`) and a bit-exact gather of bf16
+    values, each forward and backward; the results to ``out/rank<r>.pt``."""
+    import os
+
+    from mmduet_tpu_torch.parallel import collectives, initialize_distributed
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    initialize_distributed("gloo")
+    make_mesh((1, 2), device="cuda:0")
+    part = torch.full((2, 3), float(rank + 1), device="cuda", requires_grad=True)
+    summed = collectives.reduce_model(part)
+    (summed * torch.arange(6.0, device="cuda").reshape(2, 3)).sum().backward()
+    x = torch.ones((2, 3), device="cuda", requires_grad=True)
+    (collectives.copy_to_model(x) * (rank + 1)).sum().backward()
+    block = torch.tensor([[-0.0, 1.5, float(rank)]], dtype=torch.bfloat16, device="cuda")
+    whole = collectives.gather(block, 0, "model")
+    torch.save({"summed": summed.detach().cpu(), "g_grad": part.grad.cpu(),
+                "f_grad": x.grad.cpu(), "whole": whole.cpu()}, f"{out}/rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def test_training_collectives_on_cuda_tensors_under_gloo(dev, tmp_path):
+    """g sums forward (in f32) and passes the cotangent through backward;
+    f passes the value through forward and sums the cotangents backward;
+    a gather returns every rank's block bit for bit (the bf16 -0.0 too)."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_collectives_rank, args=(r, port, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    assert [p.exitcode for p in procs] == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=True)
+        assert got["summed"].dtype == torch.float32 and torch.equal(got["summed"],
+                                                                    torch.full((2, 3), 3.0))
+        assert torch.equal(got["g_grad"], torch.arange(6.0).reshape(2, 3))
+        assert torch.equal(got["f_grad"], torch.full((2, 3), 3.0))
+        want = torch.tensor([[-0.0, 1.5, 0.0], [-0.0, 1.5, 1.0]], dtype=torch.bfloat16)
+        assert torch.equal(got["whole"].view(torch.int16), want.view(torch.int16))
+
+
+def test_train_cli_on_two_ranks_sharing_the_card(dev, tmp_path):
+    """``torch.distributed.run --nproc_per_node 2 -m mmduet_tpu_torch.train.loop
+    --mesh_model 2 --dist_backend gloo --device cuda:0``: each rank launches
+    kernel C on its heads; the losses are the one-process CLI's within bf16
+    rounding (3e-2 relative, as `chip_smoke.py`'s small train check)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    argv = ["--tiny_random", "--synthetic_steps", "2", "--grad_accum_steps", "2",
+            "--logging_steps", "1"]
+    train_cli_main(argv + ["--output_dir", str(tmp_path / "one")])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+         "--master_addr", "127.0.0.1", "--master_port", str(port), "-m",
+         "mmduet_tpu_torch.train.loop", *argv, "--mesh_model", "2", "--dist_backend", "gloo",
+         "--device", "cuda:0", "--output_dir", str(tmp_path / "tp")],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=repo), capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rows = [[json.loads(line) for line in open(tmp_path / d / "log.jsonl")] for d in ("one", "tp")]
+    assert [r["step"] for r in rows[1]] == [1, 2]
+    for got, want in zip(rows[1], rows[0]):
+        for k in ("loss", "lm_loss", "video_loss", "grad_norm"):
+            assert abs(got[k] - want[k]) <= 3e-2 * abs(want[k]), (k, got[k], want[k])
+    assert (tmp_path / "tp" / "final" / "params.pt").exists()

@@ -470,9 +470,15 @@ def test_training_path_never_imports_jax(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-def test_cli_refuses_a_mesh():
-    for argv in (["--mesh_data", "2"], ["--mesh_model", "2"], ["--param_mode", "fsdp"]):
-        with pytest.raises(SystemExit, match="not yet ported"):
+def test_cli_refuses_a_mesh(monkeypatch):
+    """Outside ``torch.distributed.run`` a mesh is refused with the command
+    that starts one process per rank (``tests/test_torch_train_mesh.py``
+    trains on one)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for argv, n in ((["--mesh_data", "2"], 2), (["--mesh_model", "2"], 2),
+                    (["--mesh_data", "2", "--mesh_model", "2", "--param_mode", "fsdp"], 4)):
+        with pytest.raises(SystemExit, match=f"torch.distributed.run --nproc_per_node {n} "
+                                             "-m mmduet_tpu_torch.train.loop"):
             tloop.main(["--tiny_random", "--device", "cpu"] + argv)
 
 

@@ -1,0 +1,431 @@
+"""The port's training mesh (`train.step.make_train_step(mesh=)`,
+`parallel.sharding.shard_train_state`, the collectives of
+`parallel.collectives`, `train.checkpoint` and the CLI under
+``torch.distributed.run``) against the JAX package on `tiny_config()`.
+
+Gloo ranks on the CPU, one launch per layout (`tests/torch_train_mesh_worker.py`):
+(2, 1) replicate (ZeRO-2), (1, 2) tensor parallelism, (2, 2) fsdp + TP +
+ZeRO-2. Each launch takes 3 steps of A = 2 micro-batches of B = 2 samples
+whose label counts and frame counts differ (so the global token mean and
+each rank's frames are exercised); each test compares one case against the
+JAX single-device `make_train_step` and the JAX mesh step of the same shape
+on the virtual CPU devices. f32 on both sides, so differences are
+summation order: losses to 1e-4 relative (as
+`tests/test_train.py::TestMultiDevice::test_sharded_matches_single_device`),
+the other metrics, the averaged gradients and the trainable leaves to 1e-5
+absolute, the Adam moments as `tests/test_torch_train.py` holds them
+(1e-7 absolute, 1e-4 relative). Then the checkpoint of the (2, 2) ranks
+resumed in one process and on (2, 1), and the CLI under
+``torch.distributed.run`` (two more launches) against the one-process CLI."""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmduet_tpu import parallel as jpar
+from mmduet_tpu.config import TrainArgs, tiny_config
+from mmduet_tpu.models import init_mmduet_params as jax_init
+from mmduet_tpu.models import lora as jlora
+from mmduet_tpu.models.lora import lora_scale
+from mmduet_tpu.train import init_train_state as j_init_state
+from mmduet_tpu.train import make_optimizer as j_make_optimizer
+from mmduet_tpu.train import make_train_step as j_make_step
+from mmduet_tpu.train import step as jstep
+from mmduet_tpu_torch.models import io as tio
+from mmduet_tpu_torch.models import params_from_numpy, train_state_from_numpy
+from mmduet_tpu_torch.parallel import ProcessMesh, shard_train_state
+from mmduet_tpu_torch.parallel.sharding import data_block, opt_state_shardings, shard_params
+from mmduet_tpu_torch.train import checkpoint as tckpt
+from mmduet_tpu_torch.train import loop as tloop
+from mmduet_tpu_torch.train import optimizer as topt
+from mmduet_tpu_torch.train import step as tstep
+
+REPO = Path(__file__).resolve().parents[1]
+CFG = tiny_config().replace(v_placeholder_id=511, eos_token_id=257)
+JP = jax_init(jax.random.PRNGKey(0), CFG)
+TP = params_from_numpy(jax.tree.map(np.asarray, JP), "cpu")
+ARGS = TrainArgs(learning_rate=1e-2, lora_r=4, lora_alpha=8, warmup_ratio=0.3)
+TOTAL = 10
+LAYOUTS = {"2x1_replicate": ((2, 1), "replicate"), "1x2_tp": ((1, 2), "replicate"),
+           "2x2_fsdp_tp": ((2, 2), "fsdp")}
+LAUNCH_TIMEOUT = 240
+METRICS = ("loss", "lm_loss", "video_loss", "grad_norm", "lr", "skipped_nonfinite")
+
+
+def _lora():
+    tree = jlora.init_lora(jax.random.PRNGKey(13), CFG.text, 4)
+    r = np.random.RandomState(13)  # b = 0 at init: give the adapter an effect
+    return {n: {"a": ab["a"], "b": jnp.asarray(r.randn(*ab["b"].shape) * 0.05, jnp.float32)}
+            for n, ab in tree.items()}
+
+
+def _batch(seed, A=2, B=2, T=16):
+    """Sample 0 holds two frames and 6 labels, sample 1 one frame, 2 labels
+    and 3 pad tokens; 4 frame slots (one padding)."""
+    r = np.random.RandomState(seed)
+    vid, ft = CFG.v_placeholder_id, CFG.frame_num_tokens
+    ids = r.randint(0, 200, (A, B, T))
+    ids[:, 0, 2:2 + 2 * ft] = vid
+    ids[:, 1, 2:2 + ft] = vid
+    mask = np.ones((A, B, T), bool)
+    mask[:, 1, T - 3:] = False
+    labels = np.full((A, B, T), -100)
+    labels[:, 0, 10:14] = ids[:, 0, 10:14]
+    labels[:, 1, 7:9] = ids[:, 1, 7:9]
+    inf = np.full((A, B, T), -100)
+    inf[:, 0, 1 + ft] = 1
+    inf[:, 0, 1 + 2 * ft] = r.randint(0, 2)
+    inf[:, 1, 1 + ft] = r.randint(0, 2)
+    rel = np.full((A, B, T), -100)
+    rel[:, 0, 1 + 2 * ft] = 1
+    return {"input_ids": ids.astype(np.int32), "attn_mask": mask,
+            "labels": labels.astype(np.int32), "informative_labels": inf.astype(np.int32),
+            "relevance_labels": rel.astype(np.int32),
+            "vision_feats": r.randn(A, 4, CFG.vision.num_patches,
+                                    CFG.vision.hidden_size).astype(np.float32)}
+
+
+BATCHES = [_batch(20 + i) for i in range(3)]
+NAN_BATCH = dict(_batch(30))
+NAN_BATCH["vision_feats"] = NAN_BATCH["vision_feats"].copy()
+NAN_BATCH["vision_feats"][:, 0] = np.nan  # sample 0's first frame: data rank 0's
+
+
+def _jax_state():
+    jtx, jsched = j_make_optimizer(ARGS, TOTAL)
+    return jtx, jsched, j_init_state(JP, _lora(), jtx)
+
+
+def _close(got, want, atol=1e-5, rtol=0.0, msg=""):
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    np.testing.assert_allclose(got, np.asarray(want), atol=atol, rtol=rtol, err_msg=msg)
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# the JAX references
+# ---------------------------------------------------------------------------
+
+
+def _jax_run(mesh=None, mode="replicate"):
+    """Metrics and trainable leaves after each of the 3 steps, and the Adam
+    state after the first, of the JAX step (on ``mesh`` if given)."""
+    jtx, jsched, state = _jax_state()
+    params = JP
+    step = j_make_step(CFG, ARGS, jtx, jsched, mesh=mesh)
+    if mesh is not None:
+        params = jpar.shard_params(JP, mesh, mode=mode)
+        state = jpar.shard_train_state(state, mesh)
+    out = {"metrics": [], "trainable": []}
+    for i, batch in enumerate(BATCHES):
+        batch = jax.tree.map(jnp.asarray, batch)
+        if mesh is not None:
+            batch = jax.tree.map(jax.device_put, batch, jpar.batch_shardings(batch, mesh))
+        state, metrics = step(state, params, batch)
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        out["trainable"].append(_flat(jax.tree.map(np.asarray, state.trainable)))
+        if i == 0:
+            adam = state.opt_state[1][0]
+            out["adam"] = {"count": int(adam.count),
+                           "mu": _flat(jax.tree.map(np.asarray, adam.mu)),
+                           "nu": _flat(jax.tree.map(np.asarray, adam.nu))}
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_single():
+    return _jax_run()
+
+
+@pytest.fixture(scope="module")
+def jax_mesh():
+    out = {}
+    for name, (shape, mode) in LAYOUTS.items():
+        devices = jax.devices()[:shape[0] * shape[1]]
+        out[name] = _jax_run(jpar.make_mesh(shape, devices=devices), mode)
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_grads():
+    """The first batch's gradients, averaged over its micro-batches."""
+    _, _, state = _jax_state()
+    fn = jax.grad(jstep._loss_fn, has_aux=True)
+    scale = lora_scale(ARGS.lora_r, ARGS.lora_alpha)
+    grads = [fn(state.trainable, JP, CFG, jax.tree.map(lambda x: jnp.asarray(x[a]), BATCHES[0]),
+                scale, ARGS.gradient_checkpointing, False)[0] for a in range(2)]
+    return _flat(jax.tree.map(lambda *g: np.asarray(sum(g) / len(g)), *grads))
+
+
+# ---------------------------------------------------------------------------
+# the launches
+# ---------------------------------------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start(n: int, *argv) -> subprocess.Popen:
+    """``n`` ranks of ``argv`` under torch.distributed.run, on 127.0.0.1."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(n),
+           "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), *argv]
+    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc: subprocess.Popen) -> str:
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, err[-4000:]
+    return out
+
+
+def _worker(root: Path, name: str, **case) -> subprocess.Popen:
+    shape, mode = LAYOUTS[name]
+    d = root / name
+    d.mkdir()
+    (d / "case.json").write_text(json.dumps(dict(
+        case, shape=list(shape), mode=mode, total_steps=TOTAL,
+        args=dict(learning_rate=ARGS.learning_rate, lora_r=ARGS.lora_r,
+                  lora_alpha=ARGS.lora_alpha, warmup_ratio=ARGS.warmup_ratio))))
+    os.link(root / "inputs.pt", d / "inputs.pt")
+    return _start(shape[0] * shape[1], "tests/torch_train_mesh_worker.py", str(d))
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Every rank's results of the three launches: (1, 2) and (2, 2) at
+    once, then (2, 1), which also resumes the (2, 2) ranks' checkpoint of
+    step 2 and takes a step with a NaN in data rank 0's features."""
+    root = tmp_path_factory.mktemp("mesh")
+    _, _, state = _jax_state()
+    torch.save({"params": TP, "state": train_state_from_numpy(
+                    jax.tree.map(np.asarray, state), "cpu")._asdict(),
+                "batches": [_torch(b) for b in BATCHES], "nan_batch": _torch(NAN_BATCH)},
+               root / "inputs.pt")
+    first = [_worker(root, "1x2_tp"), _worker(root, "2x2_fsdp_tp", save_at=2)]
+    for proc in first:
+        _finish(proc)
+    ckpt = root / "2x2_fsdp_tp" / "ckpt" / "checkpoint-2"
+    _finish(_worker(root, "2x1_replicate", nan=True, resume=str(ckpt)))
+    out = {}
+    for name, (shape, _) in LAYOUTS.items():
+        out[name] = [torch.load(root / name / f"rank{r}.pt", weights_only=True)
+                     for r in range(shape[0] * shape[1])]
+    out["ckpt"] = ckpt
+    return out
+
+
+@pytest.mark.parametrize("ref", ["single_device", "mesh"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_metrics_match_the_jax_steps(ranks, jax_single, jax_mesh, name, ref):
+    want = jax_single if ref == "single_device" else jax_mesh[name]
+    for i, (got, w) in enumerate(zip(ranks[name][0]["metrics"], want["metrics"])):
+        assert set(got) == set(w)
+        _close(got["loss"], w["loss"], atol=0, rtol=1e-4, msg=f"step {i + 1} loss")
+        for k in ("lm_loss", "video_loss", "grad_norm"):
+            _close(got[k], w[k], msg=f"step {i + 1} {k}")
+        _close(got["lr"], w["lr"], atol=0, rtol=1e-6)
+        assert got["skipped_nonfinite"] == w["skipped_nonfinite"] == 0.0
+
+
+@pytest.mark.parametrize("ref", ["single_device", "mesh"])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_trainable_leaves_match_the_jax_steps(ranks, jax_single, jax_mesh, name, ref):
+    want = jax_single if ref == "single_device" else jax_mesh[name]
+    for i, (got, w) in enumerate(zip(ranks[name][0]["trainable"], want["trainable"])):
+        got = _flat(got)
+        assert set(got) == set(w)
+        for key in w:
+            _close(got[key], w[key], msg=f"step {i + 1} {key}")
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_every_rank_reports_the_same_bits(ranks, name):
+    first = ranks[name][0]
+    for other in ranks[name][1:]:
+        assert other["metrics"] == first["metrics"]
+        for got, want in zip(other["trainable"], first["trainable"]):
+            for key, leaf in _flat(want).items():
+                assert torch.equal(_flat(got)[key], leaf), key
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_first_averaged_gradients_match_jax_leaf_by_leaf(ranks, jax_grads, name):
+    """Which leaves are summed over ``model`` (the adapters of cut
+    projections) and which are not (the score heads, ``fc2_bias``, the
+    projector's own blocks): a leaf summed once too often or not at all is
+    off by a factor."""
+    got = _flat(ranks[name][0]["grads"])
+    assert set(got) == set(jax_grads)
+    for key, want in jax_grads.items():
+        _close(got[key], want, rtol=1e-4, msg=key)
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_moment_blocks_are_the_data_cut_of_the_trainable_blocks(ranks, jax_single, name):
+    """Every rank's moment blocks hold 1 / data of its trainable block's
+    elements (`moment_spec`), and gathered after the first step they are
+    the JAX optimizer state."""
+    (data_n, _), _ = LAYOUTS[name]
+    for r in ranks[name]:
+        for t, m in zip(r["trainable_shapes"], r["moment_shapes"]):
+            assert np.prod(m) * data_n == np.prod(t) or (m == t and np.prod(t) % data_n), (t, m)
+    opt = ranks[name][0]["opt_state"]
+    assert opt["count"] == jax_single["adam"]["count"] == 1
+    for k in ("mu", "nu"):
+        for key, want in jax_single["adam"][k].items():
+            _close(_flat(opt[k])[key], want, atol=1e-7, rtol=1e-4, msg=f"{k} {key}")
+
+
+def test_shard_train_state_cuts_moments_inside_the_trainable_block():
+    """The deliberate difference from the JAX layout, on a (2, 2) mesh: the
+    JAX rule cuts each whole moment on its largest dim (the projector's fc2
+    on its inputs, the dim ``model`` already cuts), the port cuts the
+    rank's trainable block again, so rank (d, m)'s moment elements are its
+    trainable elements."""
+    jtx, _, jstate = _jax_state()
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), "cpu")
+    state = state._replace(opt_state=dict(state.opt_state, mu=state.trainable))
+    jspec = opt_state_shardings(state.opt_state, ProcessMesh((2, 2), (0, 0), "cpu"))
+    assert jspec["mu"]["projector"]["fc2"] == ("data", None)
+    for d in range(2):
+        for m in range(2):
+            mesh = ProcessMesh((2, 2), (d, m), torch.device("cpu"))
+            local = shard_train_state(state, mesh)
+            for key, t in _flat(local.trainable).items():
+                assert torch.equal(_flat(local.opt_state["mu"])[key], data_block(t, mesh)), key
+    fc2 = shard_params(state.trainable, ProcessMesh((2, 2), (1, 0), "cpu"))["projector"]["fc2"]
+    assert tuple(fc2.shape) == (CFG.text.hidden_size // 2, CFG.text.hidden_size)
+
+
+def test_nonfinite_features_on_one_data_rank_skip_every_rank(ranks):
+    for r in ranks["2x1_replicate"]:
+        nan = r["nan"]
+        assert nan["metrics"]["skipped_nonfinite"] == 1.0
+        assert not np.isfinite(nan["metrics"]["loss"])
+        assert nan["kept"] and nan["count"] == nan["count_before"] == 3
+        assert nan["step"] == 4
+
+
+def test_checkpoint_of_2x2_resumes_in_one_process(ranks, jax_single):
+    """The (2, 2) ranks' whole state at step 2, restored on one process,
+    takes step 3 to the uninterrupted runs' (the (2, 2) ranks' and JAX's)."""
+    ttx, tsched = topt.make_optimizer(ARGS, TOTAL)
+    template = train_state_from_numpy(jax.tree.map(np.asarray, _jax_state()[2]), "cpu")
+    state = tckpt.restore_train_state(str(ranks["ckpt"]), template)
+    assert state.step == 2 and state.opt_state["count"] == 2
+    for key, leaf in _flat(ranks["2x2_fsdp_tp"][0]["trainable"][1]).items():
+        assert torch.equal(_flat(state.trainable)[key], leaf), key
+    state, metrics = tstep.make_train_step(CFG, ARGS, ttx, tsched)(state, TP, _torch(BATCHES[2]))
+    for want in (ranks["2x2_fsdp_tp"][0]["metrics"][2], jax_single["metrics"][2]):
+        for k in METRICS:
+            _close(metrics[k], want[k], rtol=1e-4)
+    for key, want in jax_single["trainable"][2].items():
+        _close(_flat(state.trainable)[key], want, msg=key)
+
+
+def test_checkpoint_of_2x2_resumes_on_2x1(ranks, jax_single):
+    for r in ranks["2x1_replicate"]:
+        resumed = r["resumed"]
+        assert resumed["step"] == 3
+        for k in METRICS:
+            _close(resumed["metrics"][k], jax_single["metrics"][2][k], rtol=1e-4)
+        for key, want in jax_single["trainable"][2].items():
+            _close(_flat(resumed["trainable"])[key], want, msg=key)
+
+
+def test_ranks_load_nothing_of_jax(ranks):
+    assert [r["modules"] for name in LAYOUTS for r in ranks[name]] == \
+        [[] for name in LAYOUTS for _ in ranks[name]]
+
+
+# ---------------------------------------------------------------------------
+# the CLI under torch.distributed.run
+# ---------------------------------------------------------------------------
+
+CLI = ["--tiny_random", "--device", "cpu", "--synthetic_steps", "3", "--grad_accum_steps", "2",
+       "--logging_steps", "1", "--save_steps", "2"]
+
+
+def _log(out: Path):
+    with open(out / "log.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+@pytest.fixture(scope="module")
+def one_process_cli(tmp_path_factory):
+    out = tmp_path_factory.mktemp("cli") / "one"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the launched ranks (OMP_NUM_THREADS=1), beside other workers
+    try:
+        tloop.main(CLI + ["--per_device_batch_size", "2", "--output_dir", str(out)])
+    finally:
+        torch.set_num_threads(threads)
+    return out
+
+
+@pytest.mark.parametrize("launch", [(2, ["--mesh_data", "2"]),
+                                    (4, ["--mesh_model", "2", "--param_mode", "fsdp"])],
+                         ids=["mesh_data_2", "fsdp_mesh_model_2"])
+def test_cli_under_torchrun_matches_the_one_process_cli(one_process_cli, tmp_path, launch):
+    """The global batch (per-device 1 x data 2) is the one process's batch
+    of 2: the same losses to 1e-4, the same checkpoint of step 2 and the
+    same ``final/`` (the base bit for bit, the trained leaves to 1e-5)."""
+    n, flags = launch
+    out = tmp_path / "mesh"
+    _finish(_start(n, "-m", "mmduet_tpu_torch.train.loop", *CLI, *flags,
+                   "--dist_backend", "gloo", "--output_dir", str(out)))
+    got, want = _log(out), _log(one_process_cli)
+    assert [r["step"] for r in got] == [r["step"] for r in want] == [1, 2, 3]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k in METRICS:
+            _close(g[k], w[k], atol=1e-4, rtol=1e-4)
+    for name in ("checkpoint-2", "final"):
+        assert sorted(os.listdir(out / name)) == sorted(os.listdir(one_process_cli / name))
+    s_got = torch.load(out / "checkpoint-2" / tckpt.STATE_FILE, weights_only=True)
+    s_want = torch.load(one_process_cli / "checkpoint-2" / tckpt.STATE_FILE, weights_only=True)
+    assert s_got["step"] == s_want["step"] == 2
+    for key, leaf in _flat(s_want["trainable"]).items():
+        _close(_flat(s_got["trainable"])[key], leaf.numpy(), msg=key)
+    _, p_got, l_got = tio.load_checkpoint(str(out / "final"), device="cpu")
+    _, p_want, l_want = tio.load_checkpoint(str(one_process_cli / "final"), device="cpu")
+    trained = ("projector", "informative_head", "relevance_head")
+    for key, leaf in _flat(p_want).items():
+        if key.split("/")[0] in trained:
+            _close(_flat(p_got)[key], leaf.numpy(), msg=key)
+        else:
+            assert torch.equal(_flat(p_got)[key], leaf), key
+    for key, leaf in _flat(l_want).items():
+        _close(_flat(l_got)[key], leaf.numpy(), msg=key)
