@@ -109,7 +109,23 @@ Phases (any failure ends the run with a nonzero exit):
    direct, no A' shards), peak memory, p50 / p90 per frame and decode
    tokens/s are printed. Two ranks on one card measure correctness and
    memory, not a speedup across cards;
-9. the training mesh: 2 decoder layers at the 7B widths (the full
+9. the serving data axis (lanes over ranks): two ranks of a (2, 1) process
+   mesh, spawned on the one card over gloo, each holding the seed-0 model
+   at all 28 layers (`shard_params(mode="replicate")`) and the device state
+   of its 4 of the 8 lanes, run the batched path of 6 (12 pixel sessions
+   through `serve()`, bf16 and int8 caches; the scorer's 8 lockstep lanes),
+   each encoding its own lanes' frames; then four ranks of a (2, 2) mesh,
+   the decoder cut to 2 layers at the 7B widths, serve the TP batched
+   sessions. Every rank's rows must be the same bits; against the one
+   process (6's runs; the cut model's own run) scores within the larger of
+   TP_SCORE_TOL and twice the one process's spread under a permuted MLP,
+   answers equal or differing at a trigger or a near tie; each rank's
+   launches of kernels A / A-int8 must be the layers times the decoder
+   forwards of its own lanes (none of A' or a plain version), of D the
+   tower layers times its lanes' 32-frame batches. Each rank's peak
+   memory, frames/s, ms per frame fed, decode tokens/s, dispatches and
+   ``gen_lanes`` are printed, and the phase's wall time;
+10. the training mesh: 2 decoder layers at the 7B widths (the full
    SigLIP tower), LoRA r 16 / alpha 32, A = 2 micro-batches of two duet
    samples with other lengths, frames and label counts in the 2944-token
    bucket; the one process takes a warm-up and 2 steps, and again under a
@@ -121,19 +137,20 @@ Phases (any failure ends the run with a nonzero exit):
    a rank as its shapes imply, each rank's peak memory and s/step
    (gloo-bound) printed; the (2, 2) ranks' checkpoint of step 1, resumed in
    the one process, gives its step 2;
-10. small-model checks, card (bf16, kernels) against CPU (f32, plain
+11. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
    against single-stream runs on the card), the offline baseline's prompt
    cache, and one train step's loss and gradient norm; and the inference
    CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
    names kernel A;
-11. one JSON line for the seven kernels (kernel D's entry also holds its
+12. one JSON line for the seven kernels (kernel D's entry also holds its
    ``clip336_*`` numbers and its launches on the CLIP path; A, A-int8, B
    and D their ``tp_local`` numbers and rank 0's launches on the TP path,
    C's two entries theirs at a rank's heads and the (2, 2) rank 0's
-   launches on the training mesh, A' its ``process_mesh`` form), then the
-   result line
+   launches on the training mesh, A' its ``process_mesh`` form; A, A-int8
+   and D rank 0's launches on the data-axis path under ``data_axis``),
+   then the result line
    ``{"ok": true, "device": {...}}``.
 
 It needs `torch` with CUDA; it never falls back to the CPU.
@@ -175,7 +192,7 @@ from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmd
                                      mmduet, quant, siglip)
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
-from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, make_mesh
+from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, ProcessMesh, lane_block, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
 
@@ -1472,6 +1489,16 @@ def _zero_counts() -> None:
     attention.VISION_LAUNCHES = quant_matmul.B_LAUNCHES = 0
 
 
+def _session_rows(results: dict, rec) -> dict:
+    """{session: {scores, answers, steps}} of a batched pass, as
+    `compare_tp_pass` reads them (steps: `TokenRecorder`'s)."""
+    return {str(i): {"scores": [[d["informative_score"], d["relevance_score"]] for d in debug],
+                     "answers": [[float(r["time"]), r["content"]] for r in resp
+                                 if r["role"] == "assistant"],
+                     "steps": rec.steps(i)}
+            for i, (resp, debug) in sorted(results.items())}
+
+
 def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                      grounding: bool = True) -> dict:
     """The 7B-width batched path: `BatchedStreamEngine.serve()` streams
@@ -1479,11 +1506,18 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     (8-frame blocks, continuous admission), then, with ``grounding``,
     `BatchedStreamScorer` scores the first BATCH_LANES sessions in lockstep
     32-frame blocks. Every kernel count of the path is set to 0 just before
-    and read just after; the counts must equal what the dispatches, the
-    mesh and the vision batches predict. Returns outputs and numbers."""
-    shards = mesh.size if mesh is not None else 1
+    and read just after; the counts must equal what the decoder forwards,
+    the mesh and the vision batches predict. ``mesh``: a one-device mesh
+    or this rank's `ProcessMesh` (``params`` its local tree), whose lanes
+    ``lane_block`` gives: its forwards, vision batches and greedy steps are
+    those of its own lanes. Returns outputs and numbers."""
+    rank_mesh = isinstance(mesh, ProcessMesh)
+    shards = mesh.size if mesh is not None and not rank_mesh else 1
+    lo, hi = lane_block(mesh, BATCH_LANES)
     layers, v_layers = cfg.text.num_layers, cfg.vision.num_layers - 1
     what = f"mesh {dict(mesh.shape) if mesh is not None else None}, cache {kv_cache_quant or 'bf16'}"
+    if rank_mesh:
+        what += f", lanes {lo}-{hi - 1}"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -1492,18 +1526,21 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
         n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1,
         kv_cache_quant=kv_cache_quant)
-    acc, fed = {}, []
+    acc, fed, admitted = {}, [], []
     _timed(engine, "_dispatch_sched", acc)
     _timed(engine, "_generate_batch", acc)
     _timed(engine, "_admit", acc, sync=True)
-    sched = engine._dispatch_sched
+    sched, admit = engine._dispatch_sched, engine._admit
     engine._dispatch_sched = lambda chunks: (fed.append(sum(c[2] for c in chunks.values()))
                                              or sched(chunks))
+    engine._admit = lambda lane, sess: admitted.append((lane, len(sess["frames"]))) or admit(
+        lane, sess)
     _zero_counts()  # the main path starts here
     t0 = time.perf_counter()
-    results = {i: (resp, debug) for i, resp, debug in engine.serve(
-        _batch_session(cfg, i) for i in range(BATCH_SESSIONS))}
-    torch.cuda.synchronize()
+    with TokenRecorder(tok.eos_token_id, owners=lambda: engine._lane_sess[lo:hi]) as rec:
+        results = {i: (resp, debug) for i, resp, debug in engine.serve(
+            _batch_session(cfg, i) for i in range(BATCH_SESSIONS))}
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _kernel_counts()  # the generation pass ends here
     n_frames = sum(BATCH_LENGTHS)
@@ -1518,22 +1555,20 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                                  "finite probability")
     n_answers = sum(r["role"] == "assistant" for resp, _ in results.values() for r in resp)
     gens = len(engine.gen_lanes)
-    forwards, rest = divmod(counts["attention"], layers * shards)
-    full = engine.tokens_generated == BATCH_MAX_NEW * sum(engine.gen_lanes)
-    lo, hi = engine.dispatches + gens, engine.dispatches + gens * BATCH_MAX_NEW
-    want_vision = v_layers * sum(_vision_batches(n) for n in BATCH_LENGTHS)
-    if (n_answers < 1 or rest or not lo <= forwards <= hi or (full and forwards != hi)
+    sharded = mesh is not None and not rank_mesh
+    local = [n for lane, n in admitted if lo <= lane < hi]
+    want_vision = v_layers * sum(_vision_batches(n) for n in local)
+    if (n_answers < 1 or counts["attention"] != layers * shards * engine.forwards
             or counts["attention_int8"] != (counts["attention"] if kv_cache_quant else 0)
-            or counts["attention_sharded"] != (counts["attention"] if mesh is not None else 0)
+            or counts["attention_sharded"] != (counts["attention"] if sharded else 0)
             or counts["vision"] != want_vision):
         raise AssertionError(
             f"batched serve ({what}): {n_answers} answers, launches {counts}; want the "
-            f"attention = {layers} layers x {shards} shards x decoder forwards, the forwards "
-            f"in [{lo}, {hi}] ({engine.dispatches} dispatches + {gens} batched decodes of a "
-            f"prefill and at most {BATCH_MAX_NEW - 1} steps; {hi} when every answer has "
-            f"{BATCH_MAX_NEW} tokens: {full}), all of them int8 / sharded under an int8 cache / "
-            f"a mesh, and the vision attention {want_vision} = {v_layers} layers x vision "
-            f"batches")
+            f"attention = {layers} layers x {shards} shards x {engine.forwards} decoder "
+            f"forwards (of {engine.dispatches} dispatches and {gens} batched decodes), all of "
+            f"them int8 / sharded under an int8 cache / a one-device mesh, and the vision "
+            f"attention {want_vision} = {v_layers} layers x the vision batches of the "
+            f"{len(local)} sessions in lanes {lo}-{hi - 1}")
     t_sched, t_gen = acc["_dispatch_sched"], acc["_generate_batch"]
     frames_fed = sum(fed)  # frames rolled back by a trigger are fed again
     log(f"batched generation pass ({what}): {BATCH_SESSIONS} sessions, {n_frames} frames "
@@ -1546,18 +1581,19 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         f"{engine.tokens_generated} tokens = {engine.tokens_generated / t_gen:.2f} tokens/s "
         f"with {np.mean(engine.gen_lanes):.2f} lanes decoding together on average")
     log(f"batched generation pass ({what}): launches {counts} = {layers} x {shards} x "
-        f"{forwards} decoder forwards ({engine.dispatches} dispatches + {gens} decodes x "
-        f"{BATCH_MAX_NEW}: {full}); vision {v_layers} x "
-        f"{want_vision // v_layers} batches")
-    out.update(results=results, counts=counts, frames_per_s=n_frames / wall,
-               dispatch_ms_per_frame=1e3 * t_sched / frames_fed,
+        f"{engine.forwards} decoder forwards ({engine.dispatches} dispatches, {gens} decodes "
+        f"of lanes {engine.gen_lanes}); vision {v_layers} x {want_vision // v_layers} "
+        f"batches")
+    out.update(results=results, sessions=_session_rows(results, rec), counts=counts,
+               frames_per_s=n_frames / wall, dispatch_ms_per_frame=1e3 * t_sched / frames_fed,
                decode_tokens_per_s=engine.tokens_generated / t_gen,
-               vision_frames_per_s=n_frames / acc["_admit"])
+               vision_frames_per_s=n_frames / acc["_admit"], dispatches=engine.dispatches,
+               gen_lanes=list(engine.gen_lanes), forwards=engine.forwards)
     # the wrappers hold the engine and the engine holds them: without them
     # its cache is freed here, before the next engine allocates its own
     for name in ("_dispatch_sched", "_generate_batch", "_admit"):
         delattr(engine, name)
-    del engine, sched
+    del engine, sched, admit
     torch.cuda.empty_cache()
 
     if grounding:
@@ -1579,7 +1615,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         launches = attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]
         blocks = -(-max(lengths) // 32)
         want = (layers * shards * (1 + blocks),
-                v_layers * _vision_batches(BATCH_LANES * max(lengths)))
+                v_layers * _vision_batches((hi - lo) * max(lengths)))
         ok = all(len(r) == n and all(math.isfinite(d["informative_score"]) for d in r)
                  for r, n in zip(rows, lengths))
         if launches != want or not ok:
@@ -1588,11 +1624,12 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                 f"want {want} = {layers} layers x {shards} shards x (1 prefix + {blocks} "
                 f"blocks) and {v_layers} layers x vision batches; rows complete and finite: {ok}")
         n = sum(lengths)
+        encoded = (hi - lo) * max(lengths)
         log(f"batched grounding pass ({what}): {BATCH_LANES} lanes in lockstep 32-frame "
             f"blocks, {n} frames in {t_stream:.3f} s = {1e3 * t_stream / n:.3f} ms per frame, "
             f"{n / t_stream:.2f} frames/s aggregate (the padded lockstep blocks hold "
-            f"{BATCH_LANES * max(lengths)} frames); vision {BATCH_LANES * max(lengths)} frames "
-            f"in {t_vision:.3f} s = {BATCH_LANES * max(lengths) / t_vision:.2f} frames/s; "
+            f"{BATCH_LANES * max(lengths)} frames); vision {encoded} frames here "
+            f"in {t_vision:.3f} s = {encoded / t_vision:.2f} frames/s; "
             f"launches (attention, vision) {launches} = {want}")
         out.update(rows=rows, grounding_ms_per_frame=1e3 * t_stream / n)
         out["counts"] = _kernel_counts()  # both passes; the path ends here
@@ -2672,37 +2709,90 @@ def _tp_sessions(cfg) -> list:
 def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
     """`BatchedStreamEngine.serve()` of `_tp_sessions` through 8 lanes in
     generation mode: per session its scores and answers, with the pass's
-    counts, wall time and peak memory."""
+    counts, wall time and peak memory. ``mesh``: this rank's process mesh;
+    kernel A launches once a layer per decoder forward of its lanes."""
     engine = BatchedStreamEngine(
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
         n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1)
+    lo, hi = lane_block(mesh, BATCH_LANES)
     sessions = _tp_sessions(cfg)
+    acc, fed = {}, []
+    _timed(engine, "_dispatch_sched", acc)
+    _timed(engine, "_generate_batch", acc)
+    sched = engine._dispatch_sched
+    engine._dispatch_sched = lambda chunks: (fed.append(sum(c[2] for c in chunks.values()))
+                                             or sched(chunks))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
-    with TokenRecorder(tok.eos_token_id, owners=lambda: engine._lane_sess) as rec:
+    with TokenRecorder(tok.eos_token_id, owners=lambda: engine._lane_sess[lo:hi]) as rec:
         results = {i: (resp, debug) for i, resp, debug in engine.serve(sessions)}
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _kernel_counts()
     n_frames = sum(len(x["frame_embeds"]) for x in sessions)
-    out = {str(i): {"scores": [[d["informative_score"], d["relevance_score"]] for d in debug],
-                    "answers": [[float(r["time"]), r["content"]] for r in resp
-                                if r["role"] == "assistant"],
-                    "steps": rec.steps(i)}
-           for i, (resp, debug) in sorted(results.items())}
+    out = _session_rows(results, rec)
     if len(out) != len(sessions) or any(len(out[str(i)]["scores"]) != len(x["frame_embeds"])
                                         for i, x in enumerate(sessions)):
         raise AssertionError("TP batched pass: a session retired without its score rows")
-    log(f"batched serve at B={BATCH_LANES} (mesh {dict(mesh.shape) if mesh else None}): "
-        f"{len(sessions)} sessions, {n_frames} frames in {wall:.3f} s = {n_frames / wall:.2f} "
-        f"frames/s, {engine.tokens_generated} tokens; launches {counts}")
+    if (counts["attention"] != cfg.text.num_layers * engine.forwards
+            or counts["attention_sharded"] or counts["vision"]):
+        raise AssertionError(f"batched serve (mesh {dict(mesh.shape) if mesh else None}, lanes "
+                             f"{lo}-{hi - 1}): launches {counts}; want kernel A "
+                             f"{cfg.text.num_layers} x {engine.forwards} decoder forwards, no "
+                             "A' shards, no vision")
+    log(f"batched serve at B={BATCH_LANES} (mesh {dict(mesh.shape) if mesh else None}, lanes "
+        f"{lo}-{hi - 1}): {len(sessions)} sessions, {n_frames} frames in {wall:.3f} s = "
+        f"{n_frames / wall:.2f} frames/s, {engine.tokens_generated} tokens; launches {counts} "
+        f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
+        f"decodes of lanes {engine.gen_lanes})")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    del engine
+    numbers = {"frames_per_s": n_frames / wall, "peak_gib": peak_gib,
+               "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
+               "decode_tokens_per_s": engine.tokens_generated / acc["_generate_batch"],
+               "dispatches": engine.dispatches, "gen_lanes": list(engine.gen_lanes),
+               "forwards": engine.forwards}
+    for name in ("_dispatch_sched", "_generate_batch"):
+        delattr(engine, name)
+    del engine, sched
     torch.cuda.empty_cache()
-    return {"sessions": out, "counts": counts, "frames_per_s": n_frames / wall,
-            "peak_gib": peak_gib}
+    return {"sessions": out, "counts": counts, **numbers}
+
+
+def spawn_ranks(target, world: int, out_dir: str, extra: tuple, timeout: float,
+                what: str) -> list:
+    """``world`` spawned processes of ``target(rank, port, out_dir,
+    *extra)`` (one free port on 127.0.0.1 for their group), each writing
+    ``out_dir/rank<r>.json``; their results in rank order. A rank that
+    fails, or outlives ``timeout`` seconds, fails the phase; every rank is
+    stopped at the end."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = [ctx.Process(target=target, args=(r, port, out_dir, *extra)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(timeout=max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{what}: rank exit codes {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
 
 
 def tp_rank(rank: int, port: int, out_dir: str) -> None:
@@ -2861,35 +2951,11 @@ def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: f
     TP_SCORE_TOL and twice the one process's own rounding ``spread``, and
     the ranks' rows against each other. A rank that fails fails the phase;
     both are stopped at the end."""
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out_dir = tempfile.mkdtemp(prefix="tp.", dir=_build.BUILD_DIR)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    procs = [ctx.Process(target=tp_rank, args=(r, port, out_dir)) for r in range(TP_RANKS)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TP_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(timeout=max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * TP_RANKS:
-        raise AssertionError(f"TP phase: rank exit codes {codes}")
-    ranks = []
-    for r in range(TP_RANKS):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks = spawn_ranks(tp_rank, TP_RANKS, out_dir, (), TP_TIMEOUT_S, "TP phase")
     shutil.rmtree(out_dir)
     wall = time.perf_counter() - t0
 
@@ -2937,6 +3003,191 @@ def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: f
 
 
 TP_TIMEOUT_S = 600
+
+
+# --- the serving data axis: lanes over the data ranks of a process mesh on
+# the one card, over gloo. Each data rank holds its block of the 8 lanes
+# (its cache, frame buffer and penalty rows) and encodes its own lanes'
+# frames; a dispatch's probabilities and a decode's rows are gathered over
+# the host. The ranks measure correctness and memory a rank, not a speedup.
+
+DP_MESH = (2, 1)  # all 28 layers: phase 6's sessions, bf16 and int8 caches, the scorer
+DP_TP_MESH, DP_TP_LAYERS = (2, 2), 2  # four ranks at the 7B widths, the TP batched sessions
+DP_TIMEOUT_S = 420
+
+
+def dp_model(layers: int, dev):
+    """(cfg, tok, params): the default MMDuetConfig cut to ``layers``
+    decoder layers, random bf16 weights from seed 0 on ``dev``."""
+    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
+    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
+                                 eos_token_id=tok.eos_token_id)
+    if layers != cfg.text.num_layers:
+        cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=layers))
+    return cfg, tok, init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                        torch.bfloat16)
+
+
+def dp_rank(rank: int, port: int, out_dir: str, shape: tuple, layers: int) -> None:
+    """One rank of the data-axis phase (a spawned process): joins the gloo
+    group, builds the model of ``layers`` layers (seed 0; the ranks build
+    one after the other, each freeing the whole tree before the next
+    builds it) and keeps its ``shard_params(mode="replicate")`` tree; on
+    DP_MESH runs the batched path with the bf16 cache (serve and the
+    scorer) and with the int8 cache (serve), otherwise the TP batched
+    pass; writes its results to ``out_dir/rank<r>.json``."""
+    from mmduet_tpu_torch.parallel import initialize_distributed, shard_params
+
+    world = shape[0] * shape[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def log(msg):
+        print(f"[DP rank {rank} of {shape}] {msg}", flush=True)
+
+    initialize_distributed("gloo")
+    mesh = make_mesh(shape, device="cuda:0")  # every rank shares the one card
+    dist = torch.distributed
+    params = None
+    for turn in range(world):
+        if turn == rank:
+            cfg, tok, whole = dp_model(layers, torch.device("cuda"))
+            params = shard_params(whole, mesh, mode="replicate")
+            del whole
+            torch.cuda.empty_cache()
+        dist.barrier()
+    log(f"local tree: {quant.param_bytes(params) / 1e9:.3f} GB on {mesh.device}, lanes "
+        f"{lane_block(mesh, BATCH_LANES)}")
+    t0 = time.perf_counter()
+    if shape == DP_MESH:
+        result = {"bf16": run_batched_path(cfg, tok, params, log, mesh=mesh),
+                  "int8": run_batched_path(cfg, tok, params, log, mesh=mesh,
+                                           kv_cache_quant="int8", grounding=False)}
+        for run in result.values():
+            del run["results"]  # its rows are in "sessions"
+    else:
+        result = {"batched": run_tp_batched(cfg, tok, params, log, mesh=mesh)}
+    result.update(wall_s=time.perf_counter() - t0, coords=list(mesh.coords),
+                  lanes=list(lane_block(mesh, BATCH_LANES)))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()  # no rank leaves while another reads its last collective
+    dist.destroy_process_group()
+
+
+def dp_launch(shape: tuple, layers: int) -> list:
+    """The ranks of ``shape``, spawned on the one card; their results. A
+    rank that fails fails the phase; all are stopped at the end."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="dp.", dir=_build.BUILD_DIR)
+    torch.cuda.empty_cache()
+    out = spawn_ranks(dp_rank, shape[0] * shape[1], out_dir, (shape, layers), DP_TIMEOUT_S,
+                      f"data-axis phase {shape}")
+    shutil.rmtree(out_dir)
+    return out
+
+
+def _dp_rows(ranks: list, runs: tuple, what: str) -> dict:
+    """The rows every rank must hold bit for bit (each run's sessions'
+    scores and answers, and the scorer's rows), with each session's greedy
+    steps taken from the data rank whose lanes held it (a rank records
+    the decodes of its own lanes only)."""
+    def rows(x):
+        return {run: ({i: {k: s[k] for k in ("scores", "answers")}
+                       for i, s in x[run]["sessions"].items()}, x[run].get("rows"))
+                for run in runs}
+
+    if any(rows(x) != rows(ranks[0]) for x in ranks[1:]):
+        raise AssertionError(f"data-axis phase {what}: the ranks' rows differ")
+    out = {}
+    for run in runs:
+        out[run] = {i: dict(s, steps=[st for x in ranks if x["coords"][1] == 0
+                                      for st in x[run]["sessions"][i]["steps"]])
+                    for i, s in ranks[0][run]["sessions"].items()}
+    return out
+
+
+def _dp_compare(name: str, got: dict, want: dict, log, tol: float) -> float:
+    """Every session of a rank's pass against the one process's
+    (`compare_tp_pass`); every comparison is printed before the first
+    failure is raised. Returns the largest score difference."""
+    worst, failed = 0.0, []
+    for i, sess in want.items():
+        try:
+            worst = max(worst, compare_tp_pass(f"{name} session {i}", got[i], sess, log,
+                                               tol=tol))
+        except AssertionError as e:
+            failed.append(e)
+    if failed:
+        raise failed[0]
+    return worst
+
+
+def _dp_log_ranks(ranks: list, runs: tuple, log) -> None:
+    for r, x in enumerate(ranks):
+        for run in runs:
+            y = x[run]
+            log(f"DP rank {r} {tuple(x['coords'])} lanes {x['lanes'][0]}-{x['lanes'][1] - 1}, "
+                f"{run}: peak {y['peak_gib']:.2f} GiB; {y['frames_per_s']:.2f} frames/s "
+                f"aggregate, {y['dispatch_ms_per_frame']:.3f} ms per frame fed; decode "
+                f"{y['decode_tokens_per_s']:.2f} tokens/s; {y['dispatches']} dispatches, "
+                f"{y['forwards']} forwards here, gen_lanes {y['gen_lanes']}; launches "
+                f"{y['counts']}")
+
+
+def run_dp_phase(log, ref: dict, tol: float) -> dict:
+    """The serving data axis: DP_MESH's two ranks at full depth against
+    the one process's batched runs of phase 6 (``ref``: bf16 sessions and
+    scorer rows, int8 sessions), scores within ``tol`` (the TP phase's
+    bound); then DP_TP_MESH's four ranks at DP_TP_LAYERS layers against
+    the one process's TP batched pass on the same cut model, within the
+    larger of TP_SCORE_TOL and twice its own spread under a permuted MLP.
+    Each rank's launches were held by the passes themselves (kernel A a
+    layer per forward of its lanes, no A' shards, kernel D per vision
+    batch of its lanes' sessions)."""
+    t0 = time.perf_counter()
+    ranks = dp_launch(DP_MESH, MMDuetConfig().text.num_layers)
+    got = _dp_rows(ranks, ("bf16", "int8"), str(DP_MESH))
+    log(f"data-axis phase {DP_MESH}: {len(ranks)} ranks in {time.perf_counter() - t0:.1f} s; "
+        "every rank's scores, answers and scorer rows are the same bits")
+    worst = {run: _dp_compare(f"DP {DP_MESH} {run}", got[run], ref[run]["sessions"], log, tol)
+             for run in ("bf16", "int8")}
+    rows = ranks[0]["bf16"]["rows"]
+    worst["grounding"] = max(compare_tp_pass(
+        f"DP {DP_MESH} scorer lane {b}",
+        {"scores": [[d["informative_score"], d["relevance_score"]] for d in g],
+         "answers": [], "steps": []},
+        {"scores": [[d["informative_score"], d["relevance_score"]] for d in w],
+         "answers": [], "steps": []}, log, tol=tol)
+        for b, (g, w) in enumerate(zip(rows, ref["bf16"]["rows"])))
+    _dp_log_ranks(ranks, ("bf16", "int8"), log)
+
+    t1 = time.perf_counter()
+    cfg, tok, params = dp_model(DP_TP_LAYERS, torch.device("cuda"))
+    log(f"data-axis phase {DP_TP_MESH}: the decoder cut to {DP_TP_LAYERS} of 28 layers at "
+        "the 7B widths (four ranks share the card)")
+    one = run_tp_batched(cfg, tok, params, log)
+    with permuted_mlp(params):
+        again = run_tp_batched(cfg, tok, params, log)
+    spread = _dp_compare(f"rounding spread, {DP_TP_LAYERS} layers (one process, MLP permuted)",
+                         again["sessions"], one["sessions"], log, tol=math.inf)
+    del params
+    torch.cuda.empty_cache()
+    tol2 = max(TP_SCORE_TOL, 2 * spread)
+    ranks2 = dp_launch(DP_TP_MESH, DP_TP_LAYERS)
+    got2 = _dp_rows(ranks2, ("batched",), str(DP_TP_MESH))
+    log(f"data-axis phase {DP_TP_MESH}: {len(ranks2)} ranks; every rank's scores and answers "
+        "are the same bits")
+    worst["tp"] = _dp_compare(f"DP {DP_TP_MESH}", got2["batched"], one["sessions"], log, tol2)
+    _dp_log_ranks(ranks2, ("batched",), log)
+    log(f"one process at {DP_TP_LAYERS} layers: {one['frames_per_s']:.2f} frames/s, peak "
+        f"{one['peak_gib']:.2f} GiB, decode {one['decode_tokens_per_s']:.2f} tokens/s")
+    wall = time.perf_counter() - t0
+    log(f"data-axis phase in {wall:.1f} s ({DP_MESH}: {t1 - t0:.1f} s); worst score "
+        f"differences {worst} against bounds {tol:.4g} / {tol2:.4g}")
+    return {"ranks": ranks, "ranks2": ranks2, "wall_s": wall}
 
 
 # --- the training mesh: LoRA training on process meshes whose ranks share
@@ -3083,7 +3334,7 @@ def tm_spread(cfg, params, lora, batches, ref, dev, log) -> tuple:
     return spread
 
 
-def tm_rank(rank: int, shape: tuple, mode: str, port: int, out_dir: str, dev: str) -> None:
+def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: str) -> None:
     """One rank of a training-mesh launch (a spawned process): joins the
     gloo group, builds its shard of `tm_model` (the ranks build one after
     the other), takes a warm-up and TM_STEPS steps of the batches in
@@ -3150,33 +3401,8 @@ def tm_rank(rank: int, shape: tuple, mode: str, port: int, out_dir: str, dev: st
 def tm_launch(shape: tuple, mode: str, out_dir: str, dev: str) -> list:
     """The ranks of one layout, spawned on the one card; their results. A
     rank that fails fails the phase; all are stopped at the end."""
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    world = shape[0] * shape[1]
-    procs = [ctx.Process(target=tm_rank, args=(r, shape, mode, port, out_dir, dev))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + TM_TIMEOUT_S
-    try:
-        for p in procs:
-            p.join(timeout=max(0.0, deadline - time.monotonic()))
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(10)
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * world:
-        raise AssertionError(f"training mesh {shape} {mode}: rank exit codes {codes}")
-    out = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            out.append(json.load(f))
+    out = spawn_ranks(tm_rank, shape[0] * shape[1], out_dir, (shape, mode, dev), TM_TIMEOUT_S,
+                      f"training mesh {shape} {mode}")
     out[0]["trainable"] = torch.load(os.path.join(out_dir, "trainable.pt"), weights_only=True)
     return out
 
@@ -3336,6 +3562,8 @@ def main(argv=None) -> int:
         f"{batched['dispatch_ms_per_frame']:.3f} vs p50 {dense['p50_ms']:.3f}; grounding-mode "
         f"{batched['grounding_ms_per_frame']:.3f} vs p50 {dense['grounding_p50_ms']:.3f}; decode "
         f"tokens/s {batched['decode_tokens_per_s']:.2f} vs {dense['decode_tokens_per_s']:.2f}")
+    dp_ref = {"bf16": {k: batched[k] for k in ("sessions", "rows")},  # the data-axis phase's
+              "int8": {"sessions": batched_int8["sessions"]}}
     del batched, meshed, batched_int8
     tp_batched_ref = run_tp_batched(cfg, tok, params, log)  # the TP phase's one process
     tp_spread = spread_under_permuted_mlp(cfg, tok, params, log, dense, tp_batched_ref)
@@ -3360,6 +3588,15 @@ def main(argv=None) -> int:
     sharded["process_mesh"] = {  # A' on a process mesh: kernel A once a rank and layer
         "launches": r0["dense"]["attention"], "layers": cfg.text.num_layers,
         **{k: tp_kernels["attention"][k] for k in ("ms", "bound_ms", "bound_by")}}
+    dp = run_dp_phase(log, dp_ref, tp["tol"])
+    d0, d2 = dp["ranks"][0], dp["ranks2"][0]
+    for entry, run, key in ((dec, "bf16", "attention"), (dec_int8, "int8", "attention_int8"),
+                            (vision, None, "vision")):
+        # rank 0's launches on the data-axis path: its 4 of the 8 lanes
+        launches = (d0["bf16"]["counts"][key] + d0["int8"]["counts"][key] if run is None
+                    else d0[run]["counts"][key])
+        entry["data_axis"] = {"mesh": list(DP_MESH), "lanes": d0["lanes"], "launches": launches}
+    dec["data_axis"]["mesh_2x2_launches"] = d2["batched"]["counts"]["attention"]
     tm_launches = run_train_mesh_phase(log)
     for entry, key in ((full_fwd, "full_fwd"), (full_bwd, "full_bwd")):
         # the rank-local shape's numbers, and the (2, 2) rank 0's launches

@@ -37,23 +37,28 @@ cuda``). ``--is_online_model false`` runs the offline whole-video baseline
 checkpoint becomes a ``--checkpoint`` directory through
 `python -m mmduet_tpu_torch.models.convert`.
 
-``--mesh_model N`` serves tensor-parallel, one process per rank, each
-holding its shard (`parallel.shard_params`) on its own device::
+``--mesh_model M`` serves tensor-parallel and ``--mesh_data D`` (with
+``--batch_streams B``, which D divides) cuts the B lanes over D ranks,
+one process per rank on a (D, M) mesh, each holding its shard
+(`parallel.shard_params`) on its own device::
 
-    python -m torch.distributed.run --nproc_per_node N \
-        -m mmduet_tpu_torch.eval.inference --mesh_model N ... \
+    python -m torch.distributed.run --nproc_per_node D*M \
+        -m mmduet_tpu_torch.eval.inference --mesh_model M \
+        [--mesh_data D --batch_streams B] ... \
         [--dist_backend nccl|gloo] [--device cuda|cuda:0|cpu]
 
 The single-stream, ``--batch_streams`` and ``--is_online_model false``
-routes all take it, and their rows equal one process's. ``--dist_backend``
-(default ``nccl``) is the backend named to `torch.distributed`: ``nccl``
-where each rank has its own card (``--device cuda`` is then
-``cuda:LOCAL_RANK``), ``gloo`` on the CPU and for ranks that share one
-card (``--device cuda:0``; NCCL refuses two ranks on one device). Rank 0
-alone writes the output file.
+routes all take ``--mesh_model``, and their rows equal one process's;
+``--mesh_data`` > 1 needs ``--batch_streams`` > 1, as in the JAX CLI (the
+offline baseline, reached with both, runs whole on each data replica).
+``--dist_backend`` (default ``nccl``) is the backend named to
+`torch.distributed`: ``nccl`` where each rank has its own card
+(``--device cuda`` is then ``cuda:LOCAL_RANK``), ``gloo`` on the CPU and
+for ranks that share one card (``--device cuda:0``; NCCL refuses two ranks
+on one device). Rank 0 alone writes the output file.
 
 ``--device`` defaults to ``cuda``; nothing switches to the CPU on its
-own. Not ported yet (it raises): ``--mesh_data`` > 1 (lanes over cards).
+own.
 
 `round_floats`, `_argparser`, `_test_args` and `_make_dataset` are the
 JAX CLI's host helpers, copied (its `build_argparser` under the name
@@ -202,34 +207,31 @@ def build_argparser() -> argparse.ArgumentParser:
     p = _argparser()
     p.description = "MMDuet streaming inference (PyTorch port)"
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device to run on (default cuda; with --mesh_model, "
+                   help="torch device to run on (default cuda; on a mesh, "
                         "cuda:LOCAL_RANK)")
     p.add_argument("--dist_backend", type=str, default="nccl", choices=("nccl", "gloo"),
-                   help="with --mesh_model N: the torch.distributed backend (nccl: a card "
-                        "per rank; gloo: CPU ranks, or ranks sharing one card)")
+                   help="with --mesh_model / --mesh_data: the torch.distributed backend "
+                        "(nccl: a card per rank; gloo: CPU ranks, or ranks sharing one card)")
     return p
 
 
-def _not_ported(args) -> None:
-    if args.mesh_data > 1:
-        raise SystemExit("--mesh_data > 1 is not yet ported to mmduet_tpu_torch")
-
-
 def _make_mesh(args):
-    """This rank's (1, --mesh_model) process mesh, or None for one process."""
-    if args.mesh_model <= 1:
+    """This rank's (--mesh_data, --mesh_model) process mesh, or None for
+    one process."""
+    n = args.mesh_data * args.mesh_model
+    if n <= 1:
         return None
     from ..parallel import initialize_distributed, make_mesh
 
     if "RANK" not in os.environ:
         raise SystemExit(
-            f"--mesh_model {args.mesh_model} runs one process per rank: start it with "
-            f"python -m torch.distributed.run --nproc_per_node {args.mesh_model} "
+            f"--mesh_data {args.mesh_data} x --mesh_model {args.mesh_model} runs one process "
+            f"per rank: start it with python -m torch.distributed.run --nproc_per_node {n} "
             "-m mmduet_tpu_torch.eval.inference ...")
     initialize_distributed(args.dist_backend)
     device = torch.device(args.device)
     # a bare "cuda" is each rank's own card; "cuda:i" or "cpu" is named
-    return make_mesh((1, args.mesh_model),
+    return make_mesh((args.mesh_data, args.mesh_model),
                      device=None if device == torch.device("cuda") else device)
 
 
@@ -312,6 +314,11 @@ def _run_batched(args) -> None:
     latencies are not observable when B streams share one dispatch)."""
     from ..infer import BatchedStreamEngine
 
+    if args.mesh_data > 1 and args.batch_streams % args.mesh_data != 0:
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} must divide --batch_streams "
+            f"{args.batch_streams} (lanes shard over the data axis)"
+        )
     mesh = _make_mesh(args)
     cfg, params, lora, tokenizer = _load_model(args, mesh)
     B = args.batch_streams
@@ -438,7 +445,6 @@ def _run_offline_baseline(args) -> None:
 
 def main(argv=None) -> None:
     args = build_argparser().parse_args(argv)
-    _not_ported(args)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if not args.profile_dir:
@@ -464,6 +470,15 @@ def _main_inner(args) -> None:
 
 
 def _run(args) -> None:
+    if args.mesh_data > 1 and args.batch_streams <= 1:
+        # Data-parallel lane sharding only exists in batched serving;
+        # silently ignoring the flag would let a user believe they
+        # benchmarked a DP config they never ran.
+        raise SystemExit(
+            f"--mesh_data {args.mesh_data} requires --batch_streams > 1 "
+            "(lanes shard over the data axis); single-stream and offline "
+            "baseline runs take --mesh_model only"
+        )
     if not args.is_online_model:
         return _run_offline_baseline(args)
     if args.batch_streams > 1:

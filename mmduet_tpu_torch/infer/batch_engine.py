@@ -32,11 +32,21 @@ unsharded kernel). `BatchedStreamEngine.prewarm` pays before the first
 group what its first calls would (the kernels' builds, their scratch,
 cuBLAS's handles, the allocator's pool).
 
-Under a `parallel.ProcessMesh` (one process per card, model axis only)
-each rank holds its local tree and a cache of its own kv heads, as
-`LiveInferEngine` does; every rank runs the same host loop on values the
-collectives made equal. Lanes over ranks (a data axis) are not yet
-ported and raise.
+Under a `parallel.ProcessMesh` (one process per card) each rank holds
+its local tree and a cache of its own kv heads (the ``model`` axis, as
+`LiveInferEngine` does), and over the ``data`` axis the device state of
+its own block of lanes (`parallel.lane_block`, where ``data`` divides B:
+its (L, B/D, kh/M, S, hd) cache, frame buffer and penalty-mask rows; all
+B lanes otherwise, replicated). Every rank runs the same host loop over
+all B lanes (cursors, clocks, queues, policies, admission, coalescing,
+the overflow guards) on values the collectives made equal. A dispatch
+runs the forward on the rank's lanes at the chunk width all B lanes pick,
+and its (B/D, 2, K) probabilities, like a batched decode's packed rows,
+are gathered over ``data`` (`collectives.gather_data`), the axis's only
+collectives: so a rank's decode stops at its own lanes' end of sequence,
+and a rank none of whose lanes is fed or decoding skips the forward and
+gives its zero block to the gather. A rank encodes the frames of its own
+lanes' sessions only.
 """
 
 from __future__ import annotations
@@ -52,7 +62,8 @@ from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, ints_to
 from ..ops import _build
-from ..parallel import serving_shard_ctx
+from ..parallel import lane_block, serving_shard_ctx
+from ..parallel.collectives import gather_data
 from .state import (
     DEFAULT_BUCKETS,
     ThresholdPolicy,
@@ -94,8 +105,10 @@ class BatchedStreamScorer:
         device. The parameters stay whole; the streaming attention runs
         per shard: kv heads (with their query heads) over ``model`` and,
         when ``data`` divides ``n_streams``, lanes over ``data``. Or this
-        rank's `parallel.ProcessMesh` (model axis only), with ``params``
-        its local tree (`parallel.shard_params`)."""
+        rank's `parallel.ProcessMesh`, with ``params`` its local tree
+        (`parallel.shard_params(mode="replicate")`): kv heads over
+        ``model``, and this rank's block of lanes over ``data`` when it
+        divides ``n_streams`` (see the module docstring)."""
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -105,6 +118,9 @@ class BatchedStreamScorer:
         self.device = final_norm.device
         self._shard_ctx = serving_shard_ctx(
             mesh, cfg.text.num_heads, cfg.text.num_kv_heads, n_streams, self.device)
+        # the lanes [lo, hi) whose device state this process holds
+        self._lo, self._hi = lane_block(mesh, n_streams)
+        self._lane_sharded = self._hi - self._lo < n_streams
         # non-positive = the CLI's auto sentinel (real per-stream rates
         # then arrive via set_stream_fps, defined below)
         self.frame_fps = frame_fps if frame_fps > 0 else 1.0
@@ -135,14 +151,14 @@ class BatchedStreamScorer:
 
     @torch.inference_mode()
     def reset(self):
-        # one (L, B, kh, S, hd) cache with the lane dim on the model's
-        # batch axis, the layout of B = 1 serving. The old buffers go
-        # FIRST: at protocol scale old and new caches beside the weights
-        # would not fit the card together
+        # one (L, lanes, kh, S, hd) cache of this process's lanes with the
+        # lane dim on the model's batch axis, the layout of B = 1 serving.
+        # The old buffers go FIRST: at protocol scale old and new caches
+        # beside the weights would not fit the card together
         self._cache = None
         self._cache = serving_cache(
-            self.cfg.text, self.params["decoder"], self.B, self._cache_size, self.dtype,
-            self.device, quant=self.kv_cache_quant,
+            self.cfg.text, self.params["decoder"], self._hi - self._lo, self._cache_size,
+            self.dtype, self.device, quant=self.kv_cache_quant,
         )
         self._cursor = np.zeros((self.B,), np.int64)  # host-authoritative
         self._frame_embeds: Optional[torch.Tensor] = None
@@ -188,8 +204,9 @@ class BatchedStreamScorer:
                 ))
             per_stream.append(ids)
         bucket = pick_bucket(max(len(ids) for ids in per_stream))
+        lo, hi = self._lo, self._hi
         embeds = torch.stack([
-            pad_chunk(self._embed_ids(ids), bucket) for ids in per_stream
+            pad_chunk(self._embed_ids(ids), bucket) for ids in per_stream[lo:hi]
         ])
         t_real = [len(ids) for ids in per_stream]
         self._max_cursor += bucket  # bucket-wide writes: the overflow bound
@@ -199,30 +216,29 @@ class BatchedStreamScorer:
                 f"> capacity {self._cache_size}. Raise kv_cache_size."
             )
         mmduet.step_forward(
-            self.params, self.cfg, embeds, self._cache, self._cursor.tolist(), t_real,
-            lora=self.lora, lora_scale=self.lora_scale, compute_lm_logits=False,
-            shard_ctx=self._shard_ctx,
+            self.params, self.cfg, embeds, self._cache, self._cursor[lo:hi].tolist(),
+            t_real[lo:hi], lora=self.lora, lora_scale=self.lora_scale,
+            compute_lm_logits=False, shard_ctx=self._shard_ctx,
         )
         self._cursor += np.array(t_real)
 
     @torch.inference_mode()
     def input_video_streams(self, videos: Sequence[np.ndarray]) -> None:
         """Encode every stream's pixels (uint8 (T_b,H,W,3); lengths may
-        differ) into frame embeddings in one shared-weights pass."""
+        differ) into frame embeddings in one shared-weights pass (of this
+        process's lanes' streams only)."""
         self._check_lanes(videos, "videos")
         lengths = np.array([len(v) for v in videos])
         T = int(lengths.max())
+        local = videos[self._lo:self._hi]
         all_px = np.zeros(
-            (self.B * T, *videos[0].shape[1:]), dtype=np.uint8
+            (len(local) * T, *videos[0].shape[1:]), dtype=np.uint8
         )
-        for b, vframes in enumerate(videos):
+        for b, vframes in enumerate(local):
             all_px[b * T : b * T + len(vframes)] = vframes
         flat = staged_visual_encode(self._visual, all_px, self.device, VISION_BATCH)
-        # routed through input_frame_embeds so the engine subclass can
-        # intercept into its preallocated per-lane buffer
-        self.input_frame_embeds(
-            flat.reshape(self.B, T, self.cfg.frame_num_tokens, -1),
-            lengths=lengths,
+        self._set_frames(
+            flat.reshape(len(local), T, self.cfg.frame_num_tokens, -1), lengths.astype(np.int64)
         )
 
     @torch.inference_mode()
@@ -230,7 +246,13 @@ class BatchedStreamScorer:
         """(B, T, ft, H) pre-computed frame embeddings (tests/feeds).
         ``lengths``: optional per-stream real frame counts (trailing
         frames of shorter streams are padding)."""
-        self._frame_embeds, self._lengths = self._checked_embeds(embeds, lengths)
+        self._set_frames(*self._checked_embeds(embeds, lengths))
+
+    def _set_frames(self, local: torch.Tensor, lengths: np.ndarray) -> None:
+        """Take this process's lanes' (lanes, T, ft, H) embeddings and
+        every stream's real frame count; the engine subclass writes them
+        into its preallocated per-lane buffer instead."""
+        self._frame_embeds, self._lengths = local, lengths
         self._next = 0
 
     def _check_lanes(self, per_lane, what: str) -> None:
@@ -238,10 +260,12 @@ class BatchedStreamScorer:
             raise ValueError(f"{len(per_lane)} {what} for {self.B} streams")
 
     def _checked_embeds(self, embeds, lengths) -> Tuple[torch.Tensor, np.ndarray]:
-        """(B, T, ft, H) embeddings on the device in the activation dtype,
-        and the (B,) int64 real frame counts (all T without ``lengths``)."""
-        embeds = torch.as_tensor(embeds).to(device=self.device, dtype=self.dtype)
+        """This process's lanes' rows of (B, T, ft, H) embeddings on the
+        device in the activation dtype, and the (B,) int64 real frame
+        counts (all T without ``lengths``)."""
+        embeds = torch.as_tensor(embeds)
         self._check_lanes(embeds, "rows of frame embeddings")
+        embeds = embeds[self._lo:self._hi].to(device=self.device, dtype=self.dtype)
         if lengths is None:
             return embeds, np.full((self.B,), embeds.shape[1], np.int64)
         lengths = np.asarray(lengths)
@@ -272,7 +296,7 @@ class BatchedStreamScorer:
                 return
             dev, first, n = pending
             pending = None
-            scores = dev.cpu().numpy()  # ONE host sync for B*2*n scores
+            scores = self._all_lanes(dev)  # ONE host sync for B*2*n scores
             inf, rel = scores[:, 0], scores[:, 1]
             for b in range(self.B):
                 for j in range(n):
@@ -286,6 +310,7 @@ class BatchedStreamScorer:
                     })
 
         ft = self.cfg.frame_num_tokens
+        lo, hi = self._lo, self._hi
         while self._next < T:
             n = min(self.block_frames, T - self._next)
             self._max_cursor += n * ft
@@ -295,10 +320,10 @@ class BatchedStreamScorer:
                     f"capacity {self._cache_size}. Raise kv_cache_size."
                 )
             frames = self._frame_embeds[:, self._next : self._next + n]
-            # a lockstep (B, n, ft, H) frame block: probs (B, 2, n)
+            # a lockstep (lanes, n, ft, H) frame block: probs (lanes, 2, n)
             dev, _ = mmduet.chunk_scores_forward(
-                self.params, self.cfg, frames.reshape(self.B, n * ft, -1), self._cache,
-                self._cursor.tolist(), n * ft, [(j + 1) * ft - 1 for j in range(n)],
+                self.params, self.cfg, frames.reshape(hi - lo, n * ft, -1), self._cache,
+                self._cursor[lo:hi].tolist(), n * ft, [(j + 1) * ft - 1 for j in range(n)],
                 lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
             )
             self._cursor += n * ft
@@ -307,6 +332,12 @@ class BatchedStreamScorer:
             self._next += n
         drain()
         return out
+
+    def _all_lanes(self, rows: torch.Tensor) -> np.ndarray:
+        """The host copy of every lane's rows from this process's (lanes,
+        ...) rows: one fetch, after the gather over ``data`` where the
+        lanes are cut over it."""
+        return (gather_data(rows, 0) if self._lane_sharded else rows).cpu().numpy()
 
 
 class BatchedStreamEngine(BatchedStreamScorer):
@@ -404,7 +435,8 @@ class BatchedStreamEngine(BatchedStreamScorer):
             collections.deque() for _ in range(B)
         ]
         self._pen_mask = torch.zeros(
-            (B, self.cfg.text.vocab_size), dtype=torch.bool, device=self.device
+            (self._hi - self._lo, self.cfg.text.vocab_size), dtype=torch.bool,
+            device=self.device,
         )
         # lane -> rounds waited for a coalesced generation (see __init__)
         self._pending_gen: Dict[int, int] = {}
@@ -417,10 +449,13 @@ class BatchedStreamEngine(BatchedStreamScorer):
         self._lane_sess: List[Optional[int]] = [None] * B
         self._responses: List[List[Dict[str, Any]]] = [[] for _ in range(B)]
         # counts since the reset: batched dispatches, tokens over every
-        # response, and the lanes of each batched decode
+        # response, the lanes of each batched decode, and the decoder
+        # forwards this process ran (dispatches that fed one of its lanes,
+        # each batched decode's prefill and steps on its lanes)
         self.dispatches = 0
         self.tokens_generated = 0
         self.gen_lanes: List[int] = []
+        self.forwards = 0
 
     def start_sessions(self, queries):  # pragma: no cover - guard
         raise NotImplementedError(
@@ -449,8 +484,9 @@ class BatchedStreamEngine(BatchedStreamScorer):
     # ------------------------------------------------------------------
 
     def _ensure_frame_buffer(self, H: int) -> None:
-        """(B, max_num_frames, ft, H) zeros buffer; lanes own rows, so a
-        session can be admitted into one lane without touching others."""
+        """(lanes, max_num_frames, ft, H) zeros buffer of this process's
+        lanes; lanes own rows, so a session can be admitted into one lane
+        without touching others."""
         cap = self.args.max_num_frames
         ft = self.cfg.frame_num_tokens
         if (
@@ -459,14 +495,12 @@ class BatchedStreamEngine(BatchedStreamScorer):
             or self._frame_embeds.shape[-1] != H
         ):
             self._frame_embeds = torch.zeros(
-                (self.B, cap, ft, H), dtype=self.dtype, device=self.device
+                (self._hi - self._lo, cap, ft, H), dtype=self.dtype, device=self.device
             )
 
-    @torch.inference_mode()
-    def input_frame_embeds(self, embeds, lengths=None) -> None:
-        """(B, T, ft, H) pre-computed frame embeddings, written into the
-        preallocated per-lane buffer in place."""
-        embeds, lengths = self._checked_embeds(embeds, lengths)
+    def _set_frames(self, embeds: torch.Tensor, lengths: np.ndarray) -> None:
+        """This process's lanes' (lanes, T, ft, H) frame embeddings,
+        written into the preallocated per-lane buffer in place."""
         cap = self.args.max_num_frames
         if embeds.shape[1] > cap:
             raise ValueError(
@@ -486,19 +520,25 @@ class BatchedStreamEngine(BatchedStreamScorer):
         clock, policy, penalty-mask row and query queue; frames written
         into the lane's buffer row (rows past the session's length keep
         what they held and are never read). Other lanes are untouched —
-        their caches/cursors never see the admission."""
+        their caches/cursors never see the admission. A lane another
+        process holds records only the session's length: its frames are
+        encoded and kept where the lane lives."""
         frames = sess.get("frame_embeds")
-        if frames is None:
+        local = self._lo <= lane < self._hi
+        T = len(frames if frames is not None else sess["frames"])
+        if local and frames is None:
             frames = staged_visual_encode(
                 self._visual, sess["frames"], self.device, VISION_BATCH
             )
-        frames = torch.as_tensor(frames).to(device=self.device, dtype=self.dtype)
-        T = frames.shape[0]
         cap = self.args.max_num_frames
         if T > cap:
             raise ValueError(f"session has {T} frames > max_num_frames {cap}")
-        self._ensure_frame_buffer(frames.shape[-1])
-        self._frame_embeds[lane, :T] = frames
+        if local:
+            frames = torch.as_tensor(frames).to(device=self.device, dtype=self.dtype)
+            self._ensure_frame_buffer(frames.shape[-1])
+            self._frame_embeds[lane - self._lo, :T] = frames
+            # fresh repetition-penalty token set for the new session
+            self._pen_mask[lane - self._lo] = False
         self._lengths[lane] = T
         self._cur[lane] = 0
         self._next_b[lane] = 0
@@ -517,8 +557,6 @@ class BatchedStreamEngine(BatchedStreamScorer):
             {"time": t, "content": q, "role": "user"}
             for t, q in self._queues[lane]
         ]
-        # fresh repetition-penalty token set for the new session
-        self._pen_mask[lane] = False
 
     @torch.inference_mode()
     def serve(self, sessions):
@@ -661,45 +699,54 @@ class BatchedStreamEngine(BatchedStreamScorer):
         (B, 2, K) score probs; entry j of lane b is frame j's scores —
         entries beyond the lane's frame count (and all entries of id-only
         or unfed lanes) are garbage the caller must ignore. Unfed lanes
-        run a 1-token dummy chunk and commit nothing."""
+        run a 1-token dummy chunk and commit nothing. The chunk width is
+        picked over all B lanes; the forward runs on this process's lanes,
+        and not at all when none of them is fed (its rows are then zeros)."""
         ft = self.cfg.frame_num_tokens
         K = self.block_frames
         H = self.params["decoder"]["final_norm"].shape[-1]
-        embeds_l, t_real, score_pos = [], [], []
-        for b in range(self.B):
-            if b in chunks:
-                ids, fstart, nf = chunks[b]
-                parts = []
-                if ids:
-                    parts.append(self._embed_ids(ids))
-                if nf:
-                    parts.append(
-                        self._frame_embeds[b, fstart : fstart + nf]
-                        .reshape(nf * ft, -1)
-                    )
-                emb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-                embeds_l.append(emb)
-                t_real.append(emb.shape[0])
-                pos = [len(ids) + (j + 1) * ft - 1 for j in range(nf)]
-                score_pos.append(pos + [0] * (K - nf))
-            else:  # unfed lane: 1-token dummy, scores ignored by caller
-                embeds_l.append(torch.zeros((1, H), dtype=self.dtype, device=self.device))
-                t_real.append(1)
-                score_pos.append([0] * K)
+        t_real = [len(chunks[b][0]) + chunks[b][2] * ft if b in chunks else 1
+                  for b in range(self.B)]
         bucket = pick_bucket(max(t_real), self._buckets)
         for b in chunks:
             self._check_fits(b, bucket)
         self._guard_frozen_writes(bucket, chunks)
-        embeds = torch.stack([pad_chunk(c, bucket) for c in embeds_l])
-        probs, _ = mmduet.chunk_scores_forward(
-            self.params, self.cfg, embeds, self._cache, self._cur.tolist(), t_real,
-            score_pos, lora=self.lora, lora_scale=self.lora_scale,
-            shard_ctx=self._shard_ctx, commit=[b in chunks for b in range(self.B)],
-        )
+        lo, hi = self._lo, self._hi
+        lanes = range(lo, hi)
+        fed = [b in chunks for b in lanes]
+        if any(fed):
+            embeds_l, score_pos = [], []
+            for b in lanes:
+                if b in chunks:
+                    ids, fstart, nf = chunks[b]
+                    parts = []
+                    if ids:
+                        parts.append(self._embed_ids(ids))
+                    if nf:
+                        parts.append(
+                            self._frame_embeds[b - lo, fstart : fstart + nf]
+                            .reshape(nf * ft, -1)
+                        )
+                    emb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+                    pos = [len(ids) + (j + 1) * ft - 1 for j in range(nf)]
+                    score_pos.append(pos + [0] * (K - nf))
+                else:  # unfed lane: 1-token dummy, scores ignored by caller
+                    emb = torch.zeros((1, H), dtype=self.dtype, device=self.device)
+                    score_pos.append([0] * K)
+                embeds_l.append(emb)
+            embeds = torch.stack([pad_chunk(c, bucket) for c in embeds_l])
+            probs, _ = mmduet.chunk_scores_forward(
+                self.params, self.cfg, embeds, self._cache, self._cur[lo:hi].tolist(),
+                t_real[lo:hi], score_pos, lora=self.lora,
+                lora_scale=self.lora_scale, shard_ctx=self._shard_ctx, commit=fed,
+            )
+            self.forwards += 1
+        else:  # the lanes here sit this dispatch out: their zero rows join the gather
+            probs = torch.zeros((len(lanes), 2, K), dtype=torch.float32, device=self.device)
         self.dispatches += 1
         for b in chunks:
             self._cur[b] += t_real[b]
-        return probs.cpu().numpy()  # ONE host fetch for all (B, 2, K) scores
+        return self._all_lanes(probs)  # ONE host fetch for all (B, 2, K) scores
 
     @torch.inference_mode()
     def _generate_batch(self, lanes: Sequence[int]) -> Dict[int, str]:
@@ -709,24 +756,31 @@ class BatchedStreamEngine(BatchedStreamScorer):
         bookkeeping (engine `_generate_response`). The generation prompt
         is shared; lanes outside ``lanes`` are frozen throughout
         (`mmduet.decode_loop`)."""
-        gen_embeds = self._embed_ids(self._gen_prompt_ids)
-        t = gen_embeds.shape[0]
+        t = len(self._gen_prompt_ids)
         W = max(self.args.max_new_tokens - 1, 1)
         for b in lanes:
             self._check_fits(b, t + W)
         # the JAX engine's frozen lanes receive BOTH the prompt-width
         # prefill write and the W-wide scratch commit at their cursor
         self._guard_frozen_writes(max(t, W), set(lanes))
-        active = [b in lanes for b in range(self.B)]
+        here = range(self._lo, self._hi)
+        active = [b in lanes for b in here]
         pre = self._cur.copy()
-        packed, _, self._pen_mask = mmduet.decode_loop(
-            self.params, self.cfg, gen_embeds[None].expand(self.B, -1, -1), self._cache,
-            self._cur.tolist(), t, self._pen_mask, active,
-            max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
-            rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
-            shard_ctx=self._shard_ctx,
-        )
-        packed = packed.cpu().numpy()  # ONE fetch: tokens + n + cursor
+        if any(active):
+            gen_embeds = self._embed_ids(self._gen_prompt_ids)
+            packed, _, self._pen_mask = mmduet.decode_loop(
+                self.params, self.cfg, gen_embeds[None].expand(len(here), -1, -1),
+                self._cache, self._cur[self._lo:self._hi].tolist(), t, self._pen_mask, active,
+                max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
+                rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
+                shard_ctx=self._shard_ctx,
+            )
+        else:  # no lane here decodes: zero rows join the gather
+            packed = torch.zeros((len(here), self.args.max_new_tokens + 2), dtype=torch.int32,
+                                 device=self.device)
+        packed = self._all_lanes(packed)  # ONE fetch: tokens + n + cursor
+        if any(active):  # the prefill and one step per token of the longest answer here
+            self.forwards += int(packed[self._lo:self._hi, -2].max())
         buf = packed[:, :-2]
         self.gen_lanes.append(len(lanes))
         out: Dict[int, str] = {}
@@ -759,20 +813,21 @@ class BatchedStreamEngine(BatchedStreamScorer):
         (`LiveInferEngine.prewarm`: the kernels' builds, kernel A's split
         scratch and memo per launch shape, kernel B's scratch, cuBLAS's
         handles, the allocator's pool): one batched dispatch of zeros at
-        each chunk bucket over all B lanes, a batched decode of every lane
-        and, with ``vision``, one VISION_BATCH encode. Resets the engine
-        afterwards."""
+        each chunk bucket over this process's lanes, a batched decode of
+        every lane (the group's first gathers) and, with ``vision``, one
+        VISION_BATCH encode. Resets the engine afterwards."""
         if self.device.type == "cuda":
             _build.build()
         H = self.params["decoder"]["final_norm"].shape[-1]
-        zeros = [0] * self.B
+        n = self._hi - self._lo
+        zeros = [0] * n
         for b in buckets if buckets is not None else self._buckets:
             if b > self._cache_size:
                 continue
             mmduet.chunk_scores_forward(
                 self.params, self.cfg,
-                torch.zeros((self.B, b, H), dtype=self.dtype, device=self.device),
-                self._cache, zeros, [b] * self.B, [[0] * self.block_frames] * self.B,
+                torch.zeros((n, b, H), dtype=self.dtype, device=self.device),
+                self._cache, zeros, [b] * n, [[0] * self.block_frames] * n,
                 lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
             )
         if generate:

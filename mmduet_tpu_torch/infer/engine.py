@@ -31,10 +31,13 @@ bit-equal to the unsharded kernel). The vision tower's attention is kernel
 D on a CUDA device, also under a mesh.
 
 Tensor-parallel serving, one process per card: with ``mesh`` this rank's
-`parallel.ProcessMesh` (data 1, model N) and ``params`` its local tree
+`parallel.ProcessMesh` (data D, model N) and ``params`` its local tree
 (`parallel.shard_params`), the engine keeps a cache of the rank's own kv
 heads and launches kernels A, B and D on its shards directly; the
 collectives of `parallel.collectives` join the ranks inside the forwards.
+A stream is one lane, which the data axis does not divide: every data
+rank runs the whole stream on its replica (the JAX engines' replicated
+lane), with no collective over ``data``.
 Every rank runs this same host loop, and every host decision (trigger,
 rollback, stop token) is taken from values the collectives made the same
 bits on every rank (scores from the reduced hidden states, tokens from the

@@ -27,6 +27,11 @@ Training adds the differentiable pair and the data axis:
 - `gather_data`: a leaf cut over ``data`` (``--param_mode fsdp``) made
   whole, right before it is used (`data_gatherer`, `whole_over_data`).
 
+Batched serving cuts its lanes over ``data`` (`mesh.lane_block`): nothing
+inside a forward crosses that axis, and `gather_data` brings each data
+rank's host-bound rows (a dispatch's score probabilities, a decode's
+packed tokens) to every rank, bit for bit, once a dispatch.
+
 Every collective is a SUM (a gather adds zero-filled full-width buffers,
 exact in any dtype: x + 0 = x), so that the one collective works on CPU
 and CUDA tensors under either backend (gloo takes ``all_reduce`` of CUDA
@@ -237,8 +242,9 @@ def sum_flat(tensors: List[torch.Tensor], reduce: Callable[[torch.Tensor], torch
 
 
 def gather_data(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """The whole of a leaf cut over the data axis on ``dim``, in its dtype
-    (no gradient: the cut leaves are the frozen base's)."""
+    """The whole of a tensor cut over the data axis on ``dim``, in its
+    dtype, bit for bit (no gradient): a frozen base leaf under ``fsdp``, or
+    a serving dispatch's rows of this rank's block of lanes."""
     return _sum_gather(_data, x.detach(), dim, bits=True)
 
 

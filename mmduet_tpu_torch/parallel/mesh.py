@@ -15,13 +15,16 @@ Two kinds of mesh:
   ``torch.distributed.run`` starts them), each holding its own shard of
   the parameters (`parallel.sharding.shard_params`) on its own device.
   The collectives of `parallel.collectives` join the shards.
-  `make_mesh` builds it once the group is initialized.
+  `make_mesh` builds it once the group is initialized. In batched serving
+  each data rank holds the device state of its own block of lanes
+  (`lane_block`) and the model ranks of a data index its kv heads.
 - `Mesh`, in one process on ONE device: all its entries the same
   `torch.device`, as the JAX package's tests lay an 8-way mesh over the
   host CPU. Under such a mesh the parameters stay whole and only the
   streaming attention runs per shard
   (`ops.attention.flash_decode_attention_sharded`). A mesh over several
-  devices inside one process raises `NotImplementedError`.
+  devices inside one process raises `NotImplementedError`: the port runs
+  one process per card by design.
 """
 
 from __future__ import annotations
@@ -190,10 +193,27 @@ def make_mesh(
         raise ValueError(f"mesh shape {shape} != {n} devices")
     if len(set(devices)) > 1:
         raise NotImplementedError(
-            f"make_mesh: a mesh over several devices ({sorted(map(str, set(devices)))}) is "
-            "not yet ported; a mesh must lie on one device")
+            f"make_mesh: a mesh over several devices ({sorted(map(str, set(devices)))}) in one "
+            "process; the port runs one process per device (a ProcessMesh under "
+            "torch.distributed.run), so a one-process mesh lies on one device")
     rows = tuple(tuple(devices[i * shape[1]:(i + 1) * shape[1]]) for i in range(shape[0]))
     return Mesh(rows)
+
+
+def lane_block(mesh: Union[None, Mesh, ProcessMesh], lanes: int) -> Tuple[int, int]:
+    """This rank's serving lanes ``[start, stop)``: under a `ProcessMesh`
+    whose data axis divides ``lanes``, data rank d's contiguous block
+    ``[d * lanes / D, (d + 1) * lanes / D)`` (the block ``PartitionSpec("data")``
+    gives the lane dim); otherwise, and without a process mesh, all of
+    them (lanes replicated, as the JAX engines replicate them)."""
+    if not isinstance(mesh, ProcessMesh):
+        return 0, lanes
+    data_n = mesh.shape[DATA_AXIS]
+    if data_n == 1 or lanes % data_n:
+        return 0, lanes
+    n = lanes // data_n
+    d = mesh.index(DATA_AXIS)
+    return d * n, (d + 1) * n
 
 
 def serving_shard_ctx(mesh: Union[None, Mesh, ProcessMesh], num_heads: int, num_kv_heads: int,
@@ -207,24 +227,22 @@ def serving_shard_ctx(mesh: Union[None, Mesh, ProcessMesh], num_heads: int, num_
     to, where the JAX engines fall back to their jnp attention).
 
     A `ProcessMesh` gives None: each rank holds its own heads' shard
-    (`sharding.shard_params`) and launches kernel A on it directly. Its
-    data axis (lanes over ranks) is not yet ported and raises."""
+    (`sharding.shard_params`) and its own lanes (`lane_block`), and
+    launches kernel A on them directly. Its axes must be the ones
+    `make_mesh` bound in this process."""
     if mesh is None:
         return None
     if mesh.device != torch.device(device):
         raise ValueError(f"mesh on {mesh.device}, parameters on {device}")
     model_n, data_n = mesh.shape[MODEL_AXIS], mesh.shape[DATA_AXIS]
     if isinstance(mesh, ProcessMesh):
-        if data_n > 1:
-            raise NotImplementedError(
-                f"a process mesh with data {data_n} > 1 (lanes over ranks) is not yet ported; "
-                "serving takes the model axis only")
         if num_heads % model_n or num_kv_heads % model_n:
             raise ValueError(f"mesh {mesh.shape}: {num_heads} heads / {num_kv_heads} kv heads "
                              "do not divide the model axis")
-        if collectives.model_axis() != (mesh.index(MODEL_AXIS), model_n):
-            raise ValueError("the process mesh is not this process's bound model axis "
-                             "(make_mesh binds it)")
+        if (collectives.model_axis() != (mesh.index(MODEL_AXIS), model_n)
+                or collectives.data_axis() != (mesh.index(DATA_AXIS), data_n)):
+            raise ValueError("the process mesh is not this process's bound axes "
+                             "(make_mesh binds them)")
         return None
     lane_sharded = data_n > 1 and lanes % data_n == 0
     if model_n == 1 and not lane_sharded:

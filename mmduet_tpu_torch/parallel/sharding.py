@@ -187,6 +187,15 @@ def kv_cache_sharding(mesh, num_kv_heads: int, lanes: Optional[int] = None) -> S
     return ()
 
 
+def local_cache_dims(mesh, num_kv_heads: int, lanes: int) -> Tuple[int, int]:
+    """A rank's (lanes, kv heads) of the (L, lanes, kh, S, hd) serving
+    cache of a process mesh: each dim that `kv_cache_sharding` cuts,
+    divided by its axis, so the local shape follows the spec."""
+    spec = kv_cache_sharding(mesh, num_kv_heads, lanes=lanes) + (None,) * 3
+    return tuple(n // (mesh.shape[axis] if axis else 1)
+                 for n, axis in zip((lanes, num_kv_heads), spec[1:3]))
+
+
 # ---------------------------------------------------------------------------
 # Each rank's local tree
 # ---------------------------------------------------------------------------

@@ -1347,3 +1347,84 @@ def test_train_cli_on_two_ranks_sharing_the_card(dev, tmp_path):
         for k in ("loss", "lm_loss", "video_loss", "grad_norm"):
             assert abs(got[k] - want[k]) <= 3e-2 * abs(want[k]), (k, got[k], want[k])
     assert (tmp_path / "tp" / "final" / "params.pt").exists()
+
+
+# ---------------------------------------------------------------------------
+# the serving data axis: lanes over two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+DP_LENGTHS = (6, 4, 5, 7, 3, 6)  # six pixel sessions through four lanes, two a rank
+
+
+def _dp_serving_rank(rank: int, port: int, out: str) -> None:
+    """One of two ranks of a (2, 1) mesh on the one card over gloo: batched
+    serving of DP_LENGTHS's sessions through 4 lanes (2 a rank); its rows,
+    its launches of kernels A, A' and D, its decoder forwards and the
+    frames of the sessions its lanes took, to ``out/rank<r>.json``."""
+    import os
+
+    from mmduet_tpu_torch.infer import BatchedStreamEngine
+    from mmduet_tpu_torch.parallel import initialize_distributed, lane_block, shard_params
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE="2", LOCAL_RANK=str(rank))
+    initialize_distributed("gloo")
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh((2, 1), device=dev)
+    cfg, params, tok = _small_card_model(dev)
+    params = shard_params(params, mesh, mode="replicate")
+    args = TestArgs(frame_fps=2.0, max_new_tokens=4, max_num_frames=16,
+                    stream_end_score_sum_threshold=0.6)
+    engine = BatchedStreamEngine(params, cfg, tok, args, n_streams=4, block_frames=4, mesh=mesh)
+    lo, hi = lane_block(mesh, 4)
+    admit, local = engine._admit, []
+    engine._admit = lambda lane, sess: (local.append(len(sess["frames"])) if lo <= lane < hi
+                                        else None) or admit(lane, sess)
+    r = np.random.RandomState(3)
+    sessions = [{"frames": r.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8), "fps": 2.0,
+                 "conversation": [{"role": "user", "content": f"query {i}?", "time": 0.0}]}
+                for i, n in enumerate(DP_LENGTHS)]
+    attention.LAUNCHES = attention.SHARDED_LAUNCHES = attention.VISION_LAUNCHES = 0
+    rows = {i: [resp, [[d["informative_score"], d["relevance_score"]] for d in debug]]
+            for i, resp, debug in engine.serve(sessions)}
+    torch.cuda.synchronize()
+    with open(f"{out}/rank{rank}.json", "w") as f:
+        json.dump({"rows": rows, "A": attention.LAUNCHES, "A_sharded": attention.SHARDED_LAUNCHES,
+                   "D": attention.VISION_LAUNCHES, "forwards": engine.forwards,
+                   "dispatches": engine.dispatches, "local_frames": local,
+                   "cache": list(engine._cache.k.shape)}, f)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def test_dp_serving_on_two_ranks_sharing_the_card_launches_kernels_a_and_d(dev, tmp_path):
+    """`BatchedStreamEngine` on a (2, 1) mesh: each rank holds two lanes'
+    cache and launches kernel A once a layer per decoder forward it ran
+    (none for a dispatch none of its lanes was fed in), never A' shards,
+    and kernel D once a tower layer per 32-frame batch of its own lanes'
+    sessions; both ranks' rows are the same."""
+    import multiprocessing as mp
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_dp_serving_rank, args=(r, port, str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    assert [p.exitcode for p in procs] == [0, 0]
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(2)]
+    cfg = tiny_config(hidden_size=512)
+    assert ranks[0]["rows"] == ranks[1]["rows"] and len(ranks[0]["rows"]) == len(DP_LENGTHS)
+    assert sorted(ranks[0]["local_frames"] + ranks[1]["local_frames"]) == sorted(DP_LENGTHS)
+    for x in ranks:
+        assert x["cache"][1] == 2  # its two lanes
+        assert 0 < x["forwards"] and x["A"] == cfg.text.num_layers * x["forwards"]
+        assert x["A_sharded"] == 0
+        assert x["D"] == (cfg.vision.num_layers - 1) * sum(-(-n // 32) for n in x["local_frames"])
+    for resp, scores in ranks[0]["rows"].values():
+        assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for row in scores for v in row)

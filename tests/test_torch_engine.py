@@ -12,6 +12,7 @@ port's engine loads neither jax nor the JAX package."""
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -205,19 +206,35 @@ def test_cli_jsonl_has_the_jax_cli_schema(tmp_path):
     assert len(t_rows[0]["debug_data"]) == len(j_rows[0]["debug_data"]) == 6
 
 
-@pytest.mark.parametrize("flag", [
-    # --mesh_model alone runs (tests/test_torch_tp_serving.py); with a data
-    # axis it still refuses
-    ["--batch_streams", "2", "--mesh_data", "2"], ["--mesh_model", "2", "--mesh_data", "2"],
-    ["--mesh_data", "2"],
-])
-def test_cli_unported_flags_raise(tmp_path, flag):
+# the mesh flags' refusals: the JAX CLI's, word for word, and outside
+# torch.distributed.run the command that starts the ranks (the meshes run in
+# tests/test_torch_tp_serving.py and tests/test_torch_dp_serving.py)
+MESH_REFUSALS = {
+    ("--batch_streams", "2", "--mesh_data", "2"):
+        "runs one process per rank: start it with python -m torch.distributed.run "
+        "--nproc_per_node 2",
+    ("--mesh_model", "2", "--mesh_data", "2"): "--mesh_data 2 requires --batch_streams > 1",
+    ("--mesh_data", "2"): "--mesh_data 2 requires --batch_streams > 1",
+    ("--batch_streams", "3", "--mesh_data", "2"):
+        "--mesh_data 2 must divide --batch_streams 3",
+}
+
+
+@pytest.mark.parametrize("flag", [list(f) for f in MESH_REFUSALS])
+def test_cli_unported_flags_raise(tmp_path, monkeypatch, flag):
+    from mmduet_tpu.eval.inference import main as jax_main
     from mmduet_tpu_torch.eval.inference import main as torch_main
 
+    monkeypatch.delenv("RANK", raising=False)
     argv = ["--tiny_random", "--test_fname", "x", "--input_dir", "x",
-            "--output_fname", str(tmp_path / "o.jsonl"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not yet ported"):
-        torch_main(argv + flag)
+            "--output_fname", str(tmp_path / "o.jsonl")]
+    want = MESH_REFUSALS[tuple(flag)]
+    with pytest.raises(SystemExit, match=re.escape(want)) as got:
+        torch_main(argv + flag + ["--device", "cpu"])
+    if "torch.distributed.run" not in want:  # the JAX CLI refuses first, with the same words
+        with pytest.raises(SystemExit) as jax_got:
+            jax_main(argv + flag)
+        assert str(got.value) == str(jax_got.value)
 
 
 # ---------------------------------------------------------------------------
