@@ -46,7 +46,12 @@ Phases (any failure ends the run with a nonzero exit):
    documented transposes (int4: to `quantize_params(bits=4)` of the bf16
    output), and 16 frames served from each (int4 with the int8 cache:
    kernels B and A-int8) score as the same weights built in memory;
-   conversion seconds, GB read and written, the host's peak RSS;
+   conversion seconds, GB read and written, the host's peak RSS; then the
+   port's side of the parity gate (`scripts/verify_checkpoint_parity_torch.py`'s
+   `port_outputs`: next-token logits, score probabilities, the tower's
+   features, the projector and the pooled count) on the bf16 directory,
+   on the card (bf16, kernels A and D launched) against the CPU (f32, the
+   plain versions) within the PARITY_* tolerances;
 4. the serving path at the full width of the default model (Qwen2-7B
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
@@ -137,14 +142,27 @@ Phases (any failure ends the run with a nonzero exit):
    a rank as its shapes imply, each rank's peak memory and s/step
    (gloo-bound) printed; the (2, 2) ranks' checkpoint of step 1, resumed in
    the one process, gives its step 2;
-11. small-model checks, card (bf16, kernels) against CPU (f32, plain
+11. the training recipe: ``TINY_RANDOM=1 DEVICE=cuda bash
+   scripts/train_torch.sh`` (synthetic steps) in one process, then with
+   ``NPROC=2 DIST_BACKEND=gloo DEVICE=cuda:0`` (two ranks sharing the card
+   under ``torch.distributed.run``): rc 0 and finite losses in
+   ``log.jsonl`` each;
+12. the memory budget: every peak measured above (serving bf16 and int4,
+   the batched passes, training, CLIP, the TP, data and training-mesh
+   ranks, each rank's own) against `scripts/memory_budget_torch.py`'s
+   estimate of its configuration from shapes, printed term by term beside
+   the peak and the bytes earlier phases left resident (subtracted): the
+   persistent part at most the peak, the whole within max(10 %, 1 GiB) of
+   it; then the reference recipe's three layouts against this card's
+   memory, labelled estimates;
+13. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
    against single-stream runs on the card), the offline baseline's prompt
    cache, and one train step's loss and gradient norm; and the inference
    CLI with ``--prewarm --profile_dir`` on the card, whose Chrome trace
    names kernel A;
-12. one JSON line for the seven kernels (kernel D's entry also holds its
+14. one JSON line for the seven kernels (kernel D's entry also holds its
    ``clip336_*`` numbers and its launches on the CLIP path; A, A-int8, B
    and D their ``tp_local`` numbers and rank 0's launches on the TP path,
    C's two entries theirs at a rank's heads and the (2, 2) rank 0's
@@ -190,11 +208,17 @@ from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, Liv
 from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
 from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmduet_params,
                                      mmduet, quant, siglip)
+from mmduet_tpu_torch.models.io import load_config
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
 from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, ProcessMesh, lane_block, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(REPO, "scripts"))
+import memory_budget_torch as budget  # noqa: E402
+import verify_checkpoint_parity_torch as parity  # noqa: E402
 
 
 # --- an HF-format llava-OV directory, written without the safetensors
@@ -1206,6 +1230,20 @@ def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
+def _resident(inputs_bytes: int) -> int:
+    """Bytes on the card at a phase's start that are not part of its
+    configuration: what is allocated once earlier engines caught in
+    reference cycles are collected, less the bytes of the phase's own
+    inputs already on the card (its weights)."""
+    gc.collect()
+    return torch.cuda.memory_allocated() - inputs_bytes
+
+
+def _mem(resident: int) -> dict:
+    """A phase's peak since its reset and what it found resident."""
+    return {"peak": torch.cuda.max_memory_allocated(), "resident": resident}
+
+
 N_FRAMES = 64
 
 
@@ -1283,6 +1321,7 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
     in ``passes`` each pass's per-frame scores, answers and greedy steps
     (`TokenRecorder`). ``mesh``: a rank's process mesh, ``params`` its
     local tree."""
+    resident = _resident(budget.tree_bytes(params))
     frames = np.random.RandomState(0).randint(
         0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
@@ -1334,12 +1373,13 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
             f"{sum(r['role'] == 'assistant' for r in s['responses'])} responses")
     log(f"kernel launches over the two passes: {counts}; {gen.tokens_generated} tokens "
         f"generated")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mem = _mem(resident)
+    peak_gib = mem["peak"] / 2**30
     log(f"peak device memory (streaming passes): {peak_gib:.2f} GiB")
     passes = {name: {k: s[k] for k in ("scores", "answers", "steps", "p50_ms", "p90_ms")}
               for name, s in stats.items()}
     return dict(counts, p50_ms=stats["generation"]["p50_ms"],
-                grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib,
+                grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib, mem=mem,
                 decode_tokens_per_s=_time_decode(gen, cfg, log), passes=passes)
 
 
@@ -1518,6 +1558,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     what = f"mesh {dict(mesh.shape) if mesh is not None else None}, cache {kv_cache_quant or 'bf16'}"
     if rank_mesh:
         what += f", lanes {lo}-{hi - 1}"
+    resident = _resident(budget.tree_bytes(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = {}
@@ -1635,7 +1676,8 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         out["counts"] = _kernel_counts()  # both passes; the path ends here
         del scorer, videos
         torch.cuda.empty_cache()
-    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["mem"] = _mem(resident)
+    out["peak_gib"] = out["mem"]["peak"] / 2**30
     lane_gb = (2 * layers * cfg.text.num_kv_heads * 24576
                * (cfg.text.head_dim + 4 if kv_cache_quant else 2 * cfg.text.head_dim) / 1e9)
     log(f"batched path ({what}): peak device memory {out['peak_gib']:.2f} GiB (the cache "
@@ -1848,8 +1890,10 @@ def _train_flops(cfg, T: int, n_frames: int) -> float:
 
 def run_training(cfg, tok, params, log) -> tuple:
     """The 7B-width training path: TRAIN_STEPS steps of `make_train_step`.
-    Returns kernel C's (forward, backward) launches over them."""
+    Returns kernel C's (forward, backward) launches over them, and the
+    peak memory with the batches' frame slots and length."""
     dev = torch.device("cuda")
+    resident = _resident(budget.tree_bytes(params))
     args = TrainArgs()  # LoRA r 16 / alpha 32, lr 2e-5 cosine, remat on
     tx, sched = make_optimizer(args, TRAIN_STEPS)
     lora = init_lora(torch.Generator(device=dev).manual_seed(1), cfg.text,
@@ -1905,7 +1949,7 @@ def run_training(cfg, tok, params, log) -> tuple:
         f"{flops / 1e12:.1f} TFLOP a step ({100 * flops / sec / 989e12:.2f} % of 989 "
         f"TFLOP/s), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"kernel C launches {launches[0]} forward / {launches[1]} backward")
-    return launches
+    return launches, dict(_mem(resident), frames=n_frames, seq=T)
 
 # ---------------------------------------------------------------------------
 # The user's journey around the serving loop: an HF checkpoint converted
@@ -2041,10 +2085,62 @@ def run_conversion(log, dev=None, base=None) -> None:
             f"memory (int4: to quantize_params(bits=4)); {CONVERT_FRAMES} frames served from "
             f"each, scores equal to the in-memory weights' exactly; launches bf16 "
             f"{counts_dense}, int4 + int8 cache {counts_int4}")
+        check_parity_route(dense_dir, dev, log)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del params, dense, int4
     torch.cuda.empty_cache()
+
+
+# The parity gate's card route (bf16, kernels A and D) against its CPU route
+# (f32, the plain versions) on the converted checkpoint: next-token logits,
+# score probabilities, and the tower's features and the projector's output
+# relative to the CPU's largest magnitude (bf16 activations through 2 + 2
+# layers at the 7B widths)
+PARITY_PROMPTS, PARITY_SEQ = 4, 64
+PARITY_LOGITS_ATOL, PARITY_PROB_ATOL, PARITY_FEATURE_REL = 0.25, 0.02, 0.05
+
+
+def check_parity_route(ckpt: str, dev, log) -> None:
+    """`scripts/verify_checkpoint_parity_torch.py`'s port side on ``ckpt``
+    twice: on the card (bf16, the kernels; their counts set to 0 just
+    before and read just after) and on the CPU (f32, the plain versions),
+    held together by the gate's `compare` within the PARITY_* tolerances;
+    kernels A and D must have launched."""
+    cfg = load_config(os.path.join(ckpt, "config.json"))
+    prompts, pixels = parity.make_inputs(cfg.text.vocab_size, cfg.vision.image_size,
+                                         PARITY_PROMPTS, PARITY_SEQ)
+    t0 = time.perf_counter()
+    _zero_counts()
+    card = parity.port_outputs(ckpt, dev, prompts, pixels)
+    torch.cuda.synchronize()
+    counts = _kernel_counts()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = parity.port_outputs(ckpt, "cpu", prompts, pixels)
+    t_cpu = time.perf_counter() - t0
+    if counts["attention"] <= 0 or counts["vision"] <= 0:
+        raise AssertionError(f"parity route on the card: launches {counts}; want kernels A and D")
+    scale = max(float(np.max(np.abs(cpu[k]))) for k in ("vision layer(-2) features",
+                                                        "projector output"))
+    text = {k: v for k, v in cpu.items() if k.startswith("prompt")}
+    vision = {k: v for k, v in cpu.items() if not k.startswith("prompt")}
+    diffs = {k: float(np.max(np.abs(np.asarray(card[k], np.float32)
+                                    - np.asarray(v, np.float32))))
+             for k, v in cpu.items() if not isinstance(card.get(k), str)}
+    log(f"parity route, the port's side of the gate on the converted checkpoint ({PARITY_PROMPTS} "
+        f"prompts of {PARITY_SEQ} tokens, 2 frames): card bf16 {t_card:.2f} s (launches "
+        f"{counts}), CPU f32 {t_cpu:.2f} s; max|card - CPU| logits "
+        f"{max(v for k, v in diffs.items() if 'logits' in k):.4f}, probabilities "
+        f"{max(v for k, v in diffs.items() if '_prob' in k):.4f}, features "
+        f"{diffs['vision layer(-2) features']:.4f}, projector {diffs['projector output']:.4f} "
+        f"(CPU magnitude {scale:.3f})")
+    failures = (parity.compare(card, text, PARITY_PROB_ATOL, PARITY_LOGITS_ATOL,
+                               argmax_ties=2 * PARITY_LOGITS_ATOL)
+                + parity.compare(card, vision, PARITY_FEATURE_REL * scale, 0.0))
+    if failures:
+        raise AssertionError(f"parity route: the card's bf16 outputs against the CPU's f32: "
+                             f"{failures}")
 
 
 LIVE_CHUNK = 16  # frames a stream_video chunk in the equality checks
@@ -2304,6 +2400,12 @@ def _record_triggers(engine) -> list:
     return seen
 
 
+def clip_config(cfg):
+    """``cfg`` with CLIP-L/14-336 in place of the SigLIP tower."""
+    return cfg.replace(vision=ClipConfig(), vision_arch="clip", frame_token_cls=True,
+                       frame_token_pooled=(7, 7), frame_num_tokens=50, frame_resolution=336)
+
+
 def clip_model(cfg, params):
     """The serving model with CLIP-L/14-336 (`ClipConfig()`: 336 px, patch
     14, 1024 wide, 4096 MLP, 24 layers, 16 heads) in place of the SigLIP
@@ -2312,8 +2414,7 @@ def clip_model(cfg, params):
     weights from seed 0, on the decoder's device: (cfg, tok, params)."""
     dev = params["lm_head"].device
     tok = CharTokenizer(frame_num_tokens=50, vocab_size=cfg.text.vocab_size)
-    ccfg = cfg.replace(vision=ClipConfig(), vision_arch="clip", frame_token_cls=True,
-                       frame_token_pooled=(7, 7), frame_num_tokens=50, frame_resolution=336)
+    ccfg = clip_config(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     vh, h = ccfg.vision.hidden_size, ccfg.text.hidden_size
 
@@ -2341,7 +2442,10 @@ def run_clip_path(cfg, params, log) -> dict:
     Then every attention of one 32-frame tower call is held against the
     plain version on the same inputs within D's bound, and the tower's
     output against the plain version put in the kernel's place from here."""
-    gc.collect()  # earlier phases' engines (their caches) hold reference cycles
+    # earlier phases' engines (their caches) hold reference cycles; the
+    # SigLIP tower and its projector are not part of this configuration
+    resident = _resident(budget.tree_bytes(params) - budget.tree_bytes(params["vision"])
+                         - budget.tree_bytes(params["projector"]))
     ccfg, tok, cparams = clip_model(cfg, params)
     frames = _serving_frames(ccfg.frame_resolution)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
@@ -2371,7 +2475,8 @@ def run_clip_path(cfg, params, log) -> dict:
                            p90=float(np.percentile(lat, 90)))
         _check_pass(engine, f"CLIP {name}", stats[name]["launches"], responses, QUERY)
     counts = _kernel_counts()  # and ends here
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mem = _mem(resident)
+    peak_gib = mem["peak"] / 2**30
     layers = ccfg.vision.num_layers
     want_d = 2 * _vision_batches(N_FRAMES) * layers
     if (counts["vision"] != want_d or counts["attention"] <= 0
@@ -2387,7 +2492,7 @@ def run_clip_path(cfg, params, log) -> dict:
             f"of A; {sum(r['role'] == 'assistant' for r in st['responses'])} responses")
     log(f"CLIP path launches {counts}; peak device memory {peak_gib:.2f} GiB")
     tower = _check_clip_tower(ccfg, cparams, frames[:32], log)
-    return dict(counts, peak_gib=peak_gib, tower=tower,
+    return dict(counts, peak_gib=peak_gib, mem=mem, tower=tower,
                 **{f"{n}_{k}": st[k] for n, st in stats.items() for k in ("p50", "p90", "fps")})
 
 
@@ -2711,6 +2816,7 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
     generation mode: per session its scores and answers, with the pass's
     counts, wall time and peak memory. ``mesh``: this rank's process mesh;
     kernel A launches once a layer per decoder forward of its lanes."""
+    resident = _resident(budget.tree_bytes(params))
     engine = BatchedStreamEngine(
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
         n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1)
@@ -2747,8 +2853,8 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
         f"{n_frames / wall:.2f} frames/s, {engine.tokens_generated} tokens; launches {counts} "
         f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
         f"decodes of lanes {engine.gen_lanes})")
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    numbers = {"frames_per_s": n_frames / wall, "peak_gib": peak_gib,
+    mem = _mem(resident)
+    numbers = {"frames_per_s": n_frames / wall, "peak_gib": mem["peak"] / 2**30, "mem": mem,
                "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
                "decode_tokens_per_s": engine.tokens_generated / acc["_generate_batch"],
                "dispatches": engine.dispatches, "gen_lanes": list(engine.gen_lanes),
@@ -3355,6 +3461,7 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
     dist = torch.distributed
     dev = mesh.device
     cuda = dev.type == "cuda"
+    resident = _resident(0) if cuda else 0
     args = tm_args()
     tx, sched = make_optimizer(args, TM_STEPS + 1)
     for turn in range(world):
@@ -3388,6 +3495,7 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
                 "vision": attention.VISION_LAUNCHES}
     result = {"metrics": metrics, "s": times, "launches": launches,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
+              "mem": _mem(resident) if cuda else None,
               "local_gb": quant.param_bytes(params) / 1e9}
     trainable = _flat_cpu(gather_trainable(state.trainable, mesh, to="cpu"))
     if rank == 0:
@@ -3407,16 +3515,18 @@ def tm_launch(shape: tuple, mode: str, out_dir: str, dev: str) -> list:
     return out
 
 
-def run_train_mesh_phase(log, dev=torch.device("cuda")) -> dict:
+def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
     """The training mesh at the 7B widths: the one process's run and its
     spread, then each of TM_LAYOUTS's ranks against it (every rank's
     metrics the same bits, each step's metrics and the gathered trainable
     leaves within the bound, kernel C's and D's launches a rank as the
     rank's shapes imply), and the (2, 2) ranks' checkpoint of step 1
     resumed in the one process to its uninterrupted step 2. Returns the
-    (2, 2) rank 0's launches of kernels C and D."""
+    (2, 2) rank 0's launches of kernels C and D, and the peaks: the one
+    process's and each layout's ranks', with the batches' shapes."""
     t0 = time.perf_counter()
     cuda = dev.type == "cuda"
+    resident = _resident(0) if cuda else 0
     cfg, tok, params, lora = tm_model(dev)
     batches = tm_batches(cfg, tok)
     real = [[int(x) for x in b["attn_mask"].sum(-1).flatten()] for b in batches[1:]]
@@ -3427,6 +3537,9 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> dict:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ref = tm_one_process(cfg, params, lora, batches, dev)
+    mems = {"one process": _mem(resident) if cuda else None,
+            "frames": batches[1]["frames"].shape[1],
+            "staged": sum(b["input_ids"].shape[0] for b in batches)}
     one_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     log(f"training mesh, one process: {[round(t, 3) for t in ref['s']]} s/step, peak "
         f"{one_peak:.2f} GiB; " + "; ".join(
@@ -3475,6 +3588,7 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> dict:
                 for i, m in enumerate(ranks[0]["metrics"])))
         if not (diff[0] <= bound[0] and diff[1] <= bound[1]):
             raise AssertionError(f"training mesh {name}: {diff} against the bound {bound}")
+        mems[(shape, mode)] = [x["mem"] for x in ranks]
         if mode == "fsdp":
             launches = ranks[0]["launches"]
             resume_dir = os.path.join(run_dir, "ckpt", "checkpoint-1")
@@ -3497,7 +3611,166 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> dict:
     if cuda:
         torch.cuda.empty_cache()
     log(f"training mesh phase in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, mems
+
+
+# --- the training recipe: `scripts/train_torch.sh` in its synthetic mode on
+# the card, in one process and on two gloo ranks sharing the card
+
+RECIPE_RUNS = (("one process", {}), ("two gloo ranks", {"NPROC": "2", "DIST_BACKEND": "gloo",
+                                                       "DEVICE": "cuda:0"}))
+RECIPE_TIMEOUT_S = 300
+
+
+def run_train_recipe(log) -> None:
+    """``TINY_RANDOM=1 DEVICE=cuda bash scripts/train_torch.sh``, then with
+    ``NPROC=2 DIST_BACKEND=gloo DEVICE=cuda:0``: each must return 0 and log
+    finite losses. The recipe calls ``python``; a directory whose ``python``
+    runs this interpreter goes first on its PATH. Kernel C takes every CUDA
+    tensor of the training forward, so an exit code of 0 on the card means
+    it ran."""
+    bin_dir = os.path.join(_build.BUILD_DIR, "bin")
+    os.makedirs(bin_dir, exist_ok=True)
+    with open(os.path.join(bin_dir, "python"), "w") as f:  # this interpreter, its venv kept
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+    os.chmod(os.path.join(bin_dir, "python"), 0o755)
+    for name, extra in RECIPE_RUNS:
+        out_dir = tempfile.mkdtemp(prefix="recipe.", dir=_build.BUILD_DIR)
+        env = dict(os.environ, TINY_RANDOM="1", DEVICE="cuda", OUTPUT_DIR=out_dir,
+                   PYTHONPATH=REPO, PATH=f"{bin_dir}:{os.environ.get('PATH', '')}")
+        env.update(extra)
+        t0 = time.perf_counter()
+        proc = subprocess.run(["bash", os.path.join(REPO, "scripts", "train_torch.sh")],
+                              cwd=REPO, env=env, capture_output=True, text=True,
+                              timeout=RECIPE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        rows = []
+        if os.path.exists(os.path.join(out_dir, "log.jsonl")):
+            with open(os.path.join(out_dir, "log.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+        shutil.rmtree(out_dir, ignore_errors=True)
+        if proc.returncode != 0 or not rows or not all(
+                math.isfinite(r[k]) for r in rows for k in ("loss", "lm_loss", "video_loss")):
+            raise AssertionError(f"train_torch.sh ({name}): rc {proc.returncode}, log rows "
+                                 f"{rows}\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+        log(f"train_torch.sh, TINY_RANDOM synthetic steps on the card ({name}): rc 0 in "
+            f"{wall:.1f} s, step {rows[-1]['step']} loss {rows[-1]['loss']:.4f} (lm "
+            f"{rows[-1]['lm_loss']:.4f}, video {rows[-1]['video_loss']:.4f})")
+
+
+# --- the memory budget: `scripts/memory_budget_torch.py`'s estimate of every
+# peak this script measured, from the configuration's shapes, held against
+# the peak less what earlier phases left on the card
+
+
+def memory_configs(train_mem: dict, tm_mems: dict) -> list:
+    """[(label, key, configs(rank))]: each configuration whose peak the
+    phases measured (``key`` into `main`'s measurements), as
+    `memory_budget_torch` builds it for rank ``rank`` of its mesh. A pass
+    of two engines one after the other (serve, then the scorer) gives
+    both, and the larger estimate holds."""
+    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
+    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
+                                 eos_token_id=tok.eos_token_id)
+    cut = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=TM_LAYERS))
+    ccfg = clip_config(cfg)
+    trees = {"bf16": budget.model_params(cfg), "int4": budget.model_params(cfg, "int4"),
+             "clip": budget.model_params(ccfg, clip=True), "cut": budget.model_params(cut)}
+    block = 8 * cfg.frame_num_tokens + 64  # the batched engine's widest bucket
+    S, T = budget.Serving, budget.Training
+
+    def single(name, c=cfg, tree="bf16", **kw):
+        return lambda r: [S(name, c, engines=2, held_frames=N_FRAMES, params=trees[tree], **kw)]
+
+    def batched(name, mesh=(1, 1), kv=None, scorer=True, c=cfg, tree="bf16", frames=True):
+        def make(r):
+            out = [S(f"{name}, serve", c, mesh=mesh, lanes=BATCH_LANES, kv_cache_quant=kv,
+                     chunk_tokens=block, frame_buffer=400, vision_batch=32 if frames else 0,
+                     params=trees[tree])]
+            if scorer:
+                out.append(S(f"{name}, scorer", c, mesh=mesh, lanes=BATCH_LANES,
+                             kv_cache_quant=kv, held_frames=max(BATCH_LENGTHS[:BATCH_LANES]),
+                             params=trees[tree]))
+            return out
+        return make
+
+    def tm(shape, mode):  # rank r holds sample r // model of each micro-batch
+        return lambda r: [T(f"training mesh {shape} {mode}", cut, mesh=shape, param_mode=mode,
+                            accum=TM_ACCUM, batch=2, seq=TM_T, frames=tm_mems["frames"],
+                            rank_frames=sum(TM_TURNS[r // shape[1]]) if shape[0] > 1 else None,
+                            staged=tm_mems["staged"], params=trees["cut"])]
+
+    return [
+        ("serving bf16, one stream", "dense", single("serving bf16")),
+        ("serving int4 + int8 cache", "quantized",
+         single("serving int4 + int8 cache", tree="int4", weights="int4", kv_cache_quant="int8")),
+        ("batched bf16, 8 lanes", "batched", batched("batched bf16")),
+        ("batched, (2, 2) one-device mesh", "meshed", batched("batched, (2, 2) mesh")),
+        ("batched, int8 cache", "batched_int8", batched("batched int8", kv="int8", scorer=False)),
+        ("training A=2 x 2944", "training", lambda r: [T(
+            "training", cfg, accum=TRAIN_ACCUM, batch=1, seq=train_mem["seq"],
+            frames=train_mem["frames"], states=TRAIN_STEPS, staged=TRAIN_ACCUM * TRAIN_STEPS,
+            params=trees["bf16"])]),
+        ("CLIP-L/14-336 + 7B", "clip", single("CLIP path", c=ccfg, tree="clip", clip=True,
+                                              chunk_tokens=32 * ccfg.frame_num_tokens)),
+        ("TP batched, one process", "tp_batched_ref",
+         batched("TP batched", scorer=False, frames=False)),
+        ("TP rank (1, 2), bf16", ("tp", "dense"), single("TP rank bf16", mesh=(1, TP_RANKS))),
+        ("TP rank (1, 2), int4 + int8 cache", ("tp", "quantized"), single(
+            "TP rank int4", tree="int4", mesh=(1, TP_RANKS), weights="int4",
+            kv_cache_quant="int8")),
+        ("TP rank (1, 2), batched", ("tp", "batched"),
+         batched("TP rank batched", mesh=(1, TP_RANKS), scorer=False, frames=False)),
+        ("data rank (2, 1), bf16", ("dp", "bf16"), batched("data rank bf16", mesh=DP_MESH)),
+        ("data rank (2, 1), int8 cache", ("dp", "int8"),
+         batched("data rank int8", mesh=DP_MESH, kv="int8", scorer=False)),
+        ("data rank (2, 2), 2 layers", ("dp2", "batched"), batched(
+            "data rank (2, 2)", mesh=DP_TP_MESH, c=cut, tree="cut", scorer=False, frames=False)),
+        ("training mesh, one process", ("tm", "one process"), lambda r: [T(
+            "training mesh one process", cut, accum=TM_ACCUM, batch=2, seq=TM_T,
+            frames=tm_mems["frames"], states=TM_STEPS, staged=tm_mems["staged"],
+            params=trees["cut"])]),
+    ] + [(f"training mesh {shape} {mode} rank", ("tm", (shape, mode)), tm(shape, mode))
+         for shape, mode in TM_LAYOUTS]
+
+
+def run_memory_budget(log, measured: dict, train_mem: dict, tm_mems: dict) -> None:
+    """Every measured peak against `memory_budget_torch`'s estimate of its
+    configuration: the estimate's persistent part at most the peak, the
+    whole within max(10 %, 1 GiB) of the peak less the bytes earlier
+    phases left resident; each term is printed. Then the reference
+    recipe's three layouts against this card's memory (estimates)."""
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    held, missed = 0, []
+    for label, key, configs in memory_configs(train_mem, tm_mems):
+        mems = measured[key]
+        mems = mems if isinstance(mems, list) else [mems]
+        for r, mem in enumerate(mems):
+            est = max((budget.serving_budget(c) if isinstance(c, budget.Serving)
+                       else budget.training_budget(c) for c in configs(r)),
+                      key=lambda b: b.total_bytes)
+            label_r = f"{label} {r}" if len(mems) > 1 else label
+            ok, line = budget.check(est, mem["peak"], mem["resident"])
+            moment = est.moments.get(est.peak_moment[0], [])
+            log(f"memory budget, {label_r}: {line}; GiB persistent: " + ", ".join(
+                f"{n} {b / 2**30:.3f}" for n, b, _ in est.persistent)
+                + f"; '{est.peak_moment[0]}': " + ", ".join(
+                f"{n} {b / 2**30:.3f}" for n, b, _ in moment))
+            held += ok
+            if not ok:
+                missed.append(label_r)
+    log(f"memory budget: {held} measured peaks held by their estimates, missed {missed}; the "
+        f"card's total_memory {total} bytes ({total / 2**30:.2f} GiB)")
+    for b in budget.recipe_budgets(budget.model_params(MMDuetConfig())):
+        log(f"memory budget, the reference recipe (an estimate, not a measurement): {b.name}: "
+            f"{b.total_bytes / 2**30:.2f} GiB a card (persistent "
+            f"{b.persistent_bytes / 2**30:.2f} + '{b.peak_moment[0]}' "
+            f"{b.peak_moment[1] / 2**30:.2f}) against {total / 2**30:.2f} GiB: "
+            f"{'fits' if b.total_bytes <= total else 'does NOT fit'}")
+    log(f"memory budget phase in {time.perf_counter() - t0:.1f} s")
+    if missed or held < 12:
+        raise AssertionError(f"memory budget: estimates missed {missed} ({held} held)")
 
 
 def main(argv=None) -> int:
@@ -3540,7 +3813,7 @@ def main(argv=None) -> int:
     clip_path = run_clip_path(cfg, params, log)
     vision["clip_launches"] = clip_path["vision"]
     log(f"extraction, demo and CLIP phases in {time.perf_counter() - t_new:.1f} s")
-    full_fwd["launches"], full_bwd["launches"] = run_training(cfg, tok, params, log)
+    (full_fwd["launches"], full_bwd["launches"]), train_mem = run_training(cfg, tok, params, log)
     time_vision_routes(cfg, params, log)
     dev = torch.device("cuda", torch.cuda.current_device())
     batched = run_batched_path(cfg, tok, params, log)
@@ -3564,12 +3837,17 @@ def main(argv=None) -> int:
         f"tokens/s {batched['decode_tokens_per_s']:.2f} vs {dense['decode_tokens_per_s']:.2f}")
     dp_ref = {"bf16": {k: batched[k] for k in ("sessions", "rows")},  # the data-axis phase's
               "int8": {"sessions": batched_int8["sessions"]}}
+    measured = {"dense": dense["mem"], "clip": clip_path["mem"], "training": train_mem,
+                "batched": batched["mem"], "meshed": meshed["mem"],
+                "batched_int8": batched_int8["mem"]}
     del batched, meshed, batched_int8
     tp_batched_ref = run_tp_batched(cfg, tok, params, log)  # the TP phase's one process
+    measured["tp_batched_ref"] = tp_batched_ref["mem"]
     tp_spread = spread_under_permuted_mlp(cfg, tok, params, log, dense, tp_batched_ref)
     params = quantize_on_card(params, log)
     quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
     dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
+    measured["quantized"] = quantized["mem"]
     for key, what in (("p50_ms", "generation pass p50 per-frame ms"),
                       ("grounding_p50_ms", "grounding pass p50 per-frame ms"),
                       ("decode_tokens_per_s", "decode tokens/s"),
@@ -3597,7 +3875,15 @@ def main(argv=None) -> int:
                     else d0[run]["counts"][key])
         entry["data_axis"] = {"mesh": list(DP_MESH), "lanes": d0["lanes"], "launches": launches}
     dec["data_axis"]["mesh_2x2_launches"] = d2["batched"]["counts"]["attention"]
-    tm_launches = run_train_mesh_phase(log)
+    tm_launches, tm_mems = run_train_mesh_phase(log)
+    measured.update({("tp", run): [x[run]["mem"] for x in tp["ranks"]]
+                     for run in ("dense", "quantized", "batched")})
+    measured.update({("dp", run): [x[run]["mem"] for x in dp["ranks"]] for run in ("bf16", "int8")})
+    measured[("dp2", "batched")] = [x["batched"]["mem"] for x in dp["ranks2"]]
+    measured[("tm", "one process")] = tm_mems["one process"]
+    measured.update({("tm", layout): tm_mems[layout] for layout in TM_LAYOUTS})
+    run_train_recipe(log)
+    run_memory_budget(log, measured, train_mem, tm_mems)
     for entry, key in ((full_fwd, "full_fwd"), (full_bwd, "full_bwd")):
         # the rank-local shape's numbers, and the (2, 2) rank 0's launches
         entry["tp_local"] = dict(tp_kernels[key], launches=tm_launches[key])

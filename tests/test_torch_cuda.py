@@ -1428,3 +1428,79 @@ def test_dp_serving_on_two_ranks_sharing_the_card_launches_kernels_a_and_d(dev, 
         assert x["D"] == (cfg.vision.num_layers - 1) * sum(-(-n // 32) for n in x["local_frames"])
     for resp, scores in ranks[0]["rows"].values():
         assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for row in scores for v in row)
+
+
+def test_parity_route_on_the_card_against_the_cpu(dev, tmp_path):
+    """`scripts/verify_checkpoint_parity_torch.py`'s port side on the card
+    (bf16: kernel A in the decoder's streaming forward, kernel D in the
+    tower) against its CPU route (f32, the plain versions) on one saved
+    checkpoint, within `chip_smoke.py`'s tolerances of that route."""
+    import os
+    import sys
+
+    import chip_smoke
+    from mmduet_tpu_torch.models.io import save_checkpoint
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    import verify_checkpoint_parity_torch as parity
+
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    params = init_mmduet_params(cfg, torch.Generator().manual_seed(2), torch.device("cpu"),
+                                torch.bfloat16)
+    save_checkpoint(str(tmp_path), cfg, params)
+    prompts, pixels = parity.make_inputs(cfg.text.vocab_size, cfg.vision.image_size, 3, 40)
+    before = attention.LAUNCHES, attention.VISION_LAUNCHES
+    card = parity.port_outputs(str(tmp_path), dev, prompts, pixels)
+    assert attention.LAUNCHES > before[0] and attention.VISION_LAUNCHES > before[1]
+    cpu = parity.port_outputs(str(tmp_path), "cpu", prompts, pixels)
+    text = {k: v for k, v in cpu.items() if k.startswith("prompt")}
+    vision = {k: v for k, v in cpu.items() if not k.startswith("prompt")}
+    scale = float(np.max(np.abs(cpu["vision layer(-2) features"])))
+    assert parity.compare(card, text, chip_smoke.PARITY_PROB_ATOL, chip_smoke.PARITY_LOGITS_ATOL,
+                          argmax_ties=2 * chip_smoke.PARITY_LOGITS_ATOL) == []
+    assert parity.compare(card, vision, chip_smoke.PARITY_FEATURE_REL * scale, 0.0) == []
+
+
+def test_train_recipe_on_the_card(dev):
+    """`scripts/train_torch.sh` in its synthetic mode with ``DEVICE=cuda``,
+    in one process and on two gloo ranks sharing the card
+    (`chip_smoke.run_train_recipe`: rc 0 and finite losses each)."""
+    import chip_smoke
+
+    chip_smoke.run_train_recipe(print)
+
+
+def test_memory_budget_holds_a_serving_peak_on_the_card(dev):
+    """`memory_budget_torch`'s estimate of a tiny serving configuration
+    against its measured peak: the persistent part (the weights and the
+    engine's cache, exactly the bytes of the trees) at most the peak, the
+    whole within the budget's tolerance."""
+    import gc
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
+    import memory_budget_torch as mb
+
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
+                                torch.bfloat16)
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - mb.tree_bytes(params)
+    args = TestArgs(frame_fps=2.0, stream_end_prob_threshold=1.0, grounding_mode=True,
+                    max_num_frames=64)
+    engine = LiveInferEngine(params, cfg, tok, args)
+    torch.cuda.reset_peak_memory_stats()
+    engine.input_video_stream(np.random.RandomState(1).randint(0, 256, (64, 32, 32, 3),
+                                                               dtype=np.uint8))
+    engine.input_query_stream([{"role": "user", "content": "Q?", "time": 0.0}])
+    engine.inference()
+    torch.cuda.synchronize()
+    est = mb.serving_budget(mb.Serving("tiny serving", cfg, cache_slots=engine._cache_size,
+                                       held_frames=64))
+    terms = {n: b for n, b, _ in est.persistent}
+    assert terms["KV cache"] == mb.tree_bytes(engine.state.kv_cache)
+    ok, line = mb.check(est, torch.cuda.max_memory_allocated(), resident)
+    assert ok, line
