@@ -149,12 +149,14 @@ Phases (any failure ends the run with a nonzero exit):
    ``log.jsonl`` each;
 12. the memory budget: every peak measured above (serving bf16 and int4,
    the batched passes, training, CLIP, the TP, data and training-mesh
-   ranks, each rank's own) against `scripts/memory_budget_torch.py`'s
-   estimate of its configuration from shapes, printed term by term beside
-   the peak and the bytes earlier phases left resident (subtracted): the
-   persistent part at most the peak, the whole within max(10 %, 1 GiB) of
-   it; then the reference recipe's three layouts against this card's
-   memory, labelled estimates;
+   ranks, each rank's own; each serving pass on its own, from a reset
+   just before it, and training with one state and one step's batch on
+   the card, as the CLI's loop holds them) against
+   `scripts/memory_budget_torch.py`'s estimate of its configuration from
+   shapes, printed term by term beside the peak and the bytes earlier
+   work left resident (subtracted): the persistent part at most the peak,
+   the whole within max(10 %, 1 GiB) of it; then the reference recipe's
+   three layouts against this card's memory, labelled estimates;
 13. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
@@ -205,7 +207,7 @@ from mmduet_tpu_torch.demo.app import DemoState, make_handler
 from mmduet_tpu_torch.demo.live import LiveInferForDemo
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, LiveInferEngine
-from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
+from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS, cache_slots
 from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmduet_params,
                                      mmduet, quant, siglip)
 from mmduet_tpu_torch.models.io import load_config
@@ -1247,14 +1249,20 @@ def _mem(resident: int) -> dict:
 N_FRAMES = 64
 
 
+def full_width_config():
+    """(cfg, tok): the default MMDuetConfig and the CharTokenizer at its
+    frame tokens and vocabulary, whose special ids the config takes."""
+    cfg = MMDuetConfig()
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens, vocab_size=cfg.text.vocab_size)
+    return cfg.replace(v_placeholder_id=tok.v_placeholder_id,
+                       eos_token_id=tok.eos_token_id), tok
+
+
 def full_width_model(log):
     """The default MMDuetConfig with random bf16 weights from seed 0 on the
     card, and the CharTokenizer at its vocabulary: (cfg, tok, params)."""
     dev = torch.device("cuda")
-    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
-    cfg = MMDuetConfig().replace(
-        v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id
-    )
+    cfg, tok = full_width_config()
     t0 = time.perf_counter()
     params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0),
                                 dev, torch.bfloat16)
@@ -1320,25 +1328,31 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
     read just after them; returns the counts and the passes' numbers, and
     in ``passes`` each pass's per-frame scores, answers and greedy steps
     (`TokenRecorder`). ``mesh``: a rank's process mesh, ``params`` its
-    local tree."""
+    local tree. Each pass's peak memory is measured on its own, from a
+    reset just before it (``mem``): the generation engine, kept for its
+    decode timing, is resident in the grounding pass."""
     resident = _resident(budget.tree_bytes(params))
     frames = np.random.RandomState(0).randint(
         0, 256, (N_FRAMES, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
 
-    gen = LiveInferEngine(params, cfg, tok, _args(stream_end_score_sum_threshold=1.0),
-                          kv_cache_quant=kv_cache_quant, mesh=mesh)
-    ground = LiveInferEngine(params, cfg, tok, _args(
-        stream_end_score_sum_threshold=1.0, grounding_mode=True), kv_cache_quant=kv_cache_quant,
-        mesh=mesh)
+    def engine_for(name):
+        return LiveInferEngine(params, cfg, tok, _args(
+            stream_end_score_sum_threshold=1.0, grounding_mode=name == "grounding"),
+            kv_cache_quant=kv_cache_quant, mesh=mesh)
+
+    gen = engine_for("generation")
     gen.input_video_stream(frames[:32])  # warm-up (cuBLAS handles, allocator)
     torch.cuda.synchronize()
     gen.reset()
-    torch.cuda.reset_peak_memory_stats()
 
-    stats = {}
+    stats, mems, engines = {}, {}, {}
     _zero_counts()  # the main path starts here
-    for name, engine in (("generation", gen), ("grounding", ground)):
+    for name in ("generation", "grounding"):
+        if name == "grounding":
+            resident = _resident(budget.tree_bytes(params))
+        engine = engines[name] = gen if name == "generation" else engine_for(name)
+        torch.cuda.reset_peak_memory_stats()
         before = attention.LAUNCHES
         t0 = time.perf_counter()
         engine.input_video_stream(frames)
@@ -1361,11 +1375,13 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
             steps=rec.steps(),
         )
         _check_pass(engine, name, stats[name]["launches"], responses, QUERY)
+        mems[name] = _mem(resident)
     counts = _kernel_counts()  # the main path ends here
-    _check_counts(params, cfg, counts, gen.tokens_generated + ground.tokens_generated,
+    _check_counts(params, cfg, counts, sum(e.tokens_generated for e in engines.values()),
                   kv_cache_quant)
 
-    for (name, s), engine in zip(stats.items(), (gen, ground)):
+    for name, s in stats.items():
+        engine = engines[name]
         log(f"{name} pass: block {engine.block_frames}, "
             f"{N_FRAMES} frames, p50 per-frame {s['p50_ms']:.3f} ms, stream "
             f"{s['stream_s']:.3f} s, vision {N_FRAMES / s['vision_s']:.2f} frames/s, "
@@ -1373,13 +1389,14 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
             f"{sum(r['role'] == 'assistant' for r in s['responses'])} responses")
     log(f"kernel launches over the two passes: {counts}; {gen.tokens_generated} tokens "
         f"generated")
-    mem = _mem(resident)
-    peak_gib = mem["peak"] / 2**30
-    log(f"peak device memory (streaming passes): {peak_gib:.2f} GiB")
+    del engines
+    peak_gib = max(m["peak"] for m in mems.values()) / 2**30
+    log("peak device memory (streaming passes): " + ", ".join(
+        f"{name} {m['peak'] / 2**30:.2f} GiB" for name, m in mems.items()))
     passes = {name: {k: s[k] for k in ("scores", "answers", "steps", "p50_ms", "p90_ms")}
               for name, s in stats.items()}
     return dict(counts, p50_ms=stats["generation"]["p50_ms"],
-                grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib, mem=mem,
+                grounding_p50_ms=stats["grounding"]["p50_ms"], peak_gib=peak_gib, mem=mems,
                 decode_tokens_per_s=_time_decode(gen, cfg, log), passes=passes)
 
 
@@ -1550,7 +1567,8 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     the mesh and the vision batches predict. ``mesh``: a one-device mesh
     or this rank's `ProcessMesh` (``params`` its local tree), whose lanes
     ``lane_block`` gives: its forwards, vision batches and greedy steps are
-    those of its own lanes. Returns outputs and numbers."""
+    those of its own lanes. Returns outputs and numbers, with each pass's
+    peak memory measured on its own (``mem``)."""
     rank_mesh = isinstance(mesh, ProcessMesh)
     shards = mesh.size if mesh is not None and not rank_mesh else 1
     lo, hi = lane_block(mesh, BATCH_LANES)
@@ -1561,12 +1579,11 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     resident = _resident(budget.tree_bytes(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    out = {}
+    out, mems = {}, {}
 
     engine = BatchedStreamEngine(
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
-        n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1,
-        kv_cache_quant=kv_cache_quant)
+        n_streams=BATCH_LANES, mesh=mesh, gen_coalesce_rounds=1, kv_cache_quant=kv_cache_quant)
     acc, fed, admitted = {}, [], []
     _timed(engine, "_dispatch_sched", acc)
     _timed(engine, "_generate_batch", acc)
@@ -1630,6 +1647,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                decode_tokens_per_s=engine.tokens_generated / t_gen,
                vision_frames_per_s=n_frames / acc["_admit"], dispatches=engine.dispatches,
                gen_lanes=list(engine.gen_lanes), forwards=engine.forwards)
+    mems["serve"] = _mem(resident)
     # the wrappers hold the engine and the engine holds them: without them
     # its cache is freed here, before the next engine allocates its own
     for name in ("_dispatch_sched", "_generate_batch", "_admit"):
@@ -1638,9 +1656,11 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     torch.cuda.empty_cache()
 
     if grounding:
+        resident = _resident(budget.tree_bytes(params))
+        torch.cuda.reset_peak_memory_stats()
         scorer = BatchedStreamScorer(
-            params, cfg, tok, n_streams=BATCH_LANES, frame_fps=2.0, block_frames=32,
-            mesh=mesh, kv_cache_quant=kv_cache_quant)
+            params, cfg, tok, n_streams=BATCH_LANES, frame_fps=2.0, mesh=mesh,
+            kv_cache_quant=kv_cache_quant)
         videos = [_batch_session(cfg, i)["frames"] for i in range(BATCH_LANES)]
         lengths = BATCH_LENGTHS[:BATCH_LANES]
         before = attention.LAUNCHES, attention.VISION_LAUNCHES
@@ -1654,7 +1674,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         torch.cuda.synchronize()
         t_stream = time.perf_counter() - t0
         launches = attention.LAUNCHES - before[0], attention.VISION_LAUNCHES - before[1]
-        blocks = -(-max(lengths) // 32)
+        blocks = -(-max(lengths) // scorer.block_frames)
         want = (layers * shards * (1 + blocks),
                 v_layers * _vision_batches((hi - lo) * max(lengths)))
         ok = all(len(r) == n and all(math.isfinite(d["informative_score"]) for d in r)
@@ -1666,22 +1686,25 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                 f"blocks) and {v_layers} layers x vision batches; rows complete and finite: {ok}")
         n = sum(lengths)
         encoded = (hi - lo) * max(lengths)
-        log(f"batched grounding pass ({what}): {BATCH_LANES} lanes in lockstep 32-frame "
-            f"blocks, {n} frames in {t_stream:.3f} s = {1e3 * t_stream / n:.3f} ms per frame, "
+        log(f"batched grounding pass ({what}): {BATCH_LANES} lanes in lockstep "
+            f"{scorer.block_frames}-frame blocks, {n} frames in {t_stream:.3f} s = "
+            f"{1e3 * t_stream / n:.3f} ms per frame, "
             f"{n / t_stream:.2f} frames/s aggregate (the padded lockstep blocks hold "
             f"{BATCH_LANES * max(lengths)} frames); vision {encoded} frames here "
             f"in {t_vision:.3f} s = {encoded / t_vision:.2f} frames/s; "
             f"launches (attention, vision) {launches} = {want}")
         out.update(rows=rows, grounding_ms_per_frame=1e3 * t_stream / n)
         out["counts"] = _kernel_counts()  # both passes; the path ends here
+        mems["scorer"] = _mem(resident)
         del scorer, videos
         torch.cuda.empty_cache()
-    out["mem"] = _mem(resident)
-    out["peak_gib"] = out["mem"]["peak"] / 2**30
-    lane_gb = (2 * layers * cfg.text.num_kv_heads * 24576
+    out["mem"] = mems
+    out["peak_gib"] = max(m["peak"] for m in mems.values()) / 2**30
+    slots = cache_slots(_args().max_num_frames, cfg.frame_num_tokens)
+    lane_gb = (2 * layers * cfg.text.num_kv_heads * slots
                * (cfg.text.head_dim + 4 if kv_cache_quant else 2 * cfg.text.head_dim) / 1e9)
     log(f"batched path ({what}): peak device memory {out['peak_gib']:.2f} GiB (the cache "
-        f"holds {BATCH_LANES} lanes x {lane_gb:.3f} GB of 24576 slots)")
+        f"holds {BATCH_LANES} lanes x {lane_gb:.3f} GB of {slots} slots)")
     return out
 
 
@@ -1889,9 +1912,11 @@ def _train_flops(cfg, T: int, n_frames: int) -> float:
 
 
 def run_training(cfg, tok, params, log) -> tuple:
-    """The 7B-width training path: TRAIN_STEPS steps of `make_train_step`.
-    Returns kernel C's (forward, backward) launches over them, and the
-    peak memory with the batches' frame slots and length."""
+    """The 7B-width training path: TRAIN_STEPS steps of `make_train_step`,
+    holding one `TrainState` and one step's batch on the card at a time, as
+    the CLI's loop does. Returns kernel C's (forward, backward) launches
+    over them, and the peak memory with the batches' frame slots and
+    length."""
     dev = torch.device("cuda")
     resident = _resident(budget.tree_bytes(params))
     args = TrainArgs()  # LoRA r 16 / alpha 32, lr 2e-5 cosine, remat on
@@ -1899,25 +1924,28 @@ def run_training(cfg, tok, params, log) -> tuple:
     lora = init_lora(torch.Generator(device=dev).manual_seed(1), cfg.text,
                      rank=args.lora_r, device=dev)
     step = make_train_step(cfg, args, tx, sched)
-    batches = duet_batches(tok, cfg, TRAIN_STEPS, TRAIN_ACCUM, dev)
+    batches = duet_batches(tok, cfg, TRAIN_STEPS, TRAIN_ACCUM, "cpu")
     T = batches[0]["input_ids"].shape[-1]
     n_frames = batches[0]["frames"].shape[1]
     real = [int(b["attn_mask"].sum()) for b in batches]
     log(f"training batches: A={TRAIN_ACCUM} x B=1, T={T} bucket, {n_frames} frame slots "
         f"of 384 px, real tokens per step {real}")
-    step(init_train_state(params, lora, tx), params, batches[0])  # warm-up, discarded
+    step(init_train_state(params, lora, tx), params, _stage(batches[0], dev))  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    states = [init_train_state(params, lora, tx)]
+    state = init_train_state(params, lora, tx)
+    flat = [list(_flat_cpu(state.trainable).values())]  # the leaves after each step
     times, rows = [], []
     attention.FULL_FWD_LAUNCHES = attention.FULL_BWD_LAUNCHES = 0  # the path starts here
     for batch in batches:
+        batch = _stage(batch, dev)
         t0 = time.perf_counter()
-        state, metrics = step(states[-1], params, batch)
+        state, metrics = step(state, params, batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        states.append(state)
+        del batch
+        flat.append(list(_flat_cpu(state.trainable).values()))
         rows.append(metrics)
     launches = attention.FULL_FWD_LAUNCHES, attention.FULL_BWD_LAUNCHES  # and ends here
 
@@ -1933,7 +1961,6 @@ def run_training(cfg, tok, params, log) -> tuple:
             raise AssertionError(f"training step {i + 1}: non-finite metrics {m}")
         if m["skipped_nonfinite"] != 0.0:
             raise AssertionError(f"training step {i + 1} skipped its update")
-    flat = [list(_leaves(s.trainable)) for s in states]
     if not all(torch.equal(a, b) for a, b in zip(flat[0], flat[1])):
         raise AssertionError("training: step 1 (lr 0) changed the trainable leaves")
     if all(torch.equal(a, b) for a, b in zip(flat[1], flat[2])):
@@ -1949,7 +1976,7 @@ def run_training(cfg, tok, params, log) -> tuple:
         f"{flops / 1e12:.1f} TFLOP a step ({100 * flops / sec / 989e12:.2f} % of 989 "
         f"TFLOP/s), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
         f"kernel C launches {launches[0]} forward / {launches[1]} backward")
-    return launches, dict(_mem(resident), frames=n_frames, seq=T)
+    return launches, {"mem": {"steps": _mem(resident)}, "frames": n_frames, "seq": T}
 
 # ---------------------------------------------------------------------------
 # The user's journey around the serving loop: an HF checkpoint converted
@@ -2441,7 +2468,8 @@ def run_clip_path(cfg, params, log) -> dict:
     after: kernel D 24 launches a tower call, kernel A a multiple of 28.
     Then every attention of one 32-frame tower call is held against the
     plain version on the same inputs within D's bound, and the tower's
-    output against the plain version put in the kernel's place from here."""
+    output against the plain version put in the kernel's place from here.
+    Each pass's peak memory is measured on its own (``mem``)."""
     # earlier phases' engines (their caches) hold reference cycles; the
     # SigLIP tower and its projector are not part of this configuration
     resident = _resident(budget.tree_bytes(params) - budget.tree_bytes(params["vision"])
@@ -2449,18 +2477,26 @@ def run_clip_path(cfg, params, log) -> dict:
     ccfg, tok, cparams = clip_model(cfg, params)
     frames = _serving_frames(ccfg.frame_resolution)
     query = [{"role": "user", "content": QUERY, "time": 0.0}]
-    engines = {name: LiveInferEngine(cparams, ccfg, tok, _args(
-        stream_end_score_sum_threshold=1.0, grounding_mode=name == "grounding"))
-        for name in ("generation", "grounding")}
+
+    def engine_for(name):
+        return LiveInferEngine(cparams, ccfg, tok, _args(
+            stream_end_score_sum_threshold=1.0, grounding_mode=name == "grounding"))
+
+    engines = {"generation": engine_for("generation")}
     t0 = time.perf_counter()
     engines["generation"].prewarm(vision=True)
     log(f"CLIP-L/14-336 model: prewarm(vision=True) at 336 px in "
         f"{time.perf_counter() - t0:.3f} s")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    stats = {}
+    stats, mems = {}, {}
     _zero_counts()  # the CLIP path starts here
-    for name, engine in engines.items():
+    for name in ("generation", "grounding"):
+        if name == "grounding":
+            # the SigLIP tree and the generation engine are resident here
+            resident = _resident(budget.tree_bytes(cparams))
+            engines[name] = engine_for(name)
+        engine = engines[name]
+        torch.cuda.reset_peak_memory_stats()
         before = attention.LAUNCHES
         t0 = time.perf_counter()
         engine.input_video_stream(frames)
@@ -2474,9 +2510,9 @@ def run_clip_path(cfg, params, log) -> dict:
                            fps=N_FRAMES / t_vision, p50=float(np.percentile(lat, 50)),
                            p90=float(np.percentile(lat, 90)))
         _check_pass(engine, f"CLIP {name}", stats[name]["launches"], responses, QUERY)
+        mems[name] = _mem(resident)
     counts = _kernel_counts()  # and ends here
-    mem = _mem(resident)
-    peak_gib = mem["peak"] / 2**30
+    peak_gib = max(m["peak"] for m in mems.values()) / 2**30
     layers = ccfg.vision.num_layers
     want_d = 2 * _vision_batches(N_FRAMES) * layers
     if (counts["vision"] != want_d or counts["attention"] <= 0
@@ -2492,7 +2528,7 @@ def run_clip_path(cfg, params, log) -> dict:
             f"of A; {sum(r['role'] == 'assistant' for r in st['responses'])} responses")
     log(f"CLIP path launches {counts}; peak device memory {peak_gib:.2f} GiB")
     tower = _check_clip_tower(ccfg, cparams, frames[:32], log)
-    return dict(counts, peak_gib=peak_gib, mem=mem, tower=tower,
+    return dict(counts, peak_gib=peak_gib, mem=mems, tower=tower,
                 **{f"{n}_{k}": st[k] for n, st in stats.items() for k in ("p50", "p90", "fps")})
 
 
@@ -2819,7 +2855,7 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
     resident = _resident(budget.tree_bytes(params))
     engine = BatchedStreamEngine(
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
-        n_streams=BATCH_LANES, block_frames=8, mesh=mesh, gen_coalesce_rounds=1)
+        n_streams=BATCH_LANES, mesh=mesh, gen_coalesce_rounds=1)
     lo, hi = lane_block(mesh, BATCH_LANES)
     sessions = _tp_sessions(cfg)
     acc, fed = {}, []
@@ -2854,7 +2890,8 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
         f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
         f"decodes of lanes {engine.gen_lanes})")
     mem = _mem(resident)
-    numbers = {"frames_per_s": n_frames / wall, "peak_gib": mem["peak"] / 2**30, "mem": mem,
+    numbers = {"frames_per_s": n_frames / wall, "peak_gib": mem["peak"] / 2**30,
+               "mem": {"serve": mem},
                "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
                "decode_tokens_per_s": engine.tokens_generated / acc["_generate_batch"],
                "dispatches": engine.dispatches, "gen_lanes": list(engine.gen_lanes),
@@ -2921,9 +2958,7 @@ def tp_rank(rank: int, port: int, out_dir: str) -> None:
     initialize_distributed("gloo")
     mesh = make_mesh((1, TP_RANKS), device="cuda:0")  # both ranks share the one card
     dist = torch.distributed
-    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
-    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
-                                 eos_token_id=tok.eos_token_id)
+    cfg, tok = full_width_config()
     params = None
     for turn in range(TP_RANKS):
         if turn == rank:
@@ -3125,9 +3160,7 @@ DP_TIMEOUT_S = 420
 def dp_model(layers: int, dev):
     """(cfg, tok, params): the default MMDuetConfig cut to ``layers``
     decoder layers, random bf16 weights from seed 0 on ``dev``."""
-    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
-    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
-                                 eos_token_id=tok.eos_token_id)
+    cfg, tok = full_width_config()
     if layers != cfg.text.num_layers:
         cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=layers))
     return cfg, tok, init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
@@ -3324,9 +3357,7 @@ def tm_model(dev):
     cut to TM_LAYERS decoder layers, random bf16 weights from seed 0, and a
     LoRA r 16 adapter on the seven projections whose b is random too (a
     fresh b is 0, which leaves a's gradient 0)."""
-    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
-    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
-                                 eos_token_id=tok.eos_token_id)
+    cfg, tok = full_width_config()
     cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=TM_LAYERS))
     params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
                                 torch.bfloat16)
@@ -3382,26 +3413,34 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def _stage(batch: dict, dev) -> dict:
+    """One step's batch onto ``dev``, as the CLI's loop stages each step's."""
+    return {k: v.to(dev) for k, v in batch.items()}
+
+
 def tm_one_process(cfg, params, lora, batches, dev) -> dict:
     """The one process's run on ``dev``: a discarded warm-up, then TM_STEPS
-    steps; each step's metrics and s, the trainable leaves after the last."""
+    steps, one state and one step's batch on the device at a time; each
+    step's metrics and s, the trainable leaves before the first and after
+    the last, the last state and the step."""
     args = tm_args()
     tx, sched = make_optimizer(args, TM_STEPS + 1)
     step = make_train_step(cfg, args, tx, sched)
-    cuda = [{k: v.to(dev) for k, v in b.items()} for b in batches]
     state = init_train_state(params, lora, tx)
-    step(state, params, cuda[0])  # warm-up, discarded
-    metrics, times, states = [], [], [state]
-    for batch in cuda[1:]:
+    initial = _flat_cpu(state.trainable)
+    step(state, params, _stage(batches[0], dev))  # warm-up, discarded
+    metrics, times = [], []
+    for batch in batches[1:]:
+        batch = _stage(batch, dev)
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, params, batch)
         _sync(dev)
         times.append(time.perf_counter() - t0)
         metrics.append(m)
-        states.append(state)
+        del batch
     return {"metrics": metrics, "s": times, "trainable": _flat_cpu(state.trainable),
-            "initial": _flat_cpu(states[0].trainable), "states": states, "step": step}
+            "initial": initial, "state": state, "step": step}
 
 
 def tm_diff(got: dict, want: dict) -> tuple:
@@ -3473,29 +3512,30 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
             if cuda:
                 torch.cuda.empty_cache()
         dist.barrier()
-    batches = [{k: v.to(dev) for k, v in b.items()}
-               for b in torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)]
+    batches = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)
     step = make_train_step(cfg, args, tx, sched, mesh=mesh)
-    step(state, params, batches[0])  # warm-up, discarded
+    step(state, params, _stage(batches[0], dev))  # warm-up, discarded
     _sync(dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     attention.FULL_FWD_LAUNCHES = attention.FULL_BWD_LAUNCHES = attention.VISION_LAUNCHES = 0
     metrics, times = [], []
     for i, batch in enumerate(batches[1:]):
+        batch = _stage(batch, dev)
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, params, batch)
         _sync(dev)
         times.append(time.perf_counter() - t0)
         metrics.append(m)
+        del batch
         if i == 0 and mode == "fsdp":
             save_train_state(os.path.join(out_dir, "ckpt"), 1, state, mesh=mesh)
     launches = {"full_fwd": attention.FULL_FWD_LAUNCHES, "full_bwd": attention.FULL_BWD_LAUNCHES,
                 "vision": attention.VISION_LAUNCHES}
     result = {"metrics": metrics, "s": times, "launches": launches,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
-              "mem": _mem(resident) if cuda else None,
+              "mem": {"steps": _mem(resident)} if cuda else None,
               "local_gb": quant.param_bytes(params) / 1e9}
     trainable = _flat_cpu(gather_trainable(state.trainable, mesh, to="cpu"))
     if rank == 0:
@@ -3537,9 +3577,8 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ref = tm_one_process(cfg, params, lora, batches, dev)
-    mems = {"one process": _mem(resident) if cuda else None,
-            "frames": batches[1]["frames"].shape[1],
-            "staged": sum(b["input_ids"].shape[0] for b in batches)}
+    mems = {"one process": {"steps": _mem(resident)} if cuda else None,
+            "frames": batches[1]["frames"].shape[1]}
     one_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     log(f"training mesh, one process: {[round(t, 3) for t in ref['s']]} s/step, peak "
         f"{one_peak:.2f} GiB; " + "; ".join(
@@ -3595,10 +3634,10 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
     # the (2, 2) ranks' whole state of step 1, resumed in the one process
     from mmduet_tpu_torch.train.checkpoint import restore_train_state
 
-    state = restore_train_state(resume_dir, ref["states"][1])
+    state = restore_train_state(resume_dir, ref["state"])
     if state.step != 1:
         raise AssertionError(f"training mesh: the checkpoint holds step {state.step}")
-    state, m = ref["step"](state, params, {k: v.to(dev) for k, v in batches[2].items()})
+    state, m = ref["step"](state, params, _stage(batches[2], dev))
     resumed = tm_diff({"metrics": [ref["metrics"][0], m],
                        "trainable": _flat_cpu(state.trainable)}, ref)
     log(f"training mesh: the (2, 2) ranks' checkpoint of step 1, resumed in the one process: "
@@ -3663,78 +3702,76 @@ def run_train_recipe(log) -> None:
 # the peak less what earlier phases left on the card
 
 
-def memory_configs(train_mem: dict, tm_mems: dict) -> list:
-    """[(label, key, configs(rank))]: each configuration whose peak the
+def memory_configs(cfg, train_mem: dict, tm_mems: dict) -> list:
+    """[(label, key, configs(rank))]: each configuration whose peaks the
     phases measured (``key`` into `main`'s measurements), as
-    `memory_budget_torch` builds it for rank ``rank`` of its mesh. A pass
-    of two engines one after the other (serve, then the scorer) gives
-    both, and the larger estimate holds."""
-    tok = CharTokenizer(frame_num_tokens=49, vocab_size=152064)
-    cfg = MMDuetConfig().replace(v_placeholder_id=tok.v_placeholder_id,
-                                 eos_token_id=tok.eos_token_id)
-    cut = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=TM_LAYERS))
+    `memory_budget_torch` builds it for rank ``rank`` of its mesh: a
+    `Serving` or `Training` for each pass that was measured on its own
+    (the live engine's generation and grounding passes, the batched
+    engine's serve and the scorer, a training run's steps)."""
+    def cut(layers):
+        return cfg.replace(text=dataclasses.replace(cfg.text, num_layers=layers))
+
     ccfg = clip_config(cfg)
     trees = {"bf16": budget.model_params(cfg), "int4": budget.model_params(cfg, "int4"),
-             "clip": budget.model_params(ccfg, clip=True), "cut": budget.model_params(cut)}
-    block = 8 * cfg.frame_num_tokens + 64  # the batched engine's widest bucket
+             "clip": budget.model_params(ccfg, clip=True)}
+    trees.update({n: budget.model_params(cut(n)) for n in {TM_LAYERS, DP_TP_LAYERS}})
     S, T = budget.Serving, budget.Training
 
-    def single(name, c=cfg, tree="bf16", **kw):
-        return lambda r: [S(name, c, engines=2, held_frames=N_FRAMES, params=trees[tree], **kw)]
+    def live(name, c=cfg, tree="bf16", **kw):  # `run_main_path`, `run_clip_path`
+        return lambda r: {p: S(f"{name}, {p}", c, grounding=p == "grounding", frames=N_FRAMES,
+                               params=trees[tree], **kw) for p in ("generation", "grounding")}
 
-    def batched(name, mesh=(1, 1), kv=None, scorer=True, c=cfg, tree="bf16", frames=True):
-        def make(r):
-            out = [S(f"{name}, serve", c, mesh=mesh, lanes=BATCH_LANES, kv_cache_quant=kv,
-                     chunk_tokens=block, frame_buffer=400, vision_batch=32 if frames else 0,
-                     params=trees[tree])]
+    def batched(name, mesh=(1, 1), kv=None, scorer=True, c=cfg, tree="bf16", pixels=True):
+        def make(r):  # `run_batched_path`, `run_tp_batched`
+            out = {"serve": S(f"{name}, serve", c, mesh=mesh, engine="batched",
+                              lanes=BATCH_LANES, kv_cache_quant=kv, pixels=pixels,
+                              params=trees[tree])}
             if scorer:
-                out.append(S(f"{name}, scorer", c, mesh=mesh, lanes=BATCH_LANES,
-                             kv_cache_quant=kv, held_frames=max(BATCH_LENGTHS[:BATCH_LANES]),
-                             params=trees[tree]))
+                out["scorer"] = S(f"{name}, scorer", c, mesh=mesh, engine="scorer",
+                                  lanes=BATCH_LANES, kv_cache_quant=kv,
+                                  frames=max(BATCH_LENGTHS[:BATCH_LANES]), params=trees[tree])
             return out
         return make
 
-    def tm(shape, mode):  # rank r holds sample r // model of each micro-batch
-        return lambda r: [T(f"training mesh {shape} {mode}", cut, mesh=shape, param_mode=mode,
-                            accum=TM_ACCUM, batch=2, seq=TM_T, frames=tm_mems["frames"],
-                            rank_frames=sum(TM_TURNS[r // shape[1]]) if shape[0] > 1 else None,
-                            staged=tm_mems["staged"], params=trees["cut"])]
+    def tm(shape=(1, 1), mode="replicate"):  # rank r holds sample r // model of each micro-batch
+        return lambda r: {"steps": T(
+            f"training mesh {shape} {mode}", cut(TM_LAYERS), mesh=shape, param_mode=mode,
+            accum=TM_ACCUM, batch=2, seq=TM_T, frames=tm_mems["frames"],
+            rank_frames=sum(TM_TURNS[r // shape[1]]) if shape[0] > 1 else None,
+            params=trees[TM_LAYERS])}
 
     return [
-        ("serving bf16, one stream", "dense", single("serving bf16")),
+        ("serving bf16, one stream", "dense", live("serving bf16")),
         ("serving int4 + int8 cache", "quantized",
-         single("serving int4 + int8 cache", tree="int4", weights="int4", kv_cache_quant="int8")),
+         live("serving int4 + int8 cache", tree="int4", weights="int4", kv_cache_quant="int8")),
         ("batched bf16, 8 lanes", "batched", batched("batched bf16")),
         ("batched, (2, 2) one-device mesh", "meshed", batched("batched, (2, 2) mesh")),
         ("batched, int8 cache", "batched_int8", batched("batched int8", kv="int8", scorer=False)),
-        ("training A=2 x 2944", "training", lambda r: [T(
+        ("training A=2 x 2944", "training", lambda r: {"steps": T(
             "training", cfg, accum=TRAIN_ACCUM, batch=1, seq=train_mem["seq"],
-            frames=train_mem["frames"], states=TRAIN_STEPS, staged=TRAIN_ACCUM * TRAIN_STEPS,
-            params=trees["bf16"])]),
-        ("CLIP-L/14-336 + 7B", "clip", single("CLIP path", c=ccfg, tree="clip", clip=True,
-                                              chunk_tokens=32 * ccfg.frame_num_tokens)),
+            frames=train_mem["frames"], params=trees["bf16"])}),
+        ("CLIP-L/14-336 + 7B", "clip", live("CLIP path", c=ccfg, tree="clip", clip=True)),
         ("TP batched, one process", "tp_batched_ref",
-         batched("TP batched", scorer=False, frames=False)),
-        ("TP rank (1, 2), bf16", ("tp", "dense"), single("TP rank bf16", mesh=(1, TP_RANKS))),
-        ("TP rank (1, 2), int4 + int8 cache", ("tp", "quantized"), single(
+         batched("TP batched", scorer=False, pixels=False)),
+        ("TP rank (1, 2), bf16", ("tp", "dense"), live("TP rank bf16", mesh=(1, TP_RANKS))),
+        ("TP rank (1, 2), int4 + int8 cache", ("tp", "quantized"), live(
             "TP rank int4", tree="int4", mesh=(1, TP_RANKS), weights="int4",
             kv_cache_quant="int8")),
         ("TP rank (1, 2), batched", ("tp", "batched"),
-         batched("TP rank batched", mesh=(1, TP_RANKS), scorer=False, frames=False)),
+         batched("TP rank batched", mesh=(1, TP_RANKS), scorer=False, pixels=False)),
         ("data rank (2, 1), bf16", ("dp", "bf16"), batched("data rank bf16", mesh=DP_MESH)),
         ("data rank (2, 1), int8 cache", ("dp", "int8"),
          batched("data rank int8", mesh=DP_MESH, kv="int8", scorer=False)),
         ("data rank (2, 2), 2 layers", ("dp2", "batched"), batched(
-            "data rank (2, 2)", mesh=DP_TP_MESH, c=cut, tree="cut", scorer=False, frames=False)),
-        ("training mesh, one process", ("tm", "one process"), lambda r: [T(
-            "training mesh one process", cut, accum=TM_ACCUM, batch=2, seq=TM_T,
-            frames=tm_mems["frames"], states=TM_STEPS, staged=tm_mems["staged"],
-            params=trees["cut"])]),
+            "data rank (2, 2)", mesh=DP_TP_MESH, c=cut(DP_TP_LAYERS), tree=DP_TP_LAYERS,
+            scorer=False, pixels=False)),
+        ("training mesh, one process", ("tm", "one process"), tm()),
     ] + [(f"training mesh {shape} {mode} rank", ("tm", (shape, mode)), tm(shape, mode))
          for shape, mode in TM_LAYOUTS]
 
 
-def run_memory_budget(log, measured: dict, train_mem: dict, tm_mems: dict) -> None:
+def run_memory_budget(log, cfg, measured: dict, train_mem: dict, tm_mems: dict) -> None:
     """Every measured peak against `memory_budget_torch`'s estimate of its
     configuration: the estimate's persistent part at most the peak, the
     whole within max(10 %, 1 GiB) of the peak less the bytes earlier
@@ -3743,23 +3780,28 @@ def run_memory_budget(log, measured: dict, train_mem: dict, tm_mems: dict) -> No
     t0 = time.perf_counter()
     total = torch.cuda.get_device_properties(0).total_memory
     held, missed = 0, []
-    for label, key, configs in memory_configs(train_mem, tm_mems):
-        mems = measured[key]
-        mems = mems if isinstance(mems, list) else [mems]
-        for r, mem in enumerate(mems):
-            est = max((budget.serving_budget(c) if isinstance(c, budget.Serving)
-                       else budget.training_budget(c) for c in configs(r)),
-                      key=lambda b: b.total_bytes)
-            label_r = f"{label} {r}" if len(mems) > 1 else label
-            ok, line = budget.check(est, mem["peak"], mem["resident"])
-            moment = est.moments.get(est.peak_moment[0], [])
-            log(f"memory budget, {label_r}: {line}; GiB persistent: " + ", ".join(
-                f"{n} {b / 2**30:.3f}" for n, b, _ in est.persistent)
-                + f"; '{est.peak_moment[0]}': " + ", ".join(
-                f"{n} {b / 2**30:.3f}" for n, b, _ in moment))
-            held += ok
-            if not ok:
-                missed.append(label_r)
+    for label, key, configs in memory_configs(cfg, train_mem, tm_mems):
+        ranks = measured[key]
+        ranks = ranks if isinstance(ranks, list) else [ranks]
+        for r, passes in enumerate(ranks):
+            want = configs(r)
+            if set(passes) != set(want):
+                raise AssertionError(f"memory budget, {label}: measured passes {sorted(passes)}, "
+                                     f"configurations of {sorted(want)}")
+            for name, mem in passes.items():
+                c = want[name]
+                est = (budget.serving_budget(c) if isinstance(c, budget.Serving)
+                       else budget.training_budget(c))
+                label_r = f"{label}{f' {r}' if len(ranks) > 1 else ''}, {name}"
+                ok, line = budget.check(est, mem["peak"], mem["resident"])
+                moment = est.moments.get(est.peak_moment[0], [])
+                log(f"memory budget, {label_r}: {line}; GiB persistent: " + ", ".join(
+                    f"{n} {b / 2**30:.3f}" for n, b, _ in est.persistent)
+                    + f"; '{est.peak_moment[0]}': " + ", ".join(
+                    f"{n} {b / 2**30:.3f}" for n, b, _ in moment))
+                held += ok
+                if not ok:
+                    missed.append(label_r)
     log(f"memory budget: {held} measured peaks held by their estimates, missed {missed}; the "
         f"card's total_memory {total} bytes ({total / 2**30:.2f} GiB)")
     for b in budget.recipe_budgets(budget.model_params(MMDuetConfig())):
@@ -3837,7 +3879,7 @@ def main(argv=None) -> int:
         f"tokens/s {batched['decode_tokens_per_s']:.2f} vs {dense['decode_tokens_per_s']:.2f}")
     dp_ref = {"bf16": {k: batched[k] for k in ("sessions", "rows")},  # the data-axis phase's
               "int8": {"sessions": batched_int8["sessions"]}}
-    measured = {"dense": dense["mem"], "clip": clip_path["mem"], "training": train_mem,
+    measured = {"dense": dense["mem"], "clip": clip_path["mem"], "training": train_mem["mem"],
                 "batched": batched["mem"], "meshed": meshed["mem"],
                 "batched_int8": batched_int8["mem"]}
     del batched, meshed, batched_int8
@@ -3883,7 +3925,7 @@ def main(argv=None) -> int:
     measured[("tm", "one process")] = tm_mems["one process"]
     measured.update({("tm", layout): tm_mems[layout] for layout in TM_LAYOUTS})
     run_train_recipe(log)
-    run_memory_budget(log, measured, train_mem, tm_mems)
+    run_memory_budget(log, cfg, measured, train_mem, tm_mems)
     for entry, key in ((full_fwd, "full_fwd"), (full_bwd, "full_bwd")):
         # the rank-local shape's numbers, and the (2, 2) rank 0's launches
         entry["tp_local"] = dict(tp_kernels[key], launches=tm_launches[key])

@@ -68,6 +68,7 @@ from .state import (
     DEFAULT_BUCKETS,
     ThresholdPolicy,
     build_prompt_fragments,
+    cache_slots,
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
@@ -77,6 +78,13 @@ from .state import (
 )
 
 VISION_BATCH = 32
+
+
+def chunk_buckets(block_frames: int, frame_num_tokens: int) -> tuple:
+    """`BatchedStreamEngine`'s chunk widths: `DEFAULT_BUCKETS`, a full
+    joiner-free block, and a block with headroom for joiners and queries."""
+    block = block_frames * frame_num_tokens
+    return tuple(sorted(set(DEFAULT_BUCKETS) | {block, block + 64}))
 
 
 class BatchedStreamScorer:
@@ -130,10 +138,7 @@ class BatchedStreamScorer:
         self.lora = lora
         self.lora_scale = lora_scale
         self.system_prompt = system_prompt or DEFAULT_SYSTEM_PROMPT
-        size = kv_cache_size or (max_num_frames * cfg.frame_num_tokens + 4096)
-        # rounded up to 2048 slots as the JAX engines round (to their
-        # kernel's KV block), so all engines overflow at the same point
-        self._cache_size = -(-size // 2048) * 2048
+        self._cache_size = cache_slots(max_num_frames, cfg.frame_num_tokens, kv_cache_size)
         self._cache = None
         self.reset()
 
@@ -396,10 +401,7 @@ class BatchedStreamEngine(BatchedStreamScorer):
         # small joiners/queries on some lanes (K*ft + headroom); adding
         # both keeps the hot block dispatch UNPADDED while query-heavy
         # rounds bucket tightly instead of doubling to the next power
-        ft = cfg.frame_num_tokens
-        self._buckets = tuple(sorted(
-            set(DEFAULT_BUCKETS) | {block_frames * ft, block_frames * ft + 64}
-        ))
+        self._buckets = chunk_buckets(block_frames, cfg.frame_num_tokens)
         super().__init__(
             params, cfg, tokenizer,
             n_streams=n_streams,

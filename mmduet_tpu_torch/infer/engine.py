@@ -75,6 +75,7 @@ from .state import (
     StreamState,
     ThresholdPolicy,
     build_prompt_fragments,
+    cache_slots,
     encode_uploaded,
     frame_joiner_ids,
     pad_chunk,
@@ -86,6 +87,11 @@ from .state import (
 )
 
 VISION_BATCH = 32
+
+
+def live_block_frames(grounding_mode: bool) -> int:
+    """`LiveInferEngine`'s frames per fused chunk forward by default."""
+    return 32 if grounding_mode else 8
 
 
 class LiveInferEngine:
@@ -137,12 +143,8 @@ class LiveInferEngine:
             build_prompt_fragments(tokenizer, args.system_prompt)
         )
 
-        cache_size = kv_cache_size or (
-            args.max_num_frames * cfg.frame_num_tokens + 4096
-        )
-        # rounded up to 2048 slots as the JAX engine rounds (to its
-        # kernel's KV block), so both engines overflow at the same point
-        self._cache_size = -(-cache_size // 2048) * 2048
+        self._cache_size = cache_slots(args.max_num_frames, cfg.frame_num_tokens,
+                                       kv_cache_size)
         self.set_fps(args.frame_fps)
 
         # Frames per fused chunk forward. Grounding mode never generates,
@@ -150,7 +152,7 @@ class LiveInferEngine:
         # win; generation keeps blocks moderate so a mid-block trigger
         # discards little work.
         if block_frames is None:
-            block_frames = 32 if args.grounding_mode else 8
+            block_frames = live_block_frames(args.grounding_mode)
         self.block_frames = max(1, block_frames)
         self.reset()
 

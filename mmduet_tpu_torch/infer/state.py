@@ -54,6 +54,16 @@ def pad_chunk(embeds: torch.Tensor, bucket: int) -> torch.Tensor:
     )
 
 
+def cache_slots(max_num_frames: int, frame_num_tokens: int,
+                kv_cache_size: Optional[int] = None) -> int:
+    """An engine's cache length: ``kv_cache_size``, or room for
+    ``max_num_frames`` frames and 4096 tokens of text, rounded up to 2048
+    slots as the JAX engines round (to their kernel's KV block), so all
+    engines overflow at the same point."""
+    size = kv_cache_size or (max_num_frames * frame_num_tokens + 4096)
+    return -(-size // 2048) * 2048
+
+
 def serving_cache(cfg: Qwen2Config, decoder, batch: int, max_len: int, dtype: torch.dtype,
                   device, quant: Optional[str] = None) -> KVCache:
     """A zero (L, batch, kh, max_len, hd) cache, bf16 or int8, with kh the

@@ -1,6 +1,6 @@
 """Per-card memory of the PyTorch port's configurations, from shapes.
 
-    python scripts/memory_budget_torch.py [--out PATH] [--capacity_bytes N]
+    python scripts/memory_budget_torch.py [--out PATH]
 
 The port's counterpart of `scripts/memory_budget.py`, which compiles the JAX
 train step for a virtual mesh and reads XLA's `memory_analysis()`. The port
@@ -17,7 +17,10 @@ rules, never a copy of them:
   rules, each f32 Adam moment by `moment_spec` over ``data``), and the f32
   gradient accumulators of the rank's trainable leaves;
 - serving: the KV cache of `infer.state.serving_cache` with a rank's
-  lanes from `parallel.local_cache_dims` (`kv_cache_sharding`).
+  lanes from `parallel.local_cache_dims` (`kv_cache_sharding`), its length
+  by the engines' `infer.state.cache_slots`, and the frame embeddings the
+  engine keeps; the chunk widths are the engines' own
+  (`infer.engine.live_block_frames`, `infer.batch_engine.chunk_buckets`).
 
 On top of those persistent terms, each configuration lists its transient
 terms at the moments where the code holds the most at once, each from a
@@ -34,9 +37,8 @@ tensor the code allocates that no term names is a miss of the model.
 Configurations: the reference recipe as `scripts/memory_budget.py` has it
 (7B + so400m widths, seq 5120, accum 16, global batch 8, 100 frames a
 sample) on ``zero2_8x1`` (8, 1) replicate (ZeRO-2), ``fsdp_8x1`` (8, 1)
-fsdp and ``fsdp_tp_4x2`` (4, 2) fsdp, each judged against one card's
-capacity (``--capacity_bytes``, default an H100 80GB HBM3's
-``total_memory``), and labelled an estimate. `chip_smoke.py` builds the
+fsdp and ``fsdp_tp_4x2`` (4, 2) fsdp, each judged against an H100 80GB
+HBM3's ``total_memory``, and labelled an estimate. `chip_smoke.py` builds the
 configurations of the peaks it measures (`Serving`, `Training`) and holds
 these estimates against them. The table goes to stdout (``--out``: also to
 a Markdown file), then one JSON object.
@@ -52,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import inspect
 import json
 import os
 import sys
@@ -63,8 +66,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from mmduet_tpu_torch.config import MMDuetConfig, TrainArgs  # noqa: E402
-from mmduet_tpu_torch.infer.state import serving_cache  # noqa: E402
+from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs  # noqa: E402
+from mmduet_tpu_torch.infer.batch_engine import (BatchedStreamEngine,  # noqa: E402
+                                                 BatchedStreamScorer, chunk_buckets)
+from mmduet_tpu_torch.infer.engine import VISION_BATCH, live_block_frames  # noqa: E402
+from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS, cache_slots, serving_cache  # noqa: E402
 from mmduet_tpu_torch.models import init_clip_params, init_lora, init_mmduet_params  # noqa: E402
 from mmduet_tpu_torch.models import quant  # noqa: E402
 from mmduet_tpu_torch.ops import attention, quant_matmul  # noqa: E402
@@ -77,7 +83,7 @@ from mmduet_tpu_torch.train.step import init_train_state  # noqa: E402
 GIB = 2 ** 30
 META = torch.device("meta")
 # torch.cuda.get_device_properties(0).total_memory of an H100 80GB HBM3, as
-# `chip_smoke.py` printed it; the card's own reading replaces it there
+# `chip_smoke.py` printed it; it judges the recipe by the card's own reading
 H100_80GB_BYTES = 85_017_493_504
 BF16, F32, I32 = 2, 4, 4
 
@@ -234,33 +240,62 @@ def int4_scratch_bytes(rows: int, shapes) -> int:
 # ---------------------------------------------------------------------------
 
 
+ENGINES = {"live": None, "batched": BatchedStreamEngine, "scorer": BatchedStreamScorer}
+
+
 @dataclasses.dataclass
 class Serving:
     """A serving configuration as one rank holds it.
 
-    ``lanes``: the engine's lanes (over all data ranks); ``engines``: the
-    engines whose caches are held at once; ``chunk_tokens``: the widest
-    chunk a lane feeds to one decoder forward (a 32-frame grounding block
-    is 32 x 49 tokens; the batched engine's widest is its bucket of a
-    block and a joiner, 8 x 49 + 64); ``vision_batch``: the frames of one
-    tower call (0: frame embeddings are given); ``frame_buffer``: frames a
-    lane's buffer holds (the batched engine's (lanes, max_num_frames, ft,
-    H)); ``held_frames``: frame embeddings each engine keeps a lane."""
+    ``engine``: ``"live"`` (`LiveInferEngine`, one lane), ``"batched"``
+    (`BatchedStreamEngine`) or ``"scorer"`` (`BatchedStreamScorer`);
+    ``lanes``: the engine's lanes over all data ranks; ``grounding``: the
+    live engine's mode, which sets its block (`live_block_frames`; the
+    batched engines' blocks are their defaults); ``max_num_frames``: the
+    engine's argument (None: its default), which sizes its cache
+    (`cache_slots`) and the batched engine's (lanes, max_num_frames, ft,
+    H) frame buffer; ``frames``: the session's video, whose embeddings
+    the live engine and the scorer keep whole; ``pixels``: the frames
+    arrive as pixels and the tower encodes them (else as embeddings)."""
 
     name: str
     cfg: MMDuetConfig
     weights: str = "bf16"
     clip: bool = False
     mesh: Tuple[int, int] = (1, 1)
+    engine: str = "live"
     lanes: int = 1
-    engines: int = 1
-    cache_slots: int = 24576
     kv_cache_quant: Optional[str] = None
-    chunk_tokens: int = 32 * 49
-    vision_batch: int = 32
-    frame_buffer: int = 0
-    held_frames: int = 0
+    grounding: bool = False
+    max_num_frames: Optional[int] = None
+    frames: int = 0
+    pixels: bool = True
     params: Optional[dict] = None  # the whole meta tree, when the caller has it
+
+    def _default(self, arg: str):
+        return inspect.signature(ENGINES[self.engine].__init__).parameters[arg].default
+
+    def block(self) -> int:
+        if self.engine == "live":
+            return live_block_frames(self.grounding)
+        return self._default("block_frames")
+
+    def frame_cap(self) -> int:
+        """``max_num_frames``, or the engine's default: the scorer's own
+        argument's, the others' from their `TestArgs`."""
+        if self.max_num_frames:
+            return self.max_num_frames
+        return self._default("max_num_frames") if self.engine == "scorer" \
+            else TestArgs.max_num_frames
+
+    def chunk_tokens(self) -> int:
+        """The widest chunk a lane feeds one decoder forward: the batched
+        engine's widest bucket, else a block of frames (a query or prompt
+        chunk is at most the widest default bucket)."""
+        ft = self.cfg.frame_num_tokens
+        if self.engine == "batched":
+            return max(chunk_buckets(self.block(), ft))
+        return max(self.block() * ft, DEFAULT_BUCKETS[-1])
 
 
 def _vision_moments(cfg: MMDuetConfig, N: int, M: int, clip: bool) -> Dict[str, List]:
@@ -298,38 +333,41 @@ def _vision_moments(cfg: MMDuetConfig, N: int, M: int, clip: bool) -> Dict[str, 
 
 
 def serving_budget(s: Serving) -> Budget:
+    if s.engine not in ENGINES:
+        raise ValueError(f"engine {s.engine!r} (live, batched or scorer)")
     cfg, t = s.cfg, s.cfg.text
     params = s.params if s.params is not None else model_params(cfg, s.weights, s.clip)
     local = rank_params(params, s.mesh)
-    cache, lanes = rank_cache(cfg, local, s.mesh, s.lanes, s.cache_slots, s.kv_cache_quant)
+    cap = s.frame_cap()
+    slots = cache_slots(cap, cfg.frame_num_tokens)
+    cache, lanes = rank_cache(cfg, local, s.mesh, s.lanes, slots, s.kv_cache_quant)
     M = s.mesh[1]
     H, L, hd, V = t.hidden_size, t.num_layers, t.head_dim, t.vocab_size
     kh = t.num_kv_heads // M if t.num_kv_heads % M == 0 else t.num_kv_heads
     nh = t.num_heads // M if t.num_heads % M == 0 else t.num_heads
     inter = t.intermediate_size // M
     ft = cfg.frame_num_tokens
-    T = s.chunk_tokens
+    T = s.chunk_tokens()
     R = lanes * T
-    scratch_a = max(decode_scratch_bytes(lanes, kh, nh // kh, tok, s.cache_slots, hd)
+    scratch_a = max(decode_scratch_bytes(lanes, kh, nh // kh, tok, slots, hd)
                     for tok in (1, min(64, T), T))
     persistent = [
         ("base weights", tree_bytes(local), f"{s.weights} tree, rank (0, 0) of {s.mesh}"),
-        ("KV cache", tree_bytes(cache) * s.engines,
-         f"{s.engines} x (L {L}, lanes {lanes}, kh {kh}, S {s.cache_slots}, hd {hd}) "
-         f"{s.kv_cache_quant or 'bf16'}"),
-        ("penalty rows", s.engines * lanes * V, "bool (lanes, V)"),
+        ("KV cache", tree_bytes(cache),
+         f"(L {L}, lanes {lanes}, kh {kh}, S {slots}, hd {hd}) {s.kv_cache_quant or 'bf16'}"),
+        ("penalty rows", lanes * V, "bool (lanes, V)"),
         ("kernel A scratch", scratch_a, "split partials and counters (`_split_args`)"),
     ]
     if s.weights == "int4":
         shapes = [(H, nh * hd), (H, kh * hd), (nh * hd, H), (H, inter), (inter, H), (H, V // M)]
         scratch_b = max(int4_scratch_bytes(r, shapes) for r in (1, lanes, R))
         persistent.append(("kernel B scratch", scratch_b, "split partials (`_split_ptrs`)"))
-    if s.frame_buffer:
-        persistent.append(("frame buffer", lanes * s.frame_buffer * ft * H * BF16,
-                           f"bf16 (lanes {lanes}, {s.frame_buffer}, {ft}, {H})"))
-    if s.held_frames:
-        persistent.append(("frame embeddings", s.engines * lanes * s.held_frames * ft * H * BF16,
-                           f"bf16 {s.engines} x ({lanes} x {s.held_frames}, {ft}, {H})"))
+    if s.engine == "batched":
+        persistent.append(("frame buffer", lanes * cap * ft * H * BF16,
+                           f"bf16 (lanes {lanes}, {cap}, {ft}, {H})"))
+    elif s.frames:
+        persistent.append(("frame embeddings", lanes * s.frames * ft * H * BF16,
+                           f"bf16 ({lanes} x {s.frames}, {ft}, {H})"))
     kv_rows = 2 * L * R * kh * hd * BF16
     moments: Dict[str, List] = {
         # the widest chunk at the last layer's MLP (`qwen2._out_mlp`): every
@@ -352,8 +390,8 @@ def serving_budget(s: Serving) -> Budget:
         + ([("quantized rows f32", kv_rows * F32 // BF16, "x.float() and x / scale of one "
              "of K, V (`quantize_kv_rows`)")] if s.kv_cache_quant else []),
     }
-    if s.vision_batch:
-        moments.update(_vision_moments(cfg, s.vision_batch, M, s.clip))
+    if s.pixels:
+        moments.update(_vision_moments(cfg, VISION_BATCH, M, s.clip))
     return Budget(s.name, persistent, moments)
 
 
@@ -369,10 +407,8 @@ class Training:
     data too), A = ``accum`` micro-batches of ``batch`` samples (the global
     batch) padded to ``seq`` tokens, ``frames`` frame slots a micro-batch
     (all samples), ``rank_frames`` of them this rank encodes (its samples'
-    frames; the slots where data is 1), ``states`` sets of Adam moments
-    held at once (the loop holds one; a caller that keeps earlier states
-    also keeps their updated leaves), ``staged`` micro-batches on the device
-    (default: the A of one step, as `train.loop._to_device` stages them)."""
+    frames; the slots where data is 1). The loop holds one `TrainState` and
+    stages one step's A micro-batches at a time (`train.loop._to_device`)."""
 
     name: str
     cfg: MMDuetConfig
@@ -384,8 +420,6 @@ class Training:
     frames: int = 800
     rank_frames: Optional[int] = None
     lora_r: int = 16
-    states: int = 1
-    staged: Optional[int] = None
     params: Optional[dict] = None
 
 
@@ -401,19 +435,15 @@ def training_budget(c: Training) -> Budget:
                                                       device=META), state.trainable))
     A, B, T = c.accum, c.batch, c.seq
     px = cfg.frame_resolution
-    staged = c.accum if c.staged is None else c.staged
     persistent = [
         ("base weights", tree_bytes(local), f"bf16, rank (0, 0) of {c.mesh} {c.param_mode}"),
         ("trainable", trainable, "LoRA f32, projector and heads bf16; whole over data"),
-        ("Adam moments", moments_b * c.states, f"{c.states} x f32 mu + nu, cut over data"),
+        ("Adam moments", moments_b, "f32 mu + nu, cut over data"),
         ("gradients", grads, "f32 accumulators of the rank's trainable leaves"),
-        ("staged batch", staged * (B * T * (4 * I32 + 1) + c.frames * px * px * 3),
-         f"{staged} micro-batches: (B {B}, T {T}) int32 x 4 + bool, uint8 frames "
+        ("staged batch", A * (B * T * (4 * I32 + 1) + c.frames * px * px * 3),
+         f"{A} micro-batches: (B {B}, T {T}) int32 x 4 + bool, uint8 frames "
          f"({c.frames}, {px}, {px}, 3)"),
     ]
-    if c.states > 1:
-        persistent.insert(3, ("earlier trainable", trainable * (c.states - 1),
-                              "the leaves of the earlier states"))
     b = B // D if B % D == 0 else B  # the rank's samples a micro-batch
     n = c.rank_frames if c.rank_frames is not None else c.frames // D
     H, L, V = t.hidden_size, t.num_layers, t.vocab_size // M
@@ -491,10 +521,8 @@ def check(budget: Budget, measured_bytes: int, resident_bytes: int = 0) -> Tuple
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--out", default=None, help="also write the table as Markdown here")
-    p.add_argument("--capacity_bytes", type=int, default=H100_80GB_BYTES,
-                   help="one card's memory, to judge the recipe's rows against")
     args = p.parse_args(argv)
-    cap = args.capacity_bytes
+    cap = H100_80GB_BYTES
     budgets = recipe_budgets()
     lines = ["# 7B training memory per card, the PyTorch port (an estimate from shapes)", "",
              f"Reference recipe: seq {RECIPE_SEQ}, accum {RECIPE_ACCUM}, global batch "

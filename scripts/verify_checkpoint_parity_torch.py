@@ -44,7 +44,7 @@ import glob
 import json
 import os
 import sys
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -90,10 +90,10 @@ def _guarded(out: Dict, name: str, fn) -> None:
 
 
 def port_outputs(ckpt: str, device, prompts: Sequence[np.ndarray], pixels: np.ndarray,
-                 dtype: Optional[torch.dtype] = None, vision: bool = True) -> Dict:
+                 vision: bool = True) -> Dict:
     """The port's outputs for the gate's inputs, from the checkpoint
-    directory ``ckpt`` on ``device`` in ``dtype`` (default bf16 on a CUDA
-    device, f32 on the CPU): per prompt its next-token logits (f32) and the
+    directory ``ckpt`` on ``device``, bf16 on a CUDA device (through the
+    kernels), f32 on the CPU: per prompt its next-token logits (f32) and the
     two score probabilities, then (``vision``) the tower's layer(-2)
     features of ``pixels``, the projector's output on them and the pooled
     token count. A value that could not be computed is the error's text."""
@@ -102,8 +102,7 @@ def port_outputs(ckpt: str, device, prompts: Sequence[np.ndarray], pixels: np.nd
     from mmduet_tpu_torch.models.qwen2 import embed_tokens, init_kv_cache
 
     device = torch.device(device)
-    if dtype is None:
-        dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     cfg, params, _ = load_checkpoint(ckpt, device=device)
     params = _cast(params, dtype)
     tcfg = cfg.text

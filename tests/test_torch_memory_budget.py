@@ -5,7 +5,8 @@
   and int4 leaves, both parameter modes), `shard_train_state` (trainable
   leaves, f32 moments, f32 gradient accumulators) and `serving_cache` over
   a rank's lanes (`lane_block`) and kv heads, bf16 and int8, on the (1, 1),
-  (2, 1), (1, 2) and (2, 2) meshes, every rank;
+  (2, 1), (1, 2) and (2, 2) meshes, every rank; and the cache and frame
+  terms equal the tensors the three engines allocate;
 - the 7B reference recipe's rows against `docs/MEMORY_BUDGET.md` (the JAX
   package's XLA analysis): the base weights column to 0.01 GiB; the
   trainable and optimizer-state columns where the port's layout is the JAX
@@ -19,6 +20,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -27,7 +29,10 @@ sys.path.insert(0, os.path.join(REPO, "scripts"))
 
 import memory_budget_torch as mb  # noqa: E402
 from mmduet_tpu_torch.config import MMDuetConfig, TrainArgs, tiny_config  # noqa: E402
-from mmduet_tpu_torch.infer.state import serving_cache  # noqa: E402
+from mmduet_tpu_torch.config import TestArgs as ServeArgs  # noqa: E402
+from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer  # noqa: E402
+from mmduet_tpu_torch.infer import LiveInferEngine  # noqa: E402
+from mmduet_tpu_torch.infer.state import cache_slots, serving_cache  # noqa: E402
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, quant  # noqa: E402
 from mmduet_tpu_torch.parallel import ProcessMesh, lane_block, shard_params  # noqa: E402
 from mmduet_tpu_torch.parallel.sharding import shard_train_state  # noqa: E402
@@ -35,7 +40,7 @@ from mmduet_tpu_torch.train import init_train_state, make_optimizer  # noqa: E40
 from mmduet_tpu_torch.train.optimizer import tree_map  # noqa: E402
 
 MESHES = [(1, 1), (2, 1), (1, 2), (2, 2)]
-LANES, SLOTS = 4, 64
+LANES, MAX_FRAMES = 4, 16
 
 
 @pytest.fixture(scope="module")
@@ -60,18 +65,54 @@ def test_serving_persistent_bytes_are_the_materialized_trees(cpu_trees, shape, w
     lanes (`lane_block`) with the kv heads of that tree."""
     cfg, trees = cpu_trees
     budget = mb.serving_budget(mb.Serving("tiny", cfg, weights=weights, mesh=shape,
-                                          lanes=LANES, cache_slots=SLOTS, kv_cache_quant=kv,
-                                          engines=2))
+                                          engine="batched", lanes=LANES, kv_cache_quant=kv,
+                                          max_num_frames=MAX_FRAMES))
     terms = {n: b for n, b, _ in budget.persistent}
+    slots = cache_slots(MAX_FRAMES, cfg.frame_num_tokens)
     for coords in _ranks(shape):
         mesh = ProcessMesh(shape, coords, torch.device("cpu"))
         local = shard_params(trees[weights], mesh)
         lo, hi = lane_block(mesh, LANES)
-        cache = serving_cache(cfg.text, local["decoder"], hi - lo, SLOTS, torch.bfloat16,
+        cache = serving_cache(cfg.text, local["decoder"], hi - lo, slots, torch.bfloat16,
                               "cpu", quant=kv)
         assert terms["base weights"] == mb.tree_bytes(local), coords
-        assert terms["KV cache"] == 2 * mb.tree_bytes(cache), coords
-        assert terms["penalty rows"] == 2 * (hi - lo) * cfg.text.vocab_size
+        assert terms["KV cache"] == mb.tree_bytes(cache), coords
+        assert terms["penalty rows"] == (hi - lo) * cfg.text.vocab_size
+
+
+@pytest.mark.parametrize("kind", ["live", "batched", "scorer"])
+def test_serving_terms_are_the_engines_own_tensors(cpu_trees, kind):
+    """One engine of each kind on the CPU: the budget's KV cache and frame
+    terms equal the bytes of the cache the engine made (its length by the
+    engine's own rule) and of the frame embeddings it keeps: the live
+    engine's and the scorer's session video, the batched engine's
+    (lanes, max_num_frames, ft, H) buffer."""
+    from mmduet_tpu_torch.stream import CharTokenizer
+
+    cfg, trees = cpu_trees
+    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
+    cfg = cfg.replace(v_placeholder_id=tok.v_placeholder_id, eos_token_id=tok.eos_token_id)
+    args = ServeArgs(frame_fps=2.0, stream_end_prob_threshold=0.5, max_num_frames=MAX_FRAMES)
+    rng = np.random.RandomState(0)
+    px = cfg.frame_resolution
+    videos = [rng.randint(0, 256, (n, px, px, 3), dtype=np.uint8) for n in (5, 7)]
+    if kind == "live":
+        engine = LiveInferEngine(trees["bf16"], cfg, tok, args)
+        engine.input_video_stream(videos[1])
+        cache, frames = engine.state.kv_cache, engine.frame_embeds
+    else:
+        cls = BatchedStreamEngine if kind == "batched" else BatchedStreamScorer
+        kw = {"args": args} if kind == "batched" else {"max_num_frames": MAX_FRAMES}
+        engine = cls(trees["bf16"], cfg, tok, n_streams=len(videos), **kw)
+        engine.input_video_streams(videos)
+        cache, frames = engine._cache, engine._frame_embeds
+    budget = mb.serving_budget(mb.Serving("tiny", cfg, engine=kind, lanes=len(videos)
+                                          if kind != "live" else 1, frames=7,
+                                          max_num_frames=MAX_FRAMES))
+    terms = {n: b for n, b, _ in budget.persistent}
+    assert terms["KV cache"] == mb.tree_bytes(cache)
+    frame_term = terms["frame buffer" if kind == "batched" else "frame embeddings"]
+    assert frame_term == mb.tree_bytes(frames)
 
 
 @pytest.mark.parametrize("shape", MESHES)
@@ -162,7 +203,8 @@ def test_estimate_check_and_terms():
     """`check` holds the persistent part under the peak and the whole within
     max(10 %, 1 GiB); every term has a name, bytes and what it is."""
     cfg = tiny_config()
-    b = mb.serving_budget(mb.Serving("tiny", cfg, lanes=2, cache_slots=64))
+    b = mb.serving_budget(mb.Serving("tiny", cfg, engine="batched", lanes=2,
+                                     max_num_frames=MAX_FRAMES))
     assert all(isinstance(n, str) and x >= 0 and w for n, x, w in b.persistent)
     assert b.total_bytes == b.persistent_bytes + b.peak_moment[1] > b.persistent_bytes
     assert mb.check(b, b.total_bytes)[0]

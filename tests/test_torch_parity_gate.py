@@ -9,6 +9,7 @@ import os
 import shutil
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,8 +82,9 @@ def test_gate_fails_on_a_mismapped_checkpoint(converted, tmp_path, capsys, edit,
 
 def test_port_outputs_against_themselves_and_the_oracle(converted):
     """`port_outputs` and `hf_outputs` give the same keys; `compare` of the
-    port's f32 route with itself passes at zero tolerance, and a bf16 route
-    on the CPU stays within a bf16-sized tolerance of the f32 one."""
+    port's f32 route with itself passes at zero tolerance, and outputs moved
+    by 0.05 (one logit, one probability, one feature) pass at a tolerance
+    of 0.06 and fail at 0.04."""
     hf_dir, ckpt = converted
     from mmduet_tpu_torch.models.io import load_config
 
@@ -92,9 +94,18 @@ def test_port_outputs_against_themselves_and_the_oracle(converted):
     hf = gate.hf_outputs(hf_dir, prompts, pixels)
     assert set(hf) <= set(f32)
     assert gate.compare(f32, f32, 0.0, 0.0) == []
-    bf16 = gate.port_outputs(ckpt, "cpu", prompts, pixels, dtype=torch.bfloat16)
-    assert gate.compare(bf16, f32, 0.05, 0.1, argmax_ties=0.2) == []
-    assert gate.compare(bf16, f32, 1e-6, 1e-6) != []
+    moved = dict(f32)
+    logits = np.array(f32["prompt0 next-token logits"])
+    logits[np.argmin(logits)] += 0.05  # the argmax stays
+    moved["prompt0 next-token logits"] = logits
+    moved["prompt1 informative_prob"] = f32["prompt1 informative_prob"] + 0.05
+    features = np.array(f32["vision layer(-2) features"])
+    features.flat[0] += 0.05
+    moved["vision layer(-2) features"] = features
+    assert gate.compare(moved, f32, 0.06, 0.06) == []
+    assert set(gate.compare(moved, f32, 0.04, 0.06)) == {"prompt1 informative_prob",
+                                                         "vision layer(-2) features"}
+    assert gate.compare(moved, f32, 0.06, 0.04) == ["prompt0 next-token logits"]
 
 
 def test_gate_names_the_missing_oracle(converted, monkeypatch):
