@@ -136,10 +136,13 @@ Phases (any failure ends the run with a nonzero exit):
    bucket; the one process takes a warm-up and 2 steps, and again under a
    permuted MLP (its own rounding spread); then ranks spawned on the one
    card over gloo, (2, 1) replicate (ZeRO-2) and (2, 2) fsdp + TP + ZeRO-2,
-   take the same steps: every rank's metrics the same bits, each step's
-   metrics and the update of the gathered trainable leaves within the
-   larger of a floor and twice the one process's own spread, kernel C's and D's launches
-   a rank as its shapes imply, each rank's peak memory and s/step
+   take the same steps, each rank staging only its share of each batch
+   (`rank_batch`: its samples' rows and frame slots, cut on the host; its
+   staged bytes printed beside the one process's): every rank's metrics
+   the same bits, each step's metrics and the update of the gathered
+   trainable leaves within the larger of a floor and twice the one
+   process's own spread, kernel C's and D's launches a rank as its shapes
+   imply, each rank's peak memory and s/step
    (gloo-bound) printed; the (2, 2) ranks' checkpoint of step 1, resumed in
    the one process, gives its step 2;
 11. the training recipe: ``TINY_RANDOM=1 DEVICE=cuda bash
@@ -155,8 +158,9 @@ Phases (any failure ends the run with a nonzero exit):
    `scripts/memory_budget_torch.py`'s estimate of its configuration from
    shapes, printed term by term beside the peak and the bytes earlier
    work left resident (subtracted): the persistent part at most the peak,
-   the whole within max(10 %, 1 GiB) of it; then the reference recipe's
-   three layouts against this card's memory, labelled estimates;
+   the whole within max(10 %, 1 GiB) of it, and a training-mesh run's
+   staged batch term equal to the bytes it staged; then the reference
+   recipe's three layouts against this card's memory, labelled estimates;
 13. small-model checks, card (bf16, kernels) against CPU (f32, plain
    versions): grounding scores of the engine, dense and quantized (int4
    weights, int8 cache, a LoRA adapter), of the batched engine (also
@@ -216,6 +220,7 @@ from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
 from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, ProcessMesh, lane_block, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
+from mmduet_tpu_torch.train.step import rank_batch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
@@ -1930,11 +1935,12 @@ def run_training(cfg, tok, params, log) -> tuple:
     real = [int(b["attn_mask"].sum()) for b in batches]
     log(f"training batches: A={TRAIN_ACCUM} x B=1, T={T} bucket, {n_frames} frame slots "
         f"of 384 px, real tokens per step {real}")
-    step(init_train_state(params, lora, tx), params, _stage(batches[0], dev))  # warm-up
+    state = init_train_state(params, lora, tx)
+    del lora  # the state holds the adapter, as in the CLI's loop
+    step(state, params, _stage(batches[0], dev))  # warm-up, discarded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    state = init_train_state(params, lora, tx)
     flat = [list(_flat_cpu(state.trainable).values())]  # the leaves after each step
     times, rows = [], []
     attention.FULL_FWD_LAUNCHES = attention.FULL_BWD_LAUNCHES = 0  # the path starts here
@@ -3413,9 +3419,13 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def _stage(batch: dict, dev) -> dict:
-    """One step's batch onto ``dev``, as the CLI's loop stages each step's."""
-    return {k: v.to(dev) for k, v in batch.items()}
+def _stage(batch: dict, dev, cfg=None, mesh=None) -> dict:
+    """One step's batch onto ``dev``, as the CLI's loop stages each step's:
+    on a ``mesh``, only this rank's share (`rank_batch`, cut on the host;
+    its frames one tensor a micro-batch)."""
+    batch = rank_batch(batch, cfg, mesh)
+    return {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
+            for k, v in batch.items()}
 
 
 def tm_one_process(cfg, params, lora, batches, dev) -> dict:
@@ -3432,6 +3442,7 @@ def tm_one_process(cfg, params, lora, batches, dev) -> dict:
     metrics, times = [], []
     for batch in batches[1:]:
         batch = _stage(batch, dev)
+        staged = budget.tree_bytes(batch)
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, params, batch)
@@ -3440,7 +3451,7 @@ def tm_one_process(cfg, params, lora, batches, dev) -> dict:
         metrics.append(m)
         del batch
     return {"metrics": metrics, "s": times, "trainable": _flat_cpu(state.trainable),
-            "initial": initial, "state": state, "step": step}
+            "initial": initial, "state": state, "step": step, "staged": staged}
 
 
 def tm_diff(got: dict, want: dict) -> tuple:
@@ -3514,14 +3525,15 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
         dist.barrier()
     batches = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)
     step = make_train_step(cfg, args, tx, sched, mesh=mesh)
-    step(state, params, _stage(batches[0], dev))  # warm-up, discarded
+    step(state, params, _stage(batches[0], dev, cfg, mesh))  # warm-up, discarded
     _sync(dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     attention.FULL_FWD_LAUNCHES = attention.FULL_BWD_LAUNCHES = attention.VISION_LAUNCHES = 0
     metrics, times = [], []
     for i, batch in enumerate(batches[1:]):
-        batch = _stage(batch, dev)
+        batch = _stage(batch, dev, cfg, mesh)
+        staged = budget.tree_bytes(batch)
         _sync(dev)
         t0 = time.perf_counter()
         state, m = step(state, params, batch)
@@ -3535,8 +3547,8 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
                 "vision": attention.VISION_LAUNCHES}
     result = {"metrics": metrics, "s": times, "launches": launches,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
-              "mem": {"steps": _mem(resident)} if cuda else None,
-              "local_gb": quant.param_bytes(params) / 1e9}
+              "mem": {"steps": dict(_mem(resident), staged=staged)} if cuda else None,
+              "staged": staged, "local_gb": quant.param_bytes(params) / 1e9}
     trainable = _flat_cpu(gather_trainable(state.trainable, mesh, to="cpu"))
     if rank == 0:
         torch.save(trainable, os.path.join(out_dir, "trainable.pt"))
@@ -3577,7 +3589,7 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     ref = tm_one_process(cfg, params, lora, batches, dev)
-    mems = {"one process": {"steps": _mem(resident)} if cuda else None,
+    mems = {"one process": {"steps": dict(_mem(resident), staged=ref["staged"])} if cuda else None,
             "frames": batches[1]["frames"].shape[1]}
     one_peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
     log(f"training mesh, one process: {[round(t, 3) for t in ref['s']]} s/step, peak "
@@ -3618,7 +3630,8 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
             log(f"training mesh {name} rank {r}: {[round(t, 3) for t in x['s']]} s/step "
                 f"(gloo-bound: every collective crosses the host; the one process "
                 f"{[round(t, 3) for t in ref['s']]}), peak {x['peak_gib']:.2f} GiB (one process "
-                f"{one_peak:.2f}), local tree {x['local_gb']:.3f} GB, launches {x['launches']}")
+                f"{one_peak:.2f}), staged batch {x['staged']} bytes a step (one process "
+                f"{ref['staged']}), local tree {x['local_gb']:.3f} GB, launches {x['launches']}")
         log(f"training mesh {name}: {len(ranks)} ranks in {wall:.1f} s, every rank's metrics "
             f"the same bits; against the one process: metrics within {diff[0]:.4g} relative "
             f"(bound {bound[0]:.4g}), the trainable update within {diff[1]:.4g} of its norm "
@@ -3702,6 +3715,17 @@ def run_train_recipe(log) -> None:
 # the peak less what earlier phases left on the card
 
 
+def tm_budget_config(cfg, shape: tuple, mode: str, rank: int, frames: int, params=None):
+    """`memory_budget_torch`'s configuration of rank ``rank`` of a
+    training-mesh layout (or of the one process, ``shape`` (1, 1)):
+    ``frames`` slots a micro-batch, of which data rank d stages sample d's
+    (`rank_batch`)."""
+    return budget.Training(
+        f"training mesh {shape} {mode}", cfg, mesh=shape, param_mode=mode, accum=TM_ACCUM,
+        batch=2, seq=TM_T, frames=frames,
+        rank_frames=sum(TM_TURNS[rank // shape[1]]) if shape[0] > 1 else None, params=params)
+
+
 def memory_configs(cfg, train_mem: dict, tm_mems: dict) -> list:
     """[(label, key, configs(rank))]: each configuration whose peaks the
     phases measured (``key`` into `main`'s measurements), as
@@ -3734,12 +3758,9 @@ def memory_configs(cfg, train_mem: dict, tm_mems: dict) -> list:
             return out
         return make
 
-    def tm(shape=(1, 1), mode="replicate"):  # rank r holds sample r // model of each micro-batch
-        return lambda r: {"steps": T(
-            f"training mesh {shape} {mode}", cut(TM_LAYERS), mesh=shape, param_mode=mode,
-            accum=TM_ACCUM, batch=2, seq=TM_T, frames=tm_mems["frames"],
-            rank_frames=sum(TM_TURNS[r // shape[1]]) if shape[0] > 1 else None,
-            params=trees[TM_LAYERS])}
+    def tm(shape=(1, 1), mode="replicate"):
+        return lambda r: {"steps": tm_budget_config(cut(TM_LAYERS), shape, mode, r,
+                                                    tm_mems["frames"], trees[TM_LAYERS])}
 
     return [
         ("serving bf16, one stream", "dense", live("serving bf16")),
@@ -3794,6 +3815,10 @@ def run_memory_budget(log, cfg, measured: dict, train_mem: dict, tm_mems: dict) 
                        else budget.training_budget(c))
                 label_r = f"{label}{f' {r}' if len(ranks) > 1 else ''}, {name}"
                 ok, line = budget.check(est, mem["peak"], mem["resident"])
+                if "staged" in mem:  # the batch bytes the rank really put on the card
+                    term = next(b for n, b, _ in est.persistent if n == "staged batch")
+                    ok = ok and term == mem["staged"]
+                    line += f"; staged batch term {term} bytes, staged {mem['staged']}"
                 moment = est.moments.get(est.peak_moment[0], [])
                 log(f"memory budget, {label_r}: {line}; GiB persistent: " + ", ".join(
                     f"{n} {b / 2**30:.3f}" for n, b, _ in est.persistent)

@@ -13,10 +13,11 @@ the CPU):
     python -m mmduet_tpu_torch.train.loop --tiny_random --synthetic_steps 5 [--device cpu]
 
 Per optimizer step the loop collates ``grad_accum_steps`` micro-batches
-into one (A, B, T) array set, moves it to the device and calls the train
-step. Metrics stream to stdout and ``<output>/log.jsonl`` under the JAX
-CLI's keys. On a GPU the decoder's attention is kernel C, which takes
-bf16 only, so ``--bf16 false`` runs on the CPU alone. A batch whose step
+into one (A, B, T) array set, moves it (on a mesh, the rank's share) to
+the device and calls the train step. Metrics stream to stdout and
+``<output>/log.jsonl`` under the JAX CLI's keys. On a GPU the decoder's
+attention is kernel C, which takes bf16 only, so ``--bf16 false`` runs on
+the CPU alone. A batch whose step
 raises is skipped, as in JAX, except when a kernel refused its operands or
 failed to launch (`ops.attention.KernelError`): that ends the run.
 
@@ -31,7 +32,9 @@ starts its training:
 is ZeRO-2 (optimizer state cut over ``data``), ``fsdp`` also cuts the
 frozen base over ``data`` (gathered where it is used); ``M`` > 1 is tensor
 parallelism. The global batch is ``--per_device_batch_size`` x D: every
-rank builds it and runs its part (`train.step`). ``nccl`` needs a card a
+rank collates it on the host, cuts out its share (`train.step.rank_batch`:
+its samples' rows and their frame slots, as JAX's `batch_shardings` places
+a batch) and stages only that share on its device. ``nccl`` needs a card a
 rank (``--device cuda`` is ``cuda:LOCAL_RANK``); ``gloo`` runs CPU ranks
 (``--device cpu``) or ranks sharing one card (``--device cuda:0``).
 Rank 0 alone prints, writes ``log.jsonl``, the checkpoints (the whole
@@ -256,7 +259,12 @@ def _accumulate(samples, collator, B, A, stack_accum):
 
 
 def _to_device(batch, device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    """Host arrays onto ``device``; a tuple (a rank's frames, one array a
+    micro-batch) becomes a tuple of tensors."""
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return {k: tuple(map(put, v)) if isinstance(v, tuple) else put(v) for k, v in batch.items()}
 
 
 def _make_mesh(args):
@@ -317,7 +325,7 @@ def _train(args, mesh) -> None:
     from ..parallel.sharding import gather_params, gather_train_state
     from .checkpoint import latest_checkpoint, restore_train_state, save_train_state
     from .optimizer import FINETUNE_KEYS, make_optimizer, merge_trainable, tree_map
-    from .step import init_train_state, make_train_step
+    from .step import init_train_state, make_train_step, rank_batch
 
     os.makedirs(args.output_dir, exist_ok=True)
     np.random.seed(args.seed)
@@ -423,6 +431,8 @@ def _train(args, mesh) -> None:
     else:  # from the whole trainable leaves (the local base holds blocks of them)
         whole = gather_params({k: params[k] for k in FINETUNE_KEYS})
         state = shard_train_state(init_train_state(whole, lora, tx), mesh)
+        del whole
+    del lora  # the state holds the adapter: a second copy would stay for the whole run
     if resume:
         log(f"resuming from {resume}")
         state = restore_train_state(resume, state, mesh=mesh)
@@ -450,9 +460,9 @@ def _train(args, mesh) -> None:
         if "n_real_tokens" in batch:
             real_toks += int(np.sum(batch["n_real_tokens"]))
             padded_toks += int(np.prod(batch["input_ids"].shape))
-        batch = _to_device({k: v for k, v in batch.items()
-                            if k not in ("sample_idxs", "num_frames", "n_real_tokens")},
-                           device)
+        batch = _to_device(rank_batch({k: v for k, v in batch.items() if k not in
+                                       ("sample_idxs", "num_frames", "n_real_tokens")},
+                                      cfg, mesh), device)
         try:
             state, metrics = step_fn(state, params, batch)
             done = state.step

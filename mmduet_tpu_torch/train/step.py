@@ -21,14 +21,16 @@ CPU both take the plain path.
 
 Under a process mesh (``mesh=``, a `parallel.ProcessMesh`, one process per
 rank; the base tree from `parallel.shard_params`, the state from
-`parallel.shard_train_state`), every rank is called with the same global
-batch and computes the step the one process computes on it, as the JAX
-step under ``mesh=`` does:
+`parallel.shard_train_state`), every rank is called with its own share of
+the global batch, cut on the host by `rank_batch` before it is staged, and
+the ranks together compute the step the one process computes on the whole
+batch, as the JAX step under ``mesh=`` does:
 
-- the rank runs its part of the batch dim (dim 1) of every (A, B, T) leaf,
-  the data cut of JAX's `batch_shardings`, and the frames of its own
+- a rank's share is its part of the batch dim (dim 1) of every (A, B, T)
+  leaf, the data cut of JAX's `batch_shardings`, and the frames of its own
   samples (the frame slots its placeholders count: the dim-1 cut of an
-  (A, N, ...) leaf when every sample holds N / B slots);
+  (A, N, ...) leaf when every sample holds N / B slots), one array a
+  micro-batch, since a rank's frame count differs between micro-batches;
 - each loss is the rank's share of the global token mean
   (`models.mmduet.masked_ce`); gradients are summed over ``data`` once
   after the A micro-batches, then divided by A; a whole adapter of a
@@ -85,36 +87,41 @@ def _frame_embeds(params: Dict, cfg: MMDuetConfig, micro: Dict) -> Optional[torc
     return mmduet.spatial_pool(mmduet.project(params, feats), cfg)
 
 
-def _rank_micro(batch: Dict, a: int, cfg: MMDuetConfig, mesh) -> Dict:
-    """Micro-batch ``a`` of the global ``batch``, or this rank's part of it:
-    its samples' rows and their frames. A rank whose samples hold no frame
-    while others' do runs the tower on one unused slot, so that every rank
-    of the data axis runs the same collectives."""
-    micro = {k: v[a] for k, v in batch.items()}
+def rank_batch(batch: Dict, cfg: MMDuetConfig, mesh) -> Dict:
+    """This rank's share of a host ``batch`` of A micro-batches (numpy
+    arrays or CPU tensors), the placement JAX's `batch_shardings` gives a
+    device: rows ``[d * B / D, (d + 1) * B / D)`` of every (A, B, T) leaf for
+    data rank ``d`` of ``D``, and of each frame leaf (``frames`` (A, N, H,
+    W, 3), ``vision_feats`` (A, N, P, C)) a tuple of A arrays, micro-batch
+    ``a``'s slots that those rows' placeholders count. A rank whose samples
+    hold no frame keeps the one unused slot 0, so that every rank of the
+    data axis runs the tower's collectives. With no mesh or one data rank
+    (the model ranks of a data rank stage the same rows) the batch is
+    returned as it is."""
     data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
     if data_n == 1:
-        return micro
-    B = micro["input_ids"].shape[0]
+        return batch
+    A, B = batch["input_ids"].shape[:2]
     if B % data_n:
         raise ValueError(f"a micro-batch of {B} samples over a data axis of {data_n}")
     per, d = B // data_n, mesh.index(DATA_AXIS)
     rows = slice(d * per, (d + 1) * per)
-    frames = [k for k in _FRAME_KEYS if k in micro]
-    if frames:
-        counts = ((micro["input_ids"] == cfg.v_placeholder_id).sum(-1)
-                  // cfg.frame_num_tokens).tolist()
-        start, n = sum(counts[:rows.start]), sum(counts[rows])
-        span = slice(start, start + n) if n else slice(0, 1)
-    return {k: (v[span] if k in frames else v[rows]) for k, v in micro.items()}
+    counts = (batch["input_ids"] == cfg.v_placeholder_id).sum(-1) // cfg.frame_num_tokens
+    spans = []
+    for a in range(A):
+        start, n = int(counts[a, :rows.start].sum()), int(counts[a, rows].sum())
+        spans.append(slice(start, start + n) if n else slice(0, 1))
+    return {k: tuple(v[a, span] for a, span in enumerate(spans)) if k in _FRAME_KEYS
+            else v[:, rows] for k, v in batch.items()}
 
 
 def make_grad_fn(cfg: MMDuetConfig, args: TrainArgs, mesh=None,
                  use_flash: Any = "auto") -> Callable[[Any, Dict, Dict], Tuple[Any, Dict]]:
     """``grads(trainable, base_params, batch) -> (grads, metrics)``: the
     f32 gradients of the trainable leaves and the losses, averaged over the
-    A micro-batches, on a mesh reduced to the whole batch's (the rank's
-    local blocks of the whole gradients; metrics as tensors, the same bits
-    on every rank)."""
+    A micro-batches, on a mesh reduced to the whole batch's from the rank's
+    share (`rank_batch`) (the rank's local blocks of the whole gradients;
+    metrics as tensors, the same bits on every rank)."""
     scale = lora_scale(args.lora_r, args.lora_alpha)
     remat = args.gradient_checkpointing
     flash = None if use_flash == "auto" else use_flash
@@ -125,7 +132,7 @@ def make_grad_fn(cfg: MMDuetConfig, args: TrainArgs, mesh=None,
                                                device=p.device), trainable)
         sums = {k: 0.0 for k in METRIC_KEYS}
         for a in range(A):
-            micro = _rank_micro(batch, a, cfg, mesh)
+            micro = {k: v[a] for k, v in batch.items()}
             leaves = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
             params = merge_trainable(base_params, leaves)
             out = mmduet.train_forward(
@@ -139,6 +146,7 @@ def make_grad_fn(cfg: MMDuetConfig, args: TrainArgs, mesh=None,
             got = iter(torch.autograd.grad(out.loss, list(tree_leaves(leaves)),
                                            allow_unused=True))
             grads = tree_map(lambda acc: _add(acc, next(got)), grads)
+            del got  # its tuple would hold these gradients through the next backward
             for k in METRIC_KEYS:
                 sums[k] = sums[k] + getattr(out, k).detach().float()
         if mesh is not None:
@@ -182,7 +190,8 @@ def make_train_step(
     (A, N, H, W, 3) uint8 or vision_feats (A, N, P, C). ``metrics`` are
     host floats under the JAX step's keys. With ``mesh`` (this rank's
     `parallel.ProcessMesh`), ``state`` and ``base_params`` are the rank's
-    local trees and ``batch`` is the global batch (see the module's
+    local trees and ``batch`` is the rank's share that `rank_batch` cut on
+    the host, its frames one tensor a micro-batch (see the module's
     docstring)."""
     if mesh is not None:
         model_n = mesh.shape[MODEL_AXIS]

@@ -25,11 +25,12 @@ rules, never a copy of them:
 On top of those persistent terms, each configuration lists its transient
 terms at the moments where the code holds the most at once, each from a
 tensor the code allocates (a shape times an element size): the staged batch
-(`train.loop._to_device` moves the whole (A, B, T) window to the device,
-frames included); in serving the tower's 32-frame batch, the decoder's
-widest chunk, the chunk's K/V rows and their commit, kernel A's and B's
-split scratch; in training under remat each layer's saved input, one
-layer's recompute and backward, the projector's saved activations and the
+(`train.loop._to_device` moves the rank's share of the (A, B, T) window to
+the device, `train.step.rank_batch`: its B / D samples' rows and its frame
+slots); in serving the tower's 32-frame batch, the decoder's widest chunk,
+the chunk's K/V rows and their commit, kernel A's and B's split scratch; in
+training under remat each layer's saved input, one layer's recompute and
+backward, the projector's saved input and activations and the
 loss's f32 logits with their gradients at T. The estimate is the
 persistent bytes plus the largest moment. Nothing is fitted to a card: a
 tensor the code allocates that no term names is a miss of the model.
@@ -406,9 +407,11 @@ class Training:
     ``param_mode`` (replicate: ZeRO-2; fsdp: the frozen base cut over
     data too), A = ``accum`` micro-batches of ``batch`` samples (the global
     batch) padded to ``seq`` tokens, ``frames`` frame slots a micro-batch
-    (all samples), ``rank_frames`` of them this rank encodes (its samples'
-    frames; the slots where data is 1). The loop holds one `TrainState` and
-    stages one step's A micro-batches at a time (`train.loop._to_device`)."""
+    (all samples), ``rank_frames`` of them this rank stages and encodes in
+    each micro-batch (its samples' frames, one unused slot where they hold
+    none, `train.step.rank_batch`; None: ``frames`` / data, all the slots
+    where data is 1). The loop holds one `TrainState` and stages the rank's
+    share of one step's A micro-batches at a time (`train.loop._to_device`)."""
 
     name: str
     cfg: MMDuetConfig
@@ -435,17 +438,17 @@ def training_budget(c: Training) -> Budget:
                                                       device=META), state.trainable))
     A, B, T = c.accum, c.batch, c.seq
     px = cfg.frame_resolution
+    b = B // D if B % D == 0 else B  # the rank's samples a micro-batch
+    n = c.rank_frames if c.rank_frames is not None else c.frames // D
     persistent = [
         ("base weights", tree_bytes(local), f"bf16, rank (0, 0) of {c.mesh} {c.param_mode}"),
         ("trainable", trainable, "LoRA f32, projector and heads bf16; whole over data"),
         ("Adam moments", moments_b, "f32 mu + nu, cut over data"),
         ("gradients", grads, "f32 accumulators of the rank's trainable leaves"),
-        ("staged batch", A * (B * T * (4 * I32 + 1) + c.frames * px * px * 3),
-         f"{A} micro-batches: (B {B}, T {T}) int32 x 4 + bool, uint8 frames "
-         f"({c.frames}, {px}, {px}, 3)"),
+        ("staged batch", A * (b * T * (4 * I32 + 1) + n * px * px * 3),
+         f"the rank's share of {A} micro-batches: ({b}, T {T}) int32 x 4 + bool, uint8 "
+         f"frames ({n}, {px}, {px}, 3)"),
     ]
-    b = B // D if B % D == 0 else B  # the rank's samples a micro-batch
-    n = c.rank_frames if c.rank_frames is not None else c.frames // D
     H, L, V = t.hidden_size, t.num_layers, t.vocab_size // M
     inter, hd = t.intermediate_size // M, t.head_dim
     nh, kh = t.num_heads // M, t.num_kv_heads // M
@@ -455,8 +458,11 @@ def training_budget(c: Training) -> Budget:
         ("remat inputs", L * rows * H * BF16, f"{L} layers x bf16 ({b}, {T}, {H})"),
         ("projector saved", n * P * (H // M) * (BF16 + F32),
          f"fc1 out bf16 and its f32 GELU input ({n}, {P}, {H // M})"),
-        ("sequence rows", rows * H * (3 * BF16 + F32),
-         f"bf16 embeddings, last layer output and final norm, its f32 ({b}, {T}, {H})"),
+        ("tower output", n * P * C * BF16,
+         f"bf16 ({n}, {P}, {C}): the projector's fc1 input, kept for its weight gradient"),
+        ("final norm", rows * H * (BF16 + F32),
+         f"its f32 input and bf16 output ({b}, {T}, {H}); the embeddings are layer 0's "
+         "remat input"),
     ]
     moments = {
         # the loss's backward starts: the f32 logits, the log-softmax (or the

@@ -3,7 +3,8 @@
 - at `tiny_config()`, its persistent bytes per rank equal exactly the bytes
   of the trees the port materializes on the CPU: `shard_params` (bf16, int8
   and int4 leaves, both parameter modes), `shard_train_state` (trainable
-  leaves, f32 moments, f32 gradient accumulators) and `serving_cache` over
+  leaves, f32 moments, f32 gradient accumulators), the rank's share of a
+  batch that the training loop stages (`rank_batch`) and `serving_cache` over
   a rank's lanes (`lane_block`) and kv heads, bf16 and int8, on the (1, 1),
   (2, 1), (1, 2) and (2, 2) meshes, every rank; and the cache and frame
   terms equal the tensors the three engines allocate;
@@ -37,7 +38,9 @@ from mmduet_tpu_torch.models import init_lora, init_mmduet_params, quant  # noqa
 from mmduet_tpu_torch.parallel import ProcessMesh, lane_block, shard_params  # noqa: E402
 from mmduet_tpu_torch.parallel.sharding import shard_train_state  # noqa: E402
 from mmduet_tpu_torch.train import init_train_state, make_optimizer  # noqa: E402
+from mmduet_tpu_torch.train.loop import _to_device  # noqa: E402
 from mmduet_tpu_torch.train.optimizer import tree_map  # noqa: E402
+from mmduet_tpu_torch.train.step import rank_batch  # noqa: E402
 
 MESHES = [(1, 1), (2, 1), (1, 2), (2, 2)]
 LANES, MAX_FRAMES = 4, 16
@@ -120,15 +123,28 @@ def test_serving_terms_are_the_engines_own_tensors(cpu_trees, kind):
 def test_training_persistent_bytes_are_the_materialized_state(cpu_trees, shape, mode):
     """Every rank: the base weights (fsdp cuts them over data), the
     trainable leaves, the f32 moments and the f32 gradient accumulators
-    equal the bytes of `shard_params` and `shard_train_state` on the CPU."""
+    equal the bytes of `shard_params` and `shard_train_state` on the CPU,
+    and the staged batch the bytes the loop stages of a host batch whose
+    sample 0 holds 3 frames and sample 1 one, in 4 slots: the rank's share
+    (`rank_batch`: one sample and its 3 or 1 slots where data is 2, the
+    whole batch where it is 1)."""
     cfg, trees = cpu_trees
-    budget = mb.training_budget(mb.Training("tiny", cfg, mesh=shape, param_mode=mode, accum=2,
-                                            batch=2, seq=32, frames=4, lora_r=4))
-    terms = {n: b for n, b, _ in budget.persistent}
     tx, _ = make_optimizer(TrainArgs(), 1)
     lora = init_lora(torch.Generator().manual_seed(1), cfg.text, rank=4, device="cpu")
     whole = init_train_state(trees["bf16"], lora, tx)
+    ids = np.zeros((2, 2, 32), np.int32)
+    ids[:, 0, 1:1 + 3 * cfg.frame_num_tokens] = cfg.v_placeholder_id
+    ids[:, 1, 1:1 + cfg.frame_num_tokens] = cfg.v_placeholder_id
+    px = cfg.frame_resolution
+    batch = {"input_ids": ids, "attn_mask": np.ones(ids.shape, bool),
+             **{k: np.full(ids.shape, -100, np.int32)
+                for k in ("labels", "informative_labels", "relevance_labels")},
+             "frames": np.zeros((2, 4, px, px, 3), np.uint8)}
     for coords in _ranks(shape):
+        budget = mb.training_budget(mb.Training(
+            "tiny", cfg, mesh=shape, param_mode=mode, accum=2, batch=2, seq=32, frames=4,
+            rank_frames=(3, 1)[coords[0]] if shape[0] > 1 else None, lora_r=4))
+        terms = {n: b for n, b, _ in budget.persistent}
         mesh = ProcessMesh(shape, coords, torch.device("cpu"))
         state = shard_train_state(whole, mesh)
         assert terms["base weights"] == mb.tree_bytes(shard_params(trees["bf16"], mesh, mode))
@@ -137,8 +153,8 @@ def test_training_persistent_bytes_are_the_materialized_state(cpu_trees, shape, 
                                          + mb.tree_bytes(state.opt_state["nu"]))
         assert terms["gradients"] == mb.tree_bytes(tree_map(lambda p: p.float(),
                                                             state.trainable))
-    px = cfg.frame_resolution
-    assert terms["staged batch"] == 2 * (2 * 32 * 17 + 4 * px * px * 3)
+        staged = _to_device(rank_batch(batch, cfg, mesh), "cpu")
+        assert terms["staged batch"] == mb.tree_bytes(staged), coords
 
 
 def _doc_table() -> dict:
@@ -229,15 +245,37 @@ def test_cli_prints_its_table_and_json(tmp_path):
     assert "not a measurement" in out.read_text()
 
 
+def test_peak_replay_finds_the_blocks_live_at_the_peak():
+    """`scripts/train_peak_tensors_torch.py`'s replay of an allocator
+    history: allocations add, requested frees remove (a block allocated
+    before the history too), and the peak keeps the blocks then live."""
+    import train_peak_tensors_torch as peak
+
+    f = [{"filename": os.path.join(REPO, "mmduet_tpu_torch", "x.py"), "line": 3, "name": "g"}]
+    events = [{"action": "alloc", "addr": 1, "size": 100, "frames": f},
+              {"action": "free_requested", "addr": 9, "size": 40},  # allocated before
+              {"action": "alloc", "addr": 2, "size": 30},
+              {"action": "segment_alloc", "addr": 5, "size": 1000},
+              {"action": "free_requested", "addr": 1, "size": 100},
+              {"action": "free_completed", "addr": 1, "size": 100},
+              {"action": "alloc", "addr": 3, "size": 20}]
+    got, blocks, before = peak.replay_peak(events, 50)
+    assert (got, before) == (150, 50) and blocks == {1: (100, f)}
+    assert peak._site(f) == ("mmduet_tpu_torch/x.py:3 g",)
+    got, blocks, before = peak.replay_peak(events[1:3] + [dict(events[-1], size=80)], 50)
+    assert (got, before) == (120, 10) and set(blocks) == {2, 3}
+
+
 def test_new_scripts_import_nothing_of_jax():
     code = ("import sys; sys.path.insert(0, 'scripts'); import memory_budget_torch, "
-            "verify_checkpoint_parity_torch; print(sorted(m for m in sys.modules if "
-            "m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'mmduet_tpu')))")
+            "verify_checkpoint_parity_torch, train_peak_tensors_torch; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'mmduet_tpu')))")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip().splitlines()[-1] == "[]"
-    for name in ("memory_budget_torch.py", "verify_checkpoint_parity_torch.py", "train_torch.sh",
+    for name in ("memory_budget_torch.py", "verify_checkpoint_parity_torch.py",
+                 "train_peak_tensors_torch.py", "train_torch.sh",
                  "eval_youcook2_torch.sh", "eval_magqa_torch.sh", "eval_charades_torch.sh",
                  "eval_qvh_torch.sh"):
         code_lines = [line for line in open(os.path.join(REPO, "scripts", name))

@@ -7,7 +7,9 @@ Gloo ranks on the CPU, one launch per layout (`tests/torch_train_mesh_worker.py`
 (2, 1) replicate (ZeRO-2), (1, 2) tensor parallelism, (2, 2) fsdp + TP +
 ZeRO-2. Each launch takes 3 steps of A = 2 micro-batches of B = 2 samples
 whose label counts and frame counts differ (so the global token mean and
-each rank's frames are exercised); each test compares one case against the
+each rank's frames are exercised), each rank staging only its share of
+each batch (`train.step.rank_batch`, cut on the host, as the loop and
+`chip_smoke.py` stage theirs); each test compares one case against the
 JAX single-device `make_train_step` and the JAX mesh step of the same shape
 on the virtual CPU devices. f32 on both sides, so differences are
 summation order: losses to 1e-4 relative (as
@@ -18,6 +20,7 @@ absolute, the Adam moments as `tests/test_torch_train.py` holds them
 resumed in one process and on (2, 1), and the CLI under
 ``torch.distributed.run`` (two more launches) against the one-process CLI."""
 
+import dataclasses
 import json
 import os
 import socket
@@ -368,6 +371,170 @@ def test_checkpoint_of_2x2_resumes_on_2x1(ranks, jax_single):
 def test_ranks_load_nothing_of_jax(ranks):
     assert [r["modules"] for name in LAYOUTS for r in ranks[name]] == \
         [[] for name in LAYOUTS for _ in ranks[name]]
+
+
+# ---------------------------------------------------------------------------
+# the rank's share of a batch, cut on the host (`rank_batch`)
+# ---------------------------------------------------------------------------
+
+
+def _share(batch, shape, d):
+    """Data rank ``d``'s rows and, a micro-batch at a time, its frames,
+    from the batch's own placeholder counts; the whole batch where data is 1."""
+    if shape[0] == 1:
+        return batch
+    ids = batch["input_ids"]
+    per = ids.shape[1] // shape[0]
+    counts = (ids == CFG.v_placeholder_id).sum(-1) // CFG.frame_num_tokens
+    out = {k: v[:, d * per:(d + 1) * per] for k, v in batch.items() if k != "vision_feats"}
+    frames = []
+    for a, row in enumerate(counts.tolist()):
+        start, n = sum(row[:d * per]), sum(row[d * per:(d + 1) * per])
+        frames.append(batch["vision_feats"][a, start:start + n] if n
+                      else batch["vision_feats"][a, :1])
+    return dict(out, vision_feats=frames)
+
+
+def _ragged_batch(A=3, B=4, T=24, slots=6):
+    """Frame counts that differ over A and over the samples; data rank 0 of
+    two holds no frame in micro-batch 1."""
+    counts = [[2, 1, 0, 3], [0, 0, 1, 1], [1, 2, 2, 0]]
+    r = np.random.RandomState(5)
+    ids = r.randint(0, 200, (A, B, T)).astype(np.int32)
+    for a in range(A):
+        for b in range(B):
+            ids[a, b, 1:1 + counts[a][b] * CFG.frame_num_tokens] = CFG.v_placeholder_id
+    batch = {"input_ids": ids, "attn_mask": r.rand(A, B, T) > 0.2,
+             "labels": r.randint(0, 200, (A, B, T)).astype(np.int32),
+             "vision_feats": r.randn(A, slots, CFG.vision.num_patches, 3).astype(np.float32)}
+    return batch, counts
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
+def test_rank_batch_stages_the_rank_share(shape):
+    """Each rank's rows and frame slots, one array a micro-batch where the
+    counts are ragged; a rank whose samples hold no frame keeps slot 0; the
+    model ranks of a data rank stage the same share; joined in data-rank
+    order the shares give back the global rows and every used frame slot."""
+    batch, counts = _ragged_batch()
+    shares = {}
+    for d in range(shape[0]):
+        for m in range(shape[1]):
+            got = tstep.rank_batch(batch, CFG, ProcessMesh(shape, (d, m), torch.device("cpu")))
+            want = _share(batch, shape, d)
+            assert set(got) == set(want)
+            for k, v in want.items():
+                if shape[0] == 1:
+                    assert got[k] is v, k
+                elif k == "vision_feats":
+                    assert isinstance(got[k], tuple) and len(got[k]) == len(v)
+                    for g, w in zip(got[k], v):
+                        np.testing.assert_array_equal(g, w)
+                else:
+                    np.testing.assert_array_equal(got[k], v)
+            shares[d, m] = got
+    if shape[0] == 1:
+        return
+    assert [len(f) for f in shares[0, 0]["vision_feats"]] == [3, 1, 3]  # micro 1: unused slot
+    assert [len(f) for f in shares[1, 0]["vision_feats"]] == [3, 2, 2]
+    for k in ("input_ids", "attn_mask", "labels"):
+        np.testing.assert_array_equal(np.concatenate([shares[d, 0][k] for d in range(2)], 1),
+                                      batch[k])
+    for a, row in enumerate(counts):
+        used = [shares[d, 0]["vision_feats"][a] for d in range(2) if sum(row[2 * d:2 * d + 2])]
+        np.testing.assert_array_equal(np.concatenate(used), batch["vision_feats"][a, :sum(row)])
+    with pytest.raises(ValueError, match="3 samples over a data axis of 2"):
+        tstep.rank_batch({k: v[:, :3] for k, v in batch.items()}, CFG,
+                         ProcessMesh(shape, (0, 0), torch.device("cpu")))
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_every_rank_staged_its_own_share(ranks, name):
+    """What each launched rank stepped on (the first batch): its sample's
+    rows and its slots, 2 frames for data rank 0, 1 for data rank 1 (slot
+    3 pads), the whole batch where data is 1."""
+    (data_n, model_n), _ = LAYOUTS[name]
+    for r, out in enumerate(ranks[name]):
+        want = _share(BATCHES[0], (data_n, model_n), r // model_n)
+        got = out["staged"]
+        assert set(got) == set(want)
+        for k, v in want.items():
+            if k == "vision_feats" and data_n > 1:
+                assert [tuple(f.shape[:1]) for f in got[k]] == [((2, 1)[r // model_n],)] * 2
+                for g, w in zip(got[k], v):
+                    _close(g, w, atol=0)
+            else:
+                _close(got[k], v, atol=0, msg=k)
+
+
+class _Staged(Exception):
+    pass
+
+
+@pytest.mark.parametrize("d", [0, 1])
+def test_loop_moves_only_the_rank_share_to_the_device(tmp_path, monkeypatch, d):
+    """The CLI's loop on data rank ``d`` of (2, 1) hands `_to_device` its
+    share of the global batch that the one process (per-device batch 2)
+    stages whole: its sample's rows and its one frame slot a micro-batch."""
+    staged = []
+
+    def record(batch, device):
+        staged.append(batch)
+        raise _Staged
+
+    monkeypatch.setattr(tloop, "_to_device", record)
+    argv = ["--tiny_random", "--device", "cpu", "--synthetic_steps", "1", "--grad_accum_steps",
+            "2", "--output_dir", str(tmp_path)]
+    for per_device, mesh in ((2, None), (1, ProcessMesh((2, 1), (d, 0), torch.device("cpu")))):
+        args = tloop.build_argparser().parse_args(argv + ["--per_device_batch_size",
+                                                          str(per_device)])
+        with pytest.raises(_Staged):
+            tloop._train(args, mesh)
+    whole, got = staged
+    assert whole["input_ids"].shape[:2] == (2, 2) and whole["vision_feats"].shape[1] == 2
+    for k, v in whole.items():
+        if k == "vision_feats":
+            assert len(got[k]) == 2
+            for a in range(2):
+                np.testing.assert_array_equal(got[k][a], v[a, d:d + 1])
+        else:
+            np.testing.assert_array_equal(got[k], v[:, d:d + 1])
+
+
+def test_chip_smoke_training_mesh_stages_the_rank_share():
+    """`chip_smoke.py`'s training-mesh batches as its ranks stage them
+    (`_stage` on the CPU): each data rank's sample and its 26 or 18 frame
+    slots a micro-batch, the same bytes as `memory_budget_torch`'s staged
+    batch term for that rank; the one process stages all 48 slots."""
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    cfg, tok = chip_smoke.full_width_config()
+    batches = chip_smoke.tm_batches(cfg, tok)
+    cfg = cfg.replace(text=dataclasses.replace(cfg.text, num_layers=chip_smoke.TM_LAYERS))
+    params = chip_smoke.budget.model_params(cfg)
+    cpu = torch.device("cpu")
+
+    def staged_term(shape, mode, r):
+        c = chip_smoke.tm_budget_config(cfg, shape, mode, r, 48, params)
+        return dict((n, b) for n, b, _ in chip_smoke.budget.training_budget(c).persistent)[
+            "staged batch"]
+
+    whole = chip_smoke._stage(batches[1], cpu)
+    assert whole["frames"].shape[:2] == (chip_smoke.TM_ACCUM, 48)
+    assert chip_smoke.budget.tree_bytes(whole) == staged_term((1, 1), "replicate", 0)
+    for shape, mode in chip_smoke.TM_LAYOUTS:
+        for r in range(shape[0] * shape[1]):
+            d = r // shape[1]
+            got = chip_smoke._stage(batches[1], cpu, cfg, ProcessMesh(shape, divmod(r, shape[1]),
+                                                                      cpu))
+            n = sum(chip_smoke.TM_TURNS[d])
+            start = sum(chip_smoke.TM_TURNS[0]) if d else 0
+            assert torch.equal(got["input_ids"], batches[1]["input_ids"][:, d:d + 1])
+            assert [tuple(f.shape[:1]) for f in got["frames"]] == [(n,)] * chip_smoke.TM_ACCUM
+            for a, f in enumerate(got["frames"]):
+                assert torch.equal(f, batches[1]["frames"][a, start:start + n])
+            assert chip_smoke.budget.tree_bytes(got) == staged_term(shape, mode, r)
 
 
 # ---------------------------------------------------------------------------

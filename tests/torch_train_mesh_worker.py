@@ -12,7 +12,8 @@ the training arguments, the step after which to save a checkpoint, a
 checkpoint to resume from, whether to take a step with a NaN in data rank
 0's features). The rank joins a gloo group, makes its process mesh on the
 CPU, cuts the tree and the state (`shard_params`, `shard_train_state`),
-takes the steps and writes ``DIR/rank<r>.pt``: each step's metrics, the
+stages its share of each batch (`rank_batch`), takes the steps and writes
+``DIR/rank<r>.pt``: its share of the first batch, each step's metrics, the
 gathered trainable leaves after each step, the first averaged gradients
 (gathered over ``model``), the gathered optimizer state after the first
 step, the local shapes of its trainable and moment blocks, and the modules
@@ -31,7 +32,7 @@ from mmduet_tpu_torch.parallel import (initialize_distributed, make_mesh, shard_
 from mmduet_tpu_torch.parallel.sharding import gather_train_state, gather_trainable
 from mmduet_tpu_torch.train import checkpoint, make_optimizer
 from mmduet_tpu_torch.train.optimizer import tree_leaves
-from mmduet_tpu_torch.train.step import TrainState, make_grad_fn, make_train_step
+from mmduet_tpu_torch.train.step import TrainState, make_grad_fn, make_train_step, rank_batch
 
 
 def _shapes(tree):
@@ -50,13 +51,14 @@ def main(out_dir: str) -> None:
     tx, sched = make_optimizer(args, total_steps=case["total_steps"])
     params = shard_params(inputs["params"], mesh, mode=case["mode"])
     state = shard_train_state(TrainState(**inputs["state"]), mesh)
-    out = {"trainable_shapes": _shapes(state.trainable),
+    batches = [rank_batch(b, cfg, mesh) for b in inputs["batches"]]
+    out = {"staged": batches[0], "trainable_shapes": _shapes(state.trainable),
            "moment_shapes": _shapes(state.opt_state["mu"]),
            "grads": gather_trainable(make_grad_fn(cfg, args, mesh)(
-               state.trainable, params, inputs["batches"][0])[0], mesh),
+               state.trainable, params, batches[0])[0], mesh),
            "metrics": [], "trainable": []}
     step = make_train_step(cfg, args, tx, sched, mesh=mesh)
-    for i, batch in enumerate(inputs["batches"]):
+    for i, batch in enumerate(batches):
         state, metrics = step(state, params, batch)
         out["metrics"].append(metrics)
         out["trainable"].append(gather_trainable(state.trainable, mesh))
@@ -67,14 +69,14 @@ def main(out_dir: str) -> None:
     if case.get("nan"):
         before = list(tree_leaves(state.trainable))
         count = state.opt_state["count"]
-        state, metrics = step(state, params, inputs["nan_batch"])
+        state, metrics = step(state, params, rank_batch(inputs["nan_batch"], cfg, mesh))
         out["nan"] = {"metrics": metrics, "step": state.step,
                       "count": state.opt_state["count"], "count_before": count,
                       "kept": all(torch.equal(a, b)
                                   for a, b in zip(before, tree_leaves(state.trainable)))}
     if case.get("resume"):
         resumed = checkpoint.restore_train_state(case["resume"], state, mesh=mesh)
-        resumed, metrics = step(resumed, params, inputs["batches"][resumed.step])
+        resumed, metrics = step(resumed, params, batches[resumed.step])
         out["resumed"] = {"step": resumed.step, "metrics": metrics,
                           "trainable": gather_trainable(resumed.trainable, mesh)}
     out["modules"] = sorted(m for m in sys.modules
