@@ -143,8 +143,14 @@ Phases (any failure ends the run with a nonzero exit):
    trainable leaves within the larger of a floor and twice the one
    process's own spread, kernel C's and D's launches a rank as its shapes
    imply, each rank's peak memory and s/step
-   (gloo-bound) printed; the (2, 2) ranks' checkpoint of step 1, resumed in
-   the one process, gives its step 2;
+   (gloo-bound) printed; each rank also reads 2 steps of the same samples
+   from a dataset in memory by `train.loop.rank_real_batches` (fetching,
+   collating and padding only its own samples, its shapes agreed through
+   a sum over ``data`` on the card), bit-equal on the card to `rank_batch`'s
+   cut of the steps `real_batches` collates whole, having fetched only its
+   own positions (its samples and host batch bytes printed beside the one
+   process's); the (2, 2) ranks' checkpoint of step 1, resumed in the one
+   process, gives its step 2;
 11. the training recipe: ``TINY_RANDOM=1 DEVICE=cuda bash
    scripts/train_torch.sh`` (synthetic steps) in one process, then with
    ``NPROC=2 DIST_BACKEND=gloo DEVICE=cuda:0`` (two ranks sharing the card
@@ -188,6 +194,7 @@ import gc
 import json
 import math
 import os
+import random
 import resource
 import shutil
 import socket
@@ -3380,17 +3387,25 @@ def tm_args() -> TrainArgs:
     return TrainArgs(lr_schedule="constant")
 
 
-def tm_batches(cfg, tok) -> list:
-    """[warm-up, step 1, step 2]: micro-batches of the two TM_TURNS duet
-    samples, collated as the CLI collates (length and frame buckets), as
-    CPU tensors; the warm-up holds one micro-batch, the steps TM_ACCUM."""
-    from mmduet_tpu_torch.data.collator import Collator, stack_accum
-    from mmduet_tpu_torch.train.duet import duet_sample
+def tm_collator(cfg, tok):
+    """The CLI's collator for a global micro-batch of 2 samples of up to
+    100 frames (length and frame buckets)."""
+    from mmduet_tpu_torch.data.collator import Collator
     from mmduet_tpu_torch.train.loop import parse_length_buckets
 
-    collator = Collator(tok, seq_len=5924, max_frames=200, frame_size=cfg.frame_resolution,
-                        buckets=parse_length_buckets("auto", 5924),
-                        frame_buckets=parse_length_buckets("auto", 200, quantum=8))
+    return Collator(tok, seq_len=5924, max_frames=200, frame_size=cfg.frame_resolution,
+                    buckets=parse_length_buckets("auto", 5924),
+                    frame_buckets=parse_length_buckets("auto", 200, quantum=8))
+
+
+def tm_batches(cfg, tok) -> list:
+    """[warm-up, step 1, step 2]: micro-batches of the two TM_TURNS duet
+    samples, collated as the CLI collates (`tm_collator`), as CPU tensors;
+    the warm-up holds one micro-batch, the steps TM_ACCUM."""
+    from mmduet_tpu_torch.data.collator import stack_accum
+    from mmduet_tpu_torch.train.duet import duet_sample
+
+    collator = tm_collator(cfg, tok)
     rng = np.random.RandomState(3)
     idx = iter(range(1000))
 
@@ -3426,6 +3441,69 @@ def _stage(batch: dict, dev, cfg=None, mesh=None) -> dict:
     batch = rank_batch(batch, cfg, mesh)
     return {k: tuple(x.to(dev) for x in v) if isinstance(v, tuple) else v.to(dev)
             for k, v in batch.items()}
+
+
+TM_HOST_KEYS = ("sample_idxs", "num_frames", "n_real_tokens")  # stripped before staging
+
+
+class TmData:
+    """The training mesh's samples as a dataset in memory: 2 x TM_ACCUM x
+    TM_STEPS duet samples at full width, item ``i`` made from seed ``i``
+    with the turns TM_TURNS[p % 2] of its position ``p`` in the loader's
+    one shuffle (``random.Random(seed)``), so each micro-batch pairs the
+    two kinds as `tm_batches` does; every index asked for is recorded."""
+
+    def __init__(self, tok, frame_size: int, seed: int):
+        self.order = list(range(2 * TM_ACCUM * TM_STEPS))
+        random.Random(seed).shuffle(self.order)
+        self.turns = {i: TM_TURNS[p % 2] for p, i in enumerate(self.order)}
+        self.tok, self.frame_size, self.fetched = tok, frame_size, []
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self.order)
+
+    def __getitem__(self, i: int) -> tuple:
+        from mmduet_tpu_torch.train.duet import duet_sample
+
+        with self._lock:
+            self.fetched.append(i)
+        return duet_sample(self.tok, np.random.RandomState(i), i, self.turns[i], self.frame_size)
+
+
+def tm_loader(cfg, tok, mesh, dev) -> dict:
+    """This rank's reading of `TmData` (`rank_real_batches`, its exchange
+    on ``dev``), each step staged as the CLI stages it and held bit for bit
+    against `_stage`'s share of the step `real_batches` collates whole;
+    the positions it fetched against its own. Its fetched samples and host
+    batch bytes a step, and the one process's."""
+    from mmduet_tpu_torch.train.loop import _to_device, rank_real_batches, real_batches
+
+    seed, collator = 0, tm_collator(cfg, tok)
+    mine, whole = TmData(tok, cfg.frame_resolution, seed), TmData(tok, cfg.frame_resolution, seed)
+    got = list(rank_real_batches(mine, collator, 2, TM_ACCUM, 1, seed, 2, mesh=mesh))
+    want = list(real_batches(whole, collator, 2, TM_ACCUM, 1, seed, 2))
+    if len(got) != len(want) or len(want) != TM_STEPS:
+        raise AssertionError(f"training mesh loader: {len(got)} steps, the one process "
+                             f"{len(want)}, want {TM_STEPS}")
+    host, one = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = _to_device({k: v for k, v in g.items() if k not in TM_HOST_KEYS}, dev)
+        w = {k: torch.from_numpy(v) for k, v in w.items() if k not in TM_HOST_KEYS}
+        host.append(budget.tree_bytes(g))  # the host arrays' bytes, staged as they are
+        one.append(budget.tree_bytes(w))
+        w = _stage(w, dev, cfg, mesh)
+        if set(g) != set(w) or not all(
+                all(map(torch.equal, g[k], w[k])) if isinstance(w[k], tuple)
+                else torch.equal(g[k], w[k]) for k in w):
+            raise AssertionError(f"training mesh loader: step {i + 1} differs from the rank's "
+                                 "share of the whole step")
+    d, per = mesh.index(DATA_AXIS), 2 // mesh.shape[DATA_AXIS]
+    own = sorted(i for p, i in enumerate(mine.order) if p % 2 // per == d)
+    if sorted(mine.fetched) != own:
+        raise AssertionError(f"training mesh loader: fetched {sorted(mine.fetched)}, own {own}")
+    return {"fetched": len(mine.fetched), "host_bytes": host, "one_fetched": len(whole.fetched),
+            "one_bytes": one}
 
 
 def tm_one_process(cfg, params, lora, batches, dev) -> dict:
@@ -3495,8 +3573,9 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
     gloo group, builds its shard of `tm_model` (the ranks build one after
     the other), takes a warm-up and TM_STEPS steps of the batches in
     ``out_dir/inputs.pt`` (the (2, 2) ranks save the whole state after step
-    1), and writes ``out_dir/rank<r>.json``; rank 0 also writes the
-    gathered trainable leaves."""
+    1), reads the steps of `TmData` alone (`tm_loader`), and writes
+    ``out_dir/rank<r>.json``; rank 0 also writes the gathered trainable
+    leaves."""
     from mmduet_tpu_torch.parallel import initialize_distributed, shard_params, shard_train_state
     from mmduet_tpu_torch.parallel.sharding import gather_trainable
     from mmduet_tpu_torch.train.checkpoint import save_train_state
@@ -3516,7 +3595,7 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
     tx, sched = make_optimizer(args, TM_STEPS + 1)
     for turn in range(world):
         if turn == rank:
-            cfg, _, whole, lora = tm_model(dev)
+            cfg, tok, whole, lora = tm_model(dev)
             params = shard_params(whole, mesh, mode=mode)
             state = shard_train_state(init_train_state(whole, lora, tx), mesh)
             del whole, lora
@@ -3548,7 +3627,8 @@ def tm_rank(rank: int, port: int, out_dir: str, shape: tuple, mode: str, dev: st
     result = {"metrics": metrics, "s": times, "launches": launches,
               "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0,
               "mem": {"steps": dict(_mem(resident), staged=staged)} if cuda else None,
-              "staged": staged, "local_gb": quant.param_bytes(params) / 1e9}
+              "staged": staged, "local_gb": quant.param_bytes(params) / 1e9,
+              "loader": tm_loader(cfg, tok, mesh, dev)}
     trainable = _flat_cpu(gather_trainable(state.trainable, mesh, to="cpu"))
     if rank == 0:
         torch.save(trainable, os.path.join(out_dir, "trainable.pt"))
@@ -3632,6 +3712,11 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
                 f"{[round(t, 3) for t in ref['s']]}), peak {x['peak_gib']:.2f} GiB (one process "
                 f"{one_peak:.2f}), staged batch {x['staged']} bytes a step (one process "
                 f"{ref['staged']}), local tree {x['local_gb']:.3f} GB, launches {x['launches']}")
+            ld = x["loader"]
+            log(f"training mesh {name} rank {r} loader: read {TM_STEPS} steps alone, bit-equal to "
+                f"its share of the whole steps: fetched {ld['fetched']} samples (one process "
+                f"{ld['one_fetched']}), host batch {ld['host_bytes']} bytes a step (one process "
+                f"{ld['one_bytes']})")
         log(f"training mesh {name}: {len(ranks)} ranks in {wall:.1f} s, every rank's metrics "
             f"the same bits; against the one process: metrics within {diff[0]:.4g} relative "
             f"(bound {bound[0]:.4g}), the trainable update within {diff[1]:.4g} of its norm "

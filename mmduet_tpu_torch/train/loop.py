@@ -31,10 +31,13 @@ starts its training:
 ``D`` defaults to N / M, and D x M must be N. ``--param_mode replicate``
 is ZeRO-2 (optimizer state cut over ``data``), ``fsdp`` also cuts the
 frozen base over ``data`` (gathered where it is used); ``M`` > 1 is tensor
-parallelism. The global batch is ``--per_device_batch_size`` x D: every
-rank collates it on the host, cuts out its share (`train.step.rank_batch`:
-its samples' rows and their frame slots, as JAX's `batch_shardings` places
-a batch) and stages only that share on its device. ``nccl`` needs a card a
+parallelism. The global batch is ``--per_device_batch_size`` x D, and a
+rank stages only its share on its device: its samples' rows and their
+frames, as JAX's `batch_shardings` places a batch. On a dataset a rank
+reads, decodes and collates only its own samples (`rank_real_batches`,
+the ranks agreeing on the padded shapes through one sum over ``data`` a
+micro-batch); a synthetic batch is made whole and cut
+(`train.step.rank_batch`). ``nccl`` needs a card a
 rank (``--device cuda`` is ``cuda:LOCAL_RANK``); ``gloo`` runs CPU ranks
 (``--device cpu``) or ranks sharing one card (``--device cuda:0``).
 Rank 0 alone prints, writes ``log.jsonl``, the checkpoints (the whole
@@ -44,7 +47,10 @@ skipped a batch alone would leave the others' collectives waiting.
 
 ``parse_length_buckets``, ``synthetic_batches``, ``real_batches``,
 ``_prefetch_map`` and ``_accumulate`` are copies of the JAX module's host
-code (its package imports jax), pinned equal by the tests.
+code (its package imports jax), pinned equal by the tests;
+``rank_real_batches`` is the port's own (the JAX loop is one process a
+host, which collates once and places the shares), held bit for bit
+against ``rank_batch(real_batches(...))``.
 """
 
 from __future__ import annotations
@@ -258,6 +264,106 @@ def _accumulate(samples, collator, B, A, stack_accum):
                 yield stack_accum(by_shape.pop(key))
 
 
+def rank_real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 4,
+                      skip_batches: int = 0, *, mesh=None):
+    """This rank's share of `real_batches`' optimizer steps, read, decoded
+    and collated by this rank alone: the same steps, in the same order, as
+    ``rank_batch(real_batches(...), cfg, mesh)``, bit for bit.
+
+    The ranks share the order (the same shuffle, `set_epoch` and index-level
+    resume skip) and cut it into micro-batches of B consecutive positions,
+    dropping a partial tail. Data rank ``d`` of ``D`` fetches positions
+    ``[d * B / D, (d + 1) * B / D)`` of each micro-batch, so its look-ahead
+    window holds only its own samples (model ranks of one data rank fetch
+    the same), and collates them with the unchanged ``collator``. One sum
+    over ``data`` a micro-batch of a (D, 3) tensor on ``mesh.device`` (row
+    d: the rank's length bucket, real tokens, frames) gives what only the
+    whole batch knows: the pad length L (the largest bucket), the frame
+    bucket N (of the total frame count), the real-token count. The rank
+    pads its rows to L with the collator's fills and keeps its own frames,
+    one array a micro-batch (one zero slot where it holds none), and
+    micro-batches queue by the global (L, N), so every rank emits the same
+    steps and drops the same leftovers. ``sample_idxs`` holds the rank's
+    rows, ``num_frames`` and ``n_real_tokens`` the whole batch's. With no
+    mesh or one data rank, the share is the batch: `real_batches` itself."""
+    from concurrent.futures import ThreadPoolExecutor
+    from itertools import islice
+
+    from ..parallel.collectives import sum_data
+    from ..parallel.mesh import DATA_AXIS
+    from ..stream.labels import IGNORE_INDEX
+    from .step import _FRAME_KEYS
+
+    data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
+    if data_n == 1:
+        yield from real_batches(dataset, collator, B, A, epochs, seed, num_workers, skip_batches)
+        return
+    if B % data_n:
+        raise ValueError(f"a micro-batch of {B} samples over a data axis of {data_n}")
+    per, d = B // data_n, mesh.index(DATA_AXIS)
+    tok = collator.tokenizer
+    vid, ft = tok.v_placeholder_id, tok.template.frame_num_tokens
+    fills = {"input_ids": tok.pad_token_id, "attn_mask": False, "labels": IGNORE_INDEX,
+             "informative_labels": IGNORE_INDEX, "relevance_labels": IGNORE_INDEX}
+    order = list(range(len(dataset)))
+    rng = random.Random(seed)
+    pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+
+    def samples():
+        skip = skip_batches * B * A
+        whole = max(0, epochs * len(order) - skip) // B * B  # past it: the dropped partial micro
+        pos = 0  # of the stream after the skip
+        for epoch in range(epochs):
+            if hasattr(dataset, "set_epoch"):  # after the last epoch's fetches drained
+                dataset.set_epoch(epoch)
+            rng.shuffle(order)
+            cut = min(skip, len(order))
+            skip -= cut
+            idxs = [i for p, i in enumerate(order[cut:], pos)
+                    if p < whole and d * per <= p % B < (d + 1) * per]
+            pos += len(order) - cut
+            if pool is None:
+                yield from map(dataset.__getitem__, idxs)
+            else:
+                yield from _prefetch_map(pool, dataset.__getitem__, idxs, depth=2 * num_workers)
+
+    def micro(share):
+        mb = collator(share)
+        row = torch.zeros((data_n, 3), dtype=torch.int64, device=mesh.device)
+        row[d] = torch.tensor([mb["input_ids"].shape[1], int(mb["n_real_tokens"]),
+                               int(mb["num_frames"])])
+        total = sum_data(row).cpu()
+        L, n_frames = int(total[:, 0].max()), int(total[:, 2].sum())
+        if n_frames > collator.max_frames:
+            raise ValueError(f"batch has {n_frames} frames > collator max_frames "
+                             f"{collator.max_frames}")
+        N = collator.max_frames if collator.frame_buckets is None else next(
+            b for b in collator.frame_buckets if b >= n_frames)
+        for k, fill in fills.items():
+            mb[k] = np.pad(mb[k], ((0, 0), (0, L - mb[k].shape[1])), constant_values=fill)
+        fk = next(k for k in _FRAME_KEYS if k in mb)
+        n = int(((mb["input_ids"] == vid).sum(-1) // ft).sum())
+        # a copy: a view would keep the rank's padded frame bucket alive
+        mb[fk] = mb[fk][:n].copy() if n else np.zeros((1, *mb[fk].shape[1:]), mb[fk].dtype)
+        mb["num_frames"] = np.asarray(n_frames, np.int32)
+        mb["n_real_tokens"] = np.asarray(int(total[:, 1].sum()), np.int64)
+        return (L, N), mb
+
+    try:
+        it, by_shape = samples(), {}
+        while share := list(islice(it, per)):
+            key, mb = micro(share)
+            q = by_shape.setdefault(key, [])
+            q.append(mb)
+            if len(q) == A:
+                micros = by_shape.pop(key)
+                yield {k: tuple(m[k] for m in micros) if k in _FRAME_KEYS
+                       else np.stack([m[k] for m in micros]) for k in micros[0]}
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
 def _to_device(batch, device) -> dict:
     """Host arrays onto ``device``; a tuple (a rank's frames, one array a
     micro-batch) becomes a tuple of tensors."""
@@ -418,9 +524,8 @@ def _train(args, mesh) -> None:
                   "(bounded by one partial accum group per bucket)")
         steps_per_epoch = len(dataset) // (B * A)
         total_steps = steps_per_epoch * args.num_epochs
-        batches = real_batches(dataset, collator, B, A, args.num_epochs,
-                               args.seed, args.dataloader_num_workers,
-                               skip_batches=resume_step)
+        batches = rank_real_batches(dataset, collator, B, A, args.num_epochs, args.seed,
+                                    args.dataloader_num_workers, resume_step, mesh=mesh)
 
     # --- optimizer & state ----------------------------------------------
     tx, sched = make_optimizer(train_args, total_steps)
@@ -457,12 +562,14 @@ def _train(args, mesh) -> None:
     for batch in batches:
         if done >= total_steps:
             break
-        if "n_real_tokens" in batch:
+        if "n_real_tokens" in batch:  # the whole batch's, also where a rank read its share
             real_toks += int(np.sum(batch["n_real_tokens"]))
-            padded_toks += int(np.prod(batch["input_ids"].shape))
-        batch = _to_device(rank_batch({k: v for k, v in batch.items() if k not in
-                                       ("sample_idxs", "num_frames", "n_real_tokens")},
-                                      cfg, mesh), device)
+            padded_toks += len(batch["input_ids"]) * B * batch["input_ids"].shape[-1]
+        batch = {k: v for k, v in batch.items()
+                 if k not in ("sample_idxs", "num_frames", "n_real_tokens")}
+        if args.synthetic_steps:  # a real dataset's batch is the rank's share as read
+            batch = rank_batch(batch, cfg, mesh)
+        batch = _to_device(batch, device)
         try:
             state, metrics = step_fn(state, params, batch)
             done = state.step

@@ -22,9 +22,10 @@ CPU both take the plain path.
 Under a process mesh (``mesh=``, a `parallel.ProcessMesh`, one process per
 rank; the base tree from `parallel.shard_params`, the state from
 `parallel.shard_train_state`), every rank is called with its own share of
-the global batch, cut on the host by `rank_batch` before it is staged, and
-the ranks together compute the step the one process computes on the whole
-batch, as the JAX step under ``mesh=`` does:
+the global batch, cut on the host by `rank_batch` before it is staged
+(or read alone, `train.loop.rank_real_batches`), and the ranks together
+compute the step the one process computes on the whole batch, as the JAX
+step under ``mesh=`` does:
 
 - a rank's share is its part of the batch dim (dim 1) of every (A, B, T)
   leaf, the data cut of JAX's `batch_shardings`, and the frames of its own
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import MMDuetConfig, TrainArgs
@@ -94,13 +96,17 @@ def rank_batch(batch: Dict, cfg: MMDuetConfig, mesh) -> Dict:
     data rank ``d`` of ``D``, and of each frame leaf (``frames`` (A, N, H,
     W, 3), ``vision_feats`` (A, N, P, C)) a tuple of A arrays, micro-batch
     ``a``'s slots that those rows' placeholders count. A rank whose samples
-    hold no frame keeps the one unused slot 0, so that every rank of the
-    data axis runs the tower's collectives. With no mesh or one data rank
-    (the model ranks of a data rank stage the same rows) the batch is
-    returned as it is."""
+    hold no frame keeps one zero frame slot, which nothing reads, so that
+    every rank of the data axis runs the tower's collectives (a rank that
+    reads only its own samples, `train.loop.rank_real_batches`, has no
+    other rank's slot to keep). With no mesh or one data rank (the model
+    ranks of a data rank stage the same rows) the batch is returned as it
+    is. A batch is cut once: a share, its frames a tuple, is refused."""
     data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
     if data_n == 1:
         return batch
+    if any(isinstance(v, tuple) for v in batch.values()):
+        raise ValueError("rank_batch: the batch is already a rank's share")
     A, B = batch["input_ids"].shape[:2]
     if B % data_n:
         raise ValueError(f"a micro-batch of {B} samples over a data axis of {data_n}")
@@ -110,8 +116,15 @@ def rank_batch(batch: Dict, cfg: MMDuetConfig, mesh) -> Dict:
     spans = []
     for a in range(A):
         start, n = int(counts[a, :rows.start].sum()), int(counts[a, rows].sum())
-        spans.append(slice(start, start + n) if n else slice(0, 1))
-    return {k: tuple(v[a, span] for a, span in enumerate(spans)) if k in _FRAME_KEYS
+        spans.append(slice(start, start + n) if n else None)
+
+    def frames(v, a, span):
+        if span is not None:
+            return v[a, span]
+        zero = (1, *v.shape[2:])
+        return torch.zeros(zero, dtype=v.dtype) if torch.is_tensor(v) else np.zeros(zero, v.dtype)
+
+    return {k: tuple(frames(v, a, span) for a, span in enumerate(spans)) if k in _FRAME_KEYS
             else v[:, rows] for k, v in batch.items()}
 
 

@@ -17,12 +17,16 @@ summation order: losses to 1e-4 relative (as
 the other metrics, the averaged gradients and the trainable leaves to 1e-5
 absolute, the Adam moments as `tests/test_torch_train.py` holds them
 (1e-7 absolute, 1e-4 relative). Then the checkpoint of the (2, 2) ranks
-resumed in one process and on (2, 1), and the CLI under
-``torch.distributed.run`` (two more launches) against the one-process CLI."""
+resumed in one process and on (2, 1); each launch's ranks reading
+`torch_train_mesh_worker.LoaderData` alone (`loop.rank_real_batches`),
+bit for bit `rank_batch` of the steps `real_batches` collates whole here;
+and the CLI under ``torch.distributed.run`` (two more launches) against
+the one-process CLI."""
 
 import dataclasses
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -33,6 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_train_mesh_worker as worker
 
 from mmduet_tpu import parallel as jpar
 from mmduet_tpu.config import TrainArgs, tiny_config
@@ -380,7 +385,8 @@ def test_ranks_load_nothing_of_jax(ranks):
 
 def _share(batch, shape, d):
     """Data rank ``d``'s rows and, a micro-batch at a time, its frames,
-    from the batch's own placeholder counts; the whole batch where data is 1."""
+    from the batch's own placeholder counts (one zero slot where it holds
+    none); the whole batch where data is 1."""
     if shape[0] == 1:
         return batch
     ids = batch["input_ids"]
@@ -391,7 +397,7 @@ def _share(batch, shape, d):
     for a, row in enumerate(counts.tolist()):
         start, n = sum(row[:d * per]), sum(row[d * per:(d + 1) * per])
         frames.append(batch["vision_feats"][a, start:start + n] if n
-                      else batch["vision_feats"][a, :1])
+                      else np.zeros_like(batch["vision_feats"][a, :1]))
     return dict(out, vision_feats=frames)
 
 
@@ -413,9 +419,10 @@ def _ragged_batch(A=3, B=4, T=24, slots=6):
 @pytest.mark.parametrize("shape", [(2, 1), (1, 2), (2, 2)])
 def test_rank_batch_stages_the_rank_share(shape):
     """Each rank's rows and frame slots, one array a micro-batch where the
-    counts are ragged; a rank whose samples hold no frame keeps slot 0; the
-    model ranks of a data rank stage the same share; joined in data-rank
-    order the shares give back the global rows and every used frame slot."""
+    counts are ragged; a rank whose samples hold no frame keeps one zero
+    slot; the model ranks of a data rank stage the same share; joined in
+    data-rank order the shares give back the global rows and every used
+    frame slot; a share is not cut again."""
     batch, counts = _ragged_batch()
     shares = {}
     for d in range(shape[0]):
@@ -446,6 +453,8 @@ def test_rank_batch_stages_the_rank_share(shape):
     with pytest.raises(ValueError, match="3 samples over a data axis of 2"):
         tstep.rank_batch({k: v[:, :3] for k, v in batch.items()}, CFG,
                          ProcessMesh(shape, (0, 0), torch.device("cpu")))
+    with pytest.raises(ValueError, match="already a rank's share"):
+        tstep.rank_batch(shares[0, 0], CFG, ProcessMesh(shape, (0, 0), torch.device("cpu")))
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
@@ -535,6 +544,100 @@ def test_chip_smoke_training_mesh_stages_the_rank_share():
             for a, f in enumerate(got["frames"]):
                 assert torch.equal(f, batches[1]["frames"][a, start:start + n])
             assert chip_smoke.budget.tree_bytes(got) == staged_term(shape, mode, r)
+
+
+# ---------------------------------------------------------------------------
+# a rank's own reading of a dataset (`loop.rank_real_batches`)
+# ---------------------------------------------------------------------------
+
+HOST_KEYS = ("num_frames", "n_real_tokens")  # the whole batch's on every rank
+
+
+@pytest.fixture(scope="module")
+def whole_steps():
+    """The one process's steps over `worker.LoaderData` (`real_batches`,
+    collated whole) and what it fetched."""
+    data = worker.LoaderData()
+    steps = list(tloop.real_batches(data, worker.loader_collator(data), **worker.LOADER_ARGS))
+    return steps, data.fetched
+
+
+def _stream():
+    """The (epoch, index) at each position of the loader's stream after
+    the resume skip: a shuffle an epoch, as `real_batches` orders it."""
+    args, order, out = worker.LOADER_ARGS, list(range(len(worker.LoaderData()))), []
+    rng = random.Random(args["seed"])
+    for epoch in range(args["epochs"]):
+        rng.shuffle(order)
+        out += [(epoch, i) for i in order]
+    return out[args["skip_batches"] * args["B"] * args["A"]:]
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_rank_loader_reads_the_rank_share_of_each_step(ranks, whole_steps, name):
+    """Every rank's steps, read alone, are bit for bit `rank_batch`'s cut
+    of the one process's steps (its rows padded to the whole batch's
+    length bucket, its frames, one zero slot where it holds none), with
+    the whole batch's frame and real-token counts."""
+    shape, _ = LAYOUTS[name]
+    steps, _ = whole_steps
+    for r, out in enumerate(ranks[name]):
+        mesh = ProcessMesh(shape, divmod(r, shape[1]), torch.device("cpu"))
+        got = out["loader"]["steps"]
+        assert len(got) == len(steps)
+        for i, (g, step) in enumerate(zip(got, steps)):
+            want = tstep.rank_batch({k: v for k, v in step.items() if k not in HOST_KEYS},
+                                    CFG, mesh)
+            want.update({k: step[k] for k in HOST_KEYS})
+            assert set(g) == set(want), i
+            for k, w in want.items():
+                for gx, wx in (zip(g[k], w) if isinstance(w, tuple) else [(g[k], w)]):
+                    assert gx.numpy().dtype == wx.dtype, (i, k)
+                    np.testing.assert_array_equal(gx.numpy(), wx, err_msg=f"step {i} {k}")
+            assert isinstance(g["frames"], tuple) == (shape[0] > 1)
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_rank_loader_fetches_only_the_rank_positions(ranks, whole_steps, name):
+    """Data rank ``d`` of 2 fetches positions ``[2 d, 2 d + 2)`` of each
+    whole micro-batch and nothing of the dropped partial tail; one data
+    rank fetches what the one process fetches: the whole stream."""
+    (data_n, model_n), _ = LAYOUTS[name]
+    stream, B = _stream(), worker.LOADER_ARGS["B"]
+    assert sorted(whole_steps[1]) == sorted(stream)
+    whole, per = len(stream) // B * B, B // data_n
+    for r, out in enumerate(ranks[name]):
+        d = r // model_n
+        want = stream if data_n == 1 else [stream[p] for p in range(whole) if p % B // per == d]
+        assert sorted(map(tuple, out["loader"]["fetched"])) == sorted(want), r
+
+
+def test_rank_loader_steps_agree_over_layouts(ranks, whole_steps):
+    """The data ranks' samples joined in data order are the one
+    process's, step by step, in every layout; and the data holds each case
+    the loader must get right: two length buckets whose steps interleave,
+    frame counts ragged over A, a data rank with no frame in a
+    micro-batch, a truncated sample, a replaced item, a dropped tail."""
+    steps, _ = whole_steps
+    want = [s["sample_idxs"] for s in steps]
+    for name, ((data_n, model_n), _) in LAYOUTS.items():
+        got = [np.concatenate([ranks[name][d * model_n]["loader"]["steps"][i]["sample_idxs"]
+                               .numpy() for d in range(data_n)], axis=1)
+               for i in range(len(steps))]
+        assert len(ranks[name][0]["loader"]["steps"]) == len(steps)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    args = worker.LOADER_ARGS
+    lengths = [s["input_ids"].shape[-1] for s in steps]
+    assert sorted(set(lengths)) == [384, 512] and lengths != sorted(lengths)
+    counts = [(s["input_ids"] == CFG.v_placeholder_id).sum(-1) // 4 for s in steps]
+    assert any(len(set(c.sum(-1).tolist())) > 1 for c in counts)  # ragged over A
+    assert any((c[:, 2:].sum(-1) == 0).any() for c in counts)  # data rank 1 of 2: no frame
+    used = np.concatenate([s["sample_idxs"].ravel() for s in steps])
+    assert worker.LOADER_BROKEN not in used
+    assert any(c.max() == 8 for c in counts)  # 10 frames cut to 8 at 512 tokens
+    micros = len(_stream()) // args["B"]
+    assert len(_stream()) % args["B"] and micros > args["A"] * len(steps)  # tails dropped
 
 
 # ---------------------------------------------------------------------------

@@ -16,27 +16,91 @@ stages its share of each batch (`rank_batch`), takes the steps and writes
 ``DIR/rank<r>.pt``: its share of the first batch, each step's metrics, the
 gathered trainable leaves after each step, the first averaged gradients
 (gathered over ``model``), the gathered optimizer state after the first
-step, the local shapes of its trainable and moment blocks, and the modules
-of jax or of the JAX package that the process loaded (none).
+step, the local shapes of its trainable and moment blocks, the steps that
+`train.loop.rank_real_batches` read for it from `LoaderData` and the
+dataset positions it fetched, and the modules of jax or of the JAX package
+that the process loaded (none).
+
+The test imports this module for `LoaderData`, `loader_collator` and
+`LOADER_ARGS`, to read the same steps whole in one process.
 """
 
 import json
 import os
 import sys
+import threading
 
+import numpy as np
 import torch
 
 from mmduet_tpu_torch.config import TrainArgs, tiny_config
+from mmduet_tpu_torch.data.collator import Collator
 from mmduet_tpu_torch.parallel import (initialize_distributed, make_mesh, shard_params,
                                        shard_train_state)
 from mmduet_tpu_torch.parallel.sharding import gather_train_state, gather_trainable
+from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.train import checkpoint, make_optimizer
+from mmduet_tpu_torch.train.duet import duet_sample
+from mmduet_tpu_torch.train.loop import rank_real_batches
 from mmduet_tpu_torch.train.optimizer import tree_leaves
 from mmduet_tpu_torch.train.step import TrainState, make_grad_fn, make_train_step, rank_batch
+
+# the loader's run: a global micro-batch of 4 samples (2 a data rank where
+# data is 2), 2 micro-batches a step, 3 epochs of 13 items resumed after
+# one step: 31 positions, so 7 micro-batches and a dropped partial tail
+LOADER_ARGS = dict(B=4, A=2, epochs=3, seed=11, num_workers=2, skip_batches=1)
+# an item's stream turns, by its index modulo 6: text-only samples (a data
+# rank whose two samples are both text-only holds no frame), one to four
+# frames, and 10 frames in 600 tokens, cut by the collator at 512 tokens
+LOADER_TURNS = ((), (2,), (), (1,), (1, 3), (2, 2, 2, 2, 2))
+LOADER_BROKEN = 5  # an item that fails, replaced as `StreamDataset` replaces one
+
+
+class LoaderData:
+    """13 duet samples (frames of 8 pixels a side), each made from its
+    index alone; every index asked for is recorded with the epoch it was
+    asked in (the fetches run on the loader's threads)."""
+
+    def __init__(self):
+        self.tok = CharTokenizer(frame_num_tokens=4)
+        self.epoch, self.fetched, self._lock = 0, [], threading.Lock()
+
+    def __len__(self):
+        return 13
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __getitem__(self, index, _depth=0):
+        if _depth == 0:
+            with self._lock:
+                self.fetched.append((self.epoch, index))
+        if index == LOADER_BROKEN:  # a deterministic alternative, as on a decode failure
+            return self.__getitem__((7 * index + 3) % len(self), _depth + 1)
+        return duet_sample(self.tok, np.random.RandomState(index), index,
+                           LOADER_TURNS[index % len(LOADER_TURNS)], 8)
+
+
+def loader_collator(data: LoaderData) -> Collator:
+    """The CLI's collator at this scale: 12 frames a sample (48 a global
+    micro-batch, frame buckets 16 / 24 / 48) and length buckets 256 / 384
+    / 512."""
+    return Collator(data.tok, seq_len=512, max_frames=48, frame_size=8,
+                    buckets=(256, 384, 512), frame_buckets=(16, 24, 48))
 
 
 def _shapes(tree):
     return [tuple(t.shape) for t in tree_leaves(tree)]
+
+
+def _read_share(mesh) -> dict:
+    """This rank's steps from `rank_real_batches` over `LoaderData` (as
+    tensors) and the (epoch, index) of every item it fetched."""
+    data = LoaderData()
+    steps = rank_real_batches(data, loader_collator(data), **LOADER_ARGS, mesh=mesh)
+    steps = [{k: tuple(map(torch.from_numpy, v)) if isinstance(v, tuple)
+              else torch.from_numpy(v) for k, v in step.items()} for step in steps]
+    return {"steps": steps, "fetched": data.fetched}
 
 
 def main(out_dir: str) -> None:
@@ -79,6 +143,7 @@ def main(out_dir: str) -> None:
         resumed, metrics = step(resumed, params, batches[resumed.step])
         out["resumed"] = {"step": resumed.step, "metrics": metrics,
                           "trainable": gather_trainable(resumed.trainable, mesh)}
+    out["loader"] = _read_share(mesh)
     out["modules"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "mmduet_tpu"))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
