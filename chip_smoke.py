@@ -106,7 +106,12 @@ Phases (any failure ends the run with a nonzero exit):
    device), each holding its shard (`parallel.shard_params`) of the same
    seed-0 weights; they run the passes of 4 and 7 and a batched pass (12
    sessions of random frame embeddings through 8 lanes), which the one
-   process also runs. Both ranks' rows must be the same bits; against the
+   process also runs; each batched session is made on one rank and shared
+   (`eval.inference.mesh_items`, as the inference CLI shares a decoded
+   sample), and every session a rank receives must be bit-equal to what
+   its owner made (the same SHA-256 on every rank); each rank prints what
+   it made, the bytes it sent and received and the seconds the pass waited
+   for its sessions. Both ranks' rows must be the same bits; against the
    one process, scores within the larger of TP_SCORE_TOL and twice the one
    process's own spread under a permuted MLP (`permuted_mlp`: the same
    function, sums in another order), answers equal or differing only at a
@@ -121,15 +126,18 @@ Phases (any failure ends the run with a nonzero exit):
    through `serve()`, bf16 and int8 caches; the scorer's 8 lockstep lanes),
    each encoding its own lanes' frames; then four ranks of a (2, 2) mesh,
    the decoder cut to 2 layers at the 7B widths, serve the TP batched
-   sessions. Every rank's rows must be the same bits; against the one
+   sessions. Each session (and each of the scorer's videos) is made on one
+   rank and shared, bit-equal to its owner's on every rank, as in 8. Every
+   rank's rows must be the same bits; against the one
    process (6's runs; the cut model's own run) scores within the larger of
    TP_SCORE_TOL and twice the one process's spread under a permuted MLP,
    answers equal or differing at a trigger or a near tie; each rank's
    launches of kernels A / A-int8 must be the layers times the decoder
    forwards of its own lanes (none of A' or a plain version), of D the
    tower layers times its lanes' 32-frame batches. Each rank's peak
-   memory, frames/s, ms per frame fed, decode tokens/s, dispatches and
-   ``gen_lanes`` are printed, and the phase's wall time;
+   memory, frames/s, ms per frame fed, decode tokens/s, dispatches,
+   ``gen_lanes``, sessions made and bytes shared are printed, and the
+   phase's wall time;
 10. the training mesh: 2 decoder layers at the 7B widths (the full
    SigLIP tower), LoRA r 16 / alpha 32, A = 2 micro-batches of two duet
    samples with other lengths, frames and label counts in the 2944-token
@@ -144,13 +152,15 @@ Phases (any failure ends the run with a nonzero exit):
    process's own spread, kernel C's and D's launches a rank as its shapes
    imply, each rank's peak memory and s/step
    (gloo-bound) printed; each rank also reads 2 steps of the same samples
-   from a dataset in memory by `train.loop.rank_real_batches` (fetching,
-   collating and padding only its own samples, its shapes agreed through
-   a sum over ``data`` on the card), bit-equal on the card to `rank_batch`'s
-   cut of the steps `real_batches` collates whole, having fetched only its
-   own positions (its samples and host batch bytes printed beside the one
-   process's); the (2, 2) ranks' checkpoint of step 1, resumed in the one
-   process, gives its step 2;
+   from a dataset in memory by `train.loop.rank_real_batches` (model rank
+   m fetching, collating and padding only its data rank's positions of
+   the micro-batches i = m mod M, its shapes agreed through a sum over
+   ``data`` on the card, the share sent to the other model ranks),
+   bit-equal on the card to `rank_batch`'s cut of the steps `real_batches`
+   collates whole, having fetched only its own positions (its samples,
+   host batch bytes and bytes shared printed beside the one process's);
+   the (2, 2) ranks' checkpoint of step 1, resumed in the one process,
+   gives its step 2;
 11. the training recipe: ``TINY_RANDOM=1 DEVICE=cuda bash
    scripts/train_torch.sh`` (synthetic steps) in one process, then with
    ``NPROC=2 DIST_BACKEND=gloo DEVICE=cuda:0`` (two ranks sharing the card
@@ -190,6 +200,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1568,6 +1579,68 @@ def _session_rows(results: dict, rec) -> dict:
             for i, (resp, debug) in sorted(results.items())}
 
 
+def mesh_sessions(make, n: int, mesh, held: list, stats: dict):
+    """Sessions ``make(0) .. make(n - 1)`` on this rank of the process
+    ``mesh``, each made by one rank alone and shared
+    (`eval.inference.mesh_items`, two ahead on the owner), as the inference
+    CLI decodes each sample once on a mesh; each kept in ``held`` for
+    `record_shared`, ``stats`` counting what this rank made and the bytes it
+    sent and received, and ``stats["wait_s"]`` the seconds the pass waited
+    for them (the owners' making and the shares)."""
+    from mmduet_tpu_torch.eval.inference import mesh_items
+
+    items, stats["wait_s"] = mesh_items(n, make, mesh, 2, stats), 0.0
+    for _ in range(n):
+        t0 = time.perf_counter()
+        item = next(items)
+        stats["wait_s"] += time.perf_counter() - t0
+        held.append(item)
+        yield item
+
+
+def session_digest(session: dict) -> str:
+    """SHA-256 of a session: each array's kind, dtype, shape and bytes, and
+    the JSON of every other value, in key order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in session.items():
+        if torch.is_tensor(v):
+            h.update(f"{k} torch {v.dtype} {tuple(v.shape)}".encode())
+            h.update(v.contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+        elif isinstance(v, np.ndarray):
+            h.update(f"{k} numpy {v.dtype.str} {v.shape}".encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+        else:
+            h.update(f"{k} {json.dumps(v)}".encode())
+    return h.hexdigest()
+
+
+def record_shared(held: list, stats: dict, what: str, log) -> None:
+    """The digests of the sessions that reached this rank (``held``, in
+    order; an owner's own are what it made) into ``stats["digests"]``:
+    every rank's must be the same, which the caller of the ranks checks.
+    Prints what this rank made and the bytes it sent and received."""
+    stats["digests"] = [session_digest(x) for x in held]
+    log(f"{what}: {len(held)} sessions shared; made {stats['fetched']} here, sent "
+        f"{stats['sent']} bytes, received {stats['received']} bytes; the pass waited "
+        f"{stats['wait_s']:.3f} s for them")
+
+
+def check_digests(ranks: list, what: str, log, *path) -> None:
+    """Every rank's digests of its shared sessions (``rank[path...]``) the
+    same: each session reached every rank bit-equal to what its owner made."""
+    def digests(x):
+        for key in path:
+            x = x[key]
+        return x["digests"]
+
+    if any(digests(x) != digests(ranks[0]) for x in ranks[1:]):
+        raise AssertionError(f"{what}: a rank's shared sessions differ from their owners'")
+    log(f"{what}: the {len(digests(ranks[0]))} shared sessions have the same SHA-256 on every "
+        "rank, their owners' included")
+
+
 def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                      grounding: bool = True) -> dict:
     """The 7B-width batched path: `BatchedStreamEngine.serve()` streams
@@ -1579,8 +1652,9 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     the mesh and the vision batches predict. ``mesh``: a one-device mesh
     or this rank's `ProcessMesh` (``params`` its local tree), whose lanes
     ``lane_block`` gives: its forwards, vision batches and greedy steps are
-    those of its own lanes. Returns outputs and numbers, with each pass's
-    peak memory measured on its own (``mem``)."""
+    those of its own lanes, and each session (each of the scorer's videos)
+    is made on one rank and shared (`mesh_sessions`). Returns outputs and
+    numbers, with each pass's peak memory measured on its own (``mem``)."""
     rank_mesh = isinstance(mesh, ProcessMesh)
     shards = mesh.size if mesh is not None and not rank_mesh else 1
     lo, hi = lane_block(mesh, BATCH_LANES)
@@ -1605,11 +1679,13 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                                              or sched(chunks))
     engine._admit = lambda lane, sess: admitted.append((lane, len(sess["frames"]))) or admit(
         lane, sess)
+    made, held, shared = functools.partial(_batch_session, cfg), [], {}
+    sessions = (mesh_sessions(made, BATCH_SESSIONS, mesh, held, shared) if rank_mesh
+                else map(made, range(BATCH_SESSIONS)))
     _zero_counts()  # the main path starts here
     t0 = time.perf_counter()
     with TokenRecorder(tok.eos_token_id, owners=lambda: engine._lane_sess[lo:hi]) as rec:
-        results = {i: (resp, debug) for i, resp, debug in engine.serve(
-            _batch_session(cfg, i) for i in range(BATCH_SESSIONS))}
+        results = {i: (resp, debug) for i, resp, debug in engine.serve(sessions)}
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _kernel_counts()  # the generation pass ends here
@@ -1623,6 +1699,9 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
             raise AssertionError(f"batched serve ({what}): session {i} has {len(debug)} score "
                                  f"rows for {BATCH_LENGTHS[i]} frames, or a score that is no "
                                  "finite probability")
+    if rank_mesh:
+        record_shared(held, shared, f"batched serve ({what})", log)
+        del held
     n_answers = sum(r["role"] == "assistant" for resp, _ in results.values() for r in resp)
     gens = len(engine.gen_lanes)
     sharded = mesh is not None and not rank_mesh
@@ -1658,7 +1737,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                frames_per_s=n_frames / wall, dispatch_ms_per_frame=1e3 * t_sched / frames_fed,
                decode_tokens_per_s=engine.tokens_generated / t_gen,
                vision_frames_per_s=n_frames / acc["_admit"], dispatches=engine.dispatches,
-               gen_lanes=list(engine.gen_lanes), forwards=engine.forwards)
+               gen_lanes=list(engine.gen_lanes), forwards=engine.forwards, shared=shared)
     mems["serve"] = _mem(resident)
     # the wrappers hold the engine and the engine holds them: without them
     # its cache is freed here, before the next engine allocates its own
@@ -1673,7 +1752,14 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         scorer = BatchedStreamScorer(
             params, cfg, tok, n_streams=BATCH_LANES, frame_fps=2.0, mesh=mesh,
             kv_cache_quant=kv_cache_quant)
-        videos = [_batch_session(cfg, i)["frames"] for i in range(BATCH_LANES)]
+        if rank_mesh:  # each video made on one rank, as the serve pass's sessions
+            held, shared = [], {}
+            videos = [x["frames"] for x in mesh_sessions(made, BATCH_LANES, mesh, held, shared)]
+            record_shared(held, shared, f"batched grounding pass ({what})", log)
+            del held
+            out["shared_scorer"] = shared
+        else:
+            videos = [made(i)["frames"] for i in range(BATCH_LANES)]
         lengths = BATCH_LENGTHS[:BATCH_LANES]
         before = attention.LAUNCHES, attention.VISION_LAUNCHES
         t0 = time.perf_counter()
@@ -2845,32 +2931,35 @@ def check_tp_kernels(log) -> dict:
     }
 
 
-def _tp_sessions(cfg) -> list:
-    """The TP batched pass's sessions: random post-projector frame
+TP_LENGTHS = tuple(int(n) for n in
+                   np.random.RandomState(9).randint(*TP_BATCH_FRAMES, TP_BATCH_SESSIONS))
+
+
+def _tp_session(cfg, i: int) -> dict:
+    """Session ``i`` of the TP batched pass: random post-projector frame
     embeddings from a seed (the tower runs in the streaming passes), one
     query at t = 0."""
-    lengths = np.random.RandomState(9).randint(*TP_BATCH_FRAMES, TP_BATCH_SESSIONS)
-    out = []
-    for i, n in enumerate(lengths):
-        g = torch.Generator().manual_seed(200 + i)
-        embeds = 0.05 * torch.randn((int(n), cfg.frame_num_tokens, cfg.text.hidden_size),
-                                    generator=g)
-        out.append({"frame_embeds": embeds.to(torch.bfloat16), "fps": 2.0,
-                    "conversation": [{"role": "user", "content": QUERY, "time": 0.0}]})
-    return out
+    g = torch.Generator().manual_seed(200 + i)
+    embeds = 0.05 * torch.randn((TP_LENGTHS[i], cfg.frame_num_tokens, cfg.text.hidden_size),
+                                generator=g)
+    return {"frame_embeds": embeds.to(torch.bfloat16), "fps": 2.0,
+            "conversation": [{"role": "user", "content": QUERY, "time": 0.0}]}
 
 
 def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
-    """`BatchedStreamEngine.serve()` of `_tp_sessions` through 8 lanes in
-    generation mode: per session its scores and answers, with the pass's
+    """`BatchedStreamEngine.serve()` of the `_tp_session`s through 8 lanes
+    in generation mode: per session its scores and answers, with the pass's
     counts, wall time and peak memory. ``mesh``: this rank's process mesh;
-    kernel A launches once a layer per decoder forward of its lanes."""
+    kernel A launches once a layer per decoder forward of its lanes, and
+    each session is made on one rank and shared (`mesh_sessions`)."""
     resident = _resident(budget.tree_bytes(params))
     engine = BatchedStreamEngine(
         params, cfg, tok, _args(BATCH_MAX_NEW, stream_end_score_sum_threshold=2.0),
         n_streams=BATCH_LANES, mesh=mesh, gen_coalesce_rounds=1)
     lo, hi = lane_block(mesh, BATCH_LANES)
-    sessions = _tp_sessions(cfg)
+    made, held, shared = functools.partial(_tp_session, cfg), [], {}
+    sessions = (mesh_sessions(made, TP_BATCH_SESSIONS, mesh, held, shared)
+                if isinstance(mesh, ProcessMesh) else [made(i) for i in range(TP_BATCH_SESSIONS)])
     acc, fed = {}, []
     _timed(engine, "_dispatch_sched", acc)
     _timed(engine, "_generate_batch", acc)
@@ -2886,10 +2975,10 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _kernel_counts()
-    n_frames = sum(len(x["frame_embeds"]) for x in sessions)
+    n_frames = sum(TP_LENGTHS)
     out = _session_rows(results, rec)
-    if len(out) != len(sessions) or any(len(out[str(i)]["scores"]) != len(x["frame_embeds"])
-                                        for i, x in enumerate(sessions)):
+    if len(out) != TP_BATCH_SESSIONS or any(len(out[str(i)]["scores"]) != n
+                                            for i, n in enumerate(TP_LENGTHS)):
         raise AssertionError("TP batched pass: a session retired without its score rows")
     if (counts["attention"] != cfg.text.num_layers * engine.forwards
             or counts["attention_sharded"] or counts["vision"]):
@@ -2897,8 +2986,10 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
                              f"{lo}-{hi - 1}): launches {counts}; want kernel A "
                              f"{cfg.text.num_layers} x {engine.forwards} decoder forwards, no "
                              "A' shards, no vision")
+    if shared:
+        record_shared(held, shared, f"TP batched pass, rank {mesh.coords}", log)
     log(f"batched serve at B={BATCH_LANES} (mesh {dict(mesh.shape) if mesh else None}, lanes "
-        f"{lo}-{hi - 1}): {len(sessions)} sessions, {n_frames} frames in {wall:.3f} s = "
+        f"{lo}-{hi - 1}): {TP_BATCH_SESSIONS} sessions, {n_frames} frames in {wall:.3f} s = "
         f"{n_frames / wall:.2f} frames/s, {engine.tokens_generated} tokens; launches {counts} "
         f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
         f"decodes of lanes {engine.gen_lanes})")
@@ -2908,7 +2999,7 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
                "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
                "decode_tokens_per_s": engine.tokens_generated / acc["_generate_batch"],
                "dispatches": engine.dispatches, "gen_lanes": list(engine.gen_lanes),
-               "forwards": engine.forwards}
+               "forwards": engine.forwards, "shared": shared}
     for name in ("_dispatch_sched", "_generate_batch"):
         delattr(engine, name)
     del engine, sched
@@ -3122,6 +3213,7 @@ def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: f
         raise AssertionError("TP phase: the ranks' rows differ")
     log(f"TP phase: {TP_RANKS} ranks in {wall:.1f} s; both ranks' scores, answers and greedy "
         "steps are the same bits")
+    check_digests(ranks, "TP phase, batched pass", log, "batched", "shared")
     r0 = ranks[0]
     tol = max(TP_SCORE_TOL, 2 * spread)
     worst, failed = {}, []
@@ -3151,8 +3243,11 @@ def run_tp_phase(log, dense: dict, quantized: dict, batched_ref: dict, spread: f
                 f"{x[run]['passes']['grounding']['p50_ms']:.3f} / "
                 f"{x[run]['passes']['grounding']['p90_ms']:.3f}; decode "
                 f"{x[run]['decode_tokens_per_s']:.2f} tokens/s; peak {x[run]['peak_gib']:.2f} GiB")
+        sh = x["batched"]["shared"]
         log(f"TP rank {r} batched: {x['batched']['frames_per_s']:.2f} frames/s, peak "
-            f"{x['batched']['peak_gib']:.2f} GiB, launches {x['batched']['counts']}")
+            f"{x['batched']['peak_gib']:.2f} GiB, launches {x['batched']['counts']}; sessions "
+            f"made here {sh['fetched']} of {TP_BATCH_SESSIONS}, shared bytes sent {sh['sent']}, "
+            f"received {sh['received']}")
     return {"ranks": ranks, "worst": worst, "wall_s": wall, "tol": tol}
 
 
@@ -3286,7 +3381,8 @@ def _dp_log_ranks(ranks: list, runs: tuple, log) -> None:
                 f"aggregate, {y['dispatch_ms_per_frame']:.3f} ms per frame fed; decode "
                 f"{y['decode_tokens_per_s']:.2f} tokens/s; {y['dispatches']} dispatches, "
                 f"{y['forwards']} forwards here, gen_lanes {y['gen_lanes']}; launches "
-                f"{y['counts']}")
+                f"{y['counts']}; sessions made here {y['shared']['fetched']}, shared bytes sent "
+                f"{y['shared']['sent']}, received {y['shared']['received']}")
 
 
 def run_dp_phase(log, ref: dict, tol: float) -> dict:
@@ -3302,6 +3398,8 @@ def run_dp_phase(log, ref: dict, tol: float) -> dict:
     t0 = time.perf_counter()
     ranks = dp_launch(DP_MESH, MMDuetConfig().text.num_layers)
     got = _dp_rows(ranks, ("bf16", "int8"), str(DP_MESH))
+    for path in (("bf16", "shared"), ("bf16", "shared_scorer"), ("int8", "shared")):
+        check_digests(ranks, f"data-axis phase {DP_MESH}, {' '.join(path)}", log, *path)
     log(f"data-axis phase {DP_MESH}: {len(ranks)} ranks in {time.perf_counter() - t0:.1f} s; "
         "every rank's scores, answers and scorer rows are the same bits")
     worst = {run: _dp_compare(f"DP {DP_MESH} {run}", got[run], ref[run]["sessions"], log, tol)
@@ -3330,6 +3428,7 @@ def run_dp_phase(log, ref: dict, tol: float) -> dict:
     tol2 = max(TP_SCORE_TOL, 2 * spread)
     ranks2 = dp_launch(DP_TP_MESH, DP_TP_LAYERS)
     got2 = _dp_rows(ranks2, ("batched",), str(DP_TP_MESH))
+    check_digests(ranks2, f"data-axis phase {DP_TP_MESH}", log, "batched", "shared")
     log(f"data-axis phase {DP_TP_MESH}: {len(ranks2)} ranks; every rank's scores and answers "
         "are the same bits")
     worst["tp"] = _dp_compare(f"DP {DP_TP_MESH}", got2["batched"], one["sessions"], log, tol2)
@@ -3472,16 +3571,17 @@ class TmData:
 
 
 def tm_loader(cfg, tok, mesh, dev) -> dict:
-    """This rank's reading of `TmData` (`rank_real_batches`, its exchange
+    """This rank's reading of `TmData` (`rank_real_batches`, its exchanges
     on ``dev``), each step staged as the CLI stages it and held bit for bit
     against `_stage`'s share of the step `real_batches` collates whole;
-    the positions it fetched against its own. Its fetched samples and host
-    batch bytes a step, and the one process's."""
+    the positions it fetched against its own (those of data rank d in the
+    micro-batches i = m mod M). Its fetched samples, host batch bytes a
+    step and bytes shared over ``model``, and the one process's."""
     from mmduet_tpu_torch.train.loop import _to_device, rank_real_batches, real_batches
 
-    seed, collator = 0, tm_collator(cfg, tok)
+    seed, collator, stats = 0, tm_collator(cfg, tok), {}
     mine, whole = TmData(tok, cfg.frame_resolution, seed), TmData(tok, cfg.frame_resolution, seed)
-    got = list(rank_real_batches(mine, collator, 2, TM_ACCUM, 1, seed, 2, mesh=mesh))
+    got = list(rank_real_batches(mine, collator, 2, TM_ACCUM, 1, seed, 2, mesh=mesh, stats=stats))
     want = list(real_batches(whole, collator, 2, TM_ACCUM, 1, seed, 2))
     if len(got) != len(want) or len(want) != TM_STEPS:
         raise AssertionError(f"training mesh loader: {len(got)} steps, the one process "
@@ -3498,12 +3598,13 @@ def tm_loader(cfg, tok, mesh, dev) -> dict:
                 else torch.equal(g[k], w[k]) for k in w):
             raise AssertionError(f"training mesh loader: step {i + 1} differs from the rank's "
                                  "share of the whole step")
-    d, per = mesh.index(DATA_AXIS), 2 // mesh.shape[DATA_AXIS]
-    own = sorted(i for p, i in enumerate(mine.order) if p % 2 // per == d)
+    (d, m), per = mesh.coords, 2 // mesh.shape[DATA_AXIS]
+    own = sorted(i for p, i in enumerate(mine.order)
+                 if p % 2 // per == d and p // 2 % mesh.shape[MODEL_AXIS] == m)
     if sorted(mine.fetched) != own:
         raise AssertionError(f"training mesh loader: fetched {sorted(mine.fetched)}, own {own}")
     return {"fetched": len(mine.fetched), "host_bytes": host, "one_fetched": len(whole.fetched),
-            "one_bytes": one}
+            "one_bytes": one, "sent": stats.get("sent", 0), "received": stats.get("received", 0)}
 
 
 def tm_one_process(cfg, params, lora, batches, dev) -> dict:
@@ -3716,7 +3817,8 @@ def run_train_mesh_phase(log, dev=torch.device("cuda")) -> tuple:
             log(f"training mesh {name} rank {r} loader: read {TM_STEPS} steps alone, bit-equal to "
                 f"its share of the whole steps: fetched {ld['fetched']} samples (one process "
                 f"{ld['one_fetched']}), host batch {ld['host_bytes']} bytes a step (one process "
-                f"{ld['one_bytes']})")
+                f"{ld['one_bytes']}), shared over model: sent {ld['sent']} bytes, received "
+                f"{ld['received']}")
         log(f"training mesh {name}: {len(ranks)} ranks in {wall:.1f} s, every rank's metrics "
             f"the same bits; against the one process: metrics within {diff[0]:.4g} relative "
             f"(bound {bound[0]:.4g}), the trainable update within {diff[1]:.4g} of its norm "

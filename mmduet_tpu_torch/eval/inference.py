@@ -60,6 +60,15 @@ on one device). Rank 0 alone writes the output file.
 ``--device`` defaults to ``cuda``; nothing switches to the CPU on its
 own.
 
+Each sample is decoded once on a mesh: sample ``k`` by rank ``k mod (D*M)``
+alone (row-major over (data, model)), in a thread of the CLI's own that
+runs two samples ahead over that rank's indices (inline with
+``--no_prefetch``); the decoded sample crosses to every rank bit for bit
+(`mesh_samples`: over ``data``, then over ``model``), a failed decode as
+failed, so every rank skips it together. Each rank prints to stderr, at
+the end, how many samples it decoded and the bytes it sent and received.
+One process reads the dataset as the JAX CLI does (``prefetch()``).
+
 `round_floats`, `_argparser`, `_test_args` and `_make_dataset` are the
 JAX CLI's host helpers, copied (its `build_argparser` under the name
 `_argparser`); the tests pin them equal.
@@ -68,10 +77,14 @@ JAX CLI's host helpers, copied (its `build_argparser` under the name
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import queue
 import sys
+import threading
 import time
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -201,6 +214,92 @@ def _make_dataset(args, resolution: int):
         system_prompt=args.system_prompt,
         time_instruction_format=args.time_instruction_format,
     )
+
+
+def _ahead(fetch: Callable[[int], Any], indices, depth: int) -> Iterator[Any]:
+    """``fetch(k)`` of each index in order, ``depth`` ahead on a thread of
+    its own (inline with depth 0); an index whose fetch raised yields the
+    exception."""
+    def call(k):
+        try:
+            return fetch(k)
+        except Exception as e:  # handed to the share, which raises on every rank
+            return e
+
+    if depth <= 0:
+        yield from map(call, indices)
+        return
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    threading.Thread(target=lambda: [q.put(call(k)) for k in indices], daemon=True).start()
+    for _ in indices:
+        yield q.get()
+
+
+def mesh_items(n: int, fetch: Callable[[int], Dict[str, Any]], mesh, depth: int = 2,
+               stats: Optional[Dict[str, int]] = None) -> Iterator[Dict[str, Any]]:
+    """Items ``0 .. n - 1`` in order on every rank of the process ``mesh``,
+    each fetched once on the mesh: item ``k`` by rank ``k mod (D * M)`` in
+    row-major (data, model) order, ``fetch(k)`` on a thread that runs
+    ``depth`` items ahead over that rank's own indices (inline with 0). An
+    item is a dict of host arrays and JSON values (`collectives.share`); it
+    crosses over ``data`` to the owner's model column, then over ``model``
+    to every rank, bit for bit. A fetch that raises raises on every rank.
+    ``stats`` counts this rank's fetches ("fetched") and bytes ("sent",
+    "received")."""
+    from ..parallel.collectives import share
+
+    data_n, model_n = mesh.dims
+    d, m = mesh.coords
+    own = range(d * model_n + m, n, data_n * model_n)
+    fetched = _ahead(fetch, own, depth)
+    if stats is not None:
+        for k in ("fetched", "sent", "received"):
+            stats.setdefault(k, 0)
+    for k in range(n):
+        od, om = divmod(k % (data_n * model_n), model_n)
+        item = None
+        if (od, om) == (d, m):
+            item = next(fetched)
+            if stats is not None:
+                stats["fetched"] += 1
+        if om == m:
+            try:
+                item = share("data", od, item, mesh.device, stats)
+            except Exception as e:  # passed on over model, so that no rank waits
+                item = e
+        yield share("model", om, item, mesh.device, stats)
+
+
+def mesh_samples(dataset, mesh, depth: int = 2,
+                 stats: Optional[Dict[str, int]] = None) -> Iterator[Any]:
+    """The dataset's `EvalSample`s in order on every rank of ``mesh``, each
+    decoded by one rank (`mesh_items`): its frames cross as uint8, the
+    other fields (the owner's conversation, which a time-instruction
+    format writes the frame count into; its fps, duration and error) as
+    JSON. A failed decode (``frames`` None) arrives as failed."""
+    from ..data.eval_dataset import EvalSample
+
+    def fetch(k):
+        sample = dataset[k]
+        return {f.name: getattr(sample, f.name) for f in dataclasses.fields(sample)}
+
+    for item in mesh_items(len(dataset), fetch, mesh, depth, stats):
+        yield EvalSample(**item)
+
+
+def _samples(args, dataset, mesh) -> Iterator[Any]:
+    """The CLI's samples: with one process, the dataset as read
+    (``prefetch()`` unless ``--no_prefetch``); on a process mesh, each
+    decoded once (`mesh_samples`), and this rank's count and bytes printed
+    to stderr at the end."""
+    if mesh is None:
+        yield from (dataset if args.no_prefetch else dataset.prefetch())
+        return
+    stats: Dict[str, int] = {}
+    yield from mesh_samples(dataset, mesh, 0 if args.no_prefetch else 2, stats)
+    print(f"samples, rank {mesh.coords}: decoded {stats['fetched']} of {len(dataset)}; "
+          f"sent {stats['sent']} bytes, received {stats['received']} bytes",
+          file=sys.stderr, flush=True)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -337,7 +436,7 @@ def _run_batched(args) -> None:
 
     n_done = 0
     t_start = time.perf_counter()
-    samples = dataset if args.no_prefetch else dataset.prefetch()
+    samples = _samples(args, dataset, mesh)
 
     # sessions are admitted into lanes the moment one frees up: a short
     # video does not hold its lane idle while long ones drain, and at
@@ -416,7 +515,7 @@ def _run_offline_baseline(args) -> None:
 
     n_done = 0
     t_start = time.perf_counter()
-    samples = dataset if args.no_prefetch else dataset.prefetch()
+    samples = _samples(args, dataset, mesh)
     with _output(args, mesh) as f_out:
         for i, sample in enumerate(samples):
             if sample.frames is None:
@@ -489,7 +588,7 @@ def _run(args) -> None:
 
     n_done = 0
     t_start = time.perf_counter()
-    samples = dataset if args.no_prefetch else dataset.prefetch()
+    samples = _samples(args, dataset, engine.mesh)
     with _output(args, engine.mesh) as f_out:
         for i, sample in enumerate(samples):
             if sample.frames is None:

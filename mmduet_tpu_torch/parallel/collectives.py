@@ -39,6 +39,12 @@ tensors), and every rank ends with the same bits: every host decision
 (scores, triggers, tokens, the training step's skip) is taken from these
 outputs, never from a rank's partial.
 
+The host data path adds `share`: a dict of host arrays (and JSON values)
+from one owner rank to the other ranks of an axis, bit for bit, in two
+such sums (a small integer header, then the bytes), so that each sample is
+decoded on one rank of a mesh (`train.loop.rank_real_batches`,
+`eval.inference.mesh_items`).
+
 The axes are bound once per process, by `mesh.make_mesh` when it builds a
 process mesh: one process is one rank, and every forward it runs is on its
 shard. Without a bound axis (size 1) every collective is the identity,
@@ -49,8 +55,10 @@ and `cut` says whether a dim holds a whole axis or this rank's part of it.
 
 from __future__ import annotations
 
+import json
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -300,3 +308,141 @@ def carry_spec(new: torch.Tensor, old: Any) -> torch.Tensor:
     return new
 
 
+
+
+# --- host values from one owner rank to the others of an axis --------------
+
+# the array dtypes a share carries: numpy's by their ``dtype.str`` (native
+# byte order; bool is one byte), torch's CPU tensors by name (bfloat16, which
+# numpy lacks, included); a code is the entry's index + 1
+_SHARE_DTYPES = tuple(("numpy", np.dtype(t).str) for t in (
+    np.bool_, np.uint8, np.int8, np.uint16, np.int16, np.uint32, np.int32, np.uint64, np.int64,
+    np.float16, np.float32, np.float64)) + tuple(("torch", t) for t in (
+        torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64, torch.float16,
+        torch.bfloat16, torch.float32, torch.float64))
+_SHARE_CODES = {k: c for c, k in enumerate(_SHARE_DTYPES, 1)}
+_SHARE_ARRAYS, _SHARE_DIMS = 16, 6  # the header's room: arrays a share, dims an array
+_SHARE_HEAD = 4  # status, arrays, the JSON blob's bytes, the payload's bytes
+_SHARE_LEN = _SHARE_HEAD + _SHARE_ARRAYS * (2 + _SHARE_DIMS)  # + each array's code, ndim, shape
+_PRESENT, _FAILED = 1, 2
+
+
+class ShareError(RuntimeError):
+    """The owner of a `share` failed to produce its value; raised on every
+    other rank of the axis (the owner raises its own error)."""
+
+
+def _pack(value: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the int64 header, the payload as uint8 padded to whole int32s) of a
+    share's value: its arrays' bytes in order, then a JSON blob with every
+    key in order and the values that are no array."""
+    arrays = [(k, v) for k, v in value.items() if isinstance(v, np.ndarray) or torch.is_tensor(v)]
+    if len(arrays) > _SHARE_ARRAYS:
+        raise ValueError(f"share: {len(arrays)} arrays, room for {_SHARE_ARRAYS}")
+    names = [k for k, _ in arrays]
+    blob = json.dumps({"keys": list(value), "arrays": names,
+                       "values": {k: v for k, v in value.items() if k not in names}}).encode()
+    header = torch.zeros(_SHARE_LEN, dtype=torch.int64)
+    parts = []
+    for j, (k, a) in enumerate(arrays):
+        tensor = torch.is_tensor(a)
+        code = _SHARE_CODES.get(("torch", a.dtype) if tensor else ("numpy", a.dtype.str))
+        if code is None or a.ndim > _SHARE_DIMS or (tensor and a.device.type != "cpu"):
+            raise ValueError(f"share: {k} of dtype {a.dtype}, {a.ndim} dims"
+                             + (f" on {a.device}" if tensor else ""))
+        raw = (a.contiguous().reshape(-1).view(torch.uint8) if tensor
+               else torch.from_numpy(np.ascontiguousarray(a).reshape(-1).view(np.uint8)))
+        at = _SHARE_HEAD + j * (2 + _SHARE_DIMS)
+        header[at:at + 2 + a.ndim] = torch.tensor([code, a.ndim, *a.shape])
+        parts.append(raw)
+    parts.append(torch.frombuffer(bytearray(blob), dtype=torch.uint8))
+    n = sum(p.numel() for p in parts)
+    payload = torch.zeros(-(-n // 4) * 4, dtype=torch.uint8)
+    torch.cat(parts, out=payload[:n])
+    header[:_SHARE_HEAD] = torch.tensor([_PRESENT, len(arrays), len(blob), n])
+    return header, payload
+
+
+def _unpack(header: torch.Tensor, raw: np.ndarray) -> Dict[str, Any]:
+    """The value `_pack` made, from its header and payload bytes: fresh
+    arrays of the sender's kinds, dtypes and shapes, and its JSON values."""
+    head = header.tolist()
+    off, arrays = 0, []
+    for j in range(head[1]):
+        at = _SHARE_HEAD + j * (2 + _SHARE_DIMS)
+        code, ndim = head[at:at + 2]
+        shape = tuple(head[at + 2:at + 2 + ndim])
+        kind, dtype = _SHARE_DTYPES[code - 1]
+        if kind == "numpy":
+            dtype = np.dtype(dtype)
+            nb = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+            arrays.append(raw[off:off + nb].view(dtype).reshape(shape).copy())
+        else:
+            out = torch.empty(shape, dtype=dtype)
+            nb = out.numel() * out.element_size()
+            out.reshape(-1).view(torch.uint8).copy_(torch.from_numpy(raw[off:off + nb]))
+            arrays.append(out)
+        off += nb
+    meta = json.loads(raw[off:off + head[2]].tobytes().decode()) if head[2] else {}
+    values = dict(meta["values"], **dict(zip(meta["arrays"], arrays)))
+    return {k: values[k] for k in meta["keys"]}
+
+
+def share(axis: str, owner: int, value: Any, device, stats: Optional[Dict[str, int]] = None
+          ) -> Dict[str, Any]:
+    """The value of the rank at index ``owner`` of ``axis`` ("data" or
+    "model") on every rank of that axis, bit for bit; every rank of the
+    axis calls it, and what the others pass is ignored.
+
+    ``value`` is a dict with str keys. Its numpy arrays and CPU tensors
+    (up to 16, of up to 6 dims; bool, the integer and the float dtypes,
+    bfloat16 as a tensor) cross as their bytes, every other value as JSON.
+    Two `all_reduce` sums of zero-filled buffers through ``device``: an
+    int64 header (present or failed, each array's dtype code and shape,
+    the byte counts), then the bytes packed into int32, which both backends
+    sum on a card as `sum_bits` sums them (as integers, so every bit
+    crosses; a bool array goes as its bytes). The receivers get fresh host
+    arrays of the same
+    kind, dtype and shape, and the JSON values as the owner's JSON reads
+    back; the owner keeps its own value. The device buffers are freed
+    before it returns.
+
+    An exception as the owner's ``value`` (its producer failed), or a value
+    that cannot be packed, is announced in the header: the owner raises its
+    error and every other rank `ShareError`, so no rank waits on another.
+    The identity on an axis of size 1. ``stats``: the bytes of the two
+    buffers added to its "sent" (the owner) or "received" (the others)."""
+    a = _data if axis == DATA else _model
+    if a.size == 1:
+        if isinstance(value, BaseException):
+            raise value
+        return value
+    mine = a.rank == owner
+    header, payload, error = torch.zeros(_SHARE_LEN, dtype=torch.int64), None, None
+    if mine:
+        try:
+            if isinstance(value, BaseException):
+                raise value
+            header, payload = _pack(value)
+        except Exception as e:  # announced, then raised here
+            error = e
+            header[0] = _FAILED
+    head = a.all_reduce(header.to(device)).cpu()
+    if int(head[0]) != _PRESENT:
+        if mine:
+            raise error
+        raise ShareError(f"share over {axis}: the owner, index {owner}, failed to produce its "
+                         "value")
+    n = int(head[3])
+    buf = (payload.to(device) if mine
+           else torch.zeros(-(-n // 4) * 4, dtype=torch.uint8, device=device)).view(torch.int32)
+    a.all_reduce(buf)
+    if stats is not None:
+        key = "sent" if mine else "received"
+        stats[key] = stats.get(key, 0) + head.numel() * 8 + buf.numel() * 4
+    if mine:
+        del buf
+        return value
+    raw = buf.view(torch.uint8).cpu()
+    del buf
+    return _unpack(head, raw.numpy()[:n])

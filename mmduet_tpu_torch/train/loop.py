@@ -265,42 +265,59 @@ def _accumulate(samples, collator, B, A, stack_accum):
 
 
 def rank_real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 4,
-                      skip_batches: int = 0, *, mesh=None):
-    """This rank's share of `real_batches`' optimizer steps, read, decoded
-    and collated by this rank alone: the same steps, in the same order, as
-    ``rank_batch(real_batches(...), cfg, mesh)``, bit for bit.
+                      skip_batches: int = 0, *, mesh=None, stats: Optional[dict] = None):
+    """This rank's share of `real_batches`' optimizer steps, each sample
+    read, decoded and collated once on the mesh: the same steps, in the
+    same order, as ``rank_batch(real_batches(...), cfg, mesh)``, bit for
+    bit.
 
     The ranks share the order (the same shuffle, `set_epoch` and index-level
     resume skip) and cut it into micro-batches of B consecutive positions,
-    dropping a partial tail. Data rank ``d`` of ``D`` fetches positions
-    ``[d * B / D, (d + 1) * B / D)`` of each micro-batch, so its look-ahead
-    window holds only its own samples (model ranks of one data rank fetch
-    the same), and collates them with the unchanged ``collator``. One sum
-    over ``data`` a micro-batch of a (D, 3) tensor on ``mesh.device`` (row
-    d: the rank's length bucket, real tokens, frames) gives what only the
-    whole batch knows: the pad length L (the largest bucket), the frame
-    bucket N (of the total frame count), the real-token count. The rank
-    pads its rows to L with the collator's fills and keeps its own frames,
-    one array a micro-batch (one zero slot where it holds none), and
-    micro-batches queue by the global (L, N), so every rank emits the same
-    steps and drops the same leftovers. ``sample_idxs`` holds the rank's
-    rows, ``num_frames`` and ``n_real_tokens`` the whole batch's. With no
-    mesh or one data rank, the share is the batch: `real_batches` itself."""
+    numbered from 0 after the skip, dropping a partial tail. Model rank
+    ``m`` of ``M`` owns micro-batches ``i = m (mod M)``; data rank ``d`` of
+    ``D`` takes positions ``[d * B / D, (d + 1) * B / D)`` of each. So rank
+    (d, m) fetches, decodes and collates only those positions of its own
+    micro-batches, its look-ahead window holding only them, with the
+    unchanged ``collator``.
+
+    With D > 1 the owners' column (the data group of model index m) runs
+    one sum over ``data`` a micro-batch of a (D, 3) tensor on
+    ``mesh.device`` (row d: the rank's length bucket, real tokens, frames),
+    which gives what only the whole batch knows: the pad length L (the
+    largest bucket), the frame bucket N (of the total frame count), the
+    real-token count. The rank pads its rows to L with the collator's
+    fills and keeps its own frames, one array a micro-batch (one zero slot
+    where it holds none), and micro-batches queue by the global (L, N).
+    With D = 1 the owner collates the whole micro-batch and micro-batches
+    queue by `_accumulate`'s key, stacked by ``stack_accum``: `real_batches`'
+    steps. With M > 1 the owner then sends its share (D = 1: its frames cut
+    to the real ones, padded back on arrival) to the other model ranks
+    (`collectives.share` over ``model``). Ownership and the end of the
+    stream follow from ``len(dataset)``, B, A, the seed and the skip, so
+    every rank issues the same collectives in the same order, and every
+    rank emits the same steps and drops the same leftovers. A rank that
+    fails to read or collate its micro-batch is announced in those sums:
+    every rank of the mesh raises, none waits. ``sample_idxs`` holds the
+    rank's rows, ``num_frames`` and ``n_real_tokens`` the whole batch's.
+    ``stats`` counts the bytes this rank sent and received ("sent",
+    "received"). With no mesh or a mesh of one rank: `real_batches`
+    itself."""
     from concurrent.futures import ThreadPoolExecutor
     from itertools import islice
 
-    from ..parallel.collectives import sum_data
-    from ..parallel.mesh import DATA_AXIS
+    from ..data.collator import stack_accum
+    from ..parallel.collectives import share, sum_data
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
     from ..stream.labels import IGNORE_INDEX
     from .step import _FRAME_KEYS
 
-    data_n = 1 if mesh is None else mesh.shape[DATA_AXIS]
-    if data_n == 1:
+    data_n, model_n = (1, 1) if mesh is None else (mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS])
+    if data_n * model_n == 1:
         yield from real_batches(dataset, collator, B, A, epochs, seed, num_workers, skip_batches)
         return
     if B % data_n:
         raise ValueError(f"a micro-batch of {B} samples over a data axis of {data_n}")
-    per, d = B // data_n, mesh.index(DATA_AXIS)
+    per, d, m = B // data_n, mesh.index(DATA_AXIS), mesh.index(MODEL_AXIS)
     tok = collator.tokenizer
     vid, ft = tok.v_placeholder_id, tok.template.frame_num_tokens
     fills = {"input_ids": tok.pad_token_id, "attn_mask": False, "labels": IGNORE_INDEX,
@@ -308,11 +325,10 @@ def rank_real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 
     order = list(range(len(dataset)))
     rng = random.Random(seed)
     pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+    micros = max(0, epochs * len(order) - skip_batches * B * A) // B  # whole ones after the skip
 
     def samples():
-        skip = skip_batches * B * A
-        whole = max(0, epochs * len(order) - skip) // B * B  # past it: the dropped partial micro
-        pos = 0  # of the stream after the skip
+        skip, pos = skip_batches * B * A, 0  # pos: of the stream after the skip
         for epoch in range(epochs):
             if hasattr(dataset, "set_epoch"):  # after the last epoch's fetches drained
                 dataset.set_epoch(epoch)
@@ -320,25 +336,35 @@ def rank_real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 
             cut = min(skip, len(order))
             skip -= cut
             idxs = [i for p, i in enumerate(order[cut:], pos)
-                    if p < whole and d * per <= p % B < (d + 1) * per]
+                    if p < micros * B and p // B % model_n == m and p % B // per == d]
             pos += len(order) - cut
             if pool is None:
                 yield from map(dataset.__getitem__, idxs)
             else:
                 yield from _prefetch_map(pool, dataset.__getitem__, idxs, depth=2 * num_workers)
 
-    def micro(share):
-        mb = collator(share)
+    def frame_bucket(n_frames):
+        return collator.max_frames if collator.frame_buckets is None else next(
+            b for b in collator.frame_buckets if b >= n_frames)
+
+    def agree(mb):
+        """D > 1: the column's sum of shapes (a failed rank's row says -1),
+        then this rank's share padded to the whole micro-batch's L; the
+        micro-batch, or the error that every rank of the column sees."""
         row = torch.zeros((data_n, 3), dtype=torch.int64, device=mesh.device)
-        row[d] = torch.tensor([mb["input_ids"].shape[1], int(mb["n_real_tokens"]),
+        row[d] = torch.tensor([-1, 0, 0] if isinstance(mb, BaseException) else
+                              [mb["input_ids"].shape[1], int(mb["n_real_tokens"]),
                                int(mb["num_frames"])])
         total = sum_data(row).cpu()
+        failed = [j for j in range(data_n) if total[j, 0] < 0]
+        if isinstance(mb, BaseException) or failed:
+            return mb if isinstance(mb, BaseException) else RuntimeError(
+                f"training data: data rank(s) {failed} of model index {m} failed to read "
+                "their share of a micro-batch")
         L, n_frames = int(total[:, 0].max()), int(total[:, 2].sum())
         if n_frames > collator.max_frames:
-            raise ValueError(f"batch has {n_frames} frames > collator max_frames "
-                             f"{collator.max_frames}")
-        N = collator.max_frames if collator.frame_buckets is None else next(
-            b for b in collator.frame_buckets if b >= n_frames)
+            return ValueError(f"batch has {n_frames} frames > collator max_frames "
+                              f"{collator.max_frames}")
         for k, fill in fills.items():
             mb[k] = np.pad(mb[k], ((0, 0), (0, L - mb[k].shape[1])), constant_values=fill)
         fk = next(k for k in _FRAME_KEYS if k in mb)
@@ -347,18 +373,62 @@ def rank_real_batches(dataset, collator, B, A, epochs, seed, num_workers: int = 
         mb[fk] = mb[fk][:n].copy() if n else np.zeros((1, *mb[fk].shape[1:]), mb[fk].dtype)
         mb["num_frames"] = np.asarray(n_frames, np.int32)
         mb["n_real_tokens"] = np.asarray(int(total[:, 1].sum()), np.int64)
-        return (L, N), mb
+        return mb
+
+    def own(it):
+        """The micro-batch this rank owns: its share, collated (and agreed
+        over ``data``), or the error that stopped it."""
+        try:
+            part = list(islice(it, per))
+            if len(part) != per:
+                raise RuntimeError(f"training data: {len(part)} of {per} samples left for a "
+                                   "micro-batch")
+            mb = collator(part)
+        except Exception as e:  # announced to the column and the model ranks
+            mb = e
+        return agree(mb) if data_n > 1 else mb
+
+    def key(mb):
+        if data_n > 1:
+            return mb["input_ids"].shape[1], frame_bucket(int(mb["num_frames"]))
+        return tuple((name, v.shape) for name, v in sorted(mb.items()) if hasattr(v, "shape"))
+
+    def exchange(i, mb):
+        """Micro-batch ``i`` from its owner (model index i mod M) on every
+        model rank; D = 1 sends only the real frames."""
+        if model_n == 1:
+            return mb
+        owner = i % model_n
+        sent = mb
+        if data_n == 1 and owner == m and not isinstance(mb, BaseException):
+            fk = next(k for k in _FRAME_KEYS if k in mb)
+            sent = dict(mb, **{fk: mb[fk][:int(mb["num_frames"])]})
+        got = share("model", owner, sent, mesh.device, stats)
+        if owner == m:
+            return mb
+        if data_n > 1:
+            return got
+        fk = next(k for k in _FRAME_KEYS if k in got)
+        frames = np.zeros((frame_bucket(len(got[fk])), *got[fk].shape[1:]), got[fk].dtype)
+        frames[:len(got[fk])] = got[fk]
+        return dict(got, **{fk: frames})
 
     try:
         it, by_shape = samples(), {}
-        while share := list(islice(it, per)):
-            key, mb = micro(share)
-            q = by_shape.setdefault(key, [])
+        for i in range(micros):
+            mb = exchange(i, own(it) if i % model_n == m else None)
+            if isinstance(mb, BaseException):
+                raise mb
+            shape = key(mb)
+            q = by_shape.setdefault(shape, [])
             q.append(mb)
             if len(q) == A:
-                micros = by_shape.pop(key)
-                yield {k: tuple(m[k] for m in micros) if k in _FRAME_KEYS
-                       else np.stack([m[k] for m in micros]) for k in micros[0]}
+                group = by_shape.pop(shape)
+                if data_n == 1:
+                    yield stack_accum(group)
+                else:
+                    yield {k: tuple(x[k] for x in group) if k in _FRAME_KEYS
+                           else np.stack([x[k] for x in group]) for k in group[0]}
     finally:
         if pool is not None:
             pool.shutdown(wait=False, cancel_futures=True)

@@ -10,7 +10,9 @@ agree to 2e-4 and its answers are equal; the rows are the same bits on
 every rank; each rank's cache is its (B / D, kh / M) block; admission
 churn equals per-session single engines within 3e-5. Then the CLI under
 ``torch.distributed.run`` with ``--mesh_data`` writes the one-process
-CLI's rows, batched and offline (three more launches)."""
+CLI's rows, batched and offline (three more launches,
+`tests/torch_cli_worker.py`), each sample decoded by one rank, a video
+that fails on one rank alone skipped by every rank."""
 
 import json
 import os
@@ -24,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cli_worker as cli_worker
 
 from mmduet_tpu.config import TestArgs as InferArgs, tiny_config
 from mmduet_tpu.infer import BatchedStreamEngine as JaxBatchedEngine
@@ -282,14 +285,16 @@ def cli_inputs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
     (d / "videos").mkdir()
     anno = []
-    for i, n in enumerate((30, 20, 25, 15)):
-        w = cv2.VideoWriter(str(d / "videos" / f"v{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+    # sample 1 is a video that fails to decode on one rank only (`torch_cli_worker`)
+    for name, seed, n in (("v0", 0, 30), ("flaky", 9, 10), ("v1", 1, 20), ("v2", 2, 25),
+                          ("v3", 3, 15)):
+        w = cv2.VideoWriter(str(d / "videos" / f"{name}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
                             10, (36, 28))
-        r = np.random.RandomState(i)
+        r = np.random.RandomState(seed)
         for _ in range(n):
             w.write(r.randint(0, 255, (28, 36, 3), np.uint8))
         w.release()
-        anno.append({"question_id": f"q{i}", "video": f"v{i}.mp4",
+        anno.append({"question_id": f"q{name.lstrip('v')}", "video": f"{name}.mp4",
                      "conversation": [{"role": "user", "content": "query?", "time": 0}]})
     (d / "eval.json").write_text(json.dumps(anno))
     argv = ["--tiny_random", "--no_prefetch", "--device", "cpu", "--input_dir",
@@ -312,17 +317,28 @@ CLI_MESHES = [("2", "1", "2", []), ("2", "2", "4", []),
 
 
 @pytest.mark.parametrize("mesh", CLI_MESHES, ids=["2x1", "2x2", "offline_2x1"])
-def test_cli_mesh_data_under_torchrun_writes_the_one_process_rows(cli_inputs, mesh):
+def test_cli_mesh_data_under_torchrun_writes_the_one_process_rows(cli_inputs, mesh, monkeypatch):
+    """The rows of the one process. Sample k of the 5 is decoded by rank
+    k mod D*M alone (row-major over (data, model); each rank's count on
+    stderr); sample 1's video fails to decode on rank 1 alone
+    (`torch_cli_worker`), and in the one process: every rank skips it."""
+    from mmduet_tpu_torch.data import eval_dataset
     from mmduet_tpu_torch.eval.inference import main as torch_main
 
     d, argv = cli_inputs
     data_n, model_n, B, route = mesh
     name = f"{data_n}x{model_n}{'_offline' if route else ''}"
     one, dp = d / f"one_{name}.jsonl", d / f"dp_{name}.jsonl"
+    monkeypatch.setattr(eval_dataset, "decode_video", cli_worker.failing(
+        eval_dataset.decode_video, "flaky.mp4", lambda: True))
     torch_main(argv + route + ["--batch_streams", B, "--output_fname", str(one)])
-    _torchrun(int(data_n) * int(model_n), "-m", "mmduet_tpu_torch.eval.inference", *argv,
-              *route, "--batch_streams", B, "--mesh_data", data_n, "--mesh_model", model_n,
-              "--dist_backend", "gloo", "--output_fname", str(dp))
+    world = int(data_n) * int(model_n)
+    out = _torchrun(world, "tests/torch_cli_worker.py", "1", "flaky.mp4", *argv, *route,
+                    "--batch_streams", B, "--mesh_data", data_n, "--mesh_model", model_n,
+                    "--dist_backend", "gloo", "--output_fname", str(dp))
+    assert cli_worker.decoded(out.stderr) == {
+        divmod(r, int(model_n)): (len(range(r, 5, world)), 5) for r in range(world)}
+    assert out.stderr.count("skipping qflaky:") == world
     got, want = _rows(dp), _rows(one)
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):

@@ -9,7 +9,9 @@ texts are equal, as the JAX package's own TP tests require; both ranks'
 rows are the same; the ranks load nothing of jax or of the JAX package.
 Then the CLI under ``torch.distributed.run --nproc_per_node 2
 --mesh_model 2`` (single-stream, batched and offline-baseline routes:
-three more launches) writes the rows of the one-process CLI."""
+three more launches, `tests/torch_cli_worker.py`) writes the rows of the
+one-process CLI, each sample decoded by one rank, a video that fails on
+one rank alone skipped by both."""
 
 import json
 import os
@@ -23,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cli_worker as cli_worker
 
 from mmduet_tpu.config import TestArgs as InferArgs, tiny_config
 from mmduet_tpu.infer import BatchedStreamEngine as JaxBatchedEngine
@@ -168,14 +171,15 @@ def cli_inputs(tmp_path_factory):
     d = tmp_path_factory.mktemp("cli")
     (d / "videos").mkdir()
     anno = []
-    for i in range(2):
-        w = cv2.VideoWriter(str(d / "videos" / f"v{i}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
+    # sample 1 is a video that fails to decode on one rank only (`torch_cli_worker`)
+    for name, seed in (("v0", 0), ("flaky", 9), ("v1", 1)):
+        w = cv2.VideoWriter(str(d / "videos" / f"{name}.mp4"), cv2.VideoWriter_fourcc(*"mp4v"),
                             10, (36, 28))
-        r = np.random.RandomState(i)
+        r = np.random.RandomState(seed)
         for _ in range(30):
             w.write(r.randint(0, 255, (28, 36, 3), np.uint8))
         w.release()
-        anno.append({"question_id": f"q{i}", "video": f"v{i}.mp4",
+        anno.append({"question_id": f"q{name.lstrip('v')}", "video": f"{name}.mp4",
                      "conversation": [{"role": "user", "content": "query?", "time": 0}]})
     (d / "eval.json").write_text(json.dumps(anno))
     argv = ["--tiny_random", "--no_prefetch", "--device", "cpu", "--input_dir",
@@ -194,15 +198,24 @@ def _rows(path):
 
 @pytest.mark.parametrize("route", [[], ["--batch_streams", "2"], ["--is_online_model", "false"]],
                          ids=["single", "batched", "offline"])
-def test_cli_under_torchrun_writes_the_one_process_rows(cli_inputs, route):
+def test_cli_under_torchrun_writes_the_one_process_rows(cli_inputs, route, monkeypatch):
+    """The rows of the one process. Sample k is decoded by rank k mod 2
+    alone (each rank's count on stderr); sample 1's video fails to decode
+    on rank 1 alone (`torch_cli_worker`), and in the one process: every
+    rank skips it."""
+    from mmduet_tpu_torch.data import eval_dataset
     from mmduet_tpu_torch.eval.inference import main as torch_main
 
     d, argv = cli_inputs
     name = route[-1] if route else "single"
     one, tp = d / f"one_{name}.jsonl", d / f"tp_{name}.jsonl"
+    monkeypatch.setattr(eval_dataset, "decode_video", cli_worker.failing(
+        eval_dataset.decode_video, "flaky.mp4", lambda: True))
     torch_main(argv + route + ["--output_fname", str(one)])
-    _torchrun("-m", "mmduet_tpu_torch.eval.inference", *argv, *route, "--mesh_model", "2",
-              "--dist_backend", "gloo", "--output_fname", str(tp))
+    out = _torchrun("tests/torch_cli_worker.py", "1", "flaky.mp4", *argv, *route,
+                    "--mesh_model", "2", "--dist_backend", "gloo", "--output_fname", str(tp))
+    assert cli_worker.decoded(out.stderr) == {(0, 0): (2, 3), (0, 1): (1, 3)}
+    assert out.stderr.count("skipping qflaky:") == 2
     got, want = _rows(tp), _rows(one)
     assert len(got) == len(want) == 2
     for g, w in zip(got, want):

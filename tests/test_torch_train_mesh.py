@@ -19,9 +19,11 @@ absolute, the Adam moments as `tests/test_torch_train.py` holds them
 (1e-7 absolute, 1e-4 relative). Then the checkpoint of the (2, 2) ranks
 resumed in one process and on (2, 1); each launch's ranks reading
 `torch_train_mesh_worker.LoaderData` alone (`loop.rank_real_batches`),
-bit for bit `rank_batch` of the steps `real_batches` collates whole here;
-and the CLI under ``torch.distributed.run`` (two more launches) against
-the one-process CLI."""
+bit for bit `rank_batch` of the steps `real_batches` collates whole here,
+each sample fetched by one rank of the mesh, also where the last rank
+alone fails to read an item; `collectives.share` of every dtype over each
+axis; and the CLI under ``torch.distributed.run`` (two more launches)
+against the one-process CLI."""
 
 import dataclasses
 import json
@@ -595,21 +597,116 @@ def test_rank_loader_reads_the_rank_share_of_each_step(ranks, whole_steps, name)
                     assert gx.numpy().dtype == wx.dtype, (i, k)
                     np.testing.assert_array_equal(gx.numpy(), wx, err_msg=f"step {i} {k}")
             assert isinstance(g["frames"], tuple) == (shape[0] > 1)
+            if shape[0] == 1:  # `real_batches`' steps themselves, in its key order
+                assert list(g) == list(step), i
+
+
+def _owner(p: int, shape) -> int:
+    """The rank that fetches position ``p`` of the stream on a (D, M)
+    mesh: model index ``i mod M`` of micro-batch ``i = p // B``, data
+    index of the block of B / D positions that holds ``p``."""
+    (data_n, model_n), B = shape, worker.LOADER_ARGS["B"]
+    return p % B // (B // data_n) * model_n + p // B % model_n
 
 
 @pytest.mark.parametrize("name", list(LAYOUTS))
 def test_rank_loader_fetches_only_the_rank_positions(ranks, whole_steps, name):
-    """Data rank ``d`` of 2 fetches positions ``[2 d, 2 d + 2)`` of each
-    whole micro-batch and nothing of the dropped partial tail; one data
-    rank fetches what the one process fetches: the whole stream."""
-    (data_n, model_n), _ = LAYOUTS[name]
-    stream, B = _stream(), worker.LOADER_ARGS["B"]
+    """Model rank ``m`` of data rank ``d`` fetches exactly the positions
+    ``[d B / D, (d + 1) B / D)`` of the whole micro-batches ``i = m (mod
+    M)``, and nothing of the dropped partial tail: the model ranks of a
+    data rank fetch disjoint sets whose union is its share, and the mesh
+    fetches each position once, as the one process does. A rank that
+    shares over ``model`` sends and receives; a (D, 1) rank shares
+    nothing."""
+    shape, _ = LAYOUTS[name]
+    (data_n, model_n), (stream, B) = shape, (_stream(), worker.LOADER_ARGS["B"])
     assert sorted(whole_steps[1]) == sorted(stream)
-    whole, per = len(stream) // B * B, B // data_n
+    whole = len(stream) // B * B
+    fetched = [sorted(map(tuple, out["loader"]["fetched"])) for out in ranks[name]]
+    for r, got in enumerate(fetched):
+        assert got == sorted(stream[p] for p in range(whole) if _owner(p, shape) == r), r
+        stats = ranks[name][r]["loader"]["stats"]
+        assert (stats["sent"] > 0 and stats["received"] > 0) if model_n > 1 else stats == {}
+    for d in range(data_n):
+        share = sorted(stream[p] for p in range(whole) if p % B // (B // data_n) == d)
+        union = sorted(x for got in fetched[d * model_n:(d + 1) * model_n] for x in got)
+        assert union == share, d  # disjoint: no position twice in the union
+    assert sorted(x for got in fetched for x in got) == sorted(stream[:whole])
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_rank_loader_steps_agree_when_one_rank_fails_a_read(ranks, name):
+    """The last rank alone fails to read item LOADER_FLAKY (in every epoch)
+    and replaces it as `StreamDataset` does (on (2, 2) it is a TP partner).
+    Only the rank that owns a position reads it, so the mesh's steps are
+    `rank_batch` of the one process's steps where the item fails at the
+    positions the last rank owns and nowhere else, bit for bit on every rank: the model ranks of a data rank hold
+    the same bits. The data holds both kinds of position in every layout,
+    and the failures change the steps."""
+    shape, _ = LAYOUTS[name]
+    stream, B = _stream(), worker.LOADER_ARGS["B"]
+    flaky = [p for p, (_, i) in enumerate(stream[:len(stream) // B * B])
+             if i == worker.LOADER_FLAKY]
+    fails = [stream[p] for p in flaky if _owner(p, shape) == shape[0] * shape[1] - 1]
+    assert fails and len(fails) < len(flaky)
+    data = worker.LoaderData(fails)
+    steps = list(tloop.real_batches(data, worker.loader_collator(data), **worker.LOADER_ARGS))
+    clean = list(tloop.real_batches(worker.LoaderData(), worker.loader_collator(data),
+                                    **worker.LOADER_ARGS))
+    assert any(not np.array_equal(a["sample_idxs"], b["sample_idxs"])
+               for a, b in zip(steps, clean))
     for r, out in enumerate(ranks[name]):
-        d = r // model_n
-        want = stream if data_n == 1 else [stream[p] for p in range(whole) if p % B // per == d]
-        assert sorted(map(tuple, out["loader"]["fetched"])) == sorted(want), r
+        mesh = ProcessMesh(shape, divmod(r, shape[1]), torch.device("cpu"))
+        got = out["flaky_loader"]["steps"]
+        assert len(got) == len(steps), r
+        for i, (g, step) in enumerate(zip(got, steps)):
+            want = tstep.rank_batch({k: v for k, v in step.items() if k not in HOST_KEYS},
+                                    CFG, mesh)
+            want.update({k: step[k] for k in HOST_KEYS})
+            assert set(g) == set(want), i
+            for k, w in want.items():
+                for gx, wx in (zip(g[k], w) if isinstance(w, tuple) else [(g[k], w)]):
+                    assert gx.numpy().dtype == wx.dtype, (r, i, k)
+                    np.testing.assert_array_equal(gx.numpy(), wx, err_msg=f"rank {r} step {i} {k}")
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_share_crosses_every_value_bit_for_bit(ranks, name):
+    """`collectives.share` from each owner index of each axis: every other
+    rank of the axis gets `share_value(owner)` bit for bit (bf16 and f32
+    -0.0 and NaN payloads, bool, uint8, an empty frame array, 0-d and int32
+    arrays, each of its kind, dtype and shape; the JSON values), the owner
+    keeps its own value; an owner's error raises there and `ShareError` on
+    the others. On an axis of size 1 it is the identity. Over both axes
+    (`eval.inference.mesh_items`) an item arrives bit for bit on every
+    rank, and an item whose owner fails to fetch it raises on every rank,
+    none left waiting."""
+    shape, _ = LAYOUTS[name]
+    for r, out in enumerate(ranks[name]):
+        coords = dict(zip(("data", "model"), divmod(r, shape[1])))
+        for axis, size in zip(("data", "model"), shape):
+            for owner in range(size):
+                case = out["share"][f"{axis}{owner}"]
+                want = worker._as_record(worker.share_value(owner))
+                mine = coords[axis] == owner
+                assert case["kept"] == mine, (r, axis, owner)
+                assert case["raised"] == ("ValueError" if mine else "ShareError"), (r, axis)
+                assert list(case["got"]) == list(want)
+                for k, w in want.items():
+                    g = case["got"][k]
+                    if isinstance(w, str):
+                        assert g == w, k
+                    else:
+                        assert tuple(g[:3]) == tuple(w[:3]) and torch.equal(g[3], w[3]), k
+        items = out["share"]["items"]  # `mesh_items`: item 0 arrives, item 1's owner (rank 1) fails
+        assert items["raised"] == ("ValueError" if r == 1 else "ShareError"), r
+        assert len(items["got"]) == 1
+        want = worker._as_record(worker.share_value(0))
+        assert [k for k in items["got"][0]] == list(want)
+        for k, w in want.items():
+            g = items["got"][0][k]
+            assert g == w if isinstance(w, str) else (
+                tuple(g[:3]) == tuple(w[:3]) and torch.equal(g[3], w[3])), k
 
 
 def test_rank_loader_steps_agree_over_layouts(ranks, whole_steps):

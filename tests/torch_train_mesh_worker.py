@@ -35,8 +35,10 @@ import torch
 
 from mmduet_tpu_torch.config import TrainArgs, tiny_config
 from mmduet_tpu_torch.data.collator import Collator
+from mmduet_tpu_torch.eval.inference import mesh_items
 from mmduet_tpu_torch.parallel import (initialize_distributed, make_mesh, shard_params,
                                        shard_train_state)
+from mmduet_tpu_torch.parallel.collectives import share
 from mmduet_tpu_torch.parallel.sharding import gather_train_state, gather_trainable
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.train import checkpoint, make_optimizer
@@ -54,16 +56,20 @@ LOADER_ARGS = dict(B=4, A=2, epochs=3, seed=11, num_workers=2, skip_batches=1)
 # frames, and 10 frames in 600 tokens, cut by the collator at 512 tokens
 LOADER_TURNS = ((), (2,), (), (1,), (1, 3), (2, 2, 2, 2, 2))
 LOADER_BROKEN = 5  # an item that fails, replaced as `StreamDataset` replaces one
+LOADER_FLAKY = 8  # an item that the last rank alone fails to read (a transient error), in every epoch
 
 
 class LoaderData:
     """13 duet samples (frames of 8 pixels a side), each made from its
     index alone; every index asked for is recorded with the epoch it was
-    asked in (the fetches run on the loader's threads)."""
+    asked in (the fetches run on the loader's threads). An item fails, and
+    is replaced as `StreamDataset` replaces one, where it is LOADER_BROKEN
+    or its (epoch, index) is in ``fails``."""
 
-    def __init__(self):
+    def __init__(self, fails=()):
         self.tok = CharTokenizer(frame_num_tokens=4)
         self.epoch, self.fetched, self._lock = 0, [], threading.Lock()
+        self.fails = set(fails)
 
     def __len__(self):
         return 13
@@ -75,7 +81,8 @@ class LoaderData:
         if _depth == 0:
             with self._lock:
                 self.fetched.append((self.epoch, index))
-        if index == LOADER_BROKEN:  # a deterministic alternative, as on a decode failure
+        if index == LOADER_BROKEN or (self.epoch, index) in self.fails:
+            # a deterministic alternative, as on a decode failure
             return self.__getitem__((7 * index + 3) % len(self), _depth + 1)
         return duet_sample(self.tok, np.random.RandomState(index), index,
                            LOADER_TURNS[index % len(LOADER_TURNS)], 8)
@@ -93,14 +100,84 @@ def _shapes(tree):
     return [tuple(t.shape) for t in tree_leaves(tree)]
 
 
-def _read_share(mesh) -> dict:
-    """This rank's steps from `rank_real_batches` over `LoaderData` (as
-    tensors) and the (epoch, index) of every item it fetched."""
-    data = LoaderData()
-    steps = rank_real_batches(data, loader_collator(data), **LOADER_ARGS, mesh=mesh)
+def _read_share(mesh, fails=()) -> dict:
+    """This rank's steps from `rank_real_batches` over `LoaderData(fails)`
+    (as tensors), the (epoch, index) of every item it fetched and the
+    bytes it sent and received."""
+    data, stats = LoaderData(fails), {}
+    steps = rank_real_batches(data, loader_collator(data), **LOADER_ARGS, mesh=mesh, stats=stats)
     steps = [{k: tuple(map(torch.from_numpy, v)) if isinstance(v, tuple)
               else torch.from_numpy(v) for k, v in step.items()} for step in steps]
-    return {"steps": steps, "fetched": data.fetched}
+    return {"steps": steps, "fetched": data.fetched, "stats": stats}
+
+
+def share_value(owner: int) -> dict:
+    """What owner index ``owner`` of an axis shares: bf16 and f32 values
+    with -0.0 and NaN payloads, bool, uint8 frames, an empty frame array,
+    0-d and int32 arrays, and JSON values."""
+    r = np.random.RandomState(owner)
+    bf16 = torch.tensor([1.5, -0.0, 0.0, -2.0, 3.0], dtype=torch.bfloat16)
+    bf16.view(torch.int16)[2:4] = torch.tensor([0x7F81, -0x3B], dtype=torch.int16)  # NaNs
+    f32 = np.array([0.0, -0.0, 1.0, 0.0, 0.0], np.float32)
+    f32.view(np.uint32)[3:] = [0x7FC00001 + owner, 0xFF812345]  # NaNs with payloads
+    return {"conversation": [{"role": "user", "content": f"\u00fc{owner}?", "time": 0.1}],
+            "bf16": bf16, "f32": f32, "mask": r.rand(3, 4) > 0.5,
+            "frames": r.randint(0, 256, (3, 8, 8, 3)).astype(np.uint8),
+            "empty": np.zeros((0, 8, 8, 3), np.uint8), "count": np.asarray(owner + 7, np.int64),
+            "ids": r.randint(-9, 9, (2, 5)).astype(np.int32), "fps": 2.0, "error": None}
+
+
+def _as_record(value: dict) -> dict:
+    """A shared value as `torch.save` keeps it: each array as (its kind,
+    dtype, shape, bytes), every other value as its JSON."""
+    out = {}
+    for k, v in value.items():
+        if isinstance(v, np.ndarray):
+            out[k] = ("numpy", v.dtype.str, tuple(v.shape),
+                      torch.from_numpy(np.ascontiguousarray(v).reshape(-1).view(np.uint8).copy()))
+        elif torch.is_tensor(v):
+            out[k] = ("torch", str(v.dtype), tuple(v.shape),
+                      v.contiguous().reshape(-1).view(torch.uint8).clone())
+        else:
+            out[k] = json.dumps(v)
+    return out
+
+
+def _share_cases(mesh) -> dict:
+    """`collectives.share` over each axis of the mesh from each owner
+    index: what arrived here (`_as_record`), whether the owner got its own
+    value back, and what each rank raised when the owner's value was an
+    error; then `eval.inference.mesh_items` over both axes of three items
+    whose second fails to fetch on its owner: what arrived, what was
+    raised."""
+    out = {}
+    for axis in ("data", "model"):
+        mine = mesh.index(axis)
+        for owner in range(mesh.shape[axis]):
+            value = share_value(owner) if owner == mine else None
+            got = share(axis, owner, value, mesh.device)
+            try:
+                share(axis, owner, ValueError("no sample") if owner == mine else None,
+                      mesh.device)
+                raised = None
+            except Exception as e:
+                raised = type(e).__name__
+            out[f"{axis}{owner}"] = {"got": _as_record(got), "kept": got is value,
+                                     "raised": raised}
+
+    def fetch(k):
+        if k == 1:
+            raise ValueError("no sample")
+        return share_value(k)
+
+    got, raised = [], None
+    try:  # item 1's owner (rank 1) fails: every rank raises, none waits
+        for item in mesh_items(3, fetch, mesh, 0):
+            got.append(_as_record(item))
+    except Exception as e:
+        raised = type(e).__name__
+    out["items"] = {"got": got, "raised": raised}
+    return out
 
 
 def main(out_dir: str) -> None:
@@ -144,6 +221,10 @@ def main(out_dir: str) -> None:
         out["resumed"] = {"step": resumed.step, "metrics": metrics,
                           "trainable": gather_trainable(resumed.trainable, mesh)}
     out["loader"] = _read_share(mesh)
+    last = rank == torch.distributed.get_world_size() - 1
+    out["flaky_loader"] = _read_share(
+        mesh, [(e, LOADER_FLAKY) for e in range(LOADER_ARGS["epochs"])] if last else ())
+    out["share"] = _share_cases(mesh)
     out["modules"] = sorted(m for m in sys.modules
                             if m.split(".")[0] in ("jax", "jaxlib", "mmduet_tpu"))
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
