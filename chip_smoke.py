@@ -22,7 +22,8 @@ Phases (any failure ends the run with a nonzero exit):
    training buckets beside `scaled_dot_product_attention` as the library's
    yardstick, the backward's four kernels also each on its own), kernel A' (kernel A per shard of a one-device mesh: for four
    mesh shapes, both caches and three chunk shapes at 8 lanes, bit-equal to
-   one launch) and kernel D (the ViT tower's attention at 32 frames x 729
+   one launch; timed on the (2, 2) mesh beside one
+   `scaled_dot_product_attention` a shard) and kernel D (the ViT tower's attention at 32 frames x 729
    patches x 16 heads of 72, at CLIP-L/14-336's 32 x 577 x 16 heads of 64,
    both timed beside `scaled_dot_product_attention`, and at small ragged
    shapes). Plain versions with one fault (a lost
@@ -34,8 +35,9 @@ Phases (any failure ends the run with a nonzero exit):
    B, C and D again at the shapes a rank of a (1, 2) tensor-parallel mesh
    gives them (14 query heads over 2 kv heads; the six local weight shapes
    from 3584 -> 1792 to the LM head's 3584 -> 76032; C forward and backward
-   at one sample of the 2944-token bucket; 8 of 16 heads), timed beside
-   their bounds and the library calls. ``--kernels-only`` stops here
+   at one sample of the 2944-token bucket; 8 of 16 heads), and kernel A
+   (both caches) at a (1, 4) rank's 7 query heads over 1 kv head, timed
+   beside their bounds and the library calls. ``--kernels-only`` stops here
    (no result line);
 3. an HF-format llava-OV directory at the published widths (2 decoder and
    2 vision layers: all of them would write ~16 GB, past the time; random
@@ -583,6 +585,49 @@ def _time_sdpa_decode(q, k_cache, v_cache, ck, cv, layer: int, cache_len: int, t
     return _graph_ms(lambda: sdpa(qh, k, v, **kw)), ratio
 
 
+def _time_sdpa_shards(q, k_cache, v_cache, ck, cv, cl, tr, qo, layer: int, mesh: tuple,
+                      want, rms) -> tuple:
+    """The library's yardstick for kernel A' with a bf16 cache, timed here
+    and called nowhere in the port: for each (lane shard, head shard) of a
+    ``mesh`` (data, model) on one device, one `scaled_dot_product_attention`
+    over the shard's lanes and heads, on the cache's first max(cursor) slots
+    of ``layer`` and the chunk (concatenated beforehand, outside the timing),
+    with an explicit boolean mask a lane (cache slot j iff j < cache_len[b];
+    chunk col j for query row t iff j <= q_offset[b] + t and j < t_real[b])
+    and ``enable_gqa``. Returns (the shards' calls together, ms by CUDA graph
+    replay; the real rows' largest ratio to kernel A's row bound against
+    the plain version, which must be <= 1: the same function)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, T, nh, _ = q.shape
+    kh, Tc, dev = k_cache.shape[2], ck.shape[2], q.device
+    (data_n, model_n), lb = mesh, B // mesh[0]
+    hq, hk = nh // model_n, kh // model_n
+    row, col = torch.arange(T, device=dev)[:, None], torch.arange(Tc, device=dev)[None]
+    calls, out = [], torch.empty_like(q)
+    for i in range(data_n):
+        ln = slice(i * lb, (i + 1) * lb)
+        n = int(cl[ln].max())
+        mask = torch.cat([
+            (torch.arange(n, device=dev)[None, None] < cl[ln, None, None]).expand(lb, T, n),
+            (col[None] <= qo[ln, None, None] + row[None]) & (col[None] < tr[ln, None, None])],
+            dim=2)[:, None]
+        for j in range(model_n):
+            kv, qh = slice(j * hk, (j + 1) * hk), slice(j * hq, (j + 1) * hq)
+            k = torch.cat([k_cache[layer, ln, kv, :n], ck[ln, kv]], dim=2)
+            v = torch.cat([v_cache[layer, ln, kv, :n], cv[ln, kv]], dim=2)
+            qt = q[ln, :, qh].transpose(1, 2)
+            call = lambda qt=qt, k=k, v=v, mask=mask: sdpa(  # noqa: E731
+                qt, k, v, attn_mask=mask, enable_gqa=True)
+            out[ln, :, qh] = call().transpose(1, 2)
+            calls.append(call)
+    ratio = max(bounds.row_ratio(out[b, :int(tr[b])], want[b, :int(tr[b])], rms[b, :int(tr[b])])
+                for b in range(B))
+    if not ratio <= 1.0:
+        raise AssertionError(f"scaled_dot_product_attention on the shards of {mesh}: {ratio} of "
+                             "kernel A's row bound: not the same function")
+    return _graph_ms(lambda: [call() for call in calls]), ratio
+
+
 # Kernel A' at B = 8 lanes with a cursor of its own each; (data, model) mesh
 # shapes whose shards divide 8 lanes, 28 heads and 4 kv heads.
 SHARD_LANES = (0, 1, 63, 700, 2047, 2048, 4999, 6000)
@@ -637,7 +682,7 @@ def check_sharded_attention_kernel(log) -> dict:
             if not math.isfinite(ratio) or ratio > 1.0:
                 raise AssertionError(f"flash_decode kernel at B={B} ({variant} cache, {name}) "
                                      f"vs plain: {ratio} times the row bound")
-            del want, rows, rms
+            del rows
             for shape, ctx in ctxs.items():
                 before = attention.SHARDED_LAUNCHES
                 got = attention.flash_decode_attention_sharded(
@@ -680,15 +725,20 @@ def check_sharded_attention_kernel(log) -> dict:
                 parts = [bounds.decode_attention_bound(1, T, nh, kh, hd, c, int(t), q_off)
                          for c, t in zip(SHARD_LANES, tr.tolist())]
                 bound_ms = sum(p[0] for p in parts)
-                timed = (ms, plain_ms, bound_ms, parts[-1][1])
+                library_ms, lib_ratio = _time_sdpa_shards(q, kc, vc, ck, cv, cl, tr, qo, layer,
+                                                          (2, 2), want, rms)
+                timed = (ms, plain_ms, bound_ms, parts[-1][1], library_ms)
                 log(f"flash_decode sharded, {name}, B={B} lanes at cursors {SHARD_LANES}: the "
                     f"(2, 2) mesh's four launches {ms:.4f} ms, one launch {one_ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({parts[-1][1]})")
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({parts[-1][1]}), "
+                    f"scaled_dot_product_attention on each shard (explicit mask, enable_gqa) "
+                    f"{library_ms:.4f} ms, its output {lib_ratio:.3f} of the row bound")
+            del want, rms
         del q, ck, cv
     log(f"flash_decode sharded: {n_equal} (mesh, cache, shape) cases bit-equal to one launch, "
         f"which is within the row bound of the plain version (max|diff| {worst}); wrong "
         f"cursors and wrong kv heads both fail")
-    ms, plain_ms, bound_ms, bound_by = timed
+    ms, plain_ms, bound_ms, bound_by, library_ms = timed
     return {
         "name": "flash_decode_attention_sharded ((2, 2) mesh on one device: four launches)",
         "route": "cuda",
@@ -699,7 +749,8 @@ def check_sharded_attention_kernel(log) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "library_ms": None,  # as kernel A: no single PyTorch call computes it
+        # one SDPA call a shard over its lanes and heads, the four calls together
+        "library_ms": library_ms,
     }
 
 
@@ -2906,10 +2957,14 @@ def check_tp_kernels(log) -> dict:
     """Kernels A (bf16 and int8 cache), B, C and D held against their plain
     versions, and timed beside their bounds, at the shapes each rank of a
     (x, 2) mesh gives them: A and C at 14 query heads over 2 kv heads, B at
-    the six local weight shapes, D at 8 of 16 heads. Returns the numbers for
-    the kernels line."""
+    the six local weight shapes, D at 8 of 16 heads; and A at a (1, 4)
+    rank's 7 query heads over 1 kv head. Returns the numbers for the kernels
+    line."""
     tp_log = lambda msg: log(f"rank-local shapes of a (1, {TP_RANKS}) mesh: {msg}")  # noqa: E731
     dec, dec_int8 = check_attention_kernel(tp_log, nh=14, kh=2, cache_lens=TP_CACHE_LENS)
+    dec4, dec4_int8 = check_attention_kernel(
+        lambda msg: log(f"rank-local shapes of a (1, 4) mesh: {msg}"), nh=7, kh=1,
+        cache_lens=TP_CACHE_LENS)
     worst, worst_ratio, b_timed = check_int4_shapes(tp_log, TP_INT4_SHAPES, TP_INT4_ROWS, seed=13)
     tp_log(f"int4_matmul: {len(TP_INT4_SHAPES) * len(TP_INT4_ROWS)} cases within the bound "
            f"(max|diff| {worst}, at most {worst_ratio:.4f} of it)")
@@ -2925,6 +2980,8 @@ def check_tp_kernels(log) -> dict:
         "full_bwd": {"heads": [14, 2], **{k: c_bwd[k] for k in keys}},
         "attention": {"heads": [14, 2], **{k: dec[k] for k in keys}},
         "attention_int8": {"heads": [14, 2], **{k: dec_int8[k] for k in keys}},
+        "attention_1x4": {"heads": [7, 1], **{k: dec4[k] for k in keys}},
+        "attention_int8_1x4": {"heads": [7, 1], **{k: dec4_int8[k] for k in keys}},
         "int4_matmul": {"max_abs_err": worst, "shapes": [
             {"H": H, "O": O, "rows": R, **t} for ((H, O), R), t in b_timed.items()]},
         "vision": {"max_abs_err": d_worst, "shape": list(TP_VISION_SHAPES[0]), **d_timed},
@@ -4117,9 +4174,14 @@ def main(argv=None) -> int:
         # the rank-local shapes' numbers, and rank 0's launches on the TP path
         entry["tp_local"] = dict(tp_kernels[key], launches=r0[run][key]
                                  + (r0["quantized"]["vision"] if key == "vision" else 0))
+    for entry, key in ((dec, "attention_1x4"), (dec_int8, "attention_int8_1x4")):
+        # a (1, 4) rank's shapes, held and timed here; no (1, 4) mesh is served
+        entry["tp_local_1x4"] = tp_kernels[key]
     sharded["process_mesh"] = {  # A' on a process mesh: kernel A once a rank and layer
         "launches": r0["dense"]["attention"], "layers": cfg.text.num_layers,
-        **{k: tp_kernels["attention"][k] for k in ("ms", "bound_ms", "bound_by")}}
+        **{k: tp_kernels["attention"][k] for k in ("ms", "bound_ms", "bound_by", "library_ms")},
+        "rank_1x4": {k: tp_kernels["attention_1x4"][k]
+                     for k in ("ms", "bound_ms", "bound_by", "library_ms")}}
     dp = run_dp_phase(log, dp_ref, tp["tol"])
     d0, d2 = dp["ranks"][0], dp["ranks2"][0]
     for entry, run, key in ((dec, "bf16", "attention"), (dec_int8, "int8", "attention_int8"),

@@ -12,7 +12,7 @@ read-only: the caller commits the chunk's K/V afterwards
 plain version (`flash_decode_attention_ref`); tensors on a CUDA device
 launch the kernel in ``csrc/flash_decode.cu`` or raise. The kernel runs
 on the tensor cores for both cache types, split over the cache when the
-rows are few (`decode_split_span`); it rounds the softmax numerators to
+rows are few (`decode_split`); it rounds the softmax numerators to
 bf16 for the value product, as the Pallas kernel does.
 
 **Kernel A, int8 cache** (``k_scale`` / ``v_scale`` given; the Pallas
@@ -193,30 +193,67 @@ def flash_decode_attention_ref(
     )
 
 
-# Kernel A runs on 64-row query tiles, for either cache type. Its cache is cut
-# into spans of this many slots, by the rows of one (lane, kv head) alone
-# (T times the GQA group; one tile = a decode step, up to 16 = a frame or
-# joiner step), so that a shard's launch splits as one launch does.
+# Kernel A runs on 64-row query tiles of one (lane, kv head), for either
+# cache type, and cuts a lane's cache into spans of whole 64-slot key tiles,
+# one block a (row tile, span). The rule has two inputs, the rows of a (lane,
+# kv head) (T times the GQA group) and the capacity S, and the kernel adds
+# the lane's cursor: nothing that a shard changes, so that a shard's launch
+# splits each (lane, head) as one launch does. For each regime, (most row
+# tiles, slots a span aims at, most spans): a decode step (one tile) takes a
+# span for every 128 live slots, up to 128; a frame or joiner step (up to 16
+# tiles) one for every 256, up to 16; an 8-frame block (up to 64) one for
+# every 4096, up to 2 (only a long cursor splits: its 43 tiles a head fill
+# the card at the whole model's heads); above that one span (a 32-frame
+# block's 172 tiles a head are work enough).
 SPLIT_TILE_ROWS = 64
-SPLIT_SPAN_ONE_TILE = 256
-SPLIT_SPAN_FEW_TILES = 2048
-SPLIT_MAX_TILES = 16
+SPLIT_KEY_TILE = 64
+SPLIT_RULE = ((1, 128, 128), (16, 256, 16), (64, 4096, 2))
+SPLIT_MAX = 128  # spans of a (lane, head) at most: the kernel's MAX_SPLIT
+# Spans combined together: more live spans combine in two levels, each group
+# of SPLIT_GROUP, then the groups; a (lane, head, row tile) has a counter for
+# the last level and one a group (the kernel's GROUP and COUNTERS).
+SPLIT_GROUP = 16
 
 
-def decode_split_span(rows: int, S: int) -> int:
-    """Slots of one split of kernel A's cache for ``rows`` GQA rows a
-    (lane, kv head) and a cache of S slots: the grid has ceil(S / span)
-    splits; S itself (one split) above `SPLIT_MAX_TILES` row tiles."""
+def decode_split(rows: int, S: int) -> Tuple[int, int]:
+    """(span_min, nsplit) of kernel A for ``rows`` GQA rows a (lane, kv
+    head) and a cache of S slots: a lane takes one span for every span_min
+    slots of its cursor, at most nsplit, the spans of the grid (sized from
+    S, since the wrapper never reads a cursor)."""
     tiles = -(-rows // SPLIT_TILE_ROWS)
-    span = (SPLIT_SPAN_ONE_TILE if tiles == 1 else
-            SPLIT_SPAN_FEW_TILES if tiles <= SPLIT_MAX_TILES else S)
-    return max(1, min(span, S))
+    for most_tiles, span_min, most in SPLIT_RULE:
+        if tiles <= most_tiles:
+            return span_min, max(1, min(most, SPLIT_MAX, -(-S // span_min)))
+    return max(1, S), 1
+
+
+def lane_spans(cache_len: int, span_min: int, nsplit: int) -> Tuple[int, int]:
+    """(slots a span, live spans) of a lane with ``cache_len`` live slots, as
+    the kernel computes them: ceil(cache_len / span_min) spans, at most
+    nsplit and at least one, of equal whole key tiles."""
+    want = min(nsplit, max(1, -(-cache_len // span_min)))
+    per = -(-cache_len // want)  # slots a span, before whole key tiles
+    span = max(SPLIT_KEY_TILE, -(-per // SPLIT_KEY_TILE) * SPLIT_KEY_TILE)
+    return span, max(1, -(-cache_len // span))
+
+
+def decode_scratch_numel(B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[int, int]:
+    """(f32 partials, int32 counters) of kernel A's split scratch for a
+    launch of B lanes x kh kv heads x ``rows`` GQA rows over S slots: the
+    partials (acc, m, l) of every (lane, head, span, row), 1 + SPLIT_MAX /
+    SPLIT_GROUP counters a (lane, head, row tile); nothing when the grid has
+    one span."""
+    _, nsplit = decode_split(rows, S)
+    if nsplit == 1:
+        return 0, 0
+    return (B * kh * nsplit * rows * (hd + 2),
+            B * kh * -(-rows // SPLIT_TILE_ROWS) * (1 + SPLIT_MAX // SPLIT_GROUP))
 
 
 # The split's scratch per device: f32 partials and int32 counters (zeros,
 # and left zero by every launch), grown when a launch needs more. Launches
 # that share it run one after another on one stream. `_split_memo` keeps
-# each launch shape's (span, partials, counters) pointers for the host's
+# each launch shape's (span_min, nsplit, partials, counters) for the host's
 # sake, and is emptied whenever the scratch is reallocated.
 # The one-stream rule: kernel A runs on one stream at a time, the decoder's
 # (the caller's current stream; inside `LiveInferEngine.stream_video` the
@@ -228,19 +265,17 @@ _split_scratch: dict = {}
 _split_memo: dict = {}
 
 
-def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[int, Any, Any]:
-    """Kernel A's (span, partials pointer, counters pointer) for a launch
-    of B lanes x kh kv heads x ``rows`` GQA rows over S cache slots
-    (pointers None when the cache is one span)."""
+def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[int, int, Any, Any]:
+    """Kernel A's (span_min, nsplit, partials pointer, counters pointer)
+    for a launch of B lanes x kh kv heads x ``rows`` GQA rows over S cache
+    slots (pointers None when the grid has one span)."""
     key = (device, B, kh, rows, S)
     got = _split_memo.get(key)
     if got is None:
-        span = decode_split_span(rows, S)
-        nsplit = -(-S // span)
-        got = (span, None, None)
-        if nsplit > 1:
-            n_part = B * kh * nsplit * rows * (hd + 2)
-            n_counters = B * kh * -(-rows // SPLIT_TILE_ROWS)
+        span_min, nsplit = decode_split(rows, S)
+        got = (span_min, nsplit, None, None)
+        n_part, n_counters = decode_scratch_numel(B, kh, rows, S, hd)
+        if n_part:
             part, counters = _split_scratch.get(device, (None, None))
             if part is None or part.numel() < n_part or counters.numel() < n_counters:
                 part = torch.empty(max(n_part, 0 if part is None else part.numel()),
@@ -249,7 +284,7 @@ def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[in
                                        dtype=torch.int32, device=device)
                 _split_scratch[device] = (part, counters)
                 _split_memo.clear()
-            got = (span, part.data_ptr(), counters.data_ptr())
+            got = (span_min, nsplit, part.data_ptr(), counters.data_ptr())
         _split_memo[key] = got
     return got
 
@@ -258,7 +293,7 @@ def bind_decode_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Gives a build of ``csrc/flash_decode.cu`` its functions' argument
     types."""
     ptr, num = ctypes.c_void_p, ctypes.c_int
-    tail = [num] * 8 + [ctypes.c_float, ptr]
+    tail = [num] * 9 + [ctypes.c_float, ptr]
     lib.flash_decode_bf16.argtypes = [ptr] * 12 + tail
     lib.flash_decode_bf16.restype = ctypes.c_int
     lib.flash_decode_int8.argtypes = [ptr] * 14 + tail
@@ -369,10 +404,10 @@ def _decode_launch(q, k_cache, v_cache, chunk_k, chunk_v, cl, tr, qo, out, layer
     lib = _kernel_lib()
     Tc, scale = chunk_k.shape[2], 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    span, part, counters = _split_args(q.device, B, kh, (nh // kh) * T, S, hd)
+    span_min, nsplit, part, counters = _split_args(q.device, B, kh, (nh // kh) * T, S, hd)
     pointers = (chunk_k.data_ptr(), chunk_v.data_ptr(), cl.data_ptr(), tr.data_ptr(),
                 qo.data_ptr(), out.data_ptr(), part, counters, strides,
-                B, T, nh, kh, S, Tc, int(layer), span, scale, stream)
+                B, T, nh, kh, S, Tc, int(layer), span_min, nsplit, scale, stream)
     if quantized:
         err = lib.flash_decode_int8(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                                     k_scale.data_ptr(), v_scale.data_ptr(), *pointers)

@@ -52,24 +52,40 @@
 //   values, no divergence): the last cache tile of a span, and the chunk's
 //   tiles near the diagonal. A row whose keys so far are all masked keeps m
 //   = -1e30 and subtracts 0, so its masked scores weigh exactly 0.
-//   The split (flash-decoding): the cache is cut into spans of a fixed number
-//   of slots that depends only on the rows of a (lane, head), T times the GQA
-//   group, and on S (`ops/attention.py::decode_split_span`): 256 slots when
-//   the rows fit one tile (a decode step: 7 rows), 2048 up to 16 tiles (a
-//   frame or joiner step: 448 rows), else one span (the 8- and 32-frame
-//   blocks: 43 and 172 tiles a head are work enough). The grid is (row tiles,
-//   lanes x kv heads, ceil(S / span)), sized from S: the wrapper never reads
-//   a cursor. A block whose span starts past its lane's cache_len exits at
-//   once; the splits are the grid's outer dimension, so that the blocks of
-//   the first spans, those with work, are dispatched first and spread over
-//   the SMs. With one live span a block writes its rows directly; else each
-//   live block writes f32 partials (acc, m, l) into scratch, and the last one
-//   of its (lane, head, row tile), found by a counter that it resets to 0,
-//   combines them in span order, a warp a row and four columns a lane, so
-//   that four rows' loads are in flight together. So a (lane, head) is
-//   computed the same way in any launch, and a sharded run stays bit-equal to
-//   one launch (the split depends on nothing a shard changes).
-//
+//   The split (flash-decoding), for the shapes a rank's shard gives it (B / D
+//   lanes, 4 / M kv heads, so few blocks a row tile): the grid is (row
+//   tiles, lanes x kv heads, nsplit), sized from shapes, since the wrapper
+//   never reads a cursor (`ops/attention.py::decode_split`). Its choices:
+//   - a lane cuts its cache by its own cursor: ceil(cache_len / span_min)
+//     spans, at most nsplit, of equal whole 64-slot key tiles
+//     (`lane_spans`), so a short cursor still spreads over many blocks and
+//     a long one is cut no finer than the scratch sized from S holds;
+//   - span_min and nsplit come from the rows of a (lane, head) alone: 128
+//     slots and at most 128 spans for one row tile (a decode step), 256 and
+//     16 up to 16 tiles (a frame or joiner step), 4096 and 2 up to 64 (an
+//     8-frame block splits only past 4096 slots: its 43 tiles a head fill
+//     the card at the whole model's heads, and more z-slices without work
+//     slowed it by a fifth at 2 kv heads on an H100), one span above (a
+//     32-frame block's 172 tiles), never from B or kh, so a shard's (lane,
+//     head) computes what it computes in one launch, bit for bit, and A'
+//     stays bit-equal to one launch;
+//   - the splits are the grid's outer dimension, so the blocks of the first
+//     spans, those with work, are dispatched first; a block past its lane's
+//     live spans exits at once;
+//   - with one live span a block writes its rows; else it writes f32
+//     partials (acc, m, l), and one thread's acquire-release ticket after
+//     the block's barrier finds the last block of its (lane, head, row
+//     tile), which resets the ticket to 0 for the next launch;
+//   - that block combines with all its threads, not one warp a row: the
+//     spans' (m, l) into shared memory, a warp a row for the weights (a
+//     fixed butterfly), then four columns of a row a thread with 32 float4
+//     loads in flight, the first already on their way during the weights,
+//     each output summed over the spans in order;
+//   - more than 16 live spans combine in two levels, so that no one block
+//     reads them all: the last block of each group of 16 spans (its own
+//     ticket) combines them into a partial in the group's first slots, and
+//     the last group's block combines the groups in order.
+
 // The int8 cache (the Pallas kernel's `quantized=True` variant): int8 K/V
 // rows with one f32 scale per (layer, lane, head, slot). A cache tile is
 // half the bytes of a bf16 one and comes through registers, two tiles
@@ -136,6 +152,18 @@ __device__ __forceinline__ void widen16(const uint4& raw, uint32_t (&out)[8]) {
 
 namespace hp = hopper;
 
+// atomicAdd with acquire and release at the scope of the device: after a
+// barrier of the block, one thread's release publishes every thread's
+// stores, and its acquire makes the others' visible to the block
+__device__ __forceinline__ int atomic_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
 namespace tc {
 
 constexpr int THREADS = 128;            // one warpgroup
@@ -151,8 +179,132 @@ constexpr uint32_t SM_V = SM_K + NST * TILE;
 constexpr uint32_t SM_SC = SM_V + NST * TILE;
 constexpr size_t SMEM = SM_SC + 1024;
 constexpr size_t SMEM_INT8 = SM_SC + NST * 2 * BKT * sizeof(float) + 1024;
+// Spans of a (lane, head) at most; spans combined together, a group (more
+// live spans combine in two levels: each group, then the groups); counters
+// a (lane, head, row tile): the last level's, then a group's each; float4
+// values and (m, l) pairs a thread of the combine has in flight together
+constexpr int MAX_SPLIT = 128;
+constexpr int GROUP = 16;
+constexpr int COUNTERS = 1 + MAX_SPLIT / GROUP;
+constexpr int COMBINE_LOADS = 32;
+constexpr int ML_LOADS = 4;
 static_assert(HD == 4 * 32, "the combine gives each lane four columns");
-static_assert(THREADS == 2 * BKT, "a thread loads one scale of a tile");
+static_assert(GROUP <= 32 && MAX_SPLIT / GROUP <= 32, "a lane of the weights' warp takes one item");
+static_assert((2 * 32 + 2) * BR * sizeof(float) <= 2 * NST * TILE,
+              "the combine's (m, l) fit in the key and value stages");
+
+// One level of the combine, by the last block of a (lane, head, row tile) or
+// of one of its groups, with all its threads: n items (spans or group
+// partials) of nr rows, `acc` item 0's first row of f32 values (HD a row),
+// `ml` its (m, l) pair, an item `step` rows further on. `smem` takes the
+// items' (m, l) and two values a row. The first values go on their way;
+// meanwhile every (item, row)'s (m, l) comes into shared memory, and a warp
+// a row, lane j on item j, turns them into w = exp2((m - max m) c) and the
+// row's total of w l (a fixed butterfly). Then unit u < nr * 32, four
+// columns of row u / 32, goes to thread u % 128, PER units a thread a pass,
+// so that a warp reads 512 contiguous bytes of a row; the values of SG items
+// are in flight together, and each output sums its items in order.
+// `emit(r, u4, o, mx, lt)` takes row r's four columns u4 of the sum; a last
+// level divides by the total, a group's writes its partial for the next.
+template <int PER, int SG, typename Emit>
+__device__ __forceinline__ void combine_level(const float* __restrict__ acc,
+                                              const float* __restrict__ ml, size_t step, int n,
+                                              int nr, float c, float* smem, Emit emit) {
+  float* const w = smem;             // (item, row): m, then w
+  float* const l = w + 32 * BR;      // (item, row)
+  float* const mrow = l + 32 * BR;   // a row's max m
+  float* const lrow = mrow + BR;     // a row's total of w l
+  const int lane = threadIdx.x & 31, nu = nr * 32;
+  float4 a[SG][PER];
+  auto fetch = [&](int u0, int s0) {
+#pragma unroll
+    for (int j = 0; j < SG; ++j) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int u = u0 + threadIdx.x + THREADS * k;
+        a[j][k] = s0 + j < n && u < nu
+                      ? __ldcg(reinterpret_cast<const float4*>(
+                            acc + ((s0 + j) * step + (u >> 5)) * HD + 4 * (u & 31)))
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  };
+  fetch(0, 0);
+  for (int i0 = threadIdx.x; i0 < n * nr; i0 += ML_LOADS * THREADS) {
+    float2 x[ML_LOADS];  // loaded together, then stored
+#pragma unroll
+    for (int k = 0; k < ML_LOADS; ++k) {
+      const int i = i0 + k * THREADS, it = i / nr;
+      x[k] = i < n * nr ? __ldcg(reinterpret_cast<const float2*>(
+                              ml + (it * step + (i - it * nr)) * 2))
+                        : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < ML_LOADS; ++k) {
+      const int i = i0 + k * THREADS, it = i / nr;
+      if (i < n * nr) {
+        w[it * BR + i - it * nr] = x[k].x;
+        l[it * BR + i - it * nr] = x[k].y;
+      }
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x >> 5; r < nr; r += THREADS / 32) {
+    const bool in = lane < n;
+    const float m = in ? w[lane * BR + r] : NEG;
+    float mx = m;
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+    const float wi = in ? hp::ex2((m - mx) * c) : 0.f;
+    float lt = in ? wi * l[lane * BR + r] : 0.f;
+#pragma unroll
+    for (int x = 16; x > 0; x >>= 1) lt += __shfl_xor_sync(0xffffffffu, lt, x);
+    if (in) w[lane * BR + r] = wi;
+    if (lane == 0) {
+      mrow[r] = mx;
+      lrow[r] = lt;
+    }
+  }
+  __syncthreads();
+  for (int u0 = 0; u0 < nu; u0 += PER * THREADS) {
+    float4 o[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) o[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < n; s0 += SG) {
+      if (u0 > 0 || s0 > 0) fetch(u0, s0);
+#pragma unroll
+      for (int j = 0; j < SG; ++j) {
+        if (s0 + j < n) {
+#pragma unroll
+          for (int k = 0; k < PER; ++k) {
+            const float wk =
+                w[(s0 + j) * BR + min((u0 + static_cast<int>(threadIdx.x) + THREADS * k) >> 5,
+                                      BR - 1)];
+            o[k].x += wk * a[j][k].x;
+            o[k].y += wk * a[j][k].y;
+            o[k].z += wk * a[j][k].z;
+            o[k].w += wk * a[j][k].w;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int u = u0 + threadIdx.x + THREADS * k;
+      if (u < nu) emit(u >> 5, u & 31, o[k], mrow[u >> 5], lrow[u >> 5]);
+    }
+  }
+}
+
+// A level of n items, with more units a thread a pass when the items are few.
+template <typename Emit>
+__device__ __forceinline__ void combine(const float* acc, const float* ml, size_t step, int n,
+                                        int nr, float c, float* smem, Emit emit) {
+  if (n <= COMBINE_LOADS / 4)
+    combine_level<4, COMBINE_LOADS / 4>(acc, ml, step, n, nr, c, smem, emit);
+  else
+    combine_level<2, COMBINE_LOADS / 2>(acc, ml, step, n, nr, c, smem, emit);
+}
 
 template <bool INT8>
 __global__ void __launch_bounds__(THREADS, 2)
@@ -164,7 +316,8 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ cache_len, const int* __restrict__ t_real,
                        const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
                        float* __restrict__ part, int* __restrict__ counters, const Strides st,
-                       int T, int nh, int kh, int S, int Tc, int layer, int span, float scale) {
+                       int T, int nh, int kh, int S, int Tc, int layer, int span_min,
+                       float scale) {
   using CacheT = typename std::conditional<INT8, int8_t, __nv_bfloat16>::type;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int ticket;
@@ -183,7 +336,14 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int clen = min(max(cache_len[b], 0), S);
   const int treal = min(max(t_real[b], 0), Tc);
   const int qoff = q_offset[b];
-  const int n_live = max(1, (clen + span - 1) / span);  // spans that hold live slots
+  // the lane's spans: one for every span_min slots of its cursor, at most
+  // the grid's nsplit, each the same whole number of key tiles
+  int span = S, n_live = 1;  // n_live: the spans that hold live slots
+  if (nsplit > 1) {
+    const int want = min(nsplit, max(1, (clen + span_min - 1) / span_min));
+    span = max(BKT, ((clen + want - 1) / want + BKT - 1) / BKT * BKT);
+    n_live = max(1, (clen + span - 1) / span);
+  }
   if (split >= n_live) return;
 
   // this block's keys: the chunk (split 0 only), then cache slots [lo, hi)
@@ -505,52 +665,49 @@ flash_decode_tc_kernel(const __nv_bfloat16* __restrict__ q,
           make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
     if (col == 0) *reinterpret_cast<float2*>(pml + 2 * row[i]) = make_float2(m[i], lsum[i]);
   }
-  __threadfence();
+  // the block's partials are published by one thread's release after the
+  // barrier, and the last block's acquire makes every other's visible
+  const int n_groups = (n_live + GROUP - 1) / GROUP, g = split / GROUP;
+  int* const cnt = counters + ((size_t)bh * gridDim.x + tile) * COUNTERS;
   __syncthreads();
-  int* counter = counters + (size_t)bh * gridDim.x + tile;
-  if (threadIdx.x == 0) ticket = atomicAdd(counter, 1);
+  if (threadIdx.x == 0) ticket = atomic_add_acq_rel(cnt + (n_groups > 1 ? 1 + g : 0), 1);
   __syncthreads();
-  if (ticket != n_live - 1) return;
-  __threadfence();
-
-  // the last block of this (lane, head, row tile): the live spans' partials
-  // in span order, a warp a row and four columns a lane. Lane j reads span
-  // s0 + j's (m, l), and each lane takes the weights of spans s0, s0 + 1, ...
-  // in turn from the lane that read them, so every sum runs in span order
-  const int warp = threadIdx.x >> 5;
-  const size_t bh0 = (size_t)bh * nsplit * rows;
-  const float* pm = part + all_rows * HD;
-  for (int r = row0 + warp; r <= last; r += THREADS / 32) {
-    float mx = NEG;
-    for (int sp = lane; sp < n_live; sp += 32)
-      mx = fmaxf(mx, __ldcg(pm + (bh0 + (size_t)sp * rows + r) * 2));
-#pragma unroll
-    for (int x = 16; x > 0; x >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
-    float lt = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int s0 = 0; s0 < n_live; s0 += 32) {
-      float2 ml = make_float2(NEG, 0.f);
-      if (s0 + lane < n_live)
-        ml = __ldcg(reinterpret_cast<const float2*>(pm + (bh0 + (size_t)(s0 + lane) * rows + r) *
-                                                        2));
-      const float w = hp::ex2((ml.x - mx) * c);
-      const int n = min(32, n_live - s0);
-#pragma unroll 8
-      for (int j = 0; j < n; ++j) {
-        const float wj = __shfl_sync(0xffffffffu, w, j);
-        lt += wj * __shfl_sync(0xffffffffu, ml.y, j);
-        const float4 a = __ldcg(reinterpret_cast<const float4*>(
-            part + (bh0 + (size_t)(s0 + j) * rows + r) * HD + 4 * lane));
-        o[0] += wj * a.x;
-        o[1] += wj * a.y;
-        o[2] += wj * a.z;
-        o[3] += wj * a.w;
-      }
+  const size_t first0 = (size_t)bh * nsplit * rows + row0;
+  float* const pa = part + first0 * HD;              // span 0's values
+  float* const pm = part + all_rows * HD + first0 * 2;  // and (m, l)
+  float* const csm = reinterpret_cast<float*>(sbase + SM_K);
+  const int nr = last - row0 + 1;
+  auto write_out = [&](int r, int u4, const float4& o, float, float lt) {
+    const float d = fmaxf(lt, 1e-30f);
+    *reinterpret_cast<uint2*>(out_row(row0 + r) + 4 * u4) =
+        make_uint2(hp::pack(o.x / d, o.y / d), hp::pack(o.z / d, o.w / d));
+  };
+  if (n_groups > 1) {
+    // the last block of group g: its spans into a partial in the slots of
+    // the group's first span (each value read before it is written over)
+    const int g_live = min(GROUP, n_live - g * GROUP);
+    if (ticket != g_live - 1) return;
+    float* const ga = pa + (size_t)g * GROUP * rows * HD;
+    float* const gm = pm + (size_t)g * GROUP * rows * 2;
+    combine(ga, gm, rows, g_live, nr, c, csm,
+            [&](int r, int u4, const float4& o, float mx, float lt) {
+              *reinterpret_cast<float4*>(ga + (size_t)r * HD + 4 * u4) = o;
+              if (u4 == 0) *reinterpret_cast<float2*>(gm + 2 * r) = make_float2(mx, lt);
+            });
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      cnt[1 + g] = 0;  // ready for the next launch
+      ticket = atomic_add_acq_rel(cnt, 1);
     }
-    const float den = fmaxf(lt, 1e-30f);
-    *reinterpret_cast<uint2*>(out_row(r) + 4 * lane) =
-        make_uint2(hp::pack(o[0] / den, o[1] / den), hp::pack(o[2] / den, o[3] / den));
+    __syncthreads();
+    if (ticket != n_groups - 1) return;
+    // the last group's block: the groups' partials, in group order
+    combine(pa, pm, (size_t)GROUP * rows, n_groups, nr, c, csm, write_out);
+  } else {
+    if (ticket != n_live - 1) return;
+    combine(pa, pm, rows, n_live, nr, c, csm, write_out);
   }
-  if (threadIdx.x == 0) *counter = 0;  // ready for the next launch
+  if (threadIdx.x == 0) cnt[0] = 0;  // ready for the next launch
 }
 
 // One launch of the kernel for the cache type INT8 (see flash_decode_bf16).
@@ -558,17 +715,17 @@ template <bool INT8>
 int launch(const void* q, const void* k_cache, const void* v_cache, const void* k_scale,
            const void* v_scale, const void* chunk_k, const void* chunk_v, const void* cache_len,
            const void* t_real, const void* q_offset, void* out, void* part, void* counters,
-           const long long* s, int B, int T, int nh, int kh, int S, int Tc, int layer, int span,
-           float scale, void* stream) {
+           const long long* s, int B, int T, int nh, int kh, int S, int Tc, int layer,
+           int span_min, int nsplit, float scale, void* stream) {
   constexpr size_t smem = INT8 ? SMEM_INT8 : SMEM;
   static const cudaError_t smem_ok = cudaFuncSetAttribute(
       flash_decode_tc_kernel<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (smem_ok != cudaSuccess) return static_cast<int>(smem_ok);
-  if (span < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = (nh / kh) * T;
-  const int nsplit = (S + span - 1) / span;
+  if (span_min < 1 || nsplit < 1 || nsplit > MAX_SPLIT)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (nsplit > 1 && (part == nullptr || counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = (nh / kh) * T;
   const dim3 grid((rows + BR - 1) / BR, B * kh, nsplit);
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11]};
   flash_decode_tc_kernel<INT8><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -577,8 +734,8 @@ int launch(const void* q, const void* k_cache, const void* v_cache, const void* 
       static_cast<const __nv_bfloat16*>(chunk_k), static_cast<const __nv_bfloat16*>(chunk_v),
       static_cast<const int*>(cache_len), static_cast<const int*>(t_real),
       static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part), static_cast<int*>(counters), st, T, nh, kh, S, Tc, layer, span,
-      scale);
+      static_cast<float*>(part), static_cast<int*>(counters), st, T, nh, kh, S, Tc, layer,
+      span_min, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -593,19 +750,20 @@ extern "C" {
 // of them; `strides` points to the 12 element strides of `Strides`, in its
 // order, on the host. B, nh and kh are the view's own (a shard's local)
 // counts. The caller checks shapes, dtypes, strides, alignment and hd ==
-// 128. `span` is the split's slots (`decode_split_span`); with ceil(S /
-// span) > 1 spans, `part` is f32 scratch of B kh ceil(S / span) (nh / kh)
-// T (hd + 2) values and `counters` int32 zeros, B kh ceil((nh / kh) T /
-// 64) of them, which the kernel leaves zero again.
+// 128. `span_min` and `nsplit` are the split's (`decode_split`): a lane
+// takes one span for every span_min slots of its cursor, at most nsplit (at
+// most 128); with nsplit > 1, `part` is f32 scratch of B kh nsplit (nh / kh)
+// T (hd + 2) values and `counters` int32 zeros, B kh ceil((nh / kh) T / 64)
+// x 9 of them, which the kernel leaves zero again.
 int flash_decode_bf16(const void* q, const void* k_cache, const void* v_cache,
                       const void* chunk_k, const void* chunk_v,
                       const void* cache_len, const void* t_real,
                       const void* q_offset, void* out, void* part, void* counters,
                       const long long* strides, int B, int T, int nh, int kh, int S, int Tc,
-                      int layer, int span, float scale, void* stream) {
+                      int layer, int span_min, int nsplit, float scale, void* stream) {
   return tc::launch<false>(q, k_cache, v_cache, nullptr, nullptr, chunk_k, chunk_v, cache_len,
                            t_real, q_offset, out, part, counters, strides, B, T, nh, kh, S, Tc,
-                           layer, span, scale, stream);
+                           layer, span_min, nsplit, scale, stream);
 }
 
 // The int8 cache: k_cache / v_cache are int8 (L, B, kh, S, hd), k_scale /
@@ -616,10 +774,10 @@ int flash_decode_int8(const void* q, const void* k_cache, const void* v_cache,
                       const void* cache_len, const void* t_real,
                       const void* q_offset, void* out, void* part, void* counters,
                       const long long* strides, int B, int T, int nh, int kh, int S, int Tc,
-                      int layer, int span, float scale, void* stream) {
+                      int layer, int span_min, int nsplit, float scale, void* stream) {
   return tc::launch<true>(q, k_cache, v_cache, k_scale, v_scale, chunk_k, chunk_v, cache_len,
                           t_real, q_offset, out, part, counters, strides, B, T, nh, kh, S, Tc,
-                          layer, span, scale, stream);
+                          layer, span_min, nsplit, scale, stream);
 }
 
 const char* flash_decode_error_string(int code) {

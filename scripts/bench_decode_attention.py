@@ -3,9 +3,13 @@ card: time them, in turns with other builds of kernel A.
 
 Times kernel A with a bf16 and with an int8 cache at the main path's
 shapes (the decode step at cache_len 2048 and 24000, the frame step, the
-8- and 32-frame blocks; nh 28, kh 4, hd 128, a 24576-slot cache), the
-wrapper's host time per decode-step call, and kernel D beside
-`scaled_dot_product_attention` at SigLIP-so400m's (32, 729, 16, 72),
+8- and 32-frame blocks; hd 128, a 24576-slot cache) for each head count
+of ``--heads`` (nh:kh, default the 7B's 28:4; 14:2 and 7:1 are a rank's
+of a (1, 2) and a (1, 4) tensor-parallel mesh), beside
+`scaled_dot_product_attention` on the same operands (bf16 cache: the cache
+prefix and the chunk concatenated beforehand, an explicit mask,
+``enable_gqa``), the wrapper's host time per decode-step call, and kernel D
+beside `scaled_dot_product_attention` at SigLIP-so400m's (32, 729, 16, 72),
 CLIP-L/14-336's (32, 577, 16, 64) and (32, 576, 16, 64) (the same work
 without the one-row last block of 192 query rows that 577 leaves); every
 time beside its roofline bound (`ops/bounds.py`). A kernel's ms is its device time: calls captured
@@ -17,24 +21,26 @@ bound and its rms term at every shape it is timed at (`chip_smoke.py` and
 `tests/test_torch_cuda.py` check the rest). From the repository root:
 
     PYTHONPATH=. python scripts/bench_decode_attention.py [--tag NAME] [--ptxas]
-        [--spans 512,1024] [--parent DIR] [--tree NAME DIR ...]
-        [--variant NAME OLD NEW ...]
+        [--heads 28:4,14:2,7:1] [--no-vision] [--sharded] [--parent DIR]
+        [--tree NAME DIR ...] [--variant NAME OLD NEW ...] [--rule NAME SPEC ...]
 
 ``--ptxas`` also prints what `nvcc -Xptxas -v` says of the two sources
-(registers, spills). ``--spans`` also times every shape, with either
-cache, with the cache cut into spans of each number of slots (the split
-rule, `attention.decode_split_span`, replaced for those timings).
-``--parent DIR`` also times the package in DIR (another checkout, e.g. the
-parent commit's, unpacked with `git archive`) at every shape, and its
-wrapper's host time per decode-step call against this one's (20 runs of
-200 calls, in turn: on a shared host, runs in two processes spread more
-than the difference). ``--tree NAME DIR`` also times the package in DIR at
-every shape, under NAME. ``--variant NAME OLD NEW`` also times a build of
-this tree's `csrc/flash_decode.cu` with the text OLD replaced by NEW (it
-must occur), loaded in place of the kernel's library for its turns. Builds
-are timed in two rounds at each shape, in turn, the second round in
-reverse order. The last line is one JSON object of the times (each build's
-mean of the two rounds).
+(registers, spills). ``--no-vision`` leaves kernel D out. ``--sharded``
+also times kernel A' (`chip_smoke.py`'s case: the 8-frame block at 8
+lanes with a cursor each on the (2, 2) one-device mesh, four launches, held
+bit-equal to one launch) for every build. ``--parent DIR`` also times the package in DIR
+(another checkout, e.g. the parent commit's, unpacked with `git archive`)
+at every shape, and its wrapper's host time per decode-step call against
+this one's (20 runs of 200 calls, in turn: on a shared host, runs in two
+processes spread more than the difference). ``--tree NAME DIR`` also
+times the package in DIR at every shape, under NAME. ``--variant NAME OLD
+NEW`` also times a build of this tree's `csrc/flash_decode.cu` with the
+text OLD replaced by NEW (it must occur), loaded in place of the kernel's
+library for its turns. ``--rule NAME SPEC`` also times this build under
+another split rule (`attention.SPLIT_RULE`), SPEC being its entries as
+``tiles:span_min:most`` joined by commas. Builds are timed in two rounds
+at each shape, in turn, the second round in reverse order. The last line
+is one JSON object of the times (each build's mean of the two rounds).
 """
 
 from __future__ import annotations
@@ -55,7 +61,7 @@ import torch
 from mmduet_tpu_torch.models.qwen2 import quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds
 
-NH, KH, HD, S = 28, 4, 128, 24576
+HD, S = 128, 24576
 # (name, T, Tc, t_real, q_offset, cache lens)
 SHAPES = (("decode step", 1, 31, 11, 10, (2048, 24000)), ("frame step", 64, 64, 53, 0, (2048,)),
           ("8-frame block", 392, 392, 392, 0, (2048,)),
@@ -102,6 +108,65 @@ def host_us(fn, calls: int = 200, runs: int = 7) -> tuple:
         per.append(1e6 * (time.perf_counter() - t0) / calls)
         torch.cuda.synchronize()
     return sorted(per)[runs // 2], min(per)
+
+
+def sdpa_decode_call(q, k_cache, v_cache, ck, cv, cache_len: int, t_real: int, q_off: int):
+    """One `scaled_dot_product_attention` call computing kernel A's function
+    with a bf16 cache on layer 0 (the library's yardstick; the port never
+    calls it): the cache prefix and the chunk concatenated beforehand, an
+    explicit boolean mask, ``enable_gqa``."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    T, Tc, dev = q.shape[1], ck.shape[2], q.device
+    k = torch.cat([k_cache[0, :, :, :cache_len], ck], dim=2)
+    v = torch.cat([v_cache[0, :, :, :cache_len], cv], dim=2)
+    row, col = torch.arange(T, device=dev)[:, None], torch.arange(Tc, device=dev)[None]
+    mask = torch.cat([torch.ones((T, cache_len), dtype=torch.bool, device=dev),
+                      (col <= q_off + row) & (col < t_real)], dim=1)
+    qh = q.transpose(1, 2)
+    return lambda: sdpa(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+
+# Kernel A' as `chip_smoke.py` times it: the 8-frame block at 8 lanes, one
+# cursor each, on the (2, 2) one-device mesh (four launches), bf16 cache.
+SHARD_LANES = (0, 1, 63, 700, 2047, 2048, 4999, 6000)
+
+
+def time_sharded(builds, order, own, own_rule, use_rule, randn, dev, times, log) -> None:
+    from mmduet_tpu_torch.parallel import make_mesh
+    from mmduet_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+    B, nh, kh, T = len(SHARD_LANES), 28, 4, 392
+    kc, vc = randn(2, B, kh, S, HD), randn(2, B, kh, S, HD)
+    q, ck, cv = randn(B, T, nh, HD), randn(B, kh, T, HD), randn(B, kh, T, HD)
+    cl = torch.tensor(SHARD_LANES, dtype=torch.int32, device=dev)
+    tr = torch.tensor([max(1, T - 3 * b) for b in range(B)], dtype=torch.int32, device=dev)
+    qo = torch.zeros(B, dtype=torch.int32, device=dev)
+    got = {b: [] for b in order}
+    for rnd in range(2):
+        for b in (order if rnd == 0 else order[::-1]):
+            fn, lib, rule = builds[b]
+            mod = fn.__globals__  # the build's own `ops.attention`
+            ctx = mod["ShardCtx"](make_mesh((2, 2), devices=[dev] * 4), lane_axis=DATA_AXIS,
+                                  head_axis=MODEL_AXIS)
+            if lib is not None:
+                attention._lib = lib
+            use_rule(rule)
+            one = fn(q, kc, vc, ck, cv, cl, tr, 0, q_offset=qo)
+            call = lambda mod=mod, ctx=ctx: mod["flash_decode_attention_sharded"](  # noqa: E731
+                q, kc, vc, ck, cv, cl, tr, 0, ctx, q_offset=qo)
+            if not torch.equal(call(), one):
+                raise AssertionError(f"{b}: kernel A' not bit-equal to one launch")
+            got[b].append(graph_ms(call))
+    attention._lib = own
+    use_rule(own_rule)
+    for b, ms in got.items():
+        times["A' (2, 2) 8-frame block" + ("" if b == "change" else f" {b}")] = sum(ms) / len(ms)
+    log("kernel A' on the (2, 2) one-device mesh, 8-frame block, 8 lanes at cursors "
+        f"{SHARD_LANES}: " + ", ".join(f"{b} {' '.join(f'{t:.4f}' for t in got[b])} ms"
+                                       for b in order))
+
+
+def parse_rule(spec: str) -> tuple:
+    return tuple(tuple(int(x) for x in entry.split(":")) for entry in spec.split(","))
 
 
 def checkout_attention(parent_dir: str):
@@ -170,7 +235,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tag", default="")
     ap.add_argument("--ptxas", action="store_true")
-    ap.add_argument("--spans", default="", help="comma-separated span lengths in slots")
+    ap.add_argument("--heads", default="28:4", help="comma-separated nh:kh head counts")
+    ap.add_argument("--no-vision", action="store_true", help="leave kernel D out")
+    ap.add_argument("--sharded", action="store_true",
+                    help="also time kernel A' on the (2, 2) one-device mesh")
+    ap.add_argument("--rule", nargs=2, action="append", default=[], metavar=("NAME", "SPEC"),
+                    help="this build under another split rule, tiles:span_min:most,...")
     ap.add_argument("--parent", default=None, help="a checkout holding the package to compare")
     ap.add_argument("--tree", nargs=2, action="append", default=[], metavar=("NAME", "DIR"),
                     help="another checkout to time")
@@ -188,19 +258,34 @@ def main() -> int:
     if args.ptxas:
         ptxas_report(log)
     own = attention._kernel_lib()
-    builds = {"change": (attention.flash_decode_attention, own)}
+    own_rule = attention.SPLIT_RULE
+    # name: (the wrapper, the library to load for its turns, the split rule)
+    builds = {"change": (attention.flash_decode_attention, own, own_rule)}
     tmp = Path(tempfile.mkdtemp(prefix="decode_variants_"))
     try:
         for name, old, new in args.variant:
-            builds[name] = (attention.flash_decode_attention, build_variant(name, old, new, tmp))
+            builds[name] = (attention.flash_decode_attention,
+                            build_variant(name, old, new, tmp), own_rule)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    for name, spec in args.rule:  # a rule for this build, or for the variant of that name
+        fn, lib, _ = builds.get(name, (attention.flash_decode_attention, own, None))
+        builds[name] = (fn, lib, parse_rule(spec))
     for name, tree in args.tree:
-        builds[name] = (checkout_attention(tree).flash_decode_attention, None)
+        builds[name] = (checkout_attention(tree).flash_decode_attention, None, None)
     if args.parent:
         parent = checkout_attention(args.parent)
-        builds["parent"] = (parent.flash_decode_attention, None)
+        builds["parent"] = (parent.flash_decode_attention, None, None)
     order = (["parent"] if args.parent else []) + [b for b in builds if b != "parent"]
+
+    own_max = attention.SPLIT_MAX
+
+    def use_rule(rule):
+        """The split rule of a build's turns (None: the parent's, untouched)."""
+        if rule is not None:
+            attention.SPLIT_RULE = rule
+            attention.SPLIT_MAX = max(own_max, *(most for _, _, most in rule))
+            attention._split_memo.clear()
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -208,80 +293,84 @@ def main() -> int:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev, dtype=torch.bfloat16)
 
-    k_cache, v_cache = randn(LAYERS, 1, KH, S, HD), randn(LAYERS, 1, KH, S, HD)
-    (kq, ks), (vq, vs) = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
-    caches = {"bf16": (k_cache, v_cache, {}), "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}
     times, decode_args = {}, None
-    for name, T, Tc, t_real, q_off, lens in SHAPES:
-        q, ck, cv = randn(1, T, NH, HD), randn(1, KH, Tc, HD), randn(1, KH, Tc, HD)
-        tr, qo = (torch.tensor([x], dtype=torch.int32, device=dev) for x in (t_real, q_off))
-        for cache_len in lens:
-            cl = torch.tensor([cache_len], dtype=torch.int32, device=dev)
-            for cache, (kc, vc, scales) in caches.items():
-                # the plain version on layer 0's live slots, in f32
-                live = slice(0, cache_len)
-                kv = (kc[:1, ..., live, :], vc[:1, ..., live, :])
-                up = (q.float(), *(x.float() if cache == "bf16" else x for x in kv), ck.float(),
-                      cv.float(), cl, tr, 0, qo)
-                cut = {k_: v_[:1, ..., live] for k_, v_ in scales.items()}
-                want = attention.flash_decode_attention_ref(*up, **cut)[:, :t_real]
-                rms = bounds.decode_attention_rms(*up, **cut)[:, :t_real]
-                bound_ms, by = bounds.decode_attention_bound(1, T, NH, KH, HD, cache_len, t_real,
-                                                             q_off, int8=cache == "int8")
-                label = f"{'A' if cache == 'bf16' else 'A-int8'} {name} {cache_len}"
-                got_ms = {b: [] for b in order}
-                cold_ms = {b: [] for b in order}
-                for rnd in range(2):
-                    for b in (order if rnd == 0 else order[::-1]):
-                        fn, lib = builds[b]
-                        if lib is not None:
-                            attention._lib = lib
-                        call = lambda fn=fn: fn(q, kc, vc, ck, cv, cl, tr, 0,  # noqa: E731
-                                                q_offset=qo, **scales)
-                        ratio = bounds.row_ratio(call()[:, :t_real], want, rms)
+    for heads in args.heads.split(","):
+        NH, KH = (int(x) for x in heads.split(":"))
+        # the 7B's keys keep their names; a rank's carry its head counts
+        prefix = "" if (NH, KH) == (28, 4) else f"{NH}:{KH} "
+        k_cache, v_cache = randn(LAYERS, 1, KH, S, HD), randn(LAYERS, 1, KH, S, HD)
+        (kq, ks), (vq, vs) = quantize_kv_rows(k_cache), quantize_kv_rows(v_cache)
+        caches = {"bf16": (k_cache, v_cache, {}),
+                  "int8": (kq, vq, dict(k_scale=ks, v_scale=vs))}
+        for name, T, Tc, t_real, q_off, lens in SHAPES:
+            q, ck, cv = randn(1, T, NH, HD), randn(1, KH, Tc, HD), randn(1, KH, Tc, HD)
+            tr, qo = (torch.tensor([x], dtype=torch.int32, device=dev) for x in (t_real, q_off))
+            for cache_len in lens:
+                cl = torch.tensor([cache_len], dtype=torch.int32, device=dev)
+                for cache, (kc, vc, scales) in caches.items():
+                    # the plain version on layer 0's live slots, in f32
+                    live = slice(0, cache_len)
+                    kv = (kc[:1, ..., live, :], vc[:1, ..., live, :])
+                    up = (q.float(), *(x.float() if cache == "bf16" else x for x in kv),
+                          ck.float(), cv.float(), cl, tr, 0, qo)
+                    cut = {k_: v_[:1, ..., live] for k_, v_ in scales.items()}
+                    want = attention.flash_decode_attention_ref(*up, **cut)[:, :t_real]
+                    rms = bounds.decode_attention_rms(*up, **cut)[:, :t_real]
+                    bound_ms, by = bounds.decode_attention_bound(
+                        1, T, NH, KH, HD, cache_len, t_real, q_off, int8=cache == "int8")
+                    label = f"{prefix}{'A' if cache == 'bf16' else 'A-int8'} {name} {cache_len}"
+                    got_ms = {b: [] for b in order}
+                    cold_ms = {b: [] for b in order}
+                    for rnd in range(2):
+                        for b in (order if rnd == 0 else order[::-1]):
+                            fn, lib, rule = builds[b]
+                            if lib is not None:
+                                attention._lib = lib
+                            use_rule(rule)
+                            call = lambda fn=fn: fn(q, kc, vc, ck, cv, cl, tr, 0,  # noqa: E731
+                                                    q_offset=qo, **scales)
+                            ratio = bounds.row_ratio(call()[:, :t_real], want, rms)
+                            if not ratio <= 1.0:
+                                raise AssertionError(f"{b}: {label} misses its bound ({ratio})")
+                            got_ms[b].append(graph_ms(call))
+                            turn = iter(range(10 ** 9))
+                            cold_ms[b].append(graph_ms(
+                                lambda fn=fn: fn(q, kc, vc, ck, cv, cl, tr, next(turn) % LAYERS,
+                                                 q_offset=qo, **scales), iters=LAYERS))
+                    attention._lib = own
+                    use_rule(own_rule)
+                    for what, per in (("", got_ms), (" cold", cold_ms)):
+                        for b, ms in per.items():
+                            times[label + what + ("" if b == "change" else f" {b}")] = \
+                                sum(ms) / len(ms)
+                        log(f"kernel A, nh {NH} kh {KH}, {cache} cache, {name}, cache_len "
+                            f"{cache_len}" + (", a layer from device memory" if what else "")
+                            + ": " + ", ".join(f"{b} {' '.join(f'{t:.4f}' for t in per[b])} ms"
+                                               for b in order)
+                            + f"; bound {bound_ms:.5f} ms ({by})")
+                    if cache == "bf16":
+                        sdpa = sdpa_decode_call(q, kc, vc, ck, cv, cache_len, t_real, q_off)
+                        ratio = bounds.row_ratio(sdpa().transpose(1, 2)[:, :t_real], want, rms)
                         if not ratio <= 1.0:
-                            raise AssertionError(f"{b}: {label} misses its bound ({ratio})")
-                        got_ms[b].append(graph_ms(call))
-                        turn = iter(range(10 ** 9))
-                        cold_ms[b].append(graph_ms(
-                            lambda fn=fn: fn(q, kc, vc, ck, cv, cl, tr, next(turn) % LAYERS,
-                                             q_offset=qo, **scales), iters=LAYERS))
-                attention._lib = own
-                for what, per in (("", got_ms), (" cold", cold_ms)):
-                    for b, ms in per.items():
-                        times[label + what + ("" if b == "change" else f" {b}")] = sum(ms) / len(ms)
-                    log(f"kernel A, {cache} cache, {name}, cache_len {cache_len}"
-                        + (", a layer from device memory" if what else "") + ": "
-                        + ", ".join(f"{b} {' '.join(f'{t:.4f}' for t in per[b])} ms"
-                                    for b in order) + f"; bound {bound_ms:.5f} ms ({by})")
-                del want, rms
-                if args.spans:
-                    rule = attention.decode_split_span
-                    for span in (int(x) for x in args.spans.split(",")):
-                        attention.decode_split_span = lambda rows, S_, span=span: span
-                        attention._split_memo.clear()
-                        turn = iter(range(10 ** 9))
-                        got = [graph_ms(lambda: attention.flash_decode_attention(
-                                   q, kc, vc, ck, cv, cl, tr, 0, q_offset=qo, **scales)),
-                               graph_ms(lambda: attention.flash_decode_attention(
-                                   q, kc, vc, ck, cv, cl, tr, next(turn) % LAYERS, q_offset=qo,
-                                   **scales), iters=LAYERS)]
-                        times[f"{label} span {span}"], times[f"{label} span {span} cold"] = got
-                        log(f"kernel A, {cache} cache, {name}, cache_len {cache_len}, the cache "
-                            f"cut into spans of {span} slots: {got[0]:.4f} ms, a layer from "
-                            f"device memory {got[1]:.4f} ms")
-                    attention.decode_split_span = rule
-                    attention._split_memo.clear()
-            if name == "decode step" and cache_len == 2048:
-                decode_args = ((q, k_cache, v_cache, ck, cv, cl, tr, 0), dict(q_offset=qo))
-                call = lambda: attention.flash_decode_attention(  # noqa: E731
-                    *decode_args[0], **decode_args[1])
-                med, least = host_us(call)
-                times["A host us per call"], times["A host us per call, least"] = med, least
-                log(f"kernel A's wrapper, {name}: {med:.2f} us of host time per call (median "
-                    f"of 7 runs; least {least:.2f})")
-        del q, ck, cv
-    for i, shape in enumerate(VISION):
+                            raise AssertionError(f"SDPA: {label} misses kernel A's bound ({ratio})")
+                        times[f"{prefix}SDPA {name} {cache_len}"] = sdpa_ms = graph_ms(sdpa)
+                        log(f"scaled_dot_product_attention, nh {NH} kh {KH}, {name}, cache_len "
+                            f"{cache_len}: {sdpa_ms:.4f} ms ({ratio:.3f} of kernel A's row bound)")
+                        del sdpa
+                    del want, rms
+                if name == "decode step" and cache_len == 2048 and decode_args is None:
+                    decode_args = ((q, k_cache, v_cache, ck, cv, cl, tr, 0), dict(q_offset=qo))
+                    call = lambda: attention.flash_decode_attention(  # noqa: E731
+                        *decode_args[0], **decode_args[1])
+                    med, least = host_us(call)
+                    times["A host us per call"], times["A host us per call, least"] = med, least
+                    log(f"kernel A's wrapper, {name}: {med:.2f} us of host time per call (median "
+                        f"of 7 runs; least {least:.2f})")
+            del q, ck, cv
+        del k_cache, v_cache, kq, ks, vq, vs, caches
+    if args.sharded:
+        time_sharded(builds, order, own, own_rule, use_rule, randn, dev, times, log)
+    for i, shape in enumerate(() if args.no_vision else VISION):
         q, k, v = (randn(*shape) for _ in range(3))
         key = "" if i == 0 else f" {shape}"  # SigLIP's keys keep their names
         times["D" + key] = graph_ms(lambda: attention.flash_vision_attention(q, k, v))

@@ -213,15 +213,12 @@ def rank_train_state(cfg: MMDuetConfig, params: dict, mesh: Tuple[int, int], lor
 
 def decode_scratch_bytes(lanes: int, kv_heads: int, q_per_kv: int, tokens: int,
                          slots: int, head_dim: int) -> int:
-    """Kernel A's split partials and counters for one launch
-    (`ops.attention._split_args`): nothing when the cache is one span."""
-    rows = tokens * q_per_kv
-    span = attention.decode_split_span(rows, slots)
-    nsplit = -(-slots // span)
-    if nsplit == 1:
-        return 0
-    return (lanes * kv_heads * nsplit * rows * (head_dim + 2) * F32
-            + lanes * kv_heads * -(-rows // attention.SPLIT_TILE_ROWS) * I32)
+    """Kernel A's split partials and counters for one launch, as
+    `ops.attention._split_args` allocates them (`decode_scratch_numel`):
+    nothing when the grid has one span."""
+    n_part, n_counters = attention.decode_scratch_numel(lanes, kv_heads, tokens * q_per_kv,
+                                                        slots, head_dim)
+    return n_part * F32 + n_counters * I32
 
 
 def int4_scratch_bytes(rows: int, shapes) -> int:

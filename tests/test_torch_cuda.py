@@ -216,10 +216,13 @@ def test_int8_cache_bound_catches_a_lost_scale(dev):
         assert bounds.row_ratio(got, wrong, rms) > 1.0
 
 
-# (name, T, S, cache_len): one row tile (7 rows: 256-slot spans), a few
-# (448 rows: 2048-slot spans, two of them live), many (2744 rows: one span)
-SPLIT_REGIMES = [("one_tile", 1, 4096, 3001, 256), ("few_tiles", 64, 4096, 3001, 2048),
-                 ("many_tiles", 392, 4096, 3001, 4096)]
+# (name, T, S, cache_len, `decode_split`, `lane_spans` at cache_len): one row
+# tile (7 rows: 24 live spans of 128 slots), a few (448 rows: 12 of 256),
+# some (2744 rows: 2 of 3008 past 4096 slots), many (10976 rows: one span)
+SPLIT_REGIMES = [("one_tile", 1, 4096, 3001, (128, 32), (128, 24)),
+                 ("few_tiles", 64, 4096, 3001, (256, 16), (256, 12)),
+                 ("some_tiles", 392, 8192, 6001, (4096, 2), (3008, 2)),
+                 ("many_tiles", 1568, 4096, 3001, (4096, 1), (3008, 1))]
 
 
 def _int8_case(T, S, cache_len, dev, seed=7):
@@ -236,11 +239,12 @@ def _int8_case(T, S, cache_len, dev, seed=7):
 
 @pytest.mark.parametrize("regime", SPLIT_REGIMES, ids=[r[0] for r in SPLIT_REGIMES])
 def test_int8_cache_at_each_split_regime(regime, dev):
-    """The int8 cache splits as the bf16 one does (`decode_split_span`), and
-    is within its bound in each regime."""
-    name, T, S, cache_len, span = regime
+    """The int8 cache splits as the bf16 one does (`decode_split`,
+    `lane_spans`), and is within its bound in each regime."""
+    name, T, S, cache_len, split, spans = regime
     args, scales = _int8_case(T, S, cache_len, dev)
-    assert attention.decode_split_span(7 * T, S) == span
+    assert attention.decode_split(7 * T, S) == split
+    assert attention.lane_spans(cache_len, *split) == spans
     got = attention.flash_decode_attention(*args, **scales)
     up = (args[0].float(),) + args[1:3] + (args[3].float(), args[4].float()) + args[5:]
     want = attention.flash_decode_attention_ref(*up, **scales)
@@ -249,7 +253,7 @@ def test_int8_cache_at_each_split_regime(regime, dev):
 
 
 def test_int8_split_call_is_bit_equal_and_leaves_the_counters_zero(dev):
-    """A decode step over 12 live spans of 256 slots: the last block of
+    """A decode step over 24 live spans of 128 slots: the last block of
     each (lane, head) combines the partials in span order, so two calls are
     bit-equal, and it resets its counter, so the scratch's counters are all
     zero after the calls."""

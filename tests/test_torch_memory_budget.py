@@ -35,6 +35,7 @@ from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer  # n
 from mmduet_tpu_torch.infer import LiveInferEngine  # noqa: E402
 from mmduet_tpu_torch.infer.state import cache_slots, serving_cache  # noqa: E402
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, quant  # noqa: E402
+from mmduet_tpu_torch.ops import attention  # noqa: E402
 from mmduet_tpu_torch.parallel import ProcessMesh, lane_block, shard_params  # noqa: E402
 from mmduet_tpu_torch.parallel.sharding import shard_train_state  # noqa: E402
 from mmduet_tpu_torch.train import init_train_state, make_optimizer  # noqa: E402
@@ -229,6 +230,34 @@ def test_estimate_check_and_terms():
     assert not mb.check(b, b.persistent_bytes - 1)[0]  # the persistent part above the peak
     ok, line = mb.check(b, b.total_bytes + mb.GIB // 2, mb.GIB // 2)
     assert ok and "less 0.50 resident" in line
+
+
+# (lanes, kv heads, GQA group, tokens, slots): kernel A launches at the budget's
+# shapes: a decode step and a frame step at a (1, 4) and a (1, 2) rank's kv
+# heads and at 8 lanes of the whole model's, an 8-frame block (one span), and
+# a cache whose one span needs no scratch
+A_SCRATCH_CASES = [(1, 1, 7, 1, 24576), (1, 2, 7, 64, 24576), (8, 4, 7, 1, 24576),
+                   (8, 4, 7, 64, 24576), (4, 2, 7, 64, 4096), (8, 4, 7, 392, 24576),
+                   (2, 1, 7, 1, 64)]
+
+
+@pytest.mark.parametrize("case", A_SCRATCH_CASES, ids=["-".join(map(str, c))
+                                                       for c in A_SCRATCH_CASES])
+def test_kernel_a_scratch_term_is_what_the_wrapper_allocates(case, monkeypatch):
+    """The budget's kernel A scratch term is, to the byte, the partials and
+    counters that `ops.attention._split_args` allocates for the launch."""
+    lanes, kh, group, tokens, slots = case
+    monkeypatch.setattr(attention, "_split_scratch", {})
+    monkeypatch.setattr(attention, "_split_memo", {})
+    cpu = torch.device("cpu")
+    _, nsplit, part, _ = attention._split_args(cpu, lanes, kh, group * tokens, slots, 128)
+    allocated = 0
+    if part is not None:
+        p_, c_ = attention._split_scratch[cpu]
+        allocated = p_.numel() * p_.element_size() + c_.numel() * c_.element_size()
+        assert int(c_.abs().sum()) == 0
+    assert (part is None) == (nsplit == 1)
+    assert mb.decode_scratch_bytes(lanes, kh, group, tokens, slots, 128) == allocated
 
 
 def test_cli_prints_its_table_and_json(tmp_path):
