@@ -58,7 +58,15 @@ Phases (any failure ends the run with a nonzero exit):
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
    generates, then streams them again in grounding mode; kernel A's
-   launches over that run must be positive. Then live feeding on that
+   launches over that run must be positive; a greedy decode of 32 tokens
+   after it is timed on the engine's decode route (a captured CUDA graph
+   a step) and eagerly, tokens/s and the idle share under torch.profiler.
+   Then the decode-graph phase: on a new engine of one lane (cursor 3000)
+   and of 8 lanes (two frozen), `decode_loop`'s captured step against the
+   eager route bit for bit (tokens, n, cursors, penalty mask, cache) at
+   its capture, in replay, and in replay after an 8-frame block grew
+   kernel A's split scratch, the launches of both routes equal, the
+   engines' ``decode_route`` "graph"; both routes timed at 8 lanes. Then live feeding on that
    model: `stream_video` in chunks of 16 (generation, grounding, grounding
    with ``upload_ahead``) equals `input_video_stream` + `inference()` bit
    for bit, kernels A and D launch as the layers imply, both routes' wall
@@ -102,7 +110,10 @@ Phases (any failure ends the run with a nonzero exit):
    (`quantize_params(bits=4)`), `LiveInferEngine(kv_cache_quant="int8")`,
    the same two passes as in 3; kernel B's launches must equal seven per
    layer and decoder forward plus one per generated token (the LM head),
-   and every attention launch must be of the int8 variant;
+   and every attention launch must be of the int8 variant (a replayed
+   decode step adds what its capture launched); then the decode-graph
+   phase's one-lane check on this tree and cache, kernel B's scratch
+   grown too;
 8. tensor-parallel serving: two ranks of a (1, 2) process mesh, spawned
    from here, share the one card over gloo (NCCL refuses two ranks on one
    device), each holding its shard (`parallel.shard_params`) of the same
@@ -233,7 +244,7 @@ from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer, LiveInferEngine
 from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS, cache_slots
 from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmduet_params,
-                                     mmduet, quant, siglip)
+                                     mmduet, quant, qwen2, siglip)
 from mmduet_tpu_torch.models.io import load_config
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
 from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
@@ -1351,15 +1362,17 @@ class TokenRecorder:
     """While entered, records each greedy step's top-2 logits of every lane:
     `mmduet.decode_loop` is wrapped to open a record per call (which lanes
     decode, and for whom: ``owners()`` gives each lane's session at the
-    call), and the `gather_vocab` it takes whole logit rows from (on one
-    process the identity) to add each step's top-2. They stay on the
+    call), and `mmduet.decode_outputs`, which reads the finished loop's
+    state, to copy that state's top-2 rows (`DecodeState.top_v` /
+    ``top_i``: the prompt's and each step's, which the step writes on the
+    device, also when a CUDA graph replays it). The copies stay on the
     device until `steps` reads them, so recording adds no host sync."""
 
     def __init__(self, eos_id: int, owners=lambda: [0]):
         self.eos_id, self.owners, self.calls = eos_id, owners, []
 
     def __enter__(self):
-        self._decode, self._gather = mmduet.decode_loop, mmduet.gather_vocab
+        self._decode, self._outputs = mmduet.decode_loop, mmduet.decode_outputs
 
         def decode(*args, **kw):
             active = kw.get("active", args[7] if len(args) > 7 else None)
@@ -1368,31 +1381,34 @@ class TokenRecorder:
                                else [bool(a) for a in active], []))
             return self._decode(*args, **kw)
 
-        def gather(logits, vocab_size):
-            full = self._gather(logits, vocab_size)
+        def outputs(state):
             if self.calls:
-                self.calls[-1][2].append(torch.topk(full.float(), 2, dim=-1))
-            return full
+                self.calls[-1][2].append((state.top_v.clone(), state.top_i.clone(),
+                                          state.i.clone()))
+            return self._outputs(state)
 
-        mmduet.decode_loop, mmduet.gather_vocab = decode, gather
+        mmduet.decode_loop, mmduet.decode_outputs = decode, outputs
         return self
 
     def __exit__(self, *exc):
-        mmduet.decode_loop, mmduet.gather_vocab = self._decode, self._gather
+        mmduet.decode_loop, mmduet.decode_outputs = self._decode, self._outputs
 
     def steps(self, session=0) -> list:
         """[(token, top-1 minus top-2 logit)] of ``session``'s greedy steps,
         call by call, each call's up to its end of sequence."""
         out = []
         for owners, active, tops in self.calls:
-            for b, (owner, on) in enumerate(zip(owners, active)):
-                if owner != session or not on:
-                    continue
-                for t in tops:
-                    tok = int(t.indices[b, 0])
-                    out.append((tok, float(t.values[b, 0] - t.values[b, 1])))
-                    if tok == self.eos_id:
-                        break
+            for top_v, top_i, i in tops:
+                rows = int(i)  # the prompt's row and one a step
+                values, tokens = top_v[:rows].cpu(), top_i[:rows].cpu()
+                for b, (owner, on) in enumerate(zip(owners, active)):
+                    if owner != session or not on:
+                        continue
+                    for r in range(rows):
+                        tok = int(tokens[r, b, 0])
+                        out.append((tok, float(values[r, b, 0] - values[r, b, 1])))
+                        if tok == self.eos_id:
+                            break
         return out
 
 
@@ -1543,33 +1559,203 @@ def _check_pass(engine, name: str, launches: int, responses, query: str) -> None
         raise AssertionError(f"{name} pass: cache written past the cursor")
 
 
+def _device_ms(fn) -> float:
+    """The summed device time (ms) of the kernels one call of ``fn`` runs,
+    under torch.profiler (CUDA graph replays included); 0.0 where the
+    profiler saw none."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1000
+
+
+def time_decode(params, cfg, embeds, cache, cursors, graphs, log, what: str,
+                n_new: int = 32, idle: bool = True) -> dict:
+    """Greedy decodes of ``n_new`` tokens (EOS off) after the prompt
+    ``embeds`` at ``cursors`` of ``cache``, on the graph route (``graphs``;
+    skipped when None) and on the eager one: each timed with a device sync
+    after one untimed run, the median tokens/s (over all lanes) of three
+    runs and their range, and, with ``idle``, the decode's idle share, 1 -
+    the device time torch.profiler sums over one more call / the median
+    wall time. Returns {route: {"tokens_per_s", "range", "idle"}}; ``idle``
+    is None where it was not measured (or the profiler saw no device
+    time)."""
+    B = embeds.shape[0]
+    pen = torch.zeros((B, cfg.text.vocab_size), dtype=torch.bool, device=embeds.device)
+    out = {}
+    for route, g in (("graph", graphs), ("eager", None)):
+        if route == "graph" and g is None:
+            continue
+
+        def call():
+            packed, _, _ = mmduet.decode_loop(params, cfg, embeds, cache, cursors,
+                                              embeds.shape[1], pen, max_new=n_new, eos_id=-1,
+                                              rep=1.05, graphs=g)
+            return packed
+
+        walls = []
+        with torch.inference_mode():
+            for run in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = call()[:, -2]
+                torch.cuda.synchronize()
+                if run:
+                    walls.append(time.perf_counter() - t0)
+                if not bool((n == n_new).all()):
+                    raise AssertionError(f"decode ({what}, {route}): {n.tolist()} tokens, "
+                                         f"want {n_new}")
+            device = _device_ms(call) if idle else 0.0
+        wall = float(np.median(walls))
+        rates = [B * n_new / w for w in walls]
+        share = 1 - device / (1e3 * wall) if device else None
+        out[route] = {"tokens_per_s": B * n_new / wall, "range": [min(rates), max(rates)],
+                      "idle": share}
+        log(f"decode ({what}), {route} route: {n_new} tokens a lane, {B} lanes: median "
+            f"{B * n_new / wall:.2f} tokens/s of 3 runs (range {min(rates):.2f}-"
+            f"{max(rates):.2f}; prompt prefill included); device {device:.3f} ms of "
+            f"{1e3 * wall:.3f} ms wall, idle "
+            + (f"{100 * share:.1f} %" if share is not None else "not measured"))
+    return out
+
+
 def _time_decode(engine, cfg, log) -> float:
-    """Greedy decode of 32 tokens (EOS disabled) at the cache length the
-    generation pass left, timed with a device sync after one untimed run;
-    the median tokens per second of three runs (host-bound: they spread)."""
-    n_new = 32
+    """`time_decode` at the cache length the generation pass left, on the
+    engine's route and eagerly (the idle share measured in one process,
+    not on a process mesh's ranks); returns the engine route's median
+    tokens/s."""
     embeds = engine._embed_ids(engine._gen_prompt_ids)[None]
-    pen = torch.zeros((1, cfg.text.vocab_size), dtype=torch.bool, device="cuda")
-    rates = []
-    with torch.inference_mode():
-        for run in range(4):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            packed, _, _ = mmduet.decode_loop(
-                engine.params, cfg, embeds, engine.state.kv_cache,
-                engine.state.cursor, embeds.shape[1], pen,
-                max_new=n_new, eos_id=-1, rep=1.05,
-            )
-            n = int(packed[0, -2])
-            dt = time.perf_counter() - t0
-            if n != n_new:
-                raise AssertionError(f"decode: {n} tokens, want {n_new}")
-            if run:
-                rates.append(n / dt)
-    rate = float(np.median(rates))
-    log(f"decode: {n_new} tokens at cache length {engine.state.cursor}: median {rate:.2f} "
-        f"tokens/s of 3 runs (range {min(rates):.2f}-{max(rates):.2f}; prompt prefill included)")
-    return rate
+    rates = time_decode(engine.params, cfg, embeds, engine.state.kv_cache, engine.state.cursor,
+                        engine._decode_graphs, log,
+                        f"B = 1 at cache length {engine.state.cursor}",
+                        idle=not isinstance(engine.mesh, ProcessMesh))
+    return rates[engine.decode_route]["tokens_per_s"]
+
+
+# The decode-graph phase: decodes of DG_MAX_NEW tokens (EOS off) on one lane
+# at cursor 3000 and on 8 lanes at these cursors, two of them frozen.
+DG_MAX_NEW = 16
+DG_CURSORS = (3000, 520, 1900, 64, 2600, 1200, 700, 2200)
+DG_ACTIVE = (True, False, True, True, False, True, True, True)
+
+
+def _cache_leaves(cache) -> list:
+    return [t for leaf in cache for t in (leaf.values() if isinstance(leaf, dict) else (leaf,))]
+
+
+def _clone_cache(cache):
+    return type(cache)(*({k: t.clone() for k, t in leaf.items()} if isinstance(leaf, dict)
+                         else leaf.clone() for leaf in cache))
+
+
+def check_decode_graph(engine, cache, cursors, active, log, what: str) -> None:
+    """``engine``'s graph route (a new engine, whose decode step is captured
+    here) against the eager route: `decode_loop` from the same random
+    history below ``cursors`` of ``cache`` (the engine's own), EOS off,
+    with the repetition penalty. The eager run goes first, on a copy; then
+    the graph route three times on the engine's cache, each from the same
+    history: its first step eager and captured, then every step replayed,
+    then replayed again after an 8-frame block on every lane has grown
+    kernel A's split scratch (and kernel B's, under int4 weights; the
+    scratch is emptied before the capture, so that the block must grow
+    it). Each time the tokens, n, cursors, penalty mask and the whole cache
+    (the committed rows included) must be the eager run's bits, and the
+    launches of kernels A and B the eager run's: L layers a forward, the
+    prompt's and one a step (and 7 L + 1 of B)."""
+    params, cfg = engine.params, engine.cfg
+    if engine.decode_route != "graph" or len(engine._decode_graphs):
+        raise AssertionError(f"decode graph ({what}): route {engine.decode_route}, "
+                             f"{len(engine._decode_graphs or ())} steps captured before")
+    L, t = cfg.text.num_layers, cfg.text
+    int4 = isinstance(params["lm_head"], dict) and "qw4" in params["lm_head"]
+    B, dev = len(cursors), kv_arr(cache.k).device
+    want_counts = (L * DG_MAX_NEW, (7 * L + 1) * DG_MAX_NEW if int4 else 0)
+    splits = (attention._split_scratch, quant_matmul._split_scratch)
+
+    def run(graphs, c):
+        before = attention.LAUNCHES, quant_matmul.B_LAUNCHES
+        packed, c, mask = mmduet.decode_loop(
+            params, cfg, embeds, c, list(cursors), embeds.shape[1], pen, list(active),
+            max_new=DG_MAX_NEW, eos_id=-1, rep=1.05, graphs=graphs)
+        torch.cuda.synchronize()
+        counts = attention.LAUNCHES - before[0], quant_matmul.B_LAUNCHES - before[1]
+        if counts != want_counts:
+            raise AssertionError(f"decode graph ({what}): launches (A, B) {counts}, want "
+                                 f"{want_counts}")
+        return packed, c, mask
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():  # the engine's cache is an inference tensor
+        gen = torch.Generator(device=dev).manual_seed(11)
+        shape = (L, B, t.num_kv_heads, max(cursors), t.head_dim)
+        qwen2.commit_lanes(cache, *(torch.randn(shape, generator=gen, device=dev,
+                                                dtype=torch.bfloat16) for _ in "kv"), 0)
+        start = _clone_cache(cache)
+        embeds = engine._embed_ids(engine._gen_prompt_ids)[None].expand(B, -1, -1)
+        pen = torch.zeros((B, t.vocab_size), dtype=torch.bool, device=dev)
+        pen[:, [3, 70, 300]] = True
+        blocks = torch.randn((B, 8 * cfg.frame_num_tokens, t.hidden_size), generator=gen,
+                             device=dev, dtype=torch.bfloat16) * 0.05
+        for split in splits:
+            split.pop(dev, None)
+        attention._split_memo.clear()
+        want, want_cache, want_pen = run(None, _clone_cache(start))
+        for state in ("capture", "replays", "replays after the scratch grew"):
+            if state.endswith("grew"):
+                held = [split.get(dev) for split in splits]
+                mmduet.chunk_scores_forward(params, cfg, blocks, cache, list(cursors),
+                                            blocks.shape[1], [[0]] * B)
+                grew = [held[i] is not splits[i].get(dev) for i in range(1 + int4)]
+                if not all(grew):
+                    raise AssertionError(f"decode graph ({what}): the 8-frame block grew "
+                                         f"kernel A's / B's scratch: {grew}")
+            for x, y in zip(_cache_leaves(cache), _cache_leaves(start)):
+                x.copy_(y)
+            got, got_cache, got_pen = run(engine._decode_graphs, cache)
+            same = (torch.equal(got, want) and torch.equal(got_pen, want_pen) and all(
+                torch.equal(x, y) for x, y in zip(_cache_leaves(got_cache),
+                                                  _cache_leaves(want_cache))))
+            if not same:
+                raise AssertionError(f"decode graph ({what}), {state}: the graph route's "
+                                     "tokens, cursors, penalty mask or cache differ from the "
+                                     "eager route's")
+    log(f"decode graph ({what}): the graph route equals the eager route bit for bit (tokens, "
+        f"n, cursors, penalty mask, cache) at the capture, in replay and in replay after an "
+        f"8-frame block grew the split scratch of kernel A{' and B' if int4 else ''}; "
+        f"{len(engine._decode_graphs)} step captured; launches (A, B) {want_counts} a decode "
+        f"of {DG_MAX_NEW} tokens on both routes; {time.perf_counter() - t0:.1f} s")
+
+
+def run_decode_graph(cfg, tok, params, log, kv_cache_quant=None, batched: bool = True) -> dict:
+    """The decode-graph phase: `check_decode_graph` on a new
+    `LiveInferEngine` (one lane at cursor 3000, the engine's cache) and,
+    with ``batched``, a new `BatchedStreamEngine` of 8 lanes (cursors
+    DG_CURSORS, two frozen; a cache of 8192 slots), each engine reporting
+    ``decode_route == "graph"``; then `time_decode` at 8 lanes on both
+    routes. Returns the 8 lanes' rates."""
+    t0 = time.perf_counter()
+    tag = "int4 weights, int8 cache" if kv_cache_quant else "bf16"
+    args = dict(stream_end_score_sum_threshold=1.0)
+    live = LiveInferEngine(params, cfg, tok, _args(**args), kv_cache_quant=kv_cache_quant)
+    check_decode_graph(live, live.state.kv_cache, DG_CURSORS[:1], DG_ACTIVE[:1], log,
+                       f"{tag}, B = 1")
+    del live
+    rates = {}
+    if batched:
+        eng = BatchedStreamEngine(params, cfg, tok,
+                                  _args(BATCH_MAX_NEW, max_num_frames=N_FRAMES, **args),
+                                  n_streams=len(DG_CURSORS), kv_cache_quant=kv_cache_quant)
+        check_decode_graph(eng, eng._cache, DG_CURSORS, DG_ACTIVE, log,
+                           f"{tag}, {len(DG_CURSORS)} lanes, {DG_ACTIVE.count(False)} frozen")
+        embeds = eng._embed_ids(eng._gen_prompt_ids)[None].expand(len(DG_CURSORS), -1, -1)
+        rates = time_decode(params, cfg, embeds, eng._cache, list(DG_CURSORS),
+                            eng._decode_graphs, log, f"{tag}, {len(DG_CURSORS)} lanes at cursors "
+                            f"{min(DG_CURSORS)}..{max(DG_CURSORS)}")
+        del eng
+    torch.cuda.empty_cache()
+    log(f"decode-graph phase ({tag}) in {time.perf_counter() - t0:.1f} s")
+    return rates
 
 
 # The batched path: 12 sessions of 40-64 frames through 8 lanes, so that
@@ -2518,14 +2704,17 @@ def run_prewarm(cfg, tok, params, log) -> float:
     counts = _kernel_counts()  # and ends here
     if (warm.state.cursor or warm.frame_embeds is not None or counts["attention"] <= 0
             or counts["attention"] % cfg.text.num_layers
-            or counts["vision"] != 2 * (cfg.vision.num_layers - 1)):
-        raise AssertionError(f"prewarm: cursor {warm.state.cursor}, launches {counts}")
+            or counts["vision"] != 2 * (cfg.vision.num_layers - 1)
+            or len(warm._decode_graphs) != 1):
+        raise AssertionError(f"prewarm: cursor {warm.state.cursor}, launches {counts}, "
+                             f"{len(warm._decode_graphs)} decode steps captured")
     got = _live_pass(warm, frames, stream=True)[1]
     want = _live_pass(LiveInferEngine(params, cfg, tok, args), frames, stream=True)[1]
     if got != want:
         raise AssertionError("prewarm: the session after it differs from a cold engine's")
     log(f"prewarm(vision=True): {dt:.3f} s (kernels built already; {len(DEFAULT_BUCKETS)} "
-        f"buckets, the 8-frame block, an 8-token decode, two 32-frame encodes); launches "
+        f"buckets, the 8-frame block, an 8-token decode whose step it captured, two 32-frame "
+        f"encodes); launches "
         f"{counts}; a {LIVE_CHUNK}-frame session after it equals a cold engine's exactly")
     return dt
 
@@ -3988,13 +4177,14 @@ def memory_configs(cfg, train_mem: dict, tm_mems: dict) -> list:
 
     def live(name, c=cfg, tree="bf16", **kw):  # `run_main_path`, `run_clip_path`
         return lambda r: {p: S(f"{name}, {p}", c, grounding=p == "grounding", frames=N_FRAMES,
-                               params=trees[tree], **kw) for p in ("generation", "grounding")}
+                               max_new=_args().max_new_tokens, params=trees[tree], **kw)
+                          for p in ("generation", "grounding")}
 
     def batched(name, mesh=(1, 1), kv=None, scorer=True, c=cfg, tree="bf16", pixels=True):
         def make(r):  # `run_batched_path`, `run_tp_batched`
             out = {"serve": S(f"{name}, serve", c, mesh=mesh, engine="batched",
                               lanes=BATCH_LANES, kv_cache_quant=kv, pixels=pixels,
-                              params=trees[tree])}
+                              max_new=BATCH_MAX_NEW, params=trees[tree])}
             if scorer:
                 out["scorer"] = S(f"{name}, scorer", c, mesh=mesh, engine="scorer",
                                   lanes=BATCH_LANES, kv_cache_quant=kv,
@@ -4115,6 +4305,7 @@ def main(argv=None) -> int:
     cfg, tok, params = full_width_model(log)
     dense = run_main_path(cfg, tok, params, log)
     dec["launches"] = dense["attention"]
+    run_decode_graph(cfg, tok, params, log)
     run_live_feeding(cfg, tok, params, log)
     run_prewarm(cfg, tok, params, log)
     run_offline_baseline(cfg, tok, params, log)
@@ -4157,6 +4348,7 @@ def main(argv=None) -> int:
     tp_spread = spread_under_permuted_mlp(cfg, tok, params, log, dense, tp_batched_ref)
     params = quantize_on_card(params, log)
     quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
+    run_decode_graph(cfg, tok, params, log, kv_cache_quant="int8", batched=False)
     dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
     measured["quantized"] = quantized["mem"]
     for key, what in (("p50_ms", "generation pass p50 per-frame ms"),

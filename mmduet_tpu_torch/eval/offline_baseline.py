@@ -12,9 +12,10 @@ back into timed turns by `convert_to_online_format`, matching
 The runner is the streaming engine's device path: the prompt is
 prefilled in 256-row chunks through the engine's bucketed `_feed` (kernel
 A on a CUDA device), then one answer is greedily decoded by
-`mmduet.decode_loop`, the engine's generate path; no score-threshold
-policy runs. The format converters below the runner are copies of the
-JAX module's, pinned equal by `tests/test_torch_hostcode.py`.
+`mmduet.decode_loop` on the engine's decode route (`decode_route`), the
+engine's generate path; no score-threshold policy runs. The format
+converters below the runner are copies of the JAX module's, pinned equal by
+`tests/test_torch_hostcode.py`.
 """
 
 from __future__ import annotations
@@ -76,6 +77,7 @@ class OfflineBaselineRunner(LiveInferEngine):
             max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
             rep=self.args.repetition_penalty, lora=self.lora,
             lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+            graphs=self._decode_graphs,
         )
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor
         self.state.cursor = packed[-1]

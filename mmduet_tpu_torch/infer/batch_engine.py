@@ -30,7 +30,12 @@ CUDA device, also under a mesh; a ``mesh`` lies on one device
 (`ops.attention.flash_decode_attention_sharded`, bit-equal to the
 unsharded kernel). `BatchedStreamEngine.prewarm` pays before the first
 group what its first calls would (the kernels' builds, their scratch,
-cuBLAS's handles, the allocator's pool).
+cuBLAS's handles, the allocator's pool, the decode step's capture). A
+batched decode keeps its loop state on the device; on a CUDA device
+without a process mesh each step replays one captured CUDA graph over all
+lanes, the frozen ones included (``decode_route == "graph"``, as in
+`LiveInferEngine`). An engine keeps one KV cache for its life: `reset`
+zeros it in place.
 
 Under a `parallel.ProcessMesh` (one process per card) each rank holds
 its local tree and a cache of its own kv heads (the ``model`` axis, as
@@ -60,7 +65,7 @@ import torch
 
 from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
 from ..models import mmduet
-from ..models.qwen2 import embed_tokens, ints_to
+from ..models.qwen2 import embed_tokens, ints_to, zero_kv_cache
 from ..ops import _build
 from ..parallel import lane_block, serving_shard_ctx
 from ..parallel.collectives import gather_data
@@ -69,6 +74,7 @@ from .state import (
     ThresholdPolicy,
     build_prompt_fragments,
     cache_slots,
+    decode_route,
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
@@ -157,14 +163,17 @@ class BatchedStreamScorer:
     @torch.inference_mode()
     def reset(self):
         # one (L, lanes, kh, S, hd) cache of this process's lanes with the
-        # lane dim on the model's batch axis, the layout of B = 1 serving.
-        # The old buffers go FIRST: at protocol scale old and new caches
-        # beside the weights would not fit the card together
-        self._cache = None
-        self._cache = serving_cache(
-            self.cfg.text, self.params["decoder"], self._hi - self._lo, self._cache_size,
-            self.dtype, self.device, quant=self.kv_cache_quant,
-        )
+        # lane dim on the model's batch axis, the layout of B = 1 serving,
+        # made once and zeroed in place here (the values of a new one): the
+        # captured decode step holds its address, and at protocol scale a
+        # second cache beside the weights would not fit the card
+        if self._cache is None:
+            self._cache = serving_cache(
+                self.cfg.text, self.params["decoder"], self._hi - self._lo, self._cache_size,
+                self.dtype, self.device, quant=self.kv_cache_quant,
+            )
+        else:
+            zero_kv_cache(self._cache)
         self._cursor = np.zeros((self.B,), np.int64)  # host-authoritative
         self._frame_embeds: Optional[torch.Tensor] = None
         self._lengths: Optional[np.ndarray] = None
@@ -420,6 +429,11 @@ class BatchedStreamEngine(BatchedStreamScorer):
         self._start_ids, self._stream_open_ids, self._gen_prompt_ids = (
             build_prompt_fragments(tokenizer, self.system_prompt)
         )
+        # "graph": each decode step replays a captured CUDA graph; "eager"
+        # on the CPU and on a rank of a process mesh
+        self.decode_route = decode_route(self.device, mesh)
+        self._decode_graphs = (mmduet.DecodeGraphs() if self.decode_route == "graph"
+                               else None)
 
     # ------------------------------------------------------------------
 
@@ -751,13 +765,16 @@ class BatchedStreamEngine(BatchedStreamScorer):
         return self._all_lanes(probs)  # ONE host fetch for all (B, 2, K) scores
 
     @torch.inference_mode()
-    def _generate_batch(self, lanes: Sequence[int]) -> Dict[int, str]:
+    def _generate_batch(self, lanes: Sequence[int],
+                        eos_id: Optional[int] = None) -> Dict[int, str]:
         """Batched greedy decode for the triggered lanes; returns
         stream -> response text, applying per-lane
         `remove_assistant_turns` cursor rollback and pending-token
         bookkeeping (engine `_generate_response`). The generation prompt
         is shared; lanes outside ``lanes`` are frozen throughout
-        (`mmduet.decode_loop`)."""
+        (`mmduet.decode_loop`, on the engine's decode route). ``eos_id``:
+        the id that ends an answer (None: the tokenizer's; -1: none, for
+        `prewarm`)."""
         t = len(self._gen_prompt_ids)
         W = max(self.args.max_new_tokens - 1, 1)
         for b in lanes:
@@ -773,9 +790,10 @@ class BatchedStreamEngine(BatchedStreamScorer):
             packed, _, self._pen_mask = mmduet.decode_loop(
                 self.params, self.cfg, gen_embeds[None].expand(len(here), -1, -1),
                 self._cache, self._cur[self._lo:self._hi].tolist(), t, self._pen_mask, active,
-                max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
+                max_new=self.args.max_new_tokens,
+                eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
                 rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
-                shard_ctx=self._shard_ctx,
+                shard_ctx=self._shard_ctx, graphs=self._decode_graphs,
             )
         else:  # no lane here decodes: zero rows join the gather
             packed = torch.zeros((len(here), self.args.max_new_tokens + 2), dtype=torch.int32,
@@ -814,10 +832,12 @@ class BatchedStreamEngine(BatchedStreamScorer):
         """Pay before the first group what its first calls would
         (`LiveInferEngine.prewarm`: the kernels' builds, kernel A's split
         scratch and memo per launch shape, kernel B's scratch, cuBLAS's
-        handles, the allocator's pool): one batched dispatch of zeros at
-        each chunk bucket over this process's lanes, a batched decode of
-        every lane (the group's first gathers) and, with ``vision``, one
-        VISION_BATCH encode. Resets the engine afterwards."""
+        handles, the allocator's pool, the decode step's capture): one
+        batched dispatch of zeros at each chunk bucket over this process's
+        lanes, a batched decode of every lane (the group's first gathers;
+        on the graph route with no end of sequence, so that a step runs and
+        is captured) and, with ``vision``, one VISION_BATCH encode. Resets
+        the engine afterwards."""
         if self.device.type == "cuda":
             _build.build()
         H = self.params["decoder"]["final_norm"].shape[-1]
@@ -834,7 +854,8 @@ class BatchedStreamEngine(BatchedStreamScorer):
             )
         if generate:
             self._cur[:] = 0
-            self._generate_batch(list(range(self.B)))
+            self._generate_batch(list(range(self.B)),
+                                 -1 if self._decode_graphs is not None else None)
         if vision:
             r = self.cfg.frame_resolution
             staged_visual_encode(self._visual, np.zeros((VISION_BATCH, r, r, 3), np.uint8),

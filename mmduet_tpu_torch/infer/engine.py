@@ -10,7 +10,12 @@ the reference `LiveInferForBenchmark` (`test/inference.py:20-313`):
   response trigger mid-block rolls the rest back (a cursor rewind), so
   results equal single-frame stepping;
 - generation is `mmduet.decode_loop`: prefill + greedy decode into a
-  scratch cache with the repetition penalty as a token bitmask;
+  scratch cache with the repetition penalty as a token bitmask, its loop
+  state on the device; on a CUDA device without a process mesh each
+  decode step replays one captured CUDA graph (``decode_route ==
+  "graph"``, `state.decode_route`), the port's counterpart of the JAX
+  engine's compiled `lax.while_loop`, and the host reads one flag a step
+  and the packed tokens once a response;
 - ``remove_assistant_turns`` is a cursor rewind;
 - all three threshold policies (`state.ThresholdPolicy`);
 - a per-frame latency record;
@@ -51,8 +56,10 @@ stream of its own, and the decoder on a stream of higher priority, ordered
 after the caller's current stream and before it again at the end: kernels
 A and B, whose split scratch is shared per device (`ops.attention`,
 `ops.quant_matmul`), run on one stream at a time.
-`prewarm` takes what an eager first session would pay (the kernels'
-builds, their scratch, cuBLAS's handles, the allocator's pool) before it.
+`prewarm` takes what a cold first session would pay (the kernels'
+builds, their scratch, cuBLAS's handles, the allocator's pool, the decode
+step's capture) before it. The engine keeps one KV cache for its life:
+`reset` zeros it in place, so the captured step's addresses stay valid.
 """
 
 from __future__ import annotations
@@ -67,7 +74,7 @@ import torch
 from ..config import MMDuetConfig, TestArgs
 
 from ..models import mmduet
-from ..models.qwen2 import embed_tokens, ints_to
+from ..models.qwen2 import embed_tokens, ints_to, zero_kv_cache
 from ..ops import _build
 from ..parallel import serving_shard_ctx
 from .state import (
@@ -76,6 +83,7 @@ from .state import (
     ThresholdPolicy,
     build_prompt_fragments,
     cache_slots,
+    decode_route,
     encode_uploaded,
     frame_joiner_ids,
     pad_chunk,
@@ -128,6 +136,11 @@ class LiveInferEngine:
         # one lane: only the heads are cut, over the mesh's model axis
         self._shard_ctx = serving_shard_ctx(
             mesh, cfg.text.num_heads, cfg.text.num_kv_heads, 1, self.device)
+        # "graph": each decode step replays a captured CUDA graph; "eager"
+        # on the CPU and on a rank of a process mesh
+        self.decode_route = decode_route(self.device, mesh)
+        self._decode_graphs = (mmduet.DecodeGraphs() if self.decode_route == "graph"
+                               else None)
 
         validate_threshold_args(args)
         self.args = args
@@ -154,6 +167,7 @@ class LiveInferEngine:
         if block_frames is None:
             block_frames = live_block_frames(args.grounding_mode)
         self.block_frames = max(1, block_frames)
+        self.state: Optional[StreamState] = None
         self.reset()
 
     # ------------------------------------------------------------------
@@ -171,10 +185,16 @@ class LiveInferEngine:
 
     @torch.inference_mode()
     def reset(self):
-        self.state = StreamState(serving_cache(
-            self.cfg.text, self.params["decoder"], 1, self._cache_size, self.dtype,
-            self.device, quant=self.kv_cache_quant,
-        ))
+        # one cache for the engine's life, zeroed in place (the values of a
+        # new one): the captured decode step holds its address
+        if self.state is None:
+            cache = serving_cache(
+                self.cfg.text, self.params["decoder"], 1, self._cache_size, self.dtype,
+                self.device, quant=self.kv_cache_quant,
+            )
+        else:
+            cache = zero_kv_cache(self.state.kv_cache)
+        self.state = StreamState(cache)
         self.query_queue = collections.deque()
         self.frame_embeds: Optional[torch.Tensor] = None  # (T, ft, H)
         self.frame_times: List[float] = []
@@ -201,18 +221,20 @@ class LiveInferEngine:
     ) -> None:
         """Pay before the first live session what its first calls would.
 
-        Nothing compiles in eager mode; what a cold first session pays is
-        the `nvcc` builds of the kernels (`ops._build`), kernel A's split
-        scratch and its memo for each launch shape, kernel B's scratch
-        (int4 leaves), cuBLAS's handles and workspaces, and the caching
-        allocator's pool. This feeds a zero chunk at each prefill bucket
-        (query turns and frame steps bucket to these widths), the fused
-        frame block, the greedy decode, one chunk on `stream_video`'s
-        decoder stream (a CUDA device) and, with ``vision``, one encode of
-        VISION_BATCH frames on the current stream and one through
-        `stream_video`'s path (pinned upload, the side stream on a CUDA
-        device). Resets the engine afterwards: a session after it equals
-        one on a cold engine."""
+        What a cold first session pays is the `nvcc` builds of the
+        kernels (`ops._build`), kernel A's split scratch and its memo for
+        each launch shape, kernel B's scratch (int4 leaves), cuBLAS's
+        handles and workspaces, the caching allocator's pool and, on the
+        graph route, the capture of the decode step (the JAX engine's
+        compile of its loop). This feeds a zero chunk at each prefill
+        bucket (query turns and frame steps bucket to these widths), the
+        fused frame block, the greedy decode (on the graph route with no
+        end of sequence, so that a step runs and is captured), one chunk
+        on `stream_video`'s decoder stream (a CUDA device) and, with
+        ``vision``, one encode of VISION_BATCH frames on the current stream
+        and one through `stream_video`'s path (pinned upload, the side
+        stream on a CUDA device). Resets the engine afterwards: a session
+        after it equals one on a cold engine."""
         if self.device.type == "cuda":
             _build.build()  # every source at once, one nvcc each
         H = self.cfg.text.hidden_size
@@ -231,7 +253,7 @@ class LiveInferEngine:
             )
         if generate:
             self.state.cursor = 0
-            self._generate_response()
+            self._generate_response(eos_id=-1 if self._decode_graphs is not None else None)
         main, _ = self._streams()
         if main is not None:  # stream_video's decoder stream: its cuBLAS workspace
             main.wait_stream(torch.cuda.current_stream(self.device))
@@ -554,7 +576,10 @@ class LiveInferEngine:
         self.last_role = "user"
 
     @torch.inference_mode()
-    def _generate_response(self) -> str:
+    def _generate_response(self, eos_id: Optional[int] = None) -> str:
+        """One greedy answer at the cursor, on the engine's decode route.
+        ``eos_id``: the id that ends it (None: the tokenizer's; -1: none,
+        for `prewarm`)."""
         gen_embeds = self._embed_ids(self._gen_prompt_ids)
         t_real = gen_embeds.shape[0]
         # prompt prefill + the W-wide scratch commit after it
@@ -565,9 +590,10 @@ class LiveInferEngine:
             self.params, self.cfg, gen_embeds[None], self.state.kv_cache,
             pre_gen_cursor, t_real, self._pen_mask[None],
             max_new=self.args.max_new_tokens,
-            eos_id=self.tokenizer.eos_token_id,
+            eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
             rep=self.args.repetition_penalty,
             lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+            graphs=self._decode_graphs,
         )
         self._pen_mask = pen_mask[0]
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor

@@ -27,6 +27,7 @@ import torch
 
 from ..config import Qwen2Config
 from ..models.qwen2 import KVCache, init_kv_cache
+from ..parallel import ProcessMesh
 
 # Default prefill bucket widths. Frame steps are 49(+small joiner) tokens;
 # query turns vary; the system-prompt opener can be larger.
@@ -62,6 +63,19 @@ def cache_slots(max_num_frames: int, frame_num_tokens: int,
     engines overflow at the same point."""
     size = kv_cache_size or (max_num_frames * frame_num_tokens + 4096)
     return -(-size // 2048) * 2048
+
+
+def decode_route(device, mesh) -> str:
+    """How an engine's greedy decode runs its steps (`mmduet.decode_loop`):
+    ``"graph"`` on a CUDA device without a process mesh (one-device `Mesh`
+    included), where each step replays a captured CUDA graph
+    (`mmduet.DecodeGraphs`), as the JAX engines run the loop as one
+    compiled device program; ``"eager"`` on the CPU and on a rank of a
+    `ProcessMesh`, whose collectives a graph cannot hold. The same
+    `mmduet.decode_step` runs on both routes."""
+    if torch.device(device).type == "cuda" and not isinstance(mesh, ProcessMesh):
+        return "graph"
+    return "eager"
 
 
 def serving_cache(cfg: Qwen2Config, decoder, batch: int, max_len: int, dtype: torch.dtype,

@@ -13,7 +13,9 @@ Port of `mmduet_tpu/models/mmduet.py`:
   the preallocated KV cache, returning the score-head probabilities (and
   last-position LM logits);
 - ``decode_loop``   — prompt prefill + greedy decode into a scratch cache,
-  then one commit into the big cache;
+  then one commit into the big cache; the loop state stays on the device
+  (`DecodeState`, `decode_step`), and a CUDA device can replay each step
+  from a captured graph (`DecodeGraphs`);
 - ``train_forward``  — the full-sequence training forward with the LM and
   video (score-head) losses.
 """
@@ -30,6 +32,8 @@ from ..config import MMDuetConfig
 
 from ..parallel.collectives import (copy_to_model, cut, gather_vocab, max_model, model_axis,
                                     reduce_model, sum_data, whole_over_data)
+from ..ops import attention as attention_ops
+from ..ops import quant_matmul
 from . import clip, qwen2, siglip
 from .quant import matmul_f32, out_width
 from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
@@ -426,6 +430,217 @@ def frames_block_forward(
     return inf, rel, kv_cache
 
 
+class DecodeState(NamedTuple):
+    """`decode_loop`'s loop state, on the device: B lanes, up to ``max_new``
+    tokens, a W-wide scratch. `start_decode` sets it after the prompt's
+    prefill and `decode_step` updates it in place, as the JAX package's
+    `lax.while_loop` carries it."""
+
+    buf: torch.Tensor  # (B, max_new) int32 sampled tokens (0 where none)
+    n: torch.Tensor  # (B,) int32 tokens a lane produced
+    cursor: torch.Tensor  # (B,) int32 a lane's cursor after its tokens fed so far
+    last_tok: torch.Tensor  # (B,) int32 the token a lane feeds next
+    done: torch.Tensor  # (B,) bool: ended (EOS) or frozen
+    active: torch.Tensor  # (B,) bool; False = frozen lane
+    base: torch.Tensor  # (B,) int32 a lane's cursor after its prompt
+    i: torch.Tensor  # () int32 the step
+    eos: torch.Tensor  # () int32 the end-of-sequence id (-1: none ends a lane)
+    pen_mask: torch.Tensor  # (B, V) bool repetition-penalty token set
+    scratch: KVCache  # (L, B, kh, W, hd) the generated tokens' K/V
+    top_v: torch.Tensor  # (max_new, B, 2) f32: each step's two largest logits
+    top_i: torch.Tensor  # (max_new, B, 2) int64: their tokens
+
+
+def decode_state(B: int, max_new: int, vocab_size: int, scratch_shape: Tuple[int, int, int],
+                 dtype: torch.dtype, device) -> DecodeState:
+    """A zero `DecodeState`; ``scratch_shape`` is (L, kh, hd) and the
+    scratch ``W = max(max_new - 1, 1)`` wide, in ``dtype``."""
+    L, kh, hd = scratch_shape
+    W = max(max_new - 1, 1)
+
+    def zeros(*shape, dt=torch.int32):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return DecodeState(
+        buf=zeros(B, max_new), n=zeros(B), cursor=zeros(B), last_tok=zeros(B),
+        done=zeros(B, dt=torch.bool), active=zeros(B, dt=torch.bool), base=zeros(B),
+        i=zeros(), eos=zeros(), pen_mask=zeros(B, vocab_size, dt=torch.bool),
+        scratch=KVCache(zeros(L, B, kh, W, hd, dt=dtype), zeros(L, B, kh, W, hd, dt=dtype)),
+        top_v=zeros(max_new, B, 2, dt=torch.float32), top_i=zeros(max_new, B, 2, dt=torch.int64),
+    )
+
+
+def _penalized(logits: torch.Tensor, mask: torch.Tensor, rep: Optional[float]) -> torch.Tensor:
+    if rep is None:
+        return logits
+    pen = torch.where(logits > 0, logits / rep, logits * rep)
+    return torch.where(mask, pen, logits)
+
+
+def _mark(mask: torch.Tensor, tok: torch.Tensor, where: torch.Tensor) -> None:
+    """``mask[b, tok[b]] = True`` for the lanes ``where`` holds, in place."""
+    idx = tok.long()[:, None]
+    mask.scatter_(1, idx, mask.gather(1, idx) | where[:, None])
+
+
+def _keep_top2(s: DecodeState, logits: torch.Tensor, row: torch.Tensor) -> None:
+    """The two largest logits of each lane and their tokens into row ``row``
+    (a one-element int64 tensor) of ``s.top_v`` / ``s.top_i``."""
+    top = torch.topk(logits, 2, dim=-1)
+    s.top_v.index_copy_(0, row, top.values[None].float())
+    s.top_i.index_copy_(0, row, top.indices[None])
+
+
+def start_decode(s: DecodeState, logits: torch.Tensor, rep: Optional[float]) -> None:
+    """The first token of every lane from the prompt's last logits (B, V),
+    and the state the loop starts from, in place. ``s.active``,
+    ``s.base``, ``s.eos`` and ``s.pen_mask`` hold the response's inputs."""
+    tok0 = torch.argmax(_penalized(logits, s.pen_mask, rep), dim=-1).int()
+    s.buf.zero_()
+    s.buf[:, 0] = torch.where(s.active, tok0, 0)
+    if rep is not None:  # the mask is read only by _penalized
+        _mark(s.pen_mask, tok0, s.active & (tok0 != s.eos))
+    s.done.copy_((tok0 == s.eos) | ~s.active)
+    s.n.copy_(s.active.int())
+    s.cursor.copy_(s.base)
+    s.last_tok.copy_(tok0)
+    s.i.fill_(1)
+    _keep_top2(s, logits, torch.zeros(1, dtype=torch.int64, device=logits.device))
+    s.scratch.k.zero_()
+    s.scratch.v.zero_()
+
+
+def decode_step(s: DecodeState, params: Params, cfg: MMDuetConfig, kv_cache: KVCache, *,
+                rep: Optional[float] = None, lora: Optional[Params] = None,
+                lora_scale: float = 0.0, shard_ctx=None) -> None:
+    """One greedy step of every lane, in place: the body of the JAX
+    package's `lax.while_loop`. Each lane feeds its last token at its
+    cursor (`qwen2.scratch_decode_forward`, the cache read-only), takes the
+    argmax of its penalized logits and, unless it is done, writes it to
+    ``buf[:, i]``, marks it in the penalty set (not an EOS), sets ``n`` to
+    i + 1 and moves its cursor and last token on; a token equal to
+    ``s.eos`` ends it; ``i`` grows by one. Every value stays on the device:
+    the step reads nothing back to the host and copies nothing to the
+    device, so `CapturedDecodeStep` can replay it from a CUDA graph."""
+    V = cfg.text.vocab_size
+    dec = params["decoder"]
+    emb = qwen2.embed_tokens(dec, s.last_tok[:, None], V).to(s.scratch.k.dtype)
+    hidden = qwen2.scratch_decode_forward(
+        dec, cfg.text, emb, s.cursor, kv_cache, s.base, s.i, s.scratch,
+        lora=lora, lora_scale=lora_scale, shard_ctx=shard_ctx)
+    logits = gather_vocab(qwen2.lm_logits(params["lm_head"], hidden)[:, 0], V)
+    tok = torch.argmax(_penalized(logits, s.pen_mask, rep), dim=-1).int()
+    row = s.i.long().reshape(1)
+    _keep_top2(s, logits, row)
+    live = ~s.done
+    # a done lane keeps buf[:, i] at the zero it starts from
+    s.buf.index_copy_(1, row, torch.where(live, tok, 0)[:, None])
+    if rep is not None:
+        _mark(s.pen_mask, tok, live & (tok != s.eos))
+    s.n.copy_(torch.where(live, s.i + 1, s.n))
+    s.cursor.add_(live.int())
+    s.last_tok.copy_(torch.where(live, tok, s.last_tok))
+    s.done.logical_or_(tok == s.eos)
+    s.i.add_(1)
+
+
+# The launch counts a decode step adds to: kernels A (A-int8, A') and B.
+_STEP_COUNTS = ((attention_ops, "LAUNCHES"), (attention_ops, "INT8_LAUNCHES"),
+                (attention_ops, "SHARDED_LAUNCHES"), (quant_matmul, "B_LAUNCHES"))
+
+
+class CapturedDecodeStep:
+    """`decode_step` on one static `DecodeState`, captured in a CUDA graph:
+    the port's counterpart of the JAX package's jitted loop body.
+
+    The first call runs the step eagerly on the current stream (a real
+    step, which also allocates what the kernels keep between calls: kernel
+    A's and B's split scratch, cuBLAS's workspace) and then captures it;
+    every later call replays the graph on the current stream. The graph
+    holds the addresses of the state, the cache, the parameters and the
+    kernels' split scratch; it keeps the scratch tensors it captured
+    alive, so a later launch that grows the scratch (and drops the old
+    tensors from `ops.attention` / `ops.quant_matmul`) leaves them valid.
+    The capture launches nothing, so the launch counts it added are taken
+    back, and each replay adds them. A capture that fails raises."""
+
+    def __init__(self, state: DecodeState, run):
+        self.state, self._run = state, run
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._launches: Tuple[int, ...] = ()
+        self._held: tuple = ()
+
+    def __call__(self) -> None:
+        if self._graph is None:
+            self._run()
+            self._capture()
+            return
+        self._graph.replay()
+        for (module, name), n in zip(_STEP_COUNTS, self._launches):
+            setattr(module, name, getattr(module, name) + n)
+
+    def _capture(self) -> None:
+        before = [getattr(module, name) for module, name in _STEP_COUNTS]
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's allocations (a demo's server) do
+        # not break this capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._run()
+        self._launches = tuple(getattr(module, name) - b
+                               for (module, name), b in zip(_STEP_COUNTS, before))
+        for (module, name), b in zip(_STEP_COUNTS, before):
+            setattr(module, name, b)
+        dev = self.state.i.device
+        self._held = (attention_ops._split_scratch.get(dev), quant_matmul._split_scratch.get(dev))
+        self._graph = graph
+
+
+class DecodeGraphs:
+    """An engine's captured decode steps (`CapturedDecodeStep`), one per
+    (lanes, max_new, rep, LoRA scale, dtype, parameters, config, LoRA, mesh
+    context, cache tensors): what the step's graph bakes in. An entry keeps
+    those objects alive, so their identities and addresses in its key stay
+    its own. An engine keeps one cache for its life (its ``reset`` zeros it
+    in place), so it keeps one step a ``max_new``."""
+
+    def __init__(self):
+        self._steps: Dict[tuple, CapturedDecodeStep] = {}
+
+    def __len__(self) -> int:
+        return len(self._steps)
+
+    def step(self, params: Params, cfg: MMDuetConfig, kv_cache: KVCache, B: int, max_new: int,
+             dtype: torch.dtype, rep: Optional[float], lora: Optional[Params],
+             lora_scale: float, shard_ctx) -> CapturedDecodeStep:
+        leaves = [t for leaf in kv_cache for t in
+                  (leaf.values() if isinstance(leaf, dict) else (leaf,))]
+        if leaves[0].device.type != "cuda":
+            raise ValueError(f"decode_loop: the graph route runs on a CUDA device, not "
+                             f"{leaves[0].device}")
+        key = (B, max_new, rep, lora_scale, dtype, id(params), id(cfg), id(lora), shard_ctx,
+               tuple(t.data_ptr() for t in leaves))
+        got = self._steps.get(key)
+        if got is None:
+            L, _, kh, _, hd = kv_arr(kv_cache.k).shape
+            state = decode_state(B, max_new, cfg.text.vocab_size, (L, kh, hd), dtype,
+                                 leaves[0].device)
+
+            def run():
+                decode_step(state, params, cfg, kv_cache, rep=rep, lora=lora,
+                            lora_scale=lora_scale, shard_ctx=shard_ctx)
+
+            got = self._steps[key] = CapturedDecodeStep(state, run)
+        return got
+
+
+def decode_outputs(s: DecodeState) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(packed (B, max_new + 2) int32 [tokens | n | final cursor],
+    pen_mask)`` of a finished loop, new tensors made on the device. Rows
+    ``< s.i`` of ``s.top_v`` / ``s.top_i`` are the prefill's and the
+    steps' top-2 logits."""
+    return torch.cat([s.buf, s.n[:, None], s.cursor[:, None]], dim=1), s.pen_mask.clone()
+
+
 def decode_loop(
     params: Params,
     cfg: MMDuetConfig,
@@ -442,10 +657,23 @@ def decode_loop(
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     shard_ctx=None,
+    graphs: Optional[DecodeGraphs] = None,  # the graph route (CUDA tensors)
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Prompt prefill + greedy decode (with the repetition penalty as a
-    token bitmask), the port of the JAX device-side `lax.while_loop` as a
-    host loop with the same condition: ``any(~done) and i < max_new``.
+    token bitmask), with the loop state on the device as the JAX package's
+    `lax.while_loop` keeps it (`DecodeState`), and the same condition:
+    ``any(~done) and i < max_new``. The host counts ``i`` itself and reads
+    one flag a step (``done.all()``); each step is `decode_step`, which
+    makes no host read and no copy to the device.
+
+    Two routes, chosen by the caller: without ``graphs`` every step runs
+    eagerly on a state made for the call (CPU tensors, and the ranks of a
+    process mesh, whose collectives a graph cannot hold); with ``graphs``
+    (CUDA tensors only) the state is the static one of the graph that
+    ``graphs`` keeps for these operands, the call copies its inputs into
+    it, and each step replays the captured `decode_step`
+    (`CapturedDecodeStep`; the first step of a new graph runs eagerly and
+    captures it). Both give the same bits.
 
     The big cache is written twice, in place: by the prompt prefill and
     by one commit after the loop. Inside the loop it is read-only; each
@@ -462,24 +690,12 @@ def decode_loop(
     ``cache_len[b] + max(t, W) <= S``, so both raise at the same point.
 
     Returns ``(packed (B, max_new+2) int32 [tokens | n | final cursor],
-    cache, updated pen_mask)``."""
+    cache, updated pen_mask)``, new tensors (not the graph's state)."""
     B, _, _ = embeds.shape
     dev = embeds.device
-    V = cfg.text.vocab_size
     act = [True] * B if active is None else [bool(a) for a in active]
     cl = lane_list(cache_len, B)
     tr = lane_list(t_real, B)
-    pen_mask = pen_mask.clone()
-
-    def penalized(logits: torch.Tensor) -> torch.Tensor:
-        if rep is None:
-            return logits
-        pen = torch.where(logits > 0, logits / rep, logits * rep)
-        return torch.where(pen_mask, pen, logits)
-
-    def mark(b: int, tok: int) -> None:
-        if rep is not None:  # the mask is read only by penalized()
-            pen_mask[b, tok] = True
 
     out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
                        lora_scale=lora_scale, compute_lm_logits=True,
@@ -487,52 +703,30 @@ def decode_loop(
     cache = out.kv_cache  # prompt committed; read-only until the commit
     base = [c + t if a else c for c, t, a in zip(cl, tr, act)]
 
-    tok0 = torch.argmax(penalized(out.last_logits), dim=-1).tolist()
-    buf = [[0] * max_new for _ in range(B)]
-    done, n = [], []
-    for b in range(B):
-        buf[b][0] = tok0[b] if act[b] else 0
-        if act[b] and tok0[b] != eos_id:
-            mark(b, tok0[b])
-        done.append(tok0[b] == eos_id or not act[b])
-        n.append(1 if act[b] else 0)
+    if graphs is None:
+        L, _, kh, _, hd = kv_arr(cache.k).shape
+        state = decode_state(B, max_new, cfg.text.vocab_size, (L, kh, hd), embeds.dtype, dev)
 
-    W = max(max_new - 1, 1)
-    L, _, kh, _, hd = kv_arr(cache.k).shape
-    scratch = KVCache(
-        torch.zeros((L, B, kh, W, hd), dtype=embeds.dtype, device=dev),
-        torch.zeros((L, B, kh, W, hd), dtype=embeds.dtype, device=dev),
-    )
-    dec = params["decoder"]
-    cursor = list(base)
-    last_tok = list(tok0)
+        def step():
+            decode_step(state, params, cfg, cache, rep=rep, lora=lora,
+                        lora_scale=lora_scale, shard_ctx=shard_ctx)
+    else:
+        step = graphs.step(params, cfg, cache, B, max_new, embeds.dtype, rep, lora,
+                           lora_scale, shard_ctx)
+        state = step.state
+    # the response's inputs, the only host-to-device copies of the call
+    state.base.copy_(ints_to(base, dev))
+    state.active.copy_(ints_to(act, dev))
+    state.eos.fill_(eos_id)
+    state.pen_mask.copy_(pen_mask)
+    start_decode(state, out.last_logits, rep)
+
     i = 1
-    while not all(done) and i < max_new:
-        emb = qwen2.embed_tokens(
-            dec, ints_to(last_tok, dev)[:, None], V
-        ).to(embeds.dtype)
-        hidden, scratch = qwen2.qwen2_forward(
-            dec, cfg.text, emb, ints_to(cursor, dev)[:, None],
-            kv_cache=cache, cache_len=base, lora=lora, lora_scale=lora_scale,
-            t_real=1, scratch=scratch, scratch_len=i - 1, shard_ctx=shard_ctx,
-        )
-        logits = gather_vocab(qwen2.lm_logits(params["lm_head"], hidden[:, :1])[:, 0], V)
-        tok = torch.argmax(penalized(logits), dim=-1).tolist()
-        for b in range(B):
-            if not done[b]:
-                buf[b][i] = tok[b]
-                if tok[b] != eos_id:
-                    mark(b, tok[b])
-                n[b] = i + 1
-                cursor[b] += 1
-                last_tok[b] = tok[b]
-            done[b] = done[b] or tok[b] == eos_id
+    while i < max_new and not bool(state.done.all()):
+        step()
         i += 1
     # ONE commit of the scratch at each active lane's post-prompt cursor;
     # rows past a lane's fed count land in its garbage zone
-    cache = qwen2.commit_lanes(cache, scratch.k, scratch.v, base, act)
-    packed = torch.tensor(
-        [buf[b] + [n[b], cursor[b]] for b in range(B)],
-        dtype=torch.int32, device=dev,
-    )
+    cache = qwen2.commit_lanes(cache, state.scratch.k, state.scratch.v, base, act)
+    packed, pen_mask = decode_outputs(state)
     return packed, cache, pen_mask

@@ -1,5 +1,5 @@
-"""Qwen2 decoder in PyTorch: full (training), streaming and scratch-decode
-modes, with runtime LoRA.
+"""Qwen2 decoder in PyTorch: full (training) and streaming modes, and the
+scratch-decode step, with runtime LoRA.
 
 Port of `mmduet_tpu/models/qwen2.py`. Matmul weights, the embedding and
 the LM head may be dense tensors or the quantized leaves of
@@ -19,6 +19,10 @@ are quantized at the commit, and attention reads the int8 cache with its
 per-token scales. Padded tail tokens of a bucket produce outputs
 that are never read, and their cache slots are overwritten by the next
 chunk.
+
+Scratch decode (`scratch_decode_forward`): one token a lane against the
+read-only cache and a small scratch of the tokens generated so far, on
+device integers only, so that a CUDA graph can capture it.
 
 Full mode (``kv_cache=None``): causal attention over the chunk with
 ``attn_mask`` for padding, through `ops.attention.flash_full_attention`
@@ -128,6 +132,16 @@ def init_kv_cache(
         k=torch.zeros(shape, dtype=dtype, device=device),
         v=torch.zeros(shape, dtype=dtype, device=device),
     )
+
+
+def zero_kv_cache(cache: KVCache) -> KVCache:
+    """Zeros every tensor of ``cache`` in place (the values of a fresh
+    `init_kv_cache`), keeping its memory: what holds its address, as a
+    captured decode step does, stays valid."""
+    for leaf in (cache.k, cache.v):
+        for t in leaf.values() if isinstance(leaf, dict) else (leaf,):
+            t.zero_()
+    return cache
 
 
 def lane_list(x: Lanes, batch: int) -> List[int]:
@@ -292,15 +306,13 @@ def qwen2_forward(
     remat: bool = False,  # full mode: recompute each layer in the backward
     t_real: Optional[Lanes] = None,  # per-lane real tokens in the chunk
     use_flash: Optional[bool] = None,  # full mode: None = auto (kernel C on CUDA)
-    scratch: Optional[KVCache] = None,  # (L, B, kh, M, hd) decode scratch
-    scratch_len: Optional[int] = None,  # tokens already in the scratch
     shard_ctx: Optional[ShardCtx] = None,  # streaming: attention per shard of
     # a mesh (`flash_decode_attention_sharded`); the caller has checked
     # `shard_ctx_ok`
     commit: Optional[Sequence[bool]] = None,  # streaming: the lanes whose
     # chunk K/V are committed (None = all)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Run the decoder. Three modes:
+    """Run the decoder. Two modes:
 
     - **full** (``kv_cache`` None): causal self-attention over the chunk,
       ``attn_mask`` masking padding; the training forward. CUDA tensors
@@ -321,18 +333,13 @@ def qwen2_forward(
       batched engines leave out the lanes they do not feed, whose rows
       the JAX package writes past the lane's cursor, where nothing reads
       them. With ``shard_ctx`` the attention runs per (lane shard, head
-      shard) of the mesh, bit-equal to the unsharded call.
-    - **scratch decode** (streaming + ``scratch``): the big cache is
-      read-only; the chunk's K/V go into ``scratch`` at ``scratch_len``
-      (in place) and attention runs over [cache slots < cache_len] +
-      [scratch tokens + the chunk, causal at chunk position
-      ``scratch_len`` + t]. Returns the scratch; the caller commits it
-      into the big cache once, after the decode loop
-      (`mmduet.decode_loop`).
+      shard) of the mesh, bit-equal to the unsharded call. The cursors
+      are host integers here; the decode step's route through the layers
+      on device integers is `scratch_decode_forward`.
 
-    LoRA (every mode): ``lora_scale * (y @ a) @ b`` added to each adapted
-    projection. Returns (hidden_states (B, T, H), the updated cache, the
-    scratch, or None in full mode)."""
+    LoRA (both modes): ``lora_scale * (y @ a) @ b`` added to each adapted
+    projection. Returns (hidden_states (B, T, H), the updated cache, or
+    None in full mode)."""
     layers = params["layers"]
     cos, sin = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if kv_cache is None:
@@ -350,23 +357,17 @@ def qwen2_forward(
 
     cache_len_b = lane_list(cache_len, B)
     t_real_b = lane_list(T if t_real is None else t_real, B)
-    if scratch is not None:
-        s_len = int(scratch_len)
-        t_att, q_off = [s_len + t for t in t_real_b], [s_len] * B
-    else:
-        t_att, q_off = t_real_b, [0] * B
     # per-lane cursors cross to the device once per forward
-    cl_dev, tr_dev, qo_dev = (ints_to(v, dev) for v in (cache_len_b, t_att, q_off))
+    cl_dev, tr_dev = ints_to(cache_len_b, dev), ints_to(t_real_b, dev)
 
     x = embeds
     new_k: List[torch.Tensor] = []
     new_v: List[torch.Tensor] = []
     kc_arr, vc_arr = kv_arr(kv_cache.k), kv_arr(kv_cache.v)
-    kv_q = kv_quantized(kv_cache)
-    scales = (dict(k_scale=kv_cache.k["qs"], v_scale=kv_cache.v["qs"]) if kv_q else {})
+    scales = _cache_scales(kv_cache)
     # the chunk stays in the activation dtype under an int8 cache
     # (quantization happens at the commit)
-    el_dtype = embeds.dtype if kv_q else kc_arr.dtype
+    el_dtype = embeds.dtype if kv_quantized(kv_cache) else kc_arr.dtype
     for i in range(kc_arr.shape[0]):
         p = layer_view(layers, i)
         lo = _layer_lora(lora, i)
@@ -374,37 +375,85 @@ def qwen2_forward(
         # chunk (B, T, kh, hd) -> head-major (B, kh, T, hd)
         k_hm = k.transpose(1, 2).to(el_dtype).contiguous()
         v_hm = v.transpose(1, 2).to(el_dtype).contiguous()
-        if scratch is not None:
-            # the chunk operand is this layer's scratch [generated tokens'
-            # K/V ++ this chunk], written in place at s_len (the JAX code
-            # returns an updated scratch instead)
-            scratch.k[i, :, :, s_len:s_len + T] = k_hm
-            scratch.v[i, :, :, s_len:s_len + T] = v_hm
-            ck, cv = scratch.k[i], scratch.v[i]
-        else:
-            ck, cv = k_hm, v_hm
-            new_k.append(k_hm)
-            new_v.append(v_hm)
-        if shard_ctx is not None:
-            attn = flash_decode_attention_sharded(
-                q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
-                cl_dev, tr_dev, i, shard_ctx, q_offset=qo_dev, **scales,
-            )
-        else:
-            attn = flash_decode_attention(
-                q, kc_arr, vc_arr, ck.to(q.dtype), cv.to(q.dtype),
-                cl_dev, tr_dev, i, q_offset=qo_dev, **scales,
-            )
+        new_k.append(k_hm)
+        new_v.append(v_hm)
+        attn = _attend_cache(q, kc_arr, vc_arr, k_hm.to(q.dtype), v_hm.to(q.dtype), cl_dev,
+                             tr_dev, i, None, scales, shard_ctx)
         x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if scratch is not None:
-        return hidden, scratch
     # every layer's chunk K/V into the cache, in place; padded tail slots
     # hold garbage that the next chunk overwrites
     return hidden, commit_lanes(
         kv_cache, torch.stack(new_k), torch.stack(new_v), cache_len_b, commit
     )
+
+
+def _cache_scales(kv_cache: KVCache) -> Dict[str, torch.Tensor]:
+    """The per-token scales of an int8 cache as kernel A's keywords ({} for
+    a cache in the activation dtype)."""
+    if not kv_quantized(kv_cache):
+        return {}
+    return dict(k_scale=kv_cache.k["qs"], v_scale=kv_cache.v["qs"])
+
+
+def _attend_cache(q, kc, vc, ck, cv, cache_len, t_real, layer: int, q_offset,
+                  scales: Dict[str, torch.Tensor], shard_ctx: Optional[ShardCtx]):
+    """Kernel A (its plain version for CPU tensors) over layer ``layer`` of
+    the cache and the chunk operand, per mesh shard under ``shard_ctx``."""
+    if shard_ctx is not None:
+        return flash_decode_attention_sharded(q, kc, vc, ck, cv, cache_len, t_real, layer,
+                                              shard_ctx, q_offset=q_offset, **scales)
+    return flash_decode_attention(q, kc, vc, ck, cv, cache_len, t_real, layer,
+                                  q_offset=q_offset, **scales)
+
+
+def scratch_decode_forward(
+    params: Params,
+    cfg: Qwen2Config,
+    embeds: torch.Tensor,  # (B, 1, H) each lane's last sampled token
+    positions: torch.Tensor,  # (B,) int32 each lane's cursor: its token's RoPE position
+    kv_cache: KVCache,  # read-only
+    cache_len: torch.Tensor,  # (B,) int32 the committed cache slots each lane attends
+    step: torch.Tensor,  # () int32 the decode step i >= 1: the scratch holds i - 1 tokens
+    scratch: KVCache,  # (L, B, kh, W, hd) the generated tokens' K/V, W >= i
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+    shard_ctx: Optional[ShardCtx] = None,
+) -> torch.Tensor:
+    """One greedy decode step through the decoder: the scratch mode of the
+    JAX package's `qwen2_forward`. Each lane's token attends [its cache
+    slots < ``cache_len``] + [the scratch's first i - 1 tokens and itself]
+    (kernel A with ``t_real`` i and query offset i - 1), and each layer's
+    K/V of it go into the scratch at slot i - 1, in place, by
+    `index_copy_` at that device position. The big cache is not written:
+    the caller commits the scratch once, after the loop
+    (`mmduet.decode_loop`).
+
+    The cursors, the step and the positions are device tensors and stay
+    there: the call reads nothing back to the host and copies nothing to
+    the device, so a CUDA graph can capture it and replay it after the
+    values in those tensors changed. Returns the final-normed hidden
+    states (B, 1, H)."""
+    B = embeds.shape[0]
+    cos, sin = _rope_angles(positions[:, None], cfg.head_dim, cfg.rope_theta)
+    attended = step.repeat(B)  # the scratch's tokens and this one
+    q_offset = attended - 1
+    slot = (step - 1).long().reshape(1)
+    kc_arr, vc_arr = kv_arr(kv_cache.k), kv_arr(kv_cache.v)
+    scales = _cache_scales(kv_cache)
+    x = embeds
+    for i in range(kc_arr.shape[0]):
+        p = layer_view(params["layers"], i)
+        lo = _layer_lora(lora, i)
+        q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
+        sk, sv = scratch.k[i], scratch.v[i]
+        sk.index_copy_(2, slot, k.transpose(1, 2).to(sk.dtype))
+        sv.index_copy_(2, slot, v.transpose(1, 2).to(sv.dtype))
+        attn = _attend_cache(q, kc_arr, vc_arr, sk, sv, cache_len, attended, i, q_offset,
+                             scales, shard_ctx)
+        x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,

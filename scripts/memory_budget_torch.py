@@ -20,7 +20,11 @@ rules, never a copy of them:
   lanes from `parallel.local_cache_dims` (`kv_cache_sharding`), its length
   by the engines' `infer.state.cache_slots`, and the frame embeddings the
   engine keeps; the chunk widths are the engines' own
-  (`infer.engine.live_block_frames`, `infer.batch_engine.chunk_buckets`).
+  (`infer.engine.live_block_frames`, `infer.batch_engine.chunk_buckets`);
+  a generating engine's decode state (`models.mmduet.decode_state`),
+  which on the graph route (one process: `infer.state.decode_route`) is
+  the captured step's for the engine's life, and on a rank of a process
+  mesh is made for each decode.
 
 On top of those persistent terms, each configuration lists its transient
 terms at the moments where the code holds the most at once, each from a
@@ -28,7 +32,10 @@ tensor the code allocates (a shape times an element size): the staged batch
 (`train.loop._to_device` moves the rank's share of the (A, B, T) window to
 the device, `train.step.rank_batch`: its B / D samples' rows and its frame
 slots); in serving the tower's 32-frame batch, the decoder's widest chunk,
-the chunk's K/V rows and their commit, kernel A's and B's split scratch; in
+the chunk's K/V rows and their commit, kernel A's and B's split scratch,
+a decode step's activations and f32 logits (on the graph route what the
+step's private memory pool holds; the caching allocator counts it while
+the step is captured); in
 training under remat each layer's saved input, one layer's recompute and
 backward, the projector's saved input and activations and the
 loss's f32 logits with their gradients at T. The estimate is the
@@ -86,7 +93,7 @@ META = torch.device("meta")
 # torch.cuda.get_device_properties(0).total_memory of an H100 80GB HBM3, as
 # `chip_smoke.py` printed it; it judges the recipe by the card's own reading
 H100_80GB_BYTES = 85_017_493_504
-BF16, F32, I32 = 2, 4, 4
+BF16, F32, I32, I64 = 2, 4, 4, 8
 
 # the reference recipe (`scripts/memory_budget.py`, `scripts/train.sh`)
 RECIPE_SEQ, RECIPE_FRAMES, RECIPE_BATCH, RECIPE_ACCUM = 5120, 100, 8, 16
@@ -254,7 +261,9 @@ class Serving:
     (`cache_slots`) and the batched engine's (lanes, max_num_frames, ft,
     H) frame buffer; ``frames``: the session's video, whose embeddings
     the live engine and the scorer keep whole; ``pixels``: the frames
-    arrive as pixels and the tower encodes them (else as embeddings)."""
+    arrive as pixels and the tower encodes them (else as embeddings);
+    ``max_new``: the tokens a greedy answer may take (the live engine in
+    generation mode and the batched engine generate)."""
 
     name: str
     cfg: MMDuetConfig
@@ -268,6 +277,7 @@ class Serving:
     max_num_frames: Optional[int] = None
     frames: int = 0
     pixels: bool = True
+    max_new: int = TestArgs.max_new_tokens
     params: Optional[dict] = None  # the whole meta tree, when the caller has it
 
     def _default(self, arg: str):
@@ -388,6 +398,22 @@ def serving_budget(s: Serving) -> Budget:
         + ([("quantized rows f32", kv_rows * F32 // BF16, "x.float() and x / scale of one "
              "of K, V (`quantize_kv_rows`)")] if s.kv_cache_quant else []),
     }
+    if s.engine == "batched" or (s.engine == "live" and not s.grounding):
+        W = max(s.max_new - 1, 1)
+        state = ("decode state", lanes * (s.max_new * (I32 + 2 * (F32 + I64)) + V + 4 * I32 + 2)
+                 + 2 * I32 + 2 * L * lanes * kh * W * hd * BF16,
+                 f"`decode_state`: the (L, lanes, kh, {W}, hd) bf16 scratch, the (lanes, V) "
+                 f"penalty mask, tokens and each step's top-2")
+        step = [("step rows", lanes * (4 * H + 2 * nh * hd + 2 * inter) * BF16
+                 + 2 * lanes * inter * F32,
+                 f"bf16 rows ({lanes}, {H}), q and attention, gate/up; the f32 SiLU"),
+                ("step f32 logits", 4 * lanes * (V // M + V) * F32,
+                 "the rank's and whole logits, the penalty's two products and its result")]
+        if s.mesh == (1, 1):  # the graph route: the captured step's state, for the engine's life
+            persistent.append(state)
+            moments["decode step"] = step
+        else:
+            moments["decode step"] = [state] + step
     if s.pixels:
         moments.update(_vision_moments(cfg, VISION_BATCH, M, s.clip))
     return Budget(s.name, persistent, moments)

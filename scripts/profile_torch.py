@@ -13,10 +13,13 @@ profiles these calls of the main paths:
 - an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`);
 - a 32-frame block at cursor 2000;
 - a greedy decode of 8 tokens (EOS off) after an 8-token prompt at
-  cursor 3000 (`mmduet.decode_loop`);
+  cursor 3000 (`mmduet.decode_loop`), eagerly and on the graph route
+  (`mmduet.DecodeGraphs`: each step replays a captured CUDA graph; the
+  warm-up call captures it);
 - the batched engine's calls at B = 8 lanes with cursors 500 to 4000: an
   8-frame block on every lane (`mmduet.chunk_scores_forward`, 3136 rows)
-  and a greedy decode of 8 tokens on all lanes together;
+  and a greedy decode of 8 tokens on all lanes together, eagerly and on
+  the graph route;
 - one training step (`train.make_train_step`: A=2 micro-batches of one
   collated duet sample each, 48 pixel frames at 384 px, padded to the
   2944-token bucket, LoRA r 16, gradient checkpointing on), with the
@@ -118,6 +121,7 @@ def main() -> None:
     pen = torch.zeros((1, cfg.text.vocab_size), dtype=torch.bool, device=dev)
 
     def decoder_calls(params, cache, tag=""):
+        graphs = mmduet.DecodeGraphs()
         return {
             f"8-frame block at cursor 2000{tag}": lambda: mmduet.frames_block_forward(
                 params, cfg, frames8, cache, 2000),
@@ -125,6 +129,9 @@ def main() -> None:
                 params, cfg, frames32, cache, 2000),
             f"greedy decode, 8 tokens at cursor 3000{tag}": lambda: mmduet.decode_loop(
                 params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
+            f"greedy decode, 8 tokens at cursor 3000, graph route{tag}":
+                lambda: mmduet.decode_loop(params, cfg, prompt, cache, [3000], 8, pen, max_new=8,
+                                           eos_id=-1, rep=1.05, graphs=graphs),
         }
 
     lanes = 8
@@ -132,6 +139,7 @@ def main() -> None:
     cache8 = init_kv_cache(cfg.text, lanes, 24576, torch.bfloat16, dev)
     block8, prompt8 = embeds(lanes, 8 * ft, H), embeds(lanes, 8, H)
     pen8 = torch.zeros((lanes, cfg.text.vocab_size), dtype=torch.bool, device=dev)
+    graphs8 = mmduet.DecodeGraphs()
 
     def vision():
         return mmduet.visual_embed(
@@ -156,6 +164,10 @@ def main() -> None:
         f"greedy decode, 8 tokens on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}":
             lambda: mmduet.decode_loop(params, cfg, prompt8, cache8, cursors, 8, pen8,
                                        max_new=8, eos_id=-1, rep=1.05),
+        f"greedy decode, 8 tokens on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}, "
+        "graph route": lambda: mmduet.decode_loop(params, cfg, prompt8, cache8, cursors, 8, pen8,
+                                                  max_new=8, eos_id=-1, rep=1.05,
+                                                  graphs=graphs8),
     }
 
     def report(name, fn):
@@ -185,7 +197,7 @@ def main() -> None:
     report("training step, A=2 x 2944-token bucket, 48 frames",
            lambda: step(state, params, batch))
 
-    del state, step, batch, lora, cache, cache8, calls
+    del state, step, batch, lora, cache, cache8, graphs8, calls
     params = quant.quantize_params(params, bits=4, donate=True)
     torch.cuda.empty_cache()
     cache = init_kv_cache(cfg.text, 1, 24576, torch.bfloat16, dev, quant="int8")

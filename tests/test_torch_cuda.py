@@ -1114,8 +1114,9 @@ def test_stream_video_on_the_card_equals_sequential(dev, grounding, upload_ahead
 
 def test_stream_video_runs_kernel_d_on_its_own_stream(dev, monkeypatch):
     """Every launch of kernel D in `stream_video` is on the engine's vision
-    stream, every launch of kernels A and B on its decoder stream (of a
-    higher priority); the split scratch of A and B is left at zero (the
+    stream, every launch of kernels A and B, and every replay of the
+    captured decode step, on its decoder stream (of a higher priority); the
+    split scratch of A and B is left at zero (the
     one-stream rule of `ops.attention._split_scratch` and
     `ops.quant_matmul._split_scratch`)."""
     from mmduet_tpu_torch.models import siglip
@@ -1125,15 +1126,21 @@ def test_stream_video_runs_kernel_d_on_its_own_stream(dev, monkeypatch):
     main = torch.cuda.current_stream(dev)
     seen = {"D": set(), "A": set(), "B": set()}
 
+    seen["replay"] = set()
+
     def spy(name, fn):
         def wrapped(*args, **kw):
-            seen[name].add(torch.cuda.current_stream(dev).cuda_stream)
+            # a call under a CUDA graph's capture runs nothing; the graph
+            # runs where it is replayed
+            if not torch.cuda.is_current_stream_capturing():
+                seen[name].add(torch.cuda.current_stream(dev).cuda_stream)
             return fn(*args, **kw)
         return wrapped
 
     monkeypatch.setattr(siglip, "flash_vision_attention", spy("D", siglip.flash_vision_attention))
     monkeypatch.setattr(attention, "_decode_launch", spy("A", attention._decode_launch))
     monkeypatch.setattr(quant, "int4_matmul", spy("B", quant.int4_matmul))
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", spy("replay", torch.cuda.CUDAGraph.replay))
     before = attention.VISION_LAUNCHES, attention.INT8_LAUNCHES, quant_matmul.B_LAUNCHES
     _live_run(engine, stream=True)
     launched = (attention.VISION_LAUNCHES - before[0], attention.INT8_LAUNCHES - before[1],
@@ -1143,7 +1150,8 @@ def test_stream_video_runs_kernel_d_on_its_own_stream(dev, monkeypatch):
     assert len({decoder.cuda_stream, vision.cuda_stream, main.cuda_stream}) == 3
     assert decoder.priority < vision.priority  # a lower number is a higher priority
     assert seen["D"] == {vision.cuda_stream}
-    assert seen["A"] == seen["B"] == {decoder.cuda_stream}
+    assert seen["A"] == seen["B"] == {decoder.cuda_stream} >= seen["replay"]
+    assert len(engine._decode_graphs) == 1  # the first answer's step was captured
     for scratch in (attention._split_scratch, quant_matmul._split_scratch):
         for part, counters in scratch.values():
             assert not bool(counters.any())
@@ -1155,6 +1163,96 @@ def test_prewarm_on_the_card_then_a_session_equals_a_cold_engine(dev):
     warm.prewarm(vision=True)
     assert warm.state.cursor == 0 and warm.frame_embeds is None
     assert _live_run(warm, stream=True) == _live_run(_live_engine(cfg, params, tok), stream=True)
+    assert len(warm._decode_graphs) == 1  # prewarm captured the decode step
+
+
+def _grow_split_scratch(cfg, dev) -> None:
+    """Launches of kernels A and B whose split scratch is larger than a
+    decode step's, so that both are allocated anew."""
+    kh, hd = cfg.text.num_kv_heads, cfg.text.head_dim
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    B, T, S = 8, 64, 4096
+    q = torch.randn(B, T, cfg.text.num_heads, hd, **bf)
+    cache = torch.randn(1, B, kh, S, hd, **bf)
+    chunk = torch.randn(B, kh, T, hd, **bf)
+    lanes = torch.full((B,), 3000, dtype=torch.int32, device=dev)
+    attention.flash_decode_attention(q, cache, cache, chunk, chunk, lanes,
+                                     torch.full_like(lanes, T), 0)
+    leaf = quant.quantize_weight_int4(torch.randn(4096, 4096, **bf), 0)
+    quant_matmul.int4_matmul(torch.randn(256, 4096, **bf), leaf["qw4"], leaf["qs"])
+
+
+@pytest.fixture
+def empty_split_scratch(dev):
+    """Kernels A's and B's split scratch emptied for the test (the capture
+    then takes a decode step's, which a later launch grows), and the
+    scratch the test found put back after it, so the tests after it see
+    what they would have seen."""
+    card = torch.zeros(1, device=dev).device  # the scratch's key: cuda:<index>
+    found = [(s, s.pop(card, None)) for s in (attention._split_scratch,
+                                                quant_matmul._split_scratch)]
+    attention._split_memo.clear()
+    yield card
+    for s, kept in found:
+        s.pop(card, None)
+        if kept is not None:
+            s[card] = kept
+    attention._split_memo.clear()
+
+
+@pytest.mark.parametrize("bits", [None, 4], ids=["bf16", "int4_int8_cache"])
+def test_decode_graph_route_equals_the_eager_device_route(dev, bits, empty_split_scratch):
+    """`decode_loop` with `DecodeGraphs` (the first step eager, then
+    captured; a second call all replays) gives the eager route's tokens,
+    n, cursors, penalty mask and cache bit for bit, on lanes with a frozen
+    one, also after kernels A and B grew their split scratch; the launch
+    counts hold the replays."""
+    cfg, params, tok = _small_card_model(dev, bits)
+    kv = "int8" if bits else None
+    assert _live_engine(cfg, params, tok, kv_cache_quant=kv).decode_route == "graph"
+    B, t, max_new, L = 3, 5, 6, cfg.text.num_layers
+    gen = torch.Generator(device=dev).manual_seed(7)
+    start = qwen2.init_kv_cache(cfg.text, B, 2048, torch.bfloat16, dev, quant=kv)
+    hist = torch.randn(L, B, cfg.text.num_kv_heads, 700, cfg.text.head_dim, generator=gen,
+                       device=dev, dtype=torch.bfloat16)
+    qwen2.commit_lanes(start, hist, -hist, 0)
+    emb = torch.randn(B, t, cfg.text.hidden_size, generator=gen, device=dev,
+                      dtype=torch.bfloat16) * 0.05
+    pen = torch.zeros((B, cfg.text.vocab_size), dtype=torch.bool, device=dev)
+    pen[:, [3, 70]] = True
+    scratch = (attention._split_scratch, quant_matmul._split_scratch)
+    leaves = lambda c: [x for leaf in c for x in  # noqa: E731
+                        (leaf.values() if isinstance(leaf, dict) else (leaf,))]
+
+    def run(graphs, cache):
+        counts = attention.LAUNCHES, quant_matmul.B_LAUNCHES
+        out = mmduet.decode_loop(params, cfg, emb, cache, [100, 640, 37], t, pen,
+                                 [True, False, True], max_new=max_new, eos_id=-1, rep=1.1,
+                                 graphs=graphs)
+        torch.cuda.synchronize()
+        return out, (attention.LAUNCHES - counts[0], quant_matmul.B_LAUNCHES - counts[1])
+
+    def clone(c):
+        return qwen2.KVCache(*({k: x.clone() for k, x in leaf.items()} if isinstance(leaf, dict)
+                               else leaf.clone() for leaf in c))
+
+    with torch.inference_mode():
+        (want, want_cache, want_pen), eager_counts = run(None, clone(start))
+        assert eager_counts == (L * max_new, (7 * L + 1) * max_new if bits else 0)
+        graphs, cache = mmduet.DecodeGraphs(), clone(start)
+        for state in ("capture", "replays", "grown scratch"):
+            if state == "grown scratch":
+                held = [s.get(empty_split_scratch) for s in scratch]
+                _grow_split_scratch(cfg, dev)
+                now = [s.get(empty_split_scratch) for s in scratch]
+                assert all(a is not b for a, b in zip(held, now)), state
+            for x, y in zip(leaves(cache), leaves(start)):
+                x.copy_(y)
+            (got, got_cache, got_pen), counts = run(graphs, cache)
+            assert counts == eager_counts, state
+            assert torch.equal(got, want) and torch.equal(got_pen, want_pen), state
+            assert all(torch.equal(x, y) for x, y in zip(leaves(got_cache), leaves(want_cache)))
+        assert len(graphs) == 1
 
 
 def test_converter_needs_no_safetensors_and_loads_onto_the_card(dev, tmp_path, monkeypatch):

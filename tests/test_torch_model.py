@@ -96,10 +96,13 @@ def test_qwen2_scratch_decode_mode():
         t_real=jnp.int32(1), use_flash=False, scratch=_jcache(sk, sv),
         scratch_len=jnp.int32(s_len),
     )
-    th, ts = tq.qwen2_forward(
-        TP["decoder"], CFG.text, torch.tensor(emb), torch.tensor(pos),
-        kv_cache=_tcache(k, v), cache_len=[base], t_real=1,
-        scratch=_tcache(sk, sv), scratch_len=s_len,
+    # the port's step takes the cursors, the step i = s_len + 1 and the
+    # position on the device, and writes its scratch in place
+    ts = _tcache(sk, sv)
+    th = tq.scratch_decode_forward(
+        TP["decoder"], CFG.text, torch.tensor(emb), torch.tensor(pos[:, 0], dtype=torch.int32),
+        _tcache(k, v), torch.tensor([base], dtype=torch.int32),
+        torch.tensor(s_len + 1, dtype=torch.int32), ts,
     )
     _close(th, jh)
     _close(ts.k, js.k)

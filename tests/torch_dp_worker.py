@@ -94,6 +94,7 @@ def main(out_dir: str, data_n: int, model_n: int) -> None:
     rank = torch.distributed.get_rank()
     mesh = make_mesh((data_n, model_n), device="cpu")
     qwen2.qwen2_forward = _counted(qwen2.qwen2_forward)
+    qwen2.scratch_decode_forward = _counted(qwen2.scratch_decode_forward)  # a decode step
     params = shard_params(torch.load(os.path.join(out_dir, "params.pt"), weights_only=True),
                           mesh, mode="replicate")
     inputs = dict(np.load(os.path.join(out_dir, "inputs.npz")))
