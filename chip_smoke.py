@@ -57,16 +57,32 @@ Phases (any failure ends the run with a nonzero exit):
 4. the serving path at the full width of the default model (Qwen2-7B
    decoder, SigLIP-so400m tower, random bf16 weights from a seed, all 28
    layers): `LiveInferEngine` streams 64 frames with a query at t=0 and
-   generates, then streams them again in grounding mode; kernel A's
+   generates, then streams them again in grounding mode, every forward on
+   the engine's graph route (a CUDA graph captured once a shape and
+   replayed); kernel A's
    launches over that run must be positive; a greedy decode of 32 tokens
-   after it is timed on the engine's decode route (a captured CUDA graph
-   a step) and eagerly, tokens/s and the idle share under torch.profiler.
+   after it is timed on the engine's decode route (its prefill and each
+   step a captured CUDA graph) and eagerly, tokens/s and the idle share
+   under torch.profiler.
    Then the decode-graph phase: on a new engine of one lane (cursor 3000)
    and of 8 lanes (two frozen), `decode_loop`'s captured step against the
    eager route bit for bit (tokens, n, cursors, penalty mask, cache) at
    its capture, in replay, and in replay after an 8-frame block grew
    kernel A's split scratch, the launches of both routes equal, the
-   engines' ``decode_route`` "graph"; both routes timed at 8 lanes. Then live feeding on that
+   engines' ``decode_route`` "graph"; both routes timed at 8 lanes. Then
+   the frame-graph phase: on engines of the graph route against engines
+   whose graphs are taken away, a generation session of 24 frames (8-frame
+   blocks, answers with their rollbacks, joiners and prefills) and a
+   pipelined grounding session of 32-frame blocks on one lane, and 8 lanes
+   of `BatchedStreamEngine` (lanes ending early sit out dispatches and
+   decodes, frozen; n < K frame chunks) with no mesh and on the (2, 2)
+   one-device mesh, each bit-equal to the eager route in scores, answers,
+   times, cursors, every cache byte and the launches of A, A-int8, A' and
+   B, at the captures, in replay and in replay after eager launches grew
+   kernel A's split scratch; then both routes timed in this run (median and
+   range of 3, idle share under torch.profiler): the per-frame p50 / p90 of
+   64 frames in 8-frame and in 32-frame blocks at B = 1, and the batched
+   frame pass's frames/s and ms a frame fed. Then live feeding on that
    model: `stream_video` in chunks of 16 (generation, grounding, grounding
    with ``upload_ahead``) equals `input_video_stream` + `inference()` bit
    for bit, kernels A and D launch as the layers imply, both routes' wall
@@ -113,11 +129,11 @@ Phases (any failure ends the run with a nonzero exit):
    and every attention launch must be of the int8 variant (a replayed
    decode step adds what its capture launched); then the decode-graph
    phase's one-lane check on this tree and cache, kernel B's scratch
-   grown too;
+   grown too, and the frame-graph phase's one-lane checks and times;
 8. tensor-parallel serving: two ranks of a (1, 2) process mesh, spawned
    from here, share the one card over gloo (NCCL refuses two ranks on one
    device), each holding its shard (`parallel.shard_params`) of the same
-   seed-0 weights; they run the passes of 4 and 7 and a batched pass (12
+   seed-0 weights; they run the passes of 4 and 7 and a batched pass (10
    sessions of random frame embeddings through 8 lanes), which the one
    process also runs; each batched session is made on one rank and shared
    (`eval.inference.mesh_items`, as the inference CLI shares a decoded
@@ -187,7 +203,9 @@ Phases (any failure ends the run with a nonzero exit):
    `scripts/memory_budget_torch.py`'s estimate of its configuration from
    shapes, printed term by term beside the peak and the bytes earlier
    work left resident (subtracted): the persistent part at most the peak,
-   the whole within max(10 %, 1 GiB) of it, and a training-mesh run's
+   the whole within max(10 %, 1 GiB) of it (a one-process serving pass's
+   peak with the bytes its engine's graph pool keeps beside its tensors,
+   each pass from its own split scratch), and a training-mesh run's
    staged batch term equal to the bytes it staged; then the reference
    recipe's three layouts against this card's memory, labelled estimates;
 13. small-model checks, card (bf16, kernels) against CPU (f32, plain
@@ -1202,7 +1220,7 @@ def _time_sdpa(q, k, v, dout) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
-def _args(max_new_tokens: int = 32, **kw) -> TestArgs:
+def _args(max_new_tokens: int = 16, **kw) -> TestArgs:
     return TestArgs(frame_fps=2.0, max_new_tokens=max_new_tokens, **kw)
 
 
@@ -1320,15 +1338,21 @@ def _tree_map(fn, tree):
 def _resident(inputs_bytes: int) -> int:
     """Bytes on the card at a phase's start that are not part of its
     configuration: what is allocated once earlier engines caught in
-    reference cycles are collected, less the bytes of the phase's own
-    inputs already on the card (its weights)."""
+    reference cycles are collected and kernels A's and B's split scratch,
+    the configuration's own, is released (`budget.release_split_scratch`),
+    less the bytes of the phase's own inputs already on the card (its
+    weights)."""
     gc.collect()
+    budget.release_split_scratch()
     return torch.cuda.memory_allocated() - inputs_bytes
 
 
-def _mem(resident: int) -> dict:
-    """A phase's peak since its reset and what it found resident."""
-    return {"peak": torch.cuda.max_memory_allocated(), "resident": resident}
+def _mem(resident: int, graphs=None) -> dict:
+    """A phase's peak since its reset, with the bytes of the engine's graph
+    pool that no tensor holds (`budget.pool_idle_bytes`: the pool keeps
+    them for the engine's life), and what it found resident."""
+    return {"peak": torch.cuda.max_memory_allocated() + budget.pool_idle_bytes(graphs),
+            "resident": resident}
 
 
 N_FRAMES = 64
@@ -1465,7 +1489,7 @@ def run_main_path(cfg, tok, params, log, kv_cache_quant=None, mesh=None) -> dict
             steps=rec.steps(),
         )
         _check_pass(engine, name, stats[name]["launches"], responses, QUERY)
-        mems[name] = _mem(resident)
+        mems[name] = _mem(resident, engine._graphs)
     counts = _kernel_counts()  # the main path ends here
     _check_counts(params, cfg, counts, sum(e.tokens_generated for e in engines.values()),
                   kv_cache_quant)
@@ -1620,16 +1644,22 @@ def time_decode(params, cfg, embeds, cache, cursors, graphs, log, what: str,
     return out
 
 
+# Tokens a rank of a process mesh decodes in `_time_decode` (gloo-bound: a
+# token takes the ranks 0.1-0.2 s on one card); one process decodes 32.
+RANK_DECODE_TOKENS = 8
+
+
 def _time_decode(engine, cfg, log) -> float:
     """`time_decode` at the cache length the generation pass left, on the
     engine's route and eagerly (the idle share measured in one process,
-    not on a process mesh's ranks); returns the engine route's median
-    tokens/s."""
+    not on a process mesh's ranks, which decode RANK_DECODE_TOKENS);
+    returns the engine route's median tokens/s."""
     embeds = engine._embed_ids(engine._gen_prompt_ids)[None]
+    rank = isinstance(engine.mesh, ProcessMesh)
     rates = time_decode(engine.params, cfg, embeds, engine.state.kv_cache, engine.state.cursor,
-                        engine._decode_graphs, log,
+                        engine._graphs, log,
                         f"B = 1 at cache length {engine.state.cursor}",
-                        idle=not isinstance(engine.mesh, ProcessMesh))
+                        n_new=RANK_DECODE_TOKENS if rank else 32, idle=not rank)
     return rates[engine.decode_route]["tokens_per_s"]
 
 
@@ -1664,9 +1694,9 @@ def check_decode_graph(engine, cache, cursors, active, log, what: str) -> None:
     launches of kernels A and B the eager run's: L layers a forward, the
     prompt's and one a step (and 7 L + 1 of B)."""
     params, cfg = engine.params, engine.cfg
-    if engine.decode_route != "graph" or len(engine._decode_graphs):
+    if engine.decode_route != "graph" or len(engine._graphs):
         raise AssertionError(f"decode graph ({what}): route {engine.decode_route}, "
-                             f"{len(engine._decode_graphs or ())} steps captured before")
+                             f"{len(engine._graphs or ())} graphs captured before")
     L, t = cfg.text.num_layers, cfg.text
     int4 = isinstance(params["lm_head"], dict) and "qw4" in params["lm_head"]
     B, dev = len(cursors), kv_arr(cache.k).device
@@ -1712,7 +1742,7 @@ def check_decode_graph(engine, cache, cursors, active, log, what: str) -> None:
                                          f"kernel A's / B's scratch: {grew}")
             for x, y in zip(_cache_leaves(cache), _cache_leaves(start)):
                 x.copy_(y)
-            got, got_cache, got_pen = run(engine._decode_graphs, cache)
+            got, got_cache, got_pen = run(engine._graphs, cache)
             same = (torch.equal(got, want) and torch.equal(got_pen, want_pen) and all(
                 torch.equal(x, y) for x, y in zip(_cache_leaves(got_cache),
                                                   _cache_leaves(want_cache))))
@@ -1723,7 +1753,7 @@ def check_decode_graph(engine, cache, cursors, active, log, what: str) -> None:
     log(f"decode graph ({what}): the graph route equals the eager route bit for bit (tokens, "
         f"n, cursors, penalty mask, cache) at the capture, in replay and in replay after an "
         f"8-frame block grew the split scratch of kernel A{' and B' if int4 else ''}; "
-        f"{len(engine._decode_graphs)} step captured; launches (A, B) {want_counts} a decode "
+        f"graphs captured {engine._graphs.kinds()}; launches (A, B) {want_counts} a decode "
         f"of {DG_MAX_NEW} tokens on both routes; {time.perf_counter() - t0:.1f} s")
 
 
@@ -1750,12 +1780,269 @@ def run_decode_graph(cfg, tok, params, log, kv_cache_quant=None, batched: bool =
                            f"{tag}, {len(DG_CURSORS)} lanes, {DG_ACTIVE.count(False)} frozen")
         embeds = eng._embed_ids(eng._gen_prompt_ids)[None].expand(len(DG_CURSORS), -1, -1)
         rates = time_decode(params, cfg, embeds, eng._cache, list(DG_CURSORS),
-                            eng._decode_graphs, log, f"{tag}, {len(DG_CURSORS)} lanes at cursors "
+                            eng._graphs, log, f"{tag}, {len(DG_CURSORS)} lanes at cursors "
                             f"{min(DG_CURSORS)}..{max(DG_CURSORS)}")
         del eng
     torch.cuda.empty_cache()
     log(f"decode-graph phase ({tag}) in {time.perf_counter() - t0:.1f} s")
     return rates
+
+
+# The frame-graph phase: the frame path's graph route (steps, frame blocks,
+# batched dispatches, the decode's prefill, each replaying a CUDA graph
+# captured once a shape) against the eager route of the same engine type.
+FG_FRAMES = 24  # frames of a checked session: three 8-frame blocks
+FG_MAX_NEW = 8  # tokens an answer may take in the checks and the timed passes
+FG_LENGTHS = (24, 9, 20, 6, 24, 17, 12, 22)  # 8 lanes: the 6- and 9-frame ones end first
+FG_QUERIES = (0.0, 1.5, 3.0, 0.5, 2.0, 0.0, 4.0, 1.0)
+FG_RUNS = 3  # timed runs a route
+
+
+def _fg_counts() -> tuple:
+    return (attention.LAUNCHES, attention.INT8_LAUNCHES, attention.SHARDED_LAUNCHES,
+            quant_matmul.B_LAUNCHES)
+
+
+def _fg_run(engine, session, cache_of) -> tuple:
+    """``session(engine)`` from a reset: (outputs, cache bytes, the launches
+    of A, A-int8, A' and B)."""
+    before = _fg_counts()
+    engine.reset()
+    with torch.inference_mode():
+        got = session(engine)
+    torch.cuda.synchronize()
+    return got, [t.clone() for t in _cache_leaves(cache_of(engine))], tuple(
+        a - b for a, b in zip(_fg_counts(), before))
+
+
+def _grow_scratch(cfg, dev, int4: bool) -> None:
+    """Eager launches of kernel A (a frame step's chunk of 146 tokens, the
+    most a 64-row tile split asks, over 4096 slots) and, under int4
+    weights, of kernel B (down_proj's shape), each on the fewest lanes or
+    rows that need more split scratch than the card holds: the engines of
+    the graph route reserve theirs (`infer.state.reserve_split_scratch`),
+    and this makes new tensors, which the captured graphs do not hold."""
+    t = cfg.text
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    splits = (attention._split_scratch, quant_matmul._split_scratch)
+    held = [s.get(dev) for s in splits]
+    have = [h[0].numel() if h is not None else 0 for h in held]
+    T, rows = 146, 146 * (t.num_heads // t.num_kv_heads)
+    B = next(b for b in range(1, 1024) if attention.decode_scratch_numel(
+        b, t.num_kv_heads, rows, 4096, t.head_dim)[0] > have[0])
+    lanes = torch.full((B,), 3000, dtype=torch.int32, device=dev)
+    cache = torch.randn(1, B, t.num_kv_heads, 4096, t.head_dim, **bf)
+    chunk = torch.randn(B, t.num_kv_heads, T, t.head_dim, **bf)
+    attention.flash_decode_attention(torch.randn(B, T, t.num_heads, t.head_dim, **bf), cache,
+                                     cache, chunk, chunk, lanes, torch.full_like(lanes, T), 0)
+    if int4:
+        H, O = t.intermediate_size, t.hidden_size
+        R = next(r for r in range(64, 65536, 64) if quant_matmul.split_scratch_numel(
+            quant_matmul.int4_plan(r, H, O, 128), r, O)[0] > have[1])
+        leaf = quant.quantize_weight_int4(torch.randn(H, O, **bf), 0)
+        quant_matmul.int4_matmul(torch.randn(R, H, **bf), leaf["qw4"], leaf["qs"])
+    now = [s.get(dev) for s in splits]
+    if any(a is b for a, b in zip(held[:1 + int4], now[:1 + int4])):
+        raise AssertionError("frame graph: the eager launches did not grow the split scratch")
+
+
+def check_frame_graph(make, session, cache_of, log, what: str, int4: bool) -> dict:
+    """``session`` on an engine of the eager route (its graphs taken away)
+    and on one of the graph route, three times: at the captures, in replay,
+    and in replay after `_grow_scratch`. Every graph run must give the
+    eager run's outputs (scores, answers, times, cursors), its cache bytes
+    (an int8 cache's ``qs`` included, a lane that was not fed or was frozen
+    untouched as on the eager route) and its launches of A, A-int8, A' and
+    B. Returns the graph engine's captured graphs by entry."""
+    t0 = time.perf_counter()
+    eager, graph = make(), make()
+    if graph.decode_route != "graph":
+        raise AssertionError(f"frame graph ({what}): decode_route {graph.decode_route}")
+    eager._graphs = None
+    dev = torch.device("cuda", torch.cuda.current_device())
+    want, want_cache, want_counts = _fg_run(eager, session, cache_of)
+    if want_counts[0] <= 0:
+        raise AssertionError(f"frame graph ({what}): kernel A was never launched")
+    for state in ("capture", "replays", "replays after the scratch grew"):
+        if state.endswith("grew"):
+            _grow_scratch(graph.cfg, dev, int4)
+        got, cache, counts = _fg_run(graph, session, cache_of)
+        if got != want or counts != want_counts or not all(
+                torch.equal(a, b) for a, b in zip(cache, want_cache)):
+            raise AssertionError(
+                f"frame graph ({what}), {state}: the graph route differs from the eager route "
+                f"(outputs {got == want}, launches {counts} vs {want_counts}, cache "
+                f"{all(torch.equal(a, b) for a, b in zip(cache, want_cache))})")
+    kinds = graph._graphs.kinds()
+    log(f"frame graph ({what}): the graph route equals the eager route bit for bit (scores, "
+        f"answers, times, cursors, every cache byte{', qs included' if int4 else ''}) at the "
+        f"captures, in replay and in replay after an eager launch grew the split scratch of "
+        f"kernel A{' and B' if int4 else ''}; launches (A, A-int8, A', B) {want_counts} on both "
+        f"routes; graphs captured {kinds}; {time.perf_counter() - t0:.1f} s")
+    del eager, graph
+    return kinds
+
+
+def _fg_live_session(frames, query):
+    def session(engine):
+        engine.input_frame_embeds(frames)
+        engine.input_query_stream(query)
+        out = engine.inference()
+        return (out, [(d["time"], d["informative_score"], d["relevance_score"])
+                      for d in engine.debug_data_list], engine.state.cursor, engine.frame_idx)
+    return session
+
+
+def _idle(fn, wall_s: float):
+    device = _device_ms(fn)
+    return 1 - device / (1e3 * wall_s) if device else None
+
+
+def time_frame_routes(make, frames, query, log, what: str) -> dict:
+    """The frame path of one stream on both routes, FG_RUNS timed runs each
+    after one untimed: 64 frames with a query at t=0, no answer triggered
+    (a threshold no score reaches), so every frame runs in a full block;
+    each run's per-frame p50 and p90 (`frame_latencies_ms`), their median
+    and range, and the idle share of one more run under torch.profiler (1
+    - device time / its wall)."""
+    out = {}
+    for route in ("graph", "eager"):
+        engine = make()
+        if route == "eager":
+            engine._graphs = None
+        p50, p90, walls = [], [], []
+
+        def run():
+            engine.reset()
+            engine.input_frame_embeds(frames)
+            engine.input_query_stream(query)
+            t0 = time.perf_counter()
+            engine.inference()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        with torch.inference_mode():
+            for i in range(FG_RUNS + 1):
+                wall = run()
+                if i:
+                    walls.append(wall)
+                    p50.append(float(np.percentile(engine.frame_latencies_ms, 50)))
+                    p90.append(float(np.percentile(engine.frame_latencies_ms, 90)))
+            idle = _idle(run, float(np.median(walls)))
+        out[route] = {"p50_ms": float(np.median(p50)), "p50_range": [min(p50), max(p50)],
+                      "p90_ms": float(np.median(p90)), "p90_range": [min(p90), max(p90)],
+                      "idle": idle}
+        log(f"frame path ({what}), {route} route: {len(frames)} frames in blocks of "
+            f"{engine.block_frames}, per-frame p50 {out[route]['p50_ms']:.3f} ms (range "
+            f"{min(p50):.3f}-{max(p50):.3f}), p90 {out[route]['p90_ms']:.3f} ms (range "
+            f"{min(p90):.3f}-{max(p90):.3f}), median of {FG_RUNS}; idle "
+            + (f"{100 * idle:.1f} %" if idle is not None else "not measured"))
+        del engine
+    return out
+
+
+def time_batched_frame_routes(cfg, tok, params, embeds, log, what: str, mesh=None) -> dict:
+    """The batched frame pass on both routes: 8 lanes of FG_LENGTHS frames
+    (embeddings) with a query each, no answer triggered, through
+    `BatchedStreamEngine.stream_all`; FG_RUNS timed runs a route after one
+    untimed: aggregate frames/s and ms a frame fed (the dispatches' wall
+    over the frames they fed), median and range, and the idle share."""
+    out = {}
+    n = int(sum(FG_LENGTHS))
+    for route in ("graph", "eager"):
+        engine = BatchedStreamEngine(params, cfg, tok, _args(
+            FG_MAX_NEW, stream_end_prob_threshold=1.0, max_num_frames=FG_FRAMES),
+            n_streams=len(FG_LENGTHS), mesh=mesh)
+        if route == "eager":
+            engine._graphs = None
+        walls = []
+
+        def run():
+            engine.reset()
+            engine.input_frame_embeds(embeds, lengths=np.array(FG_LENGTHS))
+            engine.input_query_streams([[{"role": "user", "content": QUERY, "time": 0.0}]]
+                                       * len(FG_LENGTHS))
+            t0 = time.perf_counter()
+            engine.stream_all()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        with torch.inference_mode():
+            for i in range(FG_RUNS + 1):
+                wall = run()
+                if i:
+                    walls.append(wall)
+            idle = _idle(run, float(np.median(walls)))
+        fps = [n / w for w in walls]
+        wall = float(np.median(walls))
+        out[route] = {"frames_per_s": n / wall, "range": [min(fps), max(fps)],
+                      "ms_per_frame": 1e3 * wall / n, "idle": idle}
+        log(f"batched frame pass ({what}), {route} route: {len(FG_LENGTHS)} lanes, {n} frames, "
+            f"{engine.dispatches} dispatches: median {n / wall:.2f} frames/s of {FG_RUNS} "
+            f"(range {min(fps):.2f}-{max(fps):.2f}), {1e3 * wall / n:.3f} ms a frame fed; idle "
+            + (f"{100 * idle:.1f} %" if idle is not None else "not measured"))
+        del engine
+    return out
+
+
+def run_frame_graph(cfg, tok, params, log, kv_cache_quant=None, batched: bool = True) -> dict:
+    """The frame-graph phase after a main path: `check_frame_graph` on one
+    lane (a generation session of FG_FRAMES frames with answers, their
+    rollbacks and prefills, and a pipelined grounding session of 32-frame
+    blocks) and, with ``batched``, on 8 lanes of `BatchedStreamEngine`
+    (FG_LENGTHS: lanes that end early sit out dispatches and decodes,
+    frozen) with no mesh and on the (2, 2) one-device mesh; then the
+    routes' times (`time_frame_routes`, `time_batched_frame_routes`)."""
+    t0 = time.perf_counter()
+    int4 = kv_cache_quant is not None
+    tag = "int4 weights, int8 cache" if int4 else "bf16"
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t, ft = cfg.text, cfg.frame_num_tokens
+    gen = torch.Generator(device=dev).manual_seed(21)
+    frames = torch.randn((N_FRAMES, ft, t.hidden_size), generator=gen, device=dev,
+                         dtype=torch.bfloat16) * 0.05
+    query = [{"role": "user", "content": QUERY, "time": 0.0}]
+    out = {"kinds": {}}
+
+    def live(grounding, **kw):
+        return lambda: LiveInferEngine(params, cfg, tok, _args(
+            FG_MAX_NEW, grounding_mode=grounding, max_num_frames=N_FRAMES, **kw),
+            kv_cache_quant=kv_cache_quant)
+
+    for grounding in (False, True):
+        mode = "grounding, 32-frame blocks, pipelined" if grounding else "generation"
+        out["kinds"][mode] = check_frame_graph(
+            live(grounding, stream_end_score_sum_threshold=1.0),
+            _fg_live_session(frames[:32 if grounding else FG_FRAMES], query),
+            lambda e: e.state.kv_cache, log, f"{tag}, B = 1, {mode}", int4)
+    for grounding in (False, True):
+        mode = "grounding" if grounding else "generation"
+        out[mode] = time_frame_routes(live(grounding, stream_end_prob_threshold=1.0), frames,
+                                      query, log, f"{tag}, B = 1, {mode}")
+    if batched:
+        embeds = (torch.randn((len(FG_LENGTHS), FG_FRAMES, ft, t.hidden_size), generator=gen,
+                              device=dev, dtype=torch.bfloat16) * 0.05)
+        queries = [[{"role": "user", "content": QUERY, "time": q}] for q in FG_QUERIES]
+
+        def session(engine):
+            engine.input_frame_embeds(embeds, lengths=np.array(FG_LENGTHS))
+            engine.input_query_streams(queries)
+            return (engine.stream_all(), engine.debug_data_lists, engine._cur.tolist(),
+                    engine.gen_lanes)
+
+        for name, mesh in (("no mesh", None), ("(2, 2) one-device mesh",
+                                                 make_mesh((2, 2), devices=[dev] * 4))):
+            out["kinds"][name] = check_frame_graph(
+                lambda: BatchedStreamEngine(params, cfg, tok, _args(
+                    FG_MAX_NEW, stream_end_score_sum_threshold=1.0, max_num_frames=FG_FRAMES),
+                    n_streams=len(FG_LENGTHS), kv_cache_quant=kv_cache_quant, mesh=mesh),
+                session, lambda e: e._cache, log,
+                f"{tag}, {len(FG_LENGTHS)} lanes, {name}", int4)
+        out["batched"] = time_batched_frame_routes(cfg, tok, params, embeds, log,
+                                                   f"{tag}, no mesh")
+    torch.cuda.empty_cache()
+    log(f"frame-graph phase ({tag}) in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 # The batched path: 12 sessions of 40-64 frames through 8 lanes, so that
@@ -1975,7 +2262,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
                decode_tokens_per_s=engine.tokens_generated / t_gen,
                vision_frames_per_s=n_frames / acc["_admit"], dispatches=engine.dispatches,
                gen_lanes=list(engine.gen_lanes), forwards=engine.forwards, shared=shared)
-    mems["serve"] = _mem(resident)
+    mems["serve"] = _mem(resident, engine._graphs)
     # the wrappers hold the engine and the engine holds them: without them
     # its cache is freed here, before the next engine allocates its own
     for name in ("_dispatch_sched", "_generate_batch", "_admit"):
@@ -2030,7 +2317,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
             f"launches (attention, vision) {launches} = {want}")
         out.update(rows=rows, grounding_ms_per_frame=1e3 * t_stream / n)
         out["counts"] = _kernel_counts()  # both passes; the path ends here
-        mems["scorer"] = _mem(resident)
+        mems["scorer"] = _mem(resident, scorer._graphs)
         del scorer, videos
         torch.cuda.empty_cache()
     out["mem"] = mems
@@ -2705,17 +2992,21 @@ def run_prewarm(cfg, tok, params, log) -> float:
     if (warm.state.cursor or warm.frame_embeds is not None or counts["attention"] <= 0
             or counts["attention"] % cfg.text.num_layers
             or counts["vision"] != 2 * (cfg.vision.num_layers - 1)
-            or len(warm._decode_graphs) != 1):
+            or warm._graphs.kinds() != {"step": len(DEFAULT_BUCKETS) + 1, "frames_block": 1,
+                                        "decode_step": 1}):
         raise AssertionError(f"prewarm: cursor {warm.state.cursor}, launches {counts}, "
-                             f"{len(warm._decode_graphs)} decode steps captured")
+                             f"graphs captured {warm._graphs.kinds()}")
+    captured = len(warm._graphs)
     got = _live_pass(warm, frames, stream=True)[1]
     want = _live_pass(LiveInferEngine(params, cfg, tok, args), frames, stream=True)[1]
-    if got != want:
-        raise AssertionError("prewarm: the session after it differs from a cold engine's")
+    if got != want or len(warm._graphs) != captured:
+        raise AssertionError("prewarm: the session after it differs from a cold engine's, or "
+                             f"captured more graphs ({len(warm._graphs)}, not {captured})")
     log(f"prewarm(vision=True): {dt:.3f} s (kernels built already; {len(DEFAULT_BUCKETS)} "
-        f"buckets, the 8-frame block, an 8-token decode whose step it captured, two 32-frame "
-        f"encodes); launches "
-        f"{counts}; a {LIVE_CHUNK}-frame session after it equals a cold engine's exactly")
+        f"buckets, the 8-frame block, an 8-token decode whose prompt and step it captured, "
+        f"two 32-frame encodes: graphs {warm._graphs.kinds()}); launches "
+        f"{counts}; a {LIVE_CHUNK}-frame session after it equals a cold engine's exactly and "
+        f"captures nothing more")
     return dt
 
 
@@ -2849,7 +3140,7 @@ def run_clip_path(cfg, params, log) -> dict:
                            fps=N_FRAMES / t_vision, p50=float(np.percentile(lat, 50)),
                            p90=float(np.percentile(lat, 90)))
         _check_pass(engine, f"CLIP {name}", stats[name]["launches"], responses, QUERY)
-        mems[name] = _mem(resident)
+        mems[name] = _mem(resident, engine._graphs)
     counts = _kernel_counts()  # and ends here
     peak_gib = max(m["peak"] for m in mems.values()) / 2**30
     layers = ccfg.vision.num_layers
@@ -3136,7 +3427,7 @@ TP_SCORE_TOL = 2e-2  # per-frame score probability, a rank against one process, 
 # process's own spread under a reordered sum (`spread_under_permuted_mlp`)
 TP_MARGIN_TOL = 0.5  # a differing token is a near tie: the one process's top-2 logits
 # were closer than this at the first token that differs
-TP_BATCH_SESSIONS, TP_BATCH_FRAMES = 12, (16, 33)
+TP_BATCH_SESSIONS, TP_BATCH_FRAMES = 10, (16, 33)
 # kernel C at a rank's 14 of 28 query heads over 2 of 4 kv heads, one sample
 # of the 2944-token bucket (the training mesh's (2, 2) layout)
 TP_FULL_CASES = ((2944, (2700,), "right"),)
@@ -3239,7 +3530,7 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
         f"{n_frames / wall:.2f} frames/s, {engine.tokens_generated} tokens; launches {counts} "
         f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
         f"decodes of lanes {engine.gen_lanes})")
-    mem = _mem(resident)
+    mem = _mem(resident, engine._graphs)
     numbers = {"frames_per_s": n_frames / wall, "peak_gib": mem["peak"] / 2**30,
                "mem": {"serve": mem},
                "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
@@ -4306,6 +4597,7 @@ def main(argv=None) -> int:
     dense = run_main_path(cfg, tok, params, log)
     dec["launches"] = dense["attention"]
     run_decode_graph(cfg, tok, params, log)
+    run_frame_graph(cfg, tok, params, log)
     run_live_feeding(cfg, tok, params, log)
     run_prewarm(cfg, tok, params, log)
     run_offline_baseline(cfg, tok, params, log)
@@ -4349,6 +4641,7 @@ def main(argv=None) -> int:
     params = quantize_on_card(params, log)
     quantized = run_main_path(cfg, tok, params, log, kv_cache_quant="int8")
     run_decode_graph(cfg, tok, params, log, kv_cache_quant="int8", batched=False)
+    run_frame_graph(cfg, tok, params, log, kv_cache_quant="int8", batched=False)
     dec_int8["launches"], int4["launches"] = quantized["attention_int8"], quantized["int4_matmul"]
     measured["quantized"] = quantized["mem"]
     for key, what in (("p50_ms", "generation pass p50 per-frame ms"),

@@ -77,7 +77,7 @@ class OfflineBaselineRunner(LiveInferEngine):
             max_new=self.args.max_new_tokens, eos_id=self.tokenizer.eos_token_id,
             rep=self.args.repetition_penalty, lora=self.lora,
             lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
-            graphs=self._decode_graphs,
+            graphs=self._graphs,
         )
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor
         self.state.cursor = packed[-1]

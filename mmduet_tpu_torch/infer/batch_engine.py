@@ -30,12 +30,13 @@ CUDA device, also under a mesh; a ``mesh`` lies on one device
 (`ops.attention.flash_decode_attention_sharded`, bit-equal to the
 unsharded kernel). `BatchedStreamEngine.prewarm` pays before the first
 group what its first calls would (the kernels' builds, their scratch,
-cuBLAS's handles, the allocator's pool, the decode step's capture). A
-batched decode keeps its loop state on the device; on a CUDA device
-without a process mesh each step replays one captured CUDA graph over all
-lanes, the frozen ones included (``decode_route == "graph"``, as in
-`LiveInferEngine`). An engine keeps one KV cache for its life: `reset`
-zeros it in place.
+cuBLAS's handles, the allocator's pool, the captures). A batched decode
+keeps its loop state on the device. On a CUDA device without a process
+mesh (``decode_route == "graph"``, as in `LiveInferEngine`) every
+prefix, dispatch, lockstep block, decode prefill and decode step replays
+a CUDA graph captured once a shape over all lanes, the frozen and unfed
+ones included (`mmduet.EngineGraphs`). An engine keeps one KV cache for
+its life: `reset` zeros it in place.
 
 Under a `parallel.ProcessMesh` (one process per card) each rank holds
 its local tree and a cache of its own kv heads (the ``model`` axis, as
@@ -78,6 +79,7 @@ from .state import (
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
+    reserve_split_scratch,
     serving_cache,
     staged_visual_encode,
     validate_threshold_args,
@@ -146,7 +148,19 @@ class BatchedStreamScorer:
         self.system_prompt = system_prompt or DEFAULT_SYSTEM_PROMPT
         self._cache_size = cache_slots(max_num_frames, cfg.frame_num_tokens, kv_cache_size)
         self._cache = None
+        # "graph": each forward and decode step replays a captured CUDA
+        # graph; "eager" on the CPU and on a rank of a process mesh
+        self.decode_route = decode_route(self.device, mesh)
+        self._graphs = mmduet.EngineGraphs() if self.decode_route == "graph" else None
         self.reset()
+        if self._graphs is not None:  # one split scratch for all the graphs
+            reserve_split_scratch(params, cfg.text, self._hi - self._lo, self._widest_chunk(),
+                                  self._cache_size, self.device)
+
+    def _widest_chunk(self) -> int:
+        """Tokens a lane feeds one forward at most: a prefix bucket or a
+        lockstep block."""
+        return max(DEFAULT_BUCKETS[-1], self.block_frames * self.cfg.frame_num_tokens)
 
     # ------------------------------------------------------------------
 
@@ -232,7 +246,7 @@ class BatchedStreamScorer:
         mmduet.step_forward(
             self.params, self.cfg, embeds, self._cache, self._cursor[lo:hi].tolist(),
             t_real[lo:hi], lora=self.lora, lora_scale=self.lora_scale,
-            compute_lm_logits=False, shard_ctx=self._shard_ctx,
+            compute_lm_logits=False, shard_ctx=self._shard_ctx, graphs=self._graphs,
         )
         self._cursor += np.array(t_real)
 
@@ -339,6 +353,7 @@ class BatchedStreamScorer:
                 self.params, self.cfg, frames.reshape(hi - lo, n * ft, -1), self._cache,
                 self._cursor[lo:hi].tolist(), n * ft, [(j + 1) * ft - 1 for j in range(n)],
                 lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+                graphs=self._graphs,
             )
             self._cursor += n * ft
             drain()  # previous block: its round trip hides behind this dispatch
@@ -429,11 +444,9 @@ class BatchedStreamEngine(BatchedStreamScorer):
         self._start_ids, self._stream_open_ids, self._gen_prompt_ids = (
             build_prompt_fragments(tokenizer, self.system_prompt)
         )
-        # "graph": each decode step replays a captured CUDA graph; "eager"
-        # on the CPU and on a rank of a process mesh
-        self.decode_route = decode_route(self.device, mesh)
-        self._decode_graphs = (mmduet.DecodeGraphs() if self.decode_route == "graph"
-                               else None)
+
+    def _widest_chunk(self) -> int:
+        return max(self._buckets)
 
     # ------------------------------------------------------------------
 
@@ -755,6 +768,7 @@ class BatchedStreamEngine(BatchedStreamScorer):
                 self.params, self.cfg, embeds, self._cache, self._cur[lo:hi].tolist(),
                 t_real[lo:hi], score_pos, lora=self.lora,
                 lora_scale=self.lora_scale, shard_ctx=self._shard_ctx, commit=fed,
+                graphs=self._graphs,
             )
             self.forwards += 1
         else:  # the lanes here sit this dispatch out: their zero rows join the gather
@@ -793,7 +807,7 @@ class BatchedStreamEngine(BatchedStreamScorer):
                 max_new=self.args.max_new_tokens,
                 eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
                 rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
-                shard_ctx=self._shard_ctx, graphs=self._decode_graphs,
+                shard_ctx=self._shard_ctx, graphs=self._graphs,
             )
         else:  # no lane here decodes: zero rows join the gather
             packed = torch.zeros((len(here), self.args.max_new_tokens + 2), dtype=torch.int32,
@@ -832,12 +846,13 @@ class BatchedStreamEngine(BatchedStreamScorer):
         """Pay before the first group what its first calls would
         (`LiveInferEngine.prewarm`: the kernels' builds, kernel A's split
         scratch and memo per launch shape, kernel B's scratch, cuBLAS's
-        handles, the allocator's pool, the decode step's capture): one
-        batched dispatch of zeros at each chunk bucket over this process's
-        lanes, a batched decode of every lane (the group's first gathers;
-        on the graph route with no end of sequence, so that a step runs and
-        is captured) and, with ``vision``, one VISION_BATCH encode. Resets
-        the engine afterwards."""
+        handles, the allocator's pool, the captures): one batched dispatch
+        of zeros at each chunk bucket over this process's lanes, as
+        `_dispatch_sched` feeds them (every lane committed), a batched
+        decode of every lane (the group's first gathers; on the graph route
+        with no end of sequence, so that a step runs and is captured) and,
+        with ``vision``, one VISION_BATCH encode. Resets the engine
+        afterwards."""
         if self.device.type == "cuda":
             _build.build()
         H = self.params["decoder"]["final_norm"].shape[-1]
@@ -851,11 +866,12 @@ class BatchedStreamEngine(BatchedStreamScorer):
                 torch.zeros((n, b, H), dtype=self.dtype, device=self.device),
                 self._cache, zeros, [b] * n, [[0] * self.block_frames] * n,
                 lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+                commit=[True] * n, graphs=self._graphs,
             )
         if generate:
             self._cur[:] = 0
             self._generate_batch(list(range(self.B)),
-                                 -1 if self._decode_graphs is not None else None)
+                                 -1 if self._graphs is not None else None)
         if vision:
             r = self.cfg.frame_resolution
             staged_visual_encode(self._visual, np.zeros((VISION_BATCH, r, r, 3), np.uint8),

@@ -11,11 +11,13 @@ the reference `LiveInferForBenchmark` (`test/inference.py:20-313`):
   results equal single-frame stepping;
 - generation is `mmduet.decode_loop`: prefill + greedy decode into a
   scratch cache with the repetition penalty as a token bitmask, its loop
-  state on the device; on a CUDA device without a process mesh each
-  decode step replays one captured CUDA graph (``decode_route ==
-  "graph"``, `state.decode_route`), the port's counterpart of the JAX
-  engine's compiled `lax.while_loop`, and the host reads one flag a step
-  and the packed tokens once a response;
+  state on the device; the host reads one flag a step and the packed
+  tokens once a response;
+- on a CUDA device without a process mesh (``decode_route == "graph"``,
+  `state.decode_route`) every step, frame block, decode prefill and
+  decode step replays a CUDA graph captured once a shape
+  (`mmduet.EngineGraphs`), the port's counterpart of the JAX engine's
+  compiled `_step`, `_frames_block` and `lax.while_loop`;
 - ``remove_assistant_turns`` is a cursor rewind;
 - all three threshold policies (`state.ThresholdPolicy`);
 - a per-frame latency record;
@@ -58,8 +60,8 @@ A and B, whose split scratch is shared per device (`ops.attention`,
 `ops.quant_matmul`), run on one stream at a time.
 `prewarm` takes what a cold first session would pay (the kernels'
 builds, their scratch, cuBLAS's handles, the allocator's pool, the decode
-step's capture) before it. The engine keeps one KV cache for its life:
-`reset` zeros it in place, so the captured step's addresses stay valid.
+captures) before it. The engine keeps one KV cache for its life:
+`reset` zeros it in place, so the captured graphs' addresses stay valid.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ from .state import (
     frame_joiner_ids,
     pad_chunk,
     pick_bucket,
+    reserve_split_scratch,
     serving_cache,
     upload_pixels,
     validate_threshold_args,
@@ -136,11 +139,10 @@ class LiveInferEngine:
         # one lane: only the heads are cut, over the mesh's model axis
         self._shard_ctx = serving_shard_ctx(
             mesh, cfg.text.num_heads, cfg.text.num_kv_heads, 1, self.device)
-        # "graph": each decode step replays a captured CUDA graph; "eager"
-        # on the CPU and on a rank of a process mesh
+        # "graph": each forward and decode step replays a captured CUDA
+        # graph; "eager" on the CPU and on a rank of a process mesh
         self.decode_route = decode_route(self.device, mesh)
-        self._decode_graphs = (mmduet.DecodeGraphs() if self.decode_route == "graph"
-                               else None)
+        self._graphs = mmduet.EngineGraphs() if self.decode_route == "graph" else None
 
         validate_threshold_args(args)
         self.args = args
@@ -169,6 +171,10 @@ class LiveInferEngine:
         self.block_frames = max(1, block_frames)
         self.state: Optional[StreamState] = None
         self.reset()
+        if self._graphs is not None:  # one split scratch for all the graphs
+            reserve_split_scratch(params, cfg.text, 1, max(
+                DEFAULT_BUCKETS[-1], self.block_frames * cfg.frame_num_tokens),
+                self._cache_size, self.device)
 
     # ------------------------------------------------------------------
     # session control
@@ -225,12 +231,12 @@ class LiveInferEngine:
         kernels (`ops._build`), kernel A's split scratch and its memo for
         each launch shape, kernel B's scratch (int4 leaves), cuBLAS's
         handles and workspaces, the caching allocator's pool and, on the
-        graph route, the capture of the decode step (the JAX engine's
-        compile of its loop). This feeds a zero chunk at each prefill
-        bucket (query turns and frame steps bucket to these widths), the
-        fused frame block, the greedy decode (on the graph route with no
-        end of sequence, so that a step runs and is captured), one chunk
-        on `stream_video`'s decoder stream (a CUDA device) and, with
+        graph route, the captures of what it feeds (the JAX engine's
+        compiles). This feeds a zero chunk at each prefill bucket (query
+        turns and frame steps bucket to these widths), the fused frame
+        block, the greedy decode (its prompt's prefill and, on the graph
+        route with no end of sequence, a step that runs and is captured),
+        one chunk on `stream_video`'s decoder stream (a CUDA device) and, with
         ``vision``, one encode of VISION_BATCH frames on the current stream
         and one through `stream_video`'s path (pinned upload, the side
         stream on a CUDA device). Resets the engine afterwards: a session
@@ -249,11 +255,11 @@ class LiveInferEngine:
             mmduet.frames_block_forward(
                 self.params, self.cfg, zeros(self.block_frames, self.cfg.frame_num_tokens, H),
                 self.state.kv_cache, 0, lora=self.lora, lora_scale=self.lora_scale,
-                shard_ctx=self._shard_ctx,
+                shard_ctx=self._shard_ctx, graphs=self._graphs,
             )
         if generate:
             self.state.cursor = 0
-            self._generate_response(eos_id=-1 if self._decode_graphs is not None else None)
+            self._generate_response(eos_id=-1 if self._graphs is not None else None)
         main, _ = self._streams()
         if main is not None:  # stream_video's decoder stream: its cuBLAS workspace
             main.wait_stream(torch.cuda.current_stream(self.device))
@@ -481,7 +487,7 @@ class LiveInferEngine:
             self.params, self.cfg, pad_chunk(embeds, bucket)[None],
             self.state.kv_cache, self.state.cursor, t_real,
             lora=self.lora, lora_scale=self.lora_scale,
-            compute_lm_logits=compute_lm, shard_ctx=self._shard_ctx,
+            compute_lm_logits=compute_lm, shard_ctx=self._shard_ctx, graphs=self._graphs,
         )
         # both score probs in ONE tensor: one device->host copy per frame
         probs = torch.stack([out.informative_prob[0], out.relevance_prob[0]])
@@ -534,6 +540,7 @@ class LiveInferEngine:
             self.params, self.cfg, self.frame_embeds[idx : idx + n],
             self.state.kv_cache, self.state.cursor,
             lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+            graphs=self._graphs,
         )
         self.state.cursor += n * ft
         self._next_frame += n
@@ -593,7 +600,7 @@ class LiveInferEngine:
             eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
             rep=self.args.repetition_penalty,
             lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
-            graphs=self._decode_graphs,
+            graphs=self._graphs,
         )
         self._pen_mask = pen_mask[0]
         packed = packed[0].tolist()  # ONE fetch: tokens + n + cursor

@@ -20,13 +20,15 @@ from __future__ import annotations
 
 import bisect
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Qwen2Config
+from ..models.quant import out_width
 from ..models.qwen2 import KVCache, init_kv_cache
+from ..ops import attention, quant_matmul
 from ..parallel import ProcessMesh
 
 # Default prefill bucket widths. Frame steps are 49(+small joiner) tokens;
@@ -66,16 +68,65 @@ def cache_slots(max_num_frames: int, frame_num_tokens: int,
 
 
 def decode_route(device, mesh) -> str:
-    """How an engine's greedy decode runs its steps (`mmduet.decode_loop`):
-    ``"graph"`` on a CUDA device without a process mesh (one-device `Mesh`
-    included), where each step replays a captured CUDA graph
-    (`mmduet.DecodeGraphs`), as the JAX engines run the loop as one
-    compiled device program; ``"eager"`` on the CPU and on a rank of a
-    `ProcessMesh`, whose collectives a graph cannot hold. The same
-    `mmduet.decode_step` runs on both routes."""
+    """How an engine runs its device work: its streaming forwards (steps,
+    frame blocks, batched dispatches), its decode's prompt prefill and each
+    greedy decode step (`mmduet.decode_loop`). ``"graph"`` on a CUDA device
+    without a process mesh (one-device `Mesh` included), where each of
+    them replays a CUDA graph captured once a shape
+    (`mmduet.EngineGraphs`), as the JAX engines run one compiled device
+    program a shape; ``"eager"`` on the CPU and on a rank of a
+    `ProcessMesh`, whose collectives a graph cannot hold. The same bodies
+    (`mmduet.step_body`, `chunk_scores_body`, `frames_block_body`,
+    `decode_step`) run on both routes."""
     if torch.device(device).type == "cuda" and not isinstance(mesh, ProcessMesh):
         return "graph"
     return "eager"
+
+
+_PROJECTIONS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+def split_scratch_need(params, cfg: Qwen2Config, lanes: int, width: int,
+                       slots: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The most split scratch an engine's decoder forwards ask of kernels
+    A and B: (A's f32 partials and int32 counters, B's f32 partials and
+    int32 tickets) over every chunk of 1 to ``width`` tokens on ``lanes``
+    lanes against ``slots`` cache slots (`attention.decode_scratch_numel`;
+    `quant_matmul.int4_plan` for each int4 projection at ``lanes`` times
+    the width rows, and the LM head at a row a lane), with the head counts
+    and weight shapes of ``params`` (a rank's own tree on a process mesh).
+    An engine on the graph route reserves it before its first capture
+    (`reserve_split_scratch`), and `scripts/memory_budget_torch.py` prices
+    it."""
+    layers, hd = params["decoder"]["layers"], cfg.head_dim
+    kh, nh = out_width(layers["k_proj"]) // hd, out_width(layers["q_proj"]) // hd
+    a = b = (0, 0)
+    for w in range(1, width + 1):
+        n = attention.decode_scratch_numel(lanes, kh, w * (nh // kh), slots, hd)
+        a = (max(a[0], n[0]), max(a[1], n[1]))
+    int4 = [(layers[name], range(lanes, lanes * width + 1, lanes)) for name in _PROJECTIONS
+            if isinstance(layers[name], dict) and "qw4" in layers[name]]
+    if isinstance(params["lm_head"], dict) and "qw4" in params["lm_head"]:
+        int4.append((params["lm_head"], (lanes,)))
+    for leaf, rows in int4:
+        G, g, O = leaf["qw4"].shape[-3], 2 * leaf["qw4"].shape[-2], leaf["qw4"].shape[-1]
+        for R in rows:
+            n = quant_matmul.split_scratch_numel(quant_matmul.int4_plan(R, G * g, O, g), R, O)
+            b = (max(b[0], n[0]), max(b[1], n[1]))
+    return a, b
+
+
+def reserve_split_scratch(params, cfg: Qwen2Config, lanes: int, width: int, slots: int,
+                          device) -> None:
+    """Grows kernels A's and B's split scratch of ``device`` to what
+    `split_scratch_need` gives, so that the captured graphs of an engine
+    (`mmduet.EngineGraphs`, which keep the scratch they captured) all hold
+    one scratch: a chunk of at most ``width`` tokens never grows it."""
+    need_a, need_b = split_scratch_need(params, cfg, lanes, width, slots)
+    if need_a[0]:
+        attention.reserve_split_scratch(device, *need_a)
+    if need_b[0]:
+        quant_matmul.reserve_split_scratch(device, *need_b)
 
 
 def serving_cache(cfg: Qwen2Config, decoder, batch: int, max_len: int, dtype: torch.dtype,

@@ -11,18 +11,22 @@ Port of `mmduet_tpu/models/mmduet.py`:
 - ``step_forward`` / ``chunk_scores_forward`` / ``frames_block_forward`` —
   streaming forwards (one lane or a batch of lanes with a cursor each) against
   the preallocated KV cache, returning the score-head probabilities (and
-  last-position LM logits);
+  last-position LM logits); host cursors cross to the device at the entry,
+  and the bodies (`step_body`, `chunk_scores_body`, `frames_block_body`)
+  run on device operands only;
 - ``decode_loop``   — prompt prefill + greedy decode into a scratch cache,
   then one commit into the big cache; the loop state stays on the device
-  (`DecodeState`, `decode_step`), and a CUDA device can replay each step
-  from a captured graph (`DecodeGraphs`);
+  (`DecodeState`, `decode_step`);
+- `EngineGraphs` — on a CUDA device, an engine's forwards and decode steps
+  each replay a graph captured once a shape (`Captured`), in one memory
+  pool;
 - ``train_forward``  — the full-sequence training forward with the LM and
   video (score-head) losses.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -311,13 +315,9 @@ class StepOutput(NamedTuple):
     kv_cache: KVCache
 
 
-def _positions(cache_len: Sequence[int], T: int, device) -> torch.Tensor:
-    return (ints_to(cache_len, device)[:, None]
-            + torch.arange(T, device=device)[None, :])
-
-
-def _score_output(params: Params, cfg: MMDuetConfig, last: torch.Tensor, kv_cache: KVCache,
-                  compute_lm_logits: bool) -> StepOutput:
+def _score_output(params: Params, cfg: MMDuetConfig, last: torch.Tensor,
+                  compute_lm_logits: bool) -> Tuple[Optional[torch.Tensor], torch.Tensor,
+                                                    torch.Tensor]:
     """The score heads (whole on every rank) and, if asked, the whole
     vocabulary's logits (`gather_vocab` from a rank's slice)."""
     inf = torch.softmax(_head(params["informative_head"], last)[:, 0], dim=-1)[:, 1]
@@ -326,7 +326,83 @@ def _score_output(params: Params, cfg: MMDuetConfig, last: torch.Tensor, kv_cach
     if compute_lm_logits:
         logits = gather_vocab(qwen2.lm_logits(params["lm_head"], last)[:, 0],
                               cfg.text.vocab_size)
-    return StepOutput(logits, inf, rel, kv_cache)
+    return logits, inf, rel
+
+
+def _stream_hidden(params: Params, cfg: MMDuetConfig, embeds: torch.Tensor, kv_cache: KVCache,
+                   cache_len: torch.Tensor, t_real: torch.Tensor,
+                   commit: Optional[torch.Tensor], lora: Optional[Params], lora_scale: float,
+                   shard_ctx) -> torch.Tensor:
+    """The decoder's streaming mode on device cursors (`qwen2.qwen2_forward`,
+    which passes them through): positions ``cache_len[b] + arange(T)``, the
+    chunk committed in place."""
+    T = embeds.shape[1]
+    positions = cache_len[:, None] + torch.arange(T, device=embeds.device)[None, :]
+    hidden, _ = qwen2.qwen2_forward(params["decoder"], cfg.text, embeds, positions,
+                                    kv_cache=kv_cache, cache_len=cache_len, lora=lora,
+                                    lora_scale=lora_scale, t_real=t_real, shard_ctx=shard_ctx,
+                                    commit=commit)
+    return hidden
+
+
+def step_body(params: Params, cfg: MMDuetConfig, kv_cache: KVCache, x: Dict[str, torch.Tensor],
+              lora: Optional[Params] = None, lora_scale: float = 0.0,
+              compute_lm_logits: bool = True, shard_ctx=None):
+    """`step_forward`'s body on its device operands ``x`` (``embeds``,
+    ``cache_len``, ``t_real``, optionally ``commit``): each lane's last real
+    row taken by a gather at ``t_real - 1``. Returns (logits or None,
+    informative, relevance)."""
+    embeds = x["embeds"]
+    hidden = _stream_hidden(params, cfg, embeds, kv_cache, x["cache_len"], x["t_real"],
+                            x.get("commit"), lora, lora_scale, shard_ctx)
+    row = (x["t_real"].long() - 1)[:, None, None].expand(-1, 1, hidden.shape[-1])
+    return _score_output(params, cfg, torch.gather(hidden, 1, row), compute_lm_logits)
+
+
+def chunk_scores_body(params: Params, cfg: MMDuetConfig, kv_cache: KVCache,
+                      x: Dict[str, torch.Tensor], lora: Optional[Params] = None,
+                      lora_scale: float = 0.0, shard_ctx=None) -> torch.Tensor:
+    """`chunk_scores_forward`'s body on its device operands ``x``
+    (``embeds``, ``cache_len``, ``t_real``, ``score_pos`` (B, K), optionally
+    ``commit``): (B, 2, K) probabilities."""
+    hidden = _stream_hidden(params, cfg, x["embeds"], kv_cache, x["cache_len"], x["t_real"],
+                            x.get("commit"), lora, lora_scale, shard_ctx)
+    sp = x["score_pos"].long()
+    sel = torch.gather(hidden, 1, sp[..., None].expand(-1, -1, hidden.shape[-1]))  # (B, K, H)
+    inf = torch.softmax(_head(params["informative_head"], sel), dim=-1)[..., 1]
+    rel = torch.softmax(_head(params["relevance_head"], sel), dim=-1)[..., 1]
+    return torch.stack([inf, rel], dim=1)
+
+
+def frames_block_body(params: Params, cfg: MMDuetConfig, kv_cache: KVCache,
+                      x: Dict[str, torch.Tensor], lora: Optional[Params] = None,
+                      lora_scale: float = 0.0, shard_ctx=None):
+    """`frames_block_forward`'s body on its device operands ``x``
+    (``frames`` (K, ft, H), ``cache_len`` (1,)): (informative (K,),
+    relevance (K,))."""
+    K, ft, H = x["frames"].shape
+    embeds = x["frames"].reshape(1, K * ft, H)
+    t_real = torch.full((1,), K * ft, dtype=torch.int32, device=embeds.device)
+    hidden = _stream_hidden(params, cfg, embeds, kv_cache, x["cache_len"], t_real, None, lora,
+                            lora_scale, shard_ctx)
+    last = hidden.reshape(K, ft, H)[None, :, ft - 1, :]  # (1, K, H)
+    inf = torch.softmax(_head(params["informative_head"], last)[0], dim=-1)[:, 1]
+    rel = torch.softmax(_head(params["relevance_head"], last)[0], dim=-1)[:, 1]
+    return inf, rel
+
+
+def _run_entry(graphs: Optional["EngineGraphs"], name: str, body, params: Params,
+               cfg: MMDuetConfig, kv_cache: KVCache, x: Dict[str, torch.Tensor],
+               lora: Optional[Params], lora_scale: float, shard_ctx, *baked):
+    """``body(params, cfg, kv_cache, x, lora, lora_scale, *baked, shard_ctx)``
+    eagerly, or through ``graphs``' captured graph of this entry's shapes."""
+    def run(inputs):
+        return body(params, cfg, kv_cache, inputs, lora, lora_scale, *baked, shard_ctx=shard_ctx)
+
+    if graphs is None:
+        return run(x)
+    return graphs.run(graphs.key(name, params, cfg, kv_cache, lora, lora_scale, shard_ctx,
+                                 x, *baked), x, run)
 
 
 def step_forward(
@@ -334,26 +410,26 @@ def step_forward(
     cfg: MMDuetConfig,
     embeds: torch.Tensor,  # (B, T, H) chunk embeddings (text and/or frame)
     kv_cache: KVCache,
-    cache_len: Lanes,  # per-lane cursors (or one for all)
-    t_real: Lanes,  # real (unpadded) tokens in each lane's chunk
+    cache_len: Lanes,  # per-lane cursors (or one for all), host or (B,) int32 device
+    t_real: Lanes,  # real (unpadded) tokens in each lane's chunk, the same
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     compute_lm_logits: bool = True,
     shard_ctx=None,  # ops.attention.ShardCtx: attention per mesh shard
-    commit: Optional[Sequence[bool]] = None,  # lanes to commit (None = all)
+    commit=None,  # lanes to commit: host bools or (B,) bool device (None = all)
+    graphs: Optional["EngineGraphs"] = None,  # the graph route (CUDA tensors)
 ) -> StepOutput:
     """One streaming step: write the chunk into the cache (in place) and
-    read the scores at each lane's last real position."""
+    read the scores at each lane's last real position. Host operands
+    cross to the device here, once (`qwen2.stream_cursors`, which checks
+    host cursors against the cache); the body (`step_body`) reads no host
+    value, and with ``graphs`` it replays a captured graph."""
     B, T, _ = embeds.shape
-    cl = lane_list(cache_len, B)
-    tr = lane_list(t_real, B)
-    hidden, kv_cache = qwen2.qwen2_forward(
-        params["decoder"], cfg.text, embeds, _positions(cl, T, embeds.device),
-        kv_cache=kv_cache, cache_len=cl, lora=lora, lora_scale=lora_scale, t_real=tr,
-        shard_ctx=shard_ctx, commit=commit,
-    )
-    last = torch.stack([hidden[b, t - 1] for b, t in enumerate(tr)])[:, None]
-    return _score_output(params, cfg, last, kv_cache, compute_lm_logits)
+    cl, tr, cm = qwen2.stream_cursors(kv_cache, B, T, embeds.device, cache_len, t_real, commit)
+    x = dict(embeds=embeds, cache_len=cl, t_real=tr, **({} if cm is None else {"commit": cm}))
+    logits, inf, rel = _run_entry(graphs, "step", step_body, params, cfg, kv_cache, x, lora,
+                                  lora_scale, shard_ctx, compute_lm_logits)
+    return StepOutput(logits, inf, rel, kv_cache)
 
 
 def chunk_scores_forward(
@@ -361,13 +437,14 @@ def chunk_scores_forward(
     cfg: MMDuetConfig,
     embeds: torch.Tensor,  # (B, T, H) per-lane (padded) chunks
     kv_cache: KVCache,
-    cache_len: Lanes,  # per-lane cursors (or one for all)
-    t_real: Lanes,  # per-lane real lengths (or one for all)
-    score_pos,  # (B, K) or (K,) chunk-local positions to score
+    cache_len: Lanes,  # per-lane cursors (or one for all), host or (B,) int32 device
+    t_real: Lanes,  # per-lane real lengths (or one for all), the same
+    score_pos,  # (B, K) or (K,) chunk-local positions to score, host or device
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     shard_ctx=None,
-    commit: Optional[Sequence[bool]] = None,  # lanes to commit (None = all)
+    commit=None,  # lanes to commit: host bools or (B,) bool device (None = all)
+    graphs: Optional["EngineGraphs"] = None,  # the graph route (CUDA tensors)
 ) -> Tuple[torch.Tensor, KVCache]:
     """One batched streaming chunk -> score probabilities at several
     per-lane chunk positions. Generalizes `step_forward` (scores at the
@@ -383,21 +460,18 @@ def chunk_scores_forward(
     cache)."""
     B, T, _ = embeds.shape
     dev = embeds.device
-    cl = lane_list(cache_len, B)
-    tr = lane_list(t_real, B)
-    hidden, kv_cache = qwen2.qwen2_forward(
-        params["decoder"], cfg.text, embeds, _positions(cl, T, dev),
-        kv_cache=kv_cache, cache_len=cl, lora=lora, lora_scale=lora_scale, t_real=tr,
-        shard_ctx=shard_ctx, commit=commit,
-    )
-    sp = torch.as_tensor(np.asarray(score_pos), dtype=torch.int64)
-    if sp.ndim == 1:
-        sp = sp[None].expand(B, -1)
-    sp = sp.to(dev)
-    sel = torch.gather(hidden, 1, sp[..., None].expand(-1, -1, hidden.shape[-1]))  # (B, K, H)
-    inf = torch.softmax(_head(params["informative_head"], sel), dim=-1)[..., 1]
-    rel = torch.softmax(_head(params["relevance_head"], sel), dim=-1)[..., 1]
-    return torch.stack([inf, rel], dim=1), kv_cache
+    cl, tr, cm = qwen2.stream_cursors(kv_cache, B, T, dev, cache_len, t_real, commit)
+    if not torch.is_tensor(score_pos):
+        sp = np.asarray(score_pos, dtype=np.int64)
+        sp = np.broadcast_to(sp[None] if sp.ndim == 1 else sp, (B, sp.shape[-1]))
+        score_pos = ints_to(sp.reshape(-1).tolist(), dev).reshape(B, -1)
+    elif score_pos.ndim == 1:
+        score_pos = score_pos[None].expand(B, -1)
+    x = dict(embeds=embeds, cache_len=cl, t_real=tr, score_pos=score_pos,
+             **({} if cm is None else {"commit": cm}))
+    probs = _run_entry(graphs, "chunk_scores", chunk_scores_body, params, cfg, kv_cache, x,
+                       lora, lora_scale, shard_ctx)
+    return probs, kv_cache
 
 
 def frames_block_forward(
@@ -405,10 +479,11 @@ def frames_block_forward(
     cfg: MMDuetConfig,
     frames: torch.Tensor,  # (K, frame_num_tokens, H) — K whole frames
     kv_cache: KVCache,
-    cache_len: int,
+    cache_len,  # the cursor: a host int or a (1,) int32 device tensor
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     shard_ctx=None,
+    graphs: Optional["EngineGraphs"] = None,  # the graph route (CUDA tensors)
 ) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
     """Score K consecutive frames in ONE chunk forward: attention is
     causal, so the heads read at each frame's last position (ft-1,
@@ -416,17 +491,10 @@ def frames_block_forward(
     weights read once per block.
 
     Returns (informative_probs (K,), relevance_probs (K,), cache)."""
-    K, ft, H = frames.shape
-    embeds = frames.reshape(1, K * ft, H)
-    hidden, kv_cache = qwen2.qwen2_forward(
-        params["decoder"], cfg.text, embeds,
-        _positions([cache_len], K * ft, frames.device),
-        kv_cache=kv_cache, cache_len=cache_len, lora=lora, lora_scale=lora_scale,
-        t_real=K * ft, shard_ctx=shard_ctx,
-    )
-    last = hidden.reshape(K, ft, H)[None, :, ft - 1, :]  # (1, K, H)
-    inf = torch.softmax(_head(params["informative_head"], last)[0], dim=-1)[:, 1]
-    rel = torch.softmax(_head(params["relevance_head"], last)[0], dim=-1)[:, 1]
+    K, ft, _ = frames.shape
+    cl, _, _ = qwen2.stream_cursors(kv_cache, 1, K * ft, frames.device, cache_len, None)
+    inf, rel = _run_entry(graphs, "frames_block", frames_block_body, params, cfg, kv_cache,
+                          dict(frames=frames, cache_len=cl), lora, lora_scale, shard_ctx)
     return inf, rel, kv_cache
 
 
@@ -521,7 +589,7 @@ def decode_step(s: DecodeState, params: Params, cfg: MMDuetConfig, kv_cache: KVC
     i + 1 and moves its cursor and last token on; a token equal to
     ``s.eos`` ends it; ``i`` grows by one. Every value stays on the device:
     the step reads nothing back to the host and copies nothing to the
-    device, so `CapturedDecodeStep` can replay it from a CUDA graph."""
+    device, so `EngineGraphs.decode_step` can replay it from a CUDA graph."""
     V = cfg.text.vocab_size
     dec = params["decoder"]
     emb = qwen2.embed_tokens(dec, s.last_tok[:, None], V).to(s.scratch.k.dtype)
@@ -544,92 +612,157 @@ def decode_step(s: DecodeState, params: Params, cfg: MMDuetConfig, kv_cache: KVC
     s.i.add_(1)
 
 
-# The launch counts a decode step adds to: kernels A (A-int8, A') and B.
+# The launch counts a captured forward adds to: kernels A (A-int8, A') and B.
 _STEP_COUNTS = ((attention_ops, "LAUNCHES"), (attention_ops, "INT8_LAUNCHES"),
                 (attention_ops, "SHARDED_LAUNCHES"), (quant_matmul, "B_LAUNCHES"))
 
 
-class CapturedDecodeStep:
-    """`decode_step` on one static `DecodeState`, captured in a CUDA graph:
-    the port's counterpart of the JAX package's jitted loop body.
+def _tree_clone(out):
+    if torch.is_tensor(out):
+        return out.clone()
+    if isinstance(out, tuple):
+        return type(out)(*(_tree_clone(x) for x in out)) if hasattr(out, "_fields") \
+            else tuple(_tree_clone(x) for x in out)
+    return out
 
-    The first call runs the step eagerly on the current stream (a real
-    step, which also allocates what the kernels keep between calls: kernel
-    A's and B's split scratch, cuBLAS's workspace) and then captures it;
-    every later call replays the graph on the current stream. The graph
-    holds the addresses of the state, the cache, the parameters and the
-    kernels' split scratch; it keeps the scratch tensors it captured
-    alive, so a later launch that grows the scratch (and drops the old
-    tensors from `ops.attention` / `ops.quant_matmul`) leaves them valid.
-    The capture launches nothing, so the launch counts it added are taken
-    back, and each replay adds them. A capture that fails raises."""
 
-    def __init__(self, state: DecodeState, run):
-        self.state, self._run = state, run
+class Captured:
+    """One entry's body on static device tensors, captured in a CUDA graph:
+    the port's counterpart of one program the JAX package compiles for a
+    shape.
+
+    ``run(inputs)`` is the body on a dict of input tensors (None for a body
+    that updates its own ``state`` in place, as `decode_step` does). The
+    first call runs it eagerly on the caller's inputs (a real call, which
+    also allocates what the kernels keep between calls: kernel A's and B's
+    split scratch, cuBLAS's workspace) and returns its outputs; it then
+    captures it into the engine's memory pool on static inputs allocated
+    there. Every later call copies the caller's inputs into the static
+    ones, replays the graph on the current stream and returns a copy of
+    the static outputs made on that stream after the replay, so a caller
+    that enqueues the next call before it reads this one's (one-deep
+    pipelining) reads its own. The graph holds the addresses of the static
+    tensors, the cache, the parameters and the kernels' split scratch; it
+    keeps the scratch tensors it captured alive, so a later launch that
+    grows the scratch (and drops the old tensors from `ops.attention` /
+    `ops.quant_matmul`) leaves them valid. The capture launches nothing,
+    so the launch counts it added are taken back, and each replay adds
+    them. A capture that fails raises."""
+
+    def __init__(self, run: Callable, pool, state=None):
+        self.state = state
+        self._run, self._pool = run, pool
         self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._static: Optional[Dict[str, torch.Tensor]] = None
+        self._out = None
         self._launches: Tuple[int, ...] = ()
         self._held: tuple = ()
 
-    def __call__(self) -> None:
+    def __call__(self, inputs: Optional[Dict[str, torch.Tensor]] = None):
         if self._graph is None:
-            self._run()
-            self._capture()
-            return
+            out = self._run(inputs)
+            self._capture(inputs)
+            return out
+        for name, x in (inputs or {}).items():
+            self._static[name].copy_(x)
         self._graph.replay()
         for (module, name), n in zip(_STEP_COUNTS, self._launches):
             setattr(module, name, getattr(module, name) + n)
+        return _tree_clone(self._out)
 
-    def _capture(self) -> None:
+    def _capture(self, inputs) -> None:
         before = [getattr(module, name) for module, name in _STEP_COUNTS]
         graph = torch.cuda.CUDAGraph()
         # thread_local: another thread's allocations (a demo's server) do
         # not break this capture
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._run()
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            # allocated in the pool; filled before each replay
+            self._static = (None if inputs is None
+                            else {name: torch.empty_like(x) for name, x in inputs.items()})
+            self._out = self._run(self._static)
         self._launches = tuple(getattr(module, name) - b
                                for (module, name), b in zip(_STEP_COUNTS, before))
         for (module, name), b in zip(_STEP_COUNTS, before):
             setattr(module, name, b)
-        dev = self.state.i.device
-        self._held = (attention_ops._split_scratch.get(dev), quant_matmul._split_scratch.get(dev))
+        dev = torch.cuda.current_device()
+        self._held = tuple(s.get(torch.device("cuda", dev)) for s in
+                           (attention_ops._split_scratch, quant_matmul._split_scratch))
         self._graph = graph
 
 
-class DecodeGraphs:
-    """An engine's captured decode steps (`CapturedDecodeStep`), one per
-    (lanes, max_new, rep, LoRA scale, dtype, parameters, config, LoRA, mesh
-    context, cache tensors): what the step's graph bakes in. An entry keeps
-    those objects alive, so their identities and addresses in its key stay
-    its own. An engine keeps one cache for its life (its ``reset`` zeros it
-    in place), so it keeps one step a ``max_new``."""
+class EngineGraphs:
+    """An engine's captured forwards (`Captured`), all in one CUDA memory
+    pool, one per entry and what its graph bakes in: the entry, the shapes
+    and dtypes of its inputs (lanes, chunk width or frames), its own
+    options (``compute_lm_logits``; the decode step's ``max_new`` and
+    ``rep``), the parameters, config, LoRA and its scale, the mesh context
+    and the cache's tensors. There is one graph a shape, as the JAX package
+    compiles one program a shape. An entry keeps the objects of its key
+    alive, so their identities and addresses stay its own. An engine keeps
+    one cache for its life (its ``reset`` zeros it in place). The graphs
+    replay one at a time, on one stream at a time (`ops.attention`'s
+    one-stream rule), so they share the pool's memory."""
 
     def __init__(self):
-        self._steps: Dict[tuple, CapturedDecodeStep] = {}
+        self._entries: Dict[tuple, Captured] = {}
+        self._keep: Dict[tuple, tuple] = {}
+        self.pool = None  # made at the first capture
 
     def __len__(self) -> int:
-        return len(self._steps)
+        return len(self._entries)
 
-    def step(self, params: Params, cfg: MMDuetConfig, kv_cache: KVCache, B: int, max_new: int,
-             dtype: torch.dtype, rep: Optional[float], lora: Optional[Params],
-             lora_scale: float, shard_ctx) -> CapturedDecodeStep:
+    def kinds(self) -> Dict[str, int]:
+        """Captured graphs by entry name."""
+        out: Dict[str, int] = {}
+        for key in self._entries:
+            out[key[0]] = out.get(key[0], 0) + 1
+        return out
+
+    def key(self, name: str, params: Params, cfg: MMDuetConfig, kv_cache: KVCache,
+            lora: Optional[Params], lora_scale: float, shard_ctx,
+            inputs: Optional[Dict[str, torch.Tensor]] = None, *extra) -> tuple:
+        """The key of an entry's graph; raises ValueError off a CUDA device."""
         leaves = [t for leaf in kv_cache for t in
                   (leaf.values() if isinstance(leaf, dict) else (leaf,))]
         if leaves[0].device.type != "cuda":
-            raise ValueError(f"decode_loop: the graph route runs on a CUDA device, not "
+            raise ValueError(f"{name}: the graph route runs on a CUDA device, not "
                              f"{leaves[0].device}")
-        key = (B, max_new, rep, lora_scale, dtype, id(params), id(cfg), id(lora), shard_ctx,
+        shapes = tuple((n, tuple(x.shape), x.dtype) for n, x in (inputs or {}).items())
+        key = (name, shapes, extra, lora_scale, id(params), id(cfg), id(lora), shard_ctx,
                tuple(t.data_ptr() for t in leaves))
-        got = self._steps.get(key)
+        self._keep.setdefault(key, (params, cfg, lora, kv_cache))
+        return key
+
+    def entry(self, key: tuple, run: Callable, state=None) -> Captured:
+        got = self._entries.get(key)
+        if got is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            got = self._entries[key] = Captured(run, self.pool, state)
+        return got
+
+    def run(self, key: tuple, inputs: Dict[str, torch.Tensor], run: Callable):
+        """``run(inputs)`` through the graph of ``key`` (`Captured`)."""
+        return self.entry(key, run)(inputs)
+
+    def decode_step(self, params: Params, cfg: MMDuetConfig, kv_cache: KVCache, B: int,
+                    max_new: int, dtype: torch.dtype, rep: Optional[float],
+                    lora: Optional[Params], lora_scale: float, shard_ctx) -> Captured:
+        """The captured `decode_step` of (lanes, ``max_new``, ``rep``, dtype)
+        on its static `DecodeState` (the entry's ``state``)."""
+        key = self.key("decode_step", params, cfg, kv_cache, lora, lora_scale, shard_ctx, None,
+                       B, max_new, rep, dtype)
+        got = self._entries.get(key)
         if got is None:
             L, _, kh, _, hd = kv_arr(kv_cache.k).shape
             state = decode_state(B, max_new, cfg.text.vocab_size, (L, kh, hd), dtype,
-                                 leaves[0].device)
+                                 kv_arr(kv_cache.k).device)
 
-            def run():
+            def run(_):
                 decode_step(state, params, cfg, kv_cache, rep=rep, lora=lora,
                             lora_scale=lora_scale, shard_ctx=shard_ctx)
 
-            got = self._steps[key] = CapturedDecodeStep(state, run)
+            got = self.entry(key, run, state)
         return got
 
 
@@ -657,7 +790,7 @@ def decode_loop(
     lora: Optional[Params] = None,
     lora_scale: float = 0.0,
     shard_ctx=None,
-    graphs: Optional[DecodeGraphs] = None,  # the graph route (CUDA tensors)
+    graphs: Optional[EngineGraphs] = None,  # the graph route (CUDA tensors)
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Prompt prefill + greedy decode (with the repetition penalty as a
     token bitmask), with the loop state on the device as the JAX package's
@@ -669,11 +802,12 @@ def decode_loop(
     Two routes, chosen by the caller: without ``graphs`` every step runs
     eagerly on a state made for the call (CPU tensors, and the ranks of a
     process mesh, whose collectives a graph cannot hold); with ``graphs``
-    (CUDA tensors only) the state is the static one of the graph that
+    (CUDA tensors only) the prompt's prefill replays its captured
+    `step_forward`, the state is the static one of the graph that
     ``graphs`` keeps for these operands, the call copies its inputs into
-    it, and each step replays the captured `decode_step`
-    (`CapturedDecodeStep`; the first step of a new graph runs eagerly and
-    captures it). Both give the same bits.
+    it, and each step replays the captured `decode_step` (`Captured`; the
+    first call of a new graph runs eagerly and captures it). Both give the
+    same bits.
 
     The big cache is written twice, in place: by the prompt prefill and
     by one commit after the loop. Inside the loop it is read-only; each
@@ -697,9 +831,10 @@ def decode_loop(
     cl = lane_list(cache_len, B)
     tr = lane_list(t_real, B)
 
+    # the prompt's prefill, on the same route as the steps
     out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
                        lora_scale=lora_scale, compute_lm_logits=True,
-                       shard_ctx=shard_ctx, commit=act)
+                       shard_ctx=shard_ctx, commit=None if all(act) else act, graphs=graphs)
     cache = out.kv_cache  # prompt committed; read-only until the commit
     base = [c + t if a else c for c, t, a in zip(cl, tr, act)]
 
@@ -711,8 +846,8 @@ def decode_loop(
             decode_step(state, params, cfg, cache, rep=rep, lora=lora,
                         lora_scale=lora_scale, shard_ctx=shard_ctx)
     else:
-        step = graphs.step(params, cfg, cache, B, max_new, embeds.dtype, rep, lora,
-                           lora_scale, shard_ctx)
+        step = graphs.decode_step(params, cfg, cache, B, max_new, embeds.dtype, rep, lora,
+                                  lora_scale, shard_ctx)
         state = step.state
     # the response's inputs, the only host-to-device copies of the call
     state.base.copy_(ints_to(base, dev))

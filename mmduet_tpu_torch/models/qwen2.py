@@ -13,8 +13,9 @@ Streaming contract: attention runs over [the lane's committed cache
 history] + [the chunk itself, causal] with the cache read-only
 (`ops.attention.flash_decode_attention`, a CUDA kernel for CUDA tensors);
 the chunk's K/V are written into the cache after the layer loop, in
-place (`commit_lanes`). With an int8 cache (`init_kv_cache(quant="int8")`)
-the chunk and the decode scratch stay in the activation dtype, the rows
+place, at each lane's device cursor (`commit_rows`). With an int8 cache
+(`init_kv_cache(quant="int8")`) the chunk and the decode scratch stay in
+the activation dtype, the rows
 are quantized at the commit, and attention reads the int8 cache with its
 per-token scales. Padded tail tokens of a bucket produce outputs
 that are never read, and their cache slots are overwritten by the next
@@ -299,18 +300,19 @@ def qwen2_forward(
     embeds: torch.Tensor,  # (B, T, H) input embeddings (already joint-embedded)
     positions: torch.Tensor,  # (B, T) global positions (RoPE; masking in full mode)
     kv_cache: Optional[KVCache] = None,
-    cache_len: Optional[Lanes] = None,  # per-lane tokens already in cache
+    cache_len: Optional[Lanes] = None,  # per-lane tokens already in cache: host
+    # values or a (B,) int32 tensor on the device
     attn_mask: Optional[torch.Tensor] = None,  # (B, T) bool, full mode only
     lora: Optional[Params] = None,  # {proj: {"a": (L,in,r), "b": (L,r,out)}}
     lora_scale: float = 0.0,
     remat: bool = False,  # full mode: recompute each layer in the backward
-    t_real: Optional[Lanes] = None,  # per-lane real tokens in the chunk
+    t_real: Optional[Lanes] = None,  # per-lane real tokens in the chunk, the same
     use_flash: Optional[bool] = None,  # full mode: None = auto (kernel C on CUDA)
     shard_ctx: Optional[ShardCtx] = None,  # streaming: attention per shard of
     # a mesh (`flash_decode_attention_sharded`); the caller has checked
     # `shard_ctx_ok`
-    commit: Optional[Sequence[bool]] = None,  # streaming: the lanes whose
-    # chunk K/V are committed (None = all)
+    commit=None,  # streaming: the lanes whose chunk K/V are committed, host
+    # bools or a (B,) bool tensor on the device (None = all)
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder. Two modes:
 
@@ -333,14 +335,16 @@ def qwen2_forward(
       batched engines leave out the lanes they do not feed, whose rows
       the JAX package writes past the lane's cursor, where nothing reads
       them. With ``shard_ctx`` the attention runs per (lane shard, head
-      shard) of the mesh, bit-equal to the unsharded call. The cursors
-      are host integers here; the decode step's route through the layers
-      on device integers is `scratch_decode_forward`.
+      shard) of the mesh, bit-equal to the unsharded call. Host cursors
+      cross to the device once, at the entry (`stream_cursors`, which
+      checks that a committed lane's rows fit the cache); device tensors
+      pass through, and the body (`_stream_forward`) reads no host value,
+      so a CUDA graph can capture the call. The decode step's route
+      through the layers is `scratch_decode_forward`.
 
     LoRA (both modes): ``lora_scale * (y @ a) @ b`` added to each adapted
     projection. Returns (hidden_states (B, T, H), the updated cache, or
     None in full mode)."""
-    layers = params["layers"]
     cos, sin = _rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     if kv_cache is None:
         return _full_forward(params, cfg, embeds, positions, cos, sin, attn_mask,
@@ -353,40 +357,85 @@ def qwen2_forward(
             "masks padding via t_real (right-padded chunks only)"
         )
     B, T, _ = embeds.shape
-    dev = embeds.device
+    cl, tr, cm = stream_cursors(kv_cache, B, T, embeds.device, cache_len,
+                                T if t_real is None else t_real, commit)
+    return _stream_forward(params, cfg, embeds, cos, sin, kv_cache, cl, tr, cm, lora,
+                           lora_scale, shard_ctx), kv_cache
 
-    cache_len_b = lane_list(cache_len, B)
-    t_real_b = lane_list(T if t_real is None else t_real, B)
-    # per-lane cursors cross to the device once per forward
-    cl_dev, tr_dev = ints_to(cache_len_b, dev), ints_to(t_real_b, dev)
 
-    x = embeds
-    new_k: List[torch.Tensor] = []
-    new_v: List[torch.Tensor] = []
+def stream_cursors(kv_cache: KVCache, B: int, T: int, device, cache_len, t_real,
+                   commit=None) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """A streaming forward's per-lane operands on ``device``, made once at
+    its entry: ``cache_len`` and ``t_real`` (None stays None) as (B,)
+    int32 tensors and ``commit`` as a (B,) bool tensor (None = every
+    lane). A device tensor passes as it is; host values (a scalar, a
+    sequence) cross in one copy each, and host cursors are checked first,
+    as `commit_lanes` checks them: a committed lane's T rows must fit the
+    cache."""
+    if not torch.is_tensor(cache_len):
+        cache_len = lane_list(cache_len, B)
+        fits = lane_list(True if commit is None else commit, B)
+        check_rows_fit(kv_cache, cache_len, T, fits)
+    if commit is not None and not torch.is_tensor(commit):
+        commit = ints_to(lane_list(commit, B), device).bool()
+    return (_on_device(cache_len, B, device),
+            None if t_real is None else _on_device(t_real, B, device), commit)
+
+
+def _on_device(x: Lanes, B: int, device) -> torch.Tensor:
+    return x if torch.is_tensor(x) and x.device == torch.device(device) \
+        else ints_to(lane_list(x, B), device)
+
+
+def check_rows_fit(cache: KVCache, starts: Sequence[int], t: int,
+                   lanes: Optional[Sequence[bool]] = None) -> None:
+    """Raises for a lane (of those ``lanes`` marks) whose ``t`` rows from
+    its host cursor ``starts[b]`` leave the cache: the host's guard before
+    a write, which itself never clamps."""
+    for b, s in enumerate(starts):
+        if (lanes is None or lanes[b]) and (s < 0 or s + t > cache.max_len):
+            raise RuntimeError(
+                f"commit_lanes: lane {b} rows [{s}, {s + t}) outside the "
+                f"cache of {cache.max_len} slots"
+            )
+
+
+def _stream_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
+                    cos: torch.Tensor, sin: torch.Tensor, kv_cache: KVCache,
+                    cache_len: torch.Tensor, t_real: torch.Tensor,
+                    commit: Optional[torch.Tensor], lora: Optional[Params], lora_scale: float,
+                    shard_ctx: Optional[ShardCtx]) -> torch.Tensor:
+    """The streaming mode's body on device operands only: it reads nothing
+    back to the host and copies nothing to the device, so a CUDA graph can
+    capture it (`mmduet.EngineGraphs`). Returns the final-normed hidden
+    states; the chunk's K/V are committed in place."""
+    B, T, _ = embeds.shape
     kc_arr, vc_arr = kv_arr(kv_cache.k), kv_arr(kv_cache.v)
+    L, _, kh, _, hd = kc_arr.shape
     scales = _cache_scales(kv_cache)
     # the chunk stays in the activation dtype under an int8 cache
     # (quantization happens at the commit)
     el_dtype = embeds.dtype if kv_quantized(kv_cache) else kc_arr.dtype
-    for i in range(kc_arr.shape[0]):
-        p = layer_view(layers, i)
+    # every layer's chunk K/V, head-major, for the commit after the loop
+    new_k = torch.empty((L, B, kh, T, hd), dtype=el_dtype, device=embeds.device)
+    new_v = torch.empty_like(new_k)
+    x = embeds
+    for i in range(L):
+        p = layer_view(params["layers"], i)
         lo = _layer_lora(lora, i)
         q, k, v = _qkv(x, p, lo, lora_scale, cfg, cos, sin)
         # chunk (B, T, kh, hd) -> head-major (B, kh, T, hd)
-        k_hm = k.transpose(1, 2).to(el_dtype).contiguous()
-        v_hm = v.transpose(1, 2).to(el_dtype).contiguous()
-        new_k.append(k_hm)
-        new_v.append(v_hm)
-        attn = _attend_cache(q, kc_arr, vc_arr, k_hm.to(q.dtype), v_hm.to(q.dtype), cl_dev,
-                             tr_dev, i, None, scales, shard_ctx)
+        new_k[i] = k.transpose(1, 2)
+        new_v[i] = v.transpose(1, 2)
+        attn = _attend_cache(q, kc_arr, vc_arr, new_k[i].to(q.dtype), new_v[i].to(q.dtype),
+                             cache_len, t_real, i, None, scales, shard_ctx)
         x = _out_mlp(x, attn, p, lo, lora_scale, cfg)
 
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     # every layer's chunk K/V into the cache, in place; padded tail slots
     # hold garbage that the next chunk overwrites
-    return hidden, commit_lanes(
-        kv_cache, torch.stack(new_k), torch.stack(new_v), cache_len_b, commit
-    )
+    commit_rows(kv_cache, new_k, new_v, cache_len, commit)
+    return hidden
 
 
 def _cache_scales(kv_cache: KVCache) -> Dict[str, torch.Tensor]:
@@ -507,32 +556,56 @@ def _full_forward(params: Params, cfg: Qwen2Config, embeds: torch.Tensor,
 def commit_lanes(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
                  starts: Lanes, lanes: Optional[Sequence[bool]] = None) -> KVCache:
     """Write (L, B, kh, t, hd) K/V rows into the (L, B, kh, S, hd) cache
-    at per-lane slot ``starts[b]``, in place, one slice write per lane
-    (the JAX code chains per-lane `dynamic_update_slice` on a donated
-    buffer). A write past the cache's end raises instead of clamping.
-    ``lanes``: only the lanes marked True are written (None = all).
+    at per-lane slot ``starts[b]`` (host integers), in place (the JAX code
+    chains per-lane `dynamic_update_slice` on a donated buffer). A write
+    past the cache's end raises instead of clamping. ``lanes``: only the
+    lanes marked True are written (None = all). The host's check, then
+    `commit_rows` at those cursors on the device."""
+    B, t = new_k.shape[1], new_k.shape[3]
+    starts = lane_list(starts, B)
+    check_rows_fit(cache, starts, t, lanes)
+    dev = kv_arr(cache.k).device
+    mask = None if lanes is None else ints_to([bool(x) for x in lanes], dev).bool()
+    return commit_rows(cache, new_k, new_v, ints_to(starts, dev), mask)
+
+
+def commit_rows(cache: KVCache, new_k: torch.Tensor, new_v: torch.Tensor,
+                starts: torch.Tensor, lanes: Optional[torch.Tensor] = None) -> KVCache:
+    """Write (L, B, kh, t, hd) K/V rows into the cache at each lane's
+    device cursor ``starts`` ((B,) int32): lane b's rows go to slots
+    ``starts[b] + arange(t)``, all lanes in one `index_put_` a tensor. The
+    caller has checked that they fit. ``lanes`` ((B,) bool, None = all):
+    a lane it leaves out keeps every byte, since its slots (clamped into
+    the cache) are written with what they hold.
 
     int8 cache: the rows are quantized here (per-token symmetric,
     `quantize_kv_rows`) and both the int8 values and the f32 scales are
     written in place."""
     B, t = new_k.shape[1], new_k.shape[3]
-    if kv_quantized(cache):
-        new_k, k_s = quantize_kv_rows(new_k)
-        new_v, v_s = quantize_kv_rows(new_v)
-    for b, s in enumerate(lane_list(starts, B)):
-        if lanes is not None and not lanes[b]:
-            continue
-        if s < 0 or s + t > cache.max_len:
-            raise RuntimeError(
-                f"commit_lanes: lane {b} rows [{s}, {s + t}) outside the "
-                f"cache of {cache.max_len} slots"
-            )
-        kv_arr(cache.k)[:, b, :, s:s + t] = new_k[:, b]
-        kv_arr(cache.v)[:, b, :, s:s + t] = new_v[:, b]
+    dev = new_k.device
+    pos = starts.long()[:, None] + torch.arange(t, device=dev)[None, :]  # (B, t)
+    if lanes is not None:
+        pos = pos.clamp(max=cache.max_len - 1)
+    lane = torch.arange(B, device=dev)[:, None]
+    for leaf, new in ((cache.k, new_k), (cache.v, new_v)):
         if kv_quantized(cache):
-            cache.k["qs"][:, b, :, s:s + t] = k_s[:, b]
-            cache.v["qs"][:, b, :, s:s + t] = v_s[:, b]
+            qw, qs = quantize_kv_rows(new)
+            _put_rows(leaf["qw"], lane, pos, qw, lanes)
+            _put_rows(leaf["qs"], lane, pos, qs, lanes)
+        else:
+            _put_rows(leaf, lane, pos, new, lanes)
     return cache
+
+
+def _put_rows(dst: torch.Tensor, lane: torch.Tensor, pos: torch.Tensor, rows: torch.Tensor,
+              lanes: Optional[torch.Tensor]) -> None:
+    """``dst[:, b, :, pos[b, j]] = rows[:, b, :, j]`` for every lane b of
+    ``lanes`` (all if None) and chunk row j; dst is (L, B, kh, S, ...)."""
+    vals = rows.movedim(1, 0).movedim(3, 1).to(dst.dtype)  # (B, t, L, kh, ...)
+    if lanes is not None:
+        keep = lanes.reshape(-1, *([1] * (vals.ndim - 1)))
+        vals = torch.where(keep, vals, dst[:, lane, :, pos])
+    dst[:, lane, :, pos] = vals
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, vocab_size: int) -> torch.Tensor:

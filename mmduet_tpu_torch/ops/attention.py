@@ -276,17 +276,27 @@ def _split_args(device, B: int, kh: int, rows: int, S: int, hd: int) -> Tuple[in
         got = (span_min, nsplit, None, None)
         n_part, n_counters = decode_scratch_numel(B, kh, rows, S, hd)
         if n_part:
-            part, counters = _split_scratch.get(device, (None, None))
-            if part is None or part.numel() < n_part or counters.numel() < n_counters:
-                part = torch.empty(max(n_part, 0 if part is None else part.numel()),
-                                   dtype=torch.float32, device=device)
-                counters = torch.zeros(max(n_counters, 0 if counters is None else counters.numel()),
-                                       dtype=torch.int32, device=device)
-                _split_scratch[device] = (part, counters)
-                _split_memo.clear()
+            part, counters = reserve_split_scratch(device, n_part, n_counters)
             got = (span_min, nsplit, part.data_ptr(), counters.data_ptr())
         _split_memo[key] = got
     return got
+
+
+def reserve_split_scratch(device, n_part: int, n_counters: int) -> Tuple[Any, Any]:
+    """Kernel A's split scratch of ``device``, grown to at least ``n_part``
+    f32 partials and ``n_counters`` int32 counters (zeros): the tensors are
+    made anew when they grow, and the memo goes with the old ones. An engine
+    that replays CUDA graphs reserves its largest launch's before it
+    captures any, so that one scratch serves all its graphs."""
+    part, counters = _split_scratch.get(device, (None, None))
+    if part is None or part.numel() < n_part or counters.numel() < n_counters:
+        part = torch.empty(max(n_part, 0 if part is None else part.numel()),
+                           dtype=torch.float32, device=device)
+        counters = torch.zeros(max(n_counters, 0 if counters is None else counters.numel()),
+                               dtype=torch.int32, device=device)
+        _split_scratch[device] = (part, counters)
+        _split_memo.clear()
+    return part, counters
 
 
 def bind_decode_lib(lib: ctypes.CDLL) -> ctypes.CDLL:

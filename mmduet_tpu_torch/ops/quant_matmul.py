@@ -131,7 +131,20 @@ def _split_ptrs(device, plan: Int4Plan, R: int, O: int) -> Tuple[int, int]:
     0) when its steps are not split."""
     if plan.ks == 1:
         return 0, 0
-    n_part, n_tickets = plan.ks * R * O, plan.tiles
+    part, tickets = reserve_split_scratch(device, *split_scratch_numel(plan, R, O))
+    return part.data_ptr(), tickets.data_ptr()
+
+
+def split_scratch_numel(plan: Int4Plan, R: int, O: int) -> Tuple[int, int]:
+    """(f32 partials, int32 tickets) of a call cut by ``plan``; (0, 0) when
+    its steps are not split."""
+    return (plan.ks * R * O, plan.tiles) if plan.ks > 1 else (0, 0)
+
+
+def reserve_split_scratch(device, n_part: int, n_tickets: int):
+    """Kernel B's split scratch of ``device``, grown to at least ``n_part``
+    f32 partials and ``n_tickets`` int32 tickets (zeros), made anew when it
+    grows (`ops.attention.reserve_split_scratch` for kernel A)."""
     part, tickets = _split_scratch.get(device, (None, None))
     if part is None or part.numel() < n_part or tickets.numel() < n_tickets:
         part = torch.empty(max(n_part, 0 if part is None else part.numel()),
@@ -139,7 +152,7 @@ def _split_ptrs(device, plan: Int4Plan, R: int, O: int) -> Tuple[int, int]:
         tickets = torch.zeros(max(n_tickets, 0 if tickets is None else tickets.numel()),
                               dtype=torch.int32, device=device)
         _split_scratch[device] = (part, tickets)
-    return part.data_ptr(), tickets.data_ptr()
+    return part, tickets
 
 
 _lib: Optional[ctypes.CDLL] = None

@@ -24,7 +24,10 @@ rules, never a copy of them:
   a generating engine's decode state (`models.mmduet.decode_state`),
   which on the graph route (one process: `infer.state.decode_route`) is
   the captured step's for the engine's life, and on a rank of a process
-  mesh is made for each decode.
+  mesh is made for each decode; on the graph route also the engine's graph
+  pool (`models.mmduet.EngineGraphs`): the largest moment a capture holds
+  and the graphs' static inputs, which the pool keeps for the engine's
+  life (a rank of a process mesh runs eagerly and has none).
 
 On top of those persistent terms, each configuration lists its transient
 terms at the moments where the code holds the most at once, each from a
@@ -33,9 +36,9 @@ tensor the code allocates (a shape times an element size): the staged batch
 the device, `train.step.rank_batch`: its B / D samples' rows and its frame
 slots); in serving the tower's 32-frame batch, the decoder's widest chunk,
 the chunk's K/V rows and their commit, kernel A's and B's split scratch,
-a decode step's activations and f32 logits (on the graph route what the
-step's private memory pool holds; the caching allocator counts it while
-the step is captured); in
+a decode step's activations and f32 logits (on the graph route the first,
+eager call of each shape; its capture holds the same in the graph pool);
+in
 training under remat each layer's saved input, one layer's recompute and
 backward, the projector's saved input and activations and the
 loss's f32 logits with their gradients at T. The estimate is the
@@ -78,7 +81,8 @@ from mmduet_tpu_torch.config import MMDuetConfig, TestArgs, TrainArgs  # noqa: E
 from mmduet_tpu_torch.infer.batch_engine import (BatchedStreamEngine,  # noqa: E402
                                                  BatchedStreamScorer, chunk_buckets)
 from mmduet_tpu_torch.infer.engine import VISION_BATCH, live_block_frames  # noqa: E402
-from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS, cache_slots, serving_cache  # noqa: E402
+from mmduet_tpu_torch.infer.state import (DEFAULT_BUCKETS, cache_slots,  # noqa: E402
+                                          serving_cache, split_scratch_need)
 from mmduet_tpu_torch.models import init_clip_params, init_lora, init_mmduet_params  # noqa: E402
 from mmduet_tpu_torch.models import quant  # noqa: E402
 from mmduet_tpu_torch.ops import attention, quant_matmul  # noqa: E402
@@ -228,18 +232,6 @@ def decode_scratch_bytes(lanes: int, kv_heads: int, q_per_kv: int, tokens: int,
     return n_part * F32 + n_counters * I32
 
 
-def int4_scratch_bytes(rows: int, shapes) -> int:
-    """Kernel B's split partials for the largest of its calls on ``rows``
-    rows (`ops.quant_matmul._split_ptrs`): ks x rows x O floats, with the
-    group `quant.quantize_weight_int4` gives each (H, O) weight."""
-    best = 0
-    for H, O in shapes:
-        plan = quant_matmul.int4_plan(rows, H, O, quant._int4_group(H, 128))
-        if plan.ks > 1:
-            best = max(best, plan.ks * rows * O * F32 + plan.tiles * I32)
-    return best
-
-
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
@@ -357,19 +349,19 @@ def serving_budget(s: Serving) -> Budget:
     ft = cfg.frame_num_tokens
     T = s.chunk_tokens()
     R = lanes * T
-    scratch_a = max(decode_scratch_bytes(lanes, kh, nh // kh, tok, slots, hd)
-                    for tok in (1, min(64, T), T))
+    (a_part, a_counters), (b_part, b_tickets) = split_scratch_need(local, t, lanes, T, slots)
     persistent = [
         ("base weights", tree_bytes(local), f"{s.weights} tree, rank (0, 0) of {s.mesh}"),
         ("KV cache", tree_bytes(cache),
          f"(L {L}, lanes {lanes}, kh {kh}, S {slots}, hd {hd}) {s.kv_cache_quant or 'bf16'}"),
         ("penalty rows", lanes * V, "bool (lanes, V)"),
-        ("kernel A scratch", scratch_a, "split partials and counters (`_split_args`)"),
+        ("kernel A scratch", a_part * F32 + a_counters * I32,
+         f"split partials and counters, the most a chunk of 1 to {T} tokens asks "
+         "(`infer.state.split_scratch_need`)"),
     ]
     if s.weights == "int4":
-        shapes = [(H, nh * hd), (H, kh * hd), (nh * hd, H), (H, inter), (inter, H), (H, V // M)]
-        scratch_b = max(int4_scratch_bytes(r, shapes) for r in (1, lanes, R))
-        persistent.append(("kernel B scratch", scratch_b, "split partials (`_split_ptrs`)"))
+        persistent.append(("kernel B scratch", b_part * F32 + b_tickets * I32,
+                           "split partials and tickets, the same"))
     if s.engine == "batched":
         persistent.append(("frame buffer", lanes * cap * ft * H * BF16,
                            f"bf16 (lanes {lanes}, {cap}, {ft}, {H})"))
@@ -391,12 +383,14 @@ def serving_budget(s: Serving) -> Budget:
             ("MLP SiLU f32", 2 * R * inter * F32, f"f32 gate and SiLU ({R}, {inter})"),
             ("LM head logits", lanes * (V // M + V) * F32, "f32 last rows, the rank's and whole"),
         ],
-        # the commit (`commit_lanes`): the stacked K/V beside the per-layer
-        # rows; an int8 cache's f32 copies of the rows being quantized
-        "commit": [("chunk K/V rows", kv_rows, "per-layer rows"),
-                   ("stacked K/V", kv_rows, "torch.stack of the rows")]
+        # the commit (`qwen2.commit_rows`): every layer's rows; an int8
+        # cache's f32 copies of the rows being quantized; the batched
+        # engine's commit mask gathers its lanes' slots and selects
+        "commit": [("chunk K/V rows", kv_rows, "every layer's rows (`qwen2._stream_forward`)")]
         + ([("quantized rows f32", kv_rows * F32 // BF16, "x.float() and x / scale of one "
-             "of K, V (`quantize_kv_rows`)")] if s.kv_cache_quant else []),
+             "of K, V (`quantize_kv_rows`)")] if s.kv_cache_quant else
+           [("masked rows", kv_rows, "the slots' rows gathered and the selection, one of K, V "
+             "(`qwen2._put_rows`)")] if s.engine == "batched" else []),
     }
     if s.engine == "batched" or (s.engine == "live" and not s.grounding):
         W = max(s.max_new - 1, 1)
@@ -414,9 +408,60 @@ def serving_budget(s: Serving) -> Budget:
             moments["decode step"] = step
         else:
             moments["decode step"] = [state] + step
+    if s.mesh == (1, 1):  # the graph route: the engine's pool, for its life
+        captured = max(sum(b for _, b, _ in moments[m]) for m in CAPTURED if m in moments)
+        persistent.append(("graph pool", captured + graph_io_bytes(s),
+                           "the captures' largest moment, and the static input embeddings of "
+                           "each chunk width (`mmduet.EngineGraphs`)"))
     if s.pixels:
         moments.update(_vision_moments(cfg, VISION_BATCH, M, s.clip))
     return Budget(s.name, persistent, moments)
+
+
+# The moments a captured graph holds in its pool (on the graph route the
+# first, eager call of each shape holds them in the caching allocator's
+# general pool as well).
+CAPTURED = ("decoder chunk", "commit", "decode step")
+
+
+def graph_io_bytes(s: Serving) -> int:
+    """The static input embeddings an engine's graphs keep in their pool:
+    one (lanes, width, H) bf16 buffer for each chunk width of the engine's
+    table (`DEFAULT_BUCKETS` and a frame block, or the batched engine's
+    `chunk_buckets`) that fits its cache. The cursors, the score positions
+    and the outputs are a few hundred bytes a graph, left out."""
+    ft, H = s.cfg.frame_num_tokens, s.cfg.text.hidden_size
+    slots = cache_slots(s.frame_cap(), ft)
+    widths = (chunk_buckets(s.block(), ft) if s.engine == "batched"
+              else set(DEFAULT_BUCKETS) | {s.block() * ft})
+    lanes = s.lanes // s.mesh[0] if s.lanes % s.mesh[0] == 0 else s.lanes
+    return lanes * sum(w for w in widths if w <= slots) * H * BF16
+
+
+def release_split_scratch() -> int:
+    """Drops kernels A's and B's split scratch of every device (and A's
+    memo of it), as a measurement does before a configuration's pass: the
+    scratch is the configuration's own (its persistent term), which a new
+    process would allocate in the pass; what an earlier engine's captured
+    graphs hold stays theirs. Returns the bytes dropped from the modules."""
+    held = 0
+    for scratch in (attention._split_scratch, quant_matmul._split_scratch):
+        held += sum(t.numel() * t.element_size() for ts in scratch.values() for t in ts)
+        scratch.clear()
+    attention._split_memo.clear()
+    return held
+
+
+def pool_idle_bytes(graphs) -> int:
+    """The bytes of an engine's graph pool (`mmduet.EngineGraphs`) that no
+    tensor holds, from the caching allocator's segments: the pool keeps
+    them for the engine's life, so a measured peak on the graph route adds
+    them to `torch.cuda.max_memory_allocated()`. 0 without a pool."""
+    if graphs is None or graphs.pool is None:
+        return 0
+    pool = tuple(graphs.pool)
+    return sum(seg["total_size"] - seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,13 @@ profiles these calls of the main paths:
   with kernel D and with its plain version put in the kernel's place from
   this script (the matmul route, which the package refuses for CUDA
   tensors);
-- an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`);
-- a 32-frame block at cursor 2000;
-- a greedy decode of 8 tokens (EOS off) after an 8-token prompt at
-  cursor 3000 (`mmduet.decode_loop`), eagerly and on the graph route
-  (`mmduet.DecodeGraphs`: each step replays a captured CUDA graph; the
-  warm-up call captures it);
+- an 8-frame block at cursor 2000 (`mmduet.frames_block_forward`),
+  eagerly and on the graph route (`mmduet.EngineGraphs`: the call replays
+  a captured CUDA graph; the warm-up call captures it);
+- a 32-frame block at cursor 2000, both routes;
+- a greedy decode of 8 tokens, and one of 32, (EOS off) after an 8-token
+  prompt at cursor 3000 (`mmduet.decode_loop`), eagerly and on the graph
+  route (the prompt's prefill and each step replay captured graphs);
 - the batched engine's calls at B = 8 lanes with cursors 500 to 4000: an
   8-frame block on every lane (`mmduet.chunk_scores_forward`, 3136 rows)
   and a greedy decode of 8 tokens on all lanes together, eagerly and on
@@ -121,25 +122,30 @@ def main() -> None:
     pen = torch.zeros((1, cfg.text.vocab_size), dtype=torch.bool, device=dev)
 
     def decoder_calls(params, cache, tag=""):
-        graphs = mmduet.DecodeGraphs()
-        return {
-            f"8-frame block at cursor 2000{tag}": lambda: mmduet.frames_block_forward(
-                params, cfg, frames8, cache, 2000),
-            f"32-frame block at cursor 2000{tag}": lambda: mmduet.frames_block_forward(
-                params, cfg, frames32, cache, 2000),
-            f"greedy decode, 8 tokens at cursor 3000{tag}": lambda: mmduet.decode_loop(
-                params, cfg, prompt, cache, [3000], 8, pen, max_new=8, eos_id=-1, rep=1.05),
-            f"greedy decode, 8 tokens at cursor 3000, graph route{tag}":
-                lambda: mmduet.decode_loop(params, cfg, prompt, cache, [3000], 8, pen, max_new=8,
-                                           eos_id=-1, rep=1.05, graphs=graphs),
-        }
+        graphs = mmduet.EngineGraphs()
+        calls = {}
+        for route, g in (("", None), (", graph route", graphs)):
+            calls.update({
+                f"8-frame block at cursor 2000{route}{tag}":
+                    lambda g=g: mmduet.frames_block_forward(params, cfg, frames8, cache, 2000,
+                                                            graphs=g),
+                f"32-frame block at cursor 2000{route}{tag}":
+                    lambda g=g: mmduet.frames_block_forward(params, cfg, frames32, cache, 2000,
+                                                            graphs=g)})
+        for n in (8, 32):
+            for route, g in (("", None), (", graph route", graphs)):
+                calls[f"greedy decode, {n} tokens at cursor 3000{route}{tag}"] = (
+                    lambda g=g, n=n: mmduet.decode_loop(params, cfg, prompt, cache, [3000], 8,
+                                                        pen, max_new=n, eos_id=-1, rep=1.05,
+                                                        graphs=g))
+        return calls
 
     lanes = 8
     cursors = [500 * (b + 1) for b in range(lanes)]
     cache8 = init_kv_cache(cfg.text, lanes, 24576, torch.bfloat16, dev)
     block8, prompt8 = embeds(lanes, 8 * ft, H), embeds(lanes, 8, H)
     pen8 = torch.zeros((lanes, cfg.text.vocab_size), dtype=torch.bool, device=dev)
-    graphs8 = mmduet.DecodeGraphs()
+    graphs8 = mmduet.EngineGraphs()
 
     def vision():
         return mmduet.visual_embed(
@@ -161,6 +167,10 @@ def main() -> None:
             lambda: mmduet.chunk_scores_forward(
                 params, cfg, block8, cache8, cursors, 8 * ft,
                 [(j + 1) * ft - 1 for j in range(8)]),
+        f"8-frame block on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}, graph route":
+            lambda: mmduet.chunk_scores_forward(
+                params, cfg, block8, cache8, cursors, 8 * ft,
+                [(j + 1) * ft - 1 for j in range(8)], graphs=graphs8),
         f"greedy decode, 8 tokens on {lanes} lanes at cursors {cursors[0]}..{cursors[-1]}":
             lambda: mmduet.decode_loop(params, cfg, prompt8, cache8, cursors, 8, pen8,
                                        max_new=8, eos_id=-1, rep=1.05),

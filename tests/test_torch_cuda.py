@@ -23,6 +23,7 @@ import mmduet_tpu_torch.eval.inference as cli
 from mmduet_tpu_torch.config import ClipConfig, TestArgs, tiny_config
 from mmduet_tpu_torch.eval.inference import main as cli_main
 from mmduet_tpu_torch.infer import LiveInferEngine
+from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, qwen2
 from mmduet_tpu_torch.ops import attention, bounds, quant_matmul
 from mmduet_tpu_torch.parallel import make_mesh
@@ -1151,19 +1152,26 @@ def test_stream_video_runs_kernel_d_on_its_own_stream(dev, monkeypatch):
     assert decoder.priority < vision.priority  # a lower number is a higher priority
     assert seen["D"] == {vision.cuda_stream}
     assert seen["A"] == seen["B"] == {decoder.cuda_stream} >= seen["replay"]
-    assert len(engine._decode_graphs) == 1  # the first answer's step was captured
+    assert engine._graphs.kinds()["decode_step"] == 1  # the first answer's step was captured
     for scratch in (attention._split_scratch, quant_matmul._split_scratch):
         for part, counters in scratch.values():
             assert not bool(counters.any())
 
 
 def test_prewarm_on_the_card_then_a_session_equals_a_cold_engine(dev):
+    """`prewarm` captures what it feeds (each prefill bucket, the frame
+    block, the decode's prefill and step); a session after it equals one
+    on a cold engine and captures nothing more."""
     cfg, params, tok = _small_card_model(dev)
     warm = _live_engine(cfg, params, tok)
     warm.prewarm(vision=True)
     assert warm.state.cursor == 0 and warm.frame_embeds is None
+    kinds = warm._graphs.kinds()
+    assert kinds["decode_step"] == 1 and kinds["frames_block"] == 1, kinds
+    assert kinds["step"] == len(DEFAULT_BUCKETS) + 1, kinds  # the buckets and the decode prompt
+    captured = len(warm._graphs)
     assert _live_run(warm, stream=True) == _live_run(_live_engine(cfg, params, tok), stream=True)
-    assert len(warm._decode_graphs) == 1  # prewarm captured the decode step
+    assert len(warm._graphs) == captured
 
 
 def _grow_split_scratch(cfg, dev) -> None:
@@ -1202,7 +1210,7 @@ def empty_split_scratch(dev):
 
 @pytest.mark.parametrize("bits", [None, 4], ids=["bf16", "int4_int8_cache"])
 def test_decode_graph_route_equals_the_eager_device_route(dev, bits, empty_split_scratch):
-    """`decode_loop` with `DecodeGraphs` (the first step eager, then
+    """`decode_loop` with `EngineGraphs` (the first step eager, then
     captured; a second call all replays) gives the eager route's tokens,
     n, cursors, penalty mask and cache bit for bit, on lanes with a frozen
     one, also after kernels A and B grew their split scratch; the launch
@@ -1239,7 +1247,7 @@ def test_decode_graph_route_equals_the_eager_device_route(dev, bits, empty_split
     with torch.inference_mode():
         (want, want_cache, want_pen), eager_counts = run(None, clone(start))
         assert eager_counts == (L * max_new, (7 * L + 1) * max_new if bits else 0)
-        graphs, cache = mmduet.DecodeGraphs(), clone(start)
+        graphs, cache = mmduet.EngineGraphs(), clone(start)
         for state in ("capture", "replays", "grown scratch"):
             if state == "grown scratch":
                 held = [s.get(empty_split_scratch) for s in scratch]
@@ -1252,7 +1260,119 @@ def test_decode_graph_route_equals_the_eager_device_route(dev, bits, empty_split
             assert counts == eager_counts, state
             assert torch.equal(got, want) and torch.equal(got_pen, want_pen), state
             assert all(torch.equal(x, y) for x, y in zip(leaves(got_cache), leaves(want_cache)))
-        assert len(graphs) == 1
+        assert graphs.kinds() == {"step": 1, "decode_step": 1}  # the prefill and the step
+
+
+def _cache_bytes(cache):
+    return [x.clone() for leaf in cache for x in
+            (leaf.values() if isinstance(leaf, dict) else (leaf,))]
+
+
+def _launch_counts():
+    return (attention.LAUNCHES, attention.INT8_LAUNCHES, attention.SHARDED_LAUNCHES,
+            quant_matmul.B_LAUNCHES)
+
+
+def _run_route(engine, session, cache_of):
+    """``session(engine)`` from a reset: its outputs, cache bytes and launch
+    counts."""
+    before = _launch_counts()
+    engine.reset()
+    got = session(engine)
+    torch.cuda.synchronize()
+    counts = tuple(a - b for a, b in zip(_launch_counts(), before))
+    return engine, got, _cache_bytes(cache_of(engine)), counts
+
+
+def _routes(make, session, cache_of):
+    """``session`` on the eager route (an engine whose graphs are taken
+    away) and twice on the graph route (captures, then replays)."""
+    eager = make()
+    eager._graphs = None
+    graph = make()
+    return [_run_route(e, session, cache_of) for e in (eager, graph, graph)]
+
+
+def _assert_routes_equal(runs):
+    (_, want, want_cache, want_counts), *graph_runs = runs
+    for i, (engine, got, cache, counts) in enumerate(graph_runs):
+        assert got == want, i
+        assert all(torch.equal(a, b) for a, b in zip(cache, want_cache)), i
+        assert counts == want_counts and counts[0] > 0, (i, counts, want_counts)
+    return graph_runs[-1][0]
+
+
+@pytest.mark.parametrize("grounding", [False, True], ids=["generation", "grounding"])
+@pytest.mark.parametrize("bits", [None, 4], ids=["bf16", "int4_int8_cache"])
+def test_frame_graph_route_equals_the_eager_route(dev, bits, grounding, empty_split_scratch):
+    """`LiveInferEngine` on the graph route (steps, frame blocks, the
+    decode's prefill and steps each replaying a captured graph) gives the
+    eager route's responses, scores, times, cursor, cache bytes (``qs``
+    included) and launch counts of A, A-int8, A' and B, bit for bit: at the
+    captures, in replay, in the pipelined grounding loop (which enqueues
+    block i + 1 before it reads block i), and after kernels A and B grew
+    their split scratch."""
+    cfg, params, tok = _small_card_model(dev, bits)
+    kv = "int8" if bits else None
+
+    def session(engine):
+        engine.pipeline_grounding = True
+        out = _live_run(engine, stream=False)
+        return out + (engine.frame_idx,)
+
+    runs = _routes(lambda: _live_engine(cfg, params, tok, grounding, kv_cache_quant=kv),
+                   session, lambda e: e.state.kv_cache)
+    engine = _assert_routes_equal(runs)
+    kinds = engine._graphs.kinds()
+    assert kinds["frames_block"] == 1 and kinds["step"] >= 1, kinds
+    assert ("decode_step" in kinds) == (not grounding)
+    assert grounding or any(r["role"] == "assistant" for r in runs[0][1][0])
+    _grow_split_scratch(cfg, dev)
+    _assert_routes_equal([runs[0], _run_route(engine, session, lambda e: e.state.kv_cache)])
+
+
+@pytest.mark.parametrize("mesh", [None, (2, 2)], ids=["no_mesh", "one_device_mesh"])
+def test_batched_graph_route_equals_the_eager_route(dev, mesh, empty_split_scratch):
+    """`BatchedStreamEngine.stream_all` (prefixes, per-lane dispatches with
+    unfed lanes left out of the commit, batched decodes with frozen lanes)
+    and `BatchedStreamScorer` (prefixes and pipelined lockstep blocks) on
+    the graph route equal the eager route bit for bit: rows, scores,
+    cursors, cache bytes and launch counts."""
+    from mmduet_tpu_torch.infer import BatchedStreamEngine, BatchedStreamScorer
+
+    cfg, params, tok = _small_card_model(dev)
+    card = torch.zeros(1, device=dev).device  # the parameters' device: cuda:<index>
+    m = make_mesh(mesh, devices=[card] * 4) if mesh else None
+    args = TestArgs(frame_fps=2.0, max_new_tokens=4, max_num_frames=16,
+                    stream_end_score_sum_threshold=0.6)
+    r = np.random.RandomState(3)
+    embeds = (r.randn(4, 12, cfg.frame_num_tokens, cfg.text.hidden_size) * 0.05).astype(
+        np.float32)
+    lengths = np.array([12, 7, 10, 3])
+    queries = [[{"role": "user", "content": "what now?", "time": t}] for t in (0.0, 1.5, 3.0, 0.5)]
+
+    def engine_session(engine):
+        engine.input_frame_embeds(embeds, lengths=lengths)
+        engine.input_query_streams(queries)
+        return engine.stream_all(), engine.debug_data_lists, engine._cur.tolist()
+
+    runs = _routes(lambda: BatchedStreamEngine(params, cfg, tok, args, n_streams=4,
+                                               block_frames=4, mesh=m),
+                   engine_session, lambda e: e._cache)
+    engine = _assert_routes_equal(runs)
+    assert set(engine._graphs.kinds()) == {"chunk_scores", "step", "decode_step"}
+    assert any(r["role"] == "assistant" for rows in runs[0][1][0] for r in rows)
+
+    def scorer_session(scorer):
+        scorer.start_sessions(["what now?", None, "and then?", None])
+        scorer.input_frame_embeds(embeds, lengths=lengths)
+        return scorer.score_all(), scorer._cursor.tolist()
+
+    runs = _routes(lambda: BatchedStreamScorer(params, cfg, tok, n_streams=4, block_frames=4,
+                                               max_num_frames=16, mesh=m),
+                   scorer_session, lambda e: e._cache)
+    scorer = _assert_routes_equal(runs)
+    assert set(scorer._graphs.kinds()) == {"chunk_scores", "step"}
 
 
 def test_converter_needs_no_safetensors_and_loads_onto_the_card(dev, tmp_path, monkeypatch):
@@ -1574,44 +1694,27 @@ def test_train_recipe_on_the_card(dev):
 
 def test_memory_budget_holds_a_serving_peak_on_the_card(dev):
     """`memory_budget_torch`'s estimate of a tiny serving configuration
-    against its measured peak. A warm-up engine first makes the libraries'
-    workspaces, which stay resident (as in `chip_smoke.py`). The persistent
-    part (the weights and the engine's cache, exactly the bytes of the
-    trees) is at most the peak, and the whole estimate lies within 20 % of
-    the peak less the resident bytes: at this size (tens of MiB) the
-    budget's 1 GiB floor alone would hold any estimate."""
-    import gc
+    against its measured peak (`scripts/serving_peak_tensors_torch.py`'s
+    `measure_tiny_serving`). A warm-up engine first makes the libraries'
+    workspaces, which stay resident (as in `chip_smoke.py`); kernels A's and
+    B's split scratch, which the budget counts as the configuration's own,
+    is released after it, so the pass allocates its own, as a new process
+    would. The pass runs on the graph route, and the bytes its graph pool
+    keeps count in its peak. The persistent part (the weights, the
+    engine's cache, the scratch, the pool) is at most the peak, and the
+    whole estimate lies within 20 % of the peak less the resident bytes: at
+    this size (tens of MiB) the budget's 1 GiB floor alone would hold any
+    estimate."""
     import os
     import sys
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(__file__)), "scripts"))
     import memory_budget_torch as mb
+    from serving_peak_tensors_torch import measure_tiny_serving
 
-    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
-    tok = CharTokenizer(frame_num_tokens=cfg.frame_num_tokens)
-    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(1), dev,
-                                torch.bfloat16)
-    args = TestArgs(frame_fps=2.0, stream_end_prob_threshold=1.0, grounding_mode=True,
-                    max_num_frames=64)
-    frames = np.random.RandomState(1).randint(0, 256, (64, 32, 32, 3), dtype=np.uint8)
-    query = [{"role": "user", "content": "Q?", "time": 0.0}]
-    warm = LiveInferEngine(params, cfg, tok, args)
-    warm.input_video_stream(frames[:40])
-    warm.input_query_stream(query)
-    warm.inference()
-    del warm
-    gc.collect()
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated() - mb.tree_bytes(params)
-    engine = LiveInferEngine(params, cfg, tok, args)
-    torch.cuda.reset_peak_memory_stats()
-    engine.input_video_stream(frames)
-    engine.input_query_stream(query)
-    engine.inference()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    est = mb.serving_budget(mb.Serving("tiny serving", cfg, grounding=True, max_num_frames=64,
-                                       frames=len(frames)))
+    m = measure_tiny_serving()
+    est, engine, peak, resident = m["est"], m["engine"], m["peak"], m["resident"]
+    assert engine.decode_route == "graph" and m["idle"] >= 0
     terms = {n: b for n, b, _ in est.persistent}
     assert terms["KV cache"] == mb.tree_bytes(engine.state.kv_cache)
     ok, line = mb.check(est, peak, resident)

@@ -1,5 +1,5 @@
 """The port's device-side generation (`mmduet.decode_loop` with its loop
-state on the device, `decode_step`, `DecodeGraphs`) against the JAX
+state on the device, `decode_step`, `EngineGraphs`) against the JAX
 package's `decode_loop`, on `tiny_config()`: one numpy parameter tree and
 numpy inputs from a seed feed both.
 
@@ -178,7 +178,7 @@ def test_decode_step_makes_no_host_read(kind, monkeypatch):
 def test_graph_route_needs_a_cuda_device():
     k, v, emb, pen = _inputs(1)
     cache = tq.KVCache(torch.tensor(k), torch.tensor(v))
-    graphs = tmm.DecodeGraphs()
+    graphs = tmm.EngineGraphs()
     with pytest.raises(ValueError, match="CUDA device"):
         tmm.decode_loop(TP, PCFG, torch.tensor(emb), cache, 12, T_PROMPT, torch.tensor(pen),
                         max_new=4, eos_id=-1, graphs=graphs)
