@@ -165,7 +165,7 @@ Phases (any failure ends the run with a nonzero exit):
    forwards of its own lanes (none of A' or a plain version), of D the
    tower layers times its lanes' 32-frame batches. Each rank's peak
    memory, frames/s, ms per frame fed, decode tokens/s, dispatches,
-   ``gen_lanes``, sessions made and bytes shared are printed, and the
+   mean lanes a decode, sessions made and bytes shared are printed, and the
    phase's wall time;
 10. the training mesh: 2 decoder layers at the 7B widths (the full
    SigLIP tower), LoRA r 16 / alpha 32, A = 2 micro-batches of two duet
@@ -2028,7 +2028,7 @@ def run_frame_graph(cfg, tok, params, log, kv_cache_quant=None, batched: bool = 
             engine.input_frame_embeds(embeds, lengths=np.array(FG_LENGTHS))
             engine.input_query_streams(queries)
             return (engine.stream_all(), engine.debug_data_lists, engine._cur.tolist(),
-                    engine.gen_lanes)
+                    (engine.decodes, engine.decode_lanes))
 
         for name, mesh in (("no mesh", None), ("(2, 2) one-device mesh",
                                                  make_mesh((2, 2), devices=[dev] * 4))):
@@ -2227,7 +2227,7 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         record_shared(held, shared, f"batched serve ({what})", log)
         del held
     n_answers = sum(r["role"] == "assistant" for resp, _ in results.values() for r in resp)
-    gens = len(engine.gen_lanes)
+    gens = engine.decodes
     sharded = mesh is not None and not rank_mesh
     local = [n for lane, n in admitted if lo <= lane < hi]
     want_vision = v_layers * sum(_vision_batches(n) for n in local)
@@ -2252,16 +2252,17 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
         f"{1e3 * t_sched / frames_fed:.3f} ms per frame fed ({frames_fed} fed, a trigger's "
         f"rolled-back frames twice), {gens} batched decodes {t_gen:.3f} s); {n_answers} answers, "
         f"{engine.tokens_generated} tokens = {engine.tokens_generated / t_gen:.2f} tokens/s "
-        f"with {np.mean(engine.gen_lanes):.2f} lanes decoding together on average")
+        f"with {engine.decode_lanes / max(gens, 1):.2f} lanes decoding together on average")
     log(f"batched generation pass ({what}): launches {counts} = {layers} x {shards} x "
         f"{engine.forwards} decoder forwards ({engine.dispatches} dispatches, {gens} decodes "
-        f"of lanes {engine.gen_lanes}); vision {v_layers} x {want_vision // v_layers} "
-        f"batches")
+        f"of {engine.decode_lanes / max(gens, 1):.2f} lanes on average); vision {v_layers} x "
+        f"{want_vision // v_layers} batches")
     out.update(results=results, sessions=_session_rows(results, rec), counts=counts,
                frames_per_s=n_frames / wall, dispatch_ms_per_frame=1e3 * t_sched / frames_fed,
                decode_tokens_per_s=engine.tokens_generated / t_gen,
                vision_frames_per_s=n_frames / acc["_admit"], dispatches=engine.dispatches,
-               gen_lanes=list(engine.gen_lanes), forwards=engine.forwards, shared=shared)
+               decode_lanes_mean=engine.decode_lanes / max(gens, 1), forwards=engine.forwards,
+               shared=shared)
     mems["serve"] = _mem(resident, engine._graphs)
     # the wrappers hold the engine and the engine holds them: without them
     # its cache is freed here, before the next engine allocates its own
@@ -3529,13 +3530,15 @@ def run_tp_batched(cfg, tok, params, log, mesh=None) -> dict:
         f"{lo}-{hi - 1}): {TP_BATCH_SESSIONS} sessions, {n_frames} frames in {wall:.3f} s = "
         f"{n_frames / wall:.2f} frames/s, {engine.tokens_generated} tokens; launches {counts} "
         f"= {cfg.text.num_layers} x {engine.forwards} forwards ({engine.dispatches} dispatches, "
-        f"decodes of lanes {engine.gen_lanes})")
+        f"{engine.decodes} decodes of {engine.decode_lanes / max(engine.decodes, 1):.2f} lanes "
+        "on average)")
     mem = _mem(resident, engine._graphs)
     numbers = {"frames_per_s": n_frames / wall, "peak_gib": mem["peak"] / 2**30,
                "mem": {"serve": mem},
                "dispatch_ms_per_frame": 1e3 * acc["_dispatch_sched"] / sum(fed),
                "decode_tokens_per_s": engine.tokens_generated / acc["_generate_batch"],
-               "dispatches": engine.dispatches, "gen_lanes": list(engine.gen_lanes),
+               "dispatches": engine.dispatches,
+               "decode_lanes_mean": engine.decode_lanes / max(engine.decodes, 1),
                "forwards": engine.forwards, "shared": shared}
     for name in ("_dispatch_sched", "_generate_batch"):
         delattr(engine, name)
@@ -3917,9 +3920,9 @@ def _dp_log_ranks(ranks: list, runs: tuple, log) -> None:
                 f"{run}: peak {y['peak_gib']:.2f} GiB; {y['frames_per_s']:.2f} frames/s "
                 f"aggregate, {y['dispatch_ms_per_frame']:.3f} ms per frame fed; decode "
                 f"{y['decode_tokens_per_s']:.2f} tokens/s; {y['dispatches']} dispatches, "
-                f"{y['forwards']} forwards here, gen_lanes {y['gen_lanes']}; launches "
-                f"{y['counts']}; sessions made here {y['shared']['fetched']}, shared bytes sent "
-                f"{y['shared']['sent']}, received {y['shared']['received']}")
+                f"{y['forwards']} forwards here, {y['decode_lanes_mean']:.2f} lanes a decode; "
+                f"launches {y['counts']}; sessions made here {y['shared']['fetched']}, shared "
+                f"bytes sent {y['shared']['sent']}, received {y['shared']['received']}")
 
 
 def run_dp_phase(log, ref: dict, tol: float) -> dict:

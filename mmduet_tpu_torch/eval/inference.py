@@ -29,9 +29,12 @@ batched decode): the same rows per sample, written as samples finish, the
 
 ``--prewarm`` pays the first calls' costs (the kernels' builds, their
 scratch, cuBLAS's handles) before the first sample, single-stream and
-batched. ``--profile_dir DIR`` runs under `torch.profiler` and writes a
-Chrome trace, ``DIR/trace.json`` (the card's kernels with ``--device
-cuda``). ``--is_online_model false`` runs the offline whole-video baseline
+batched. ``--profile_dir DIR`` runs under `torch.profiler` and writes its
+Chrome trace, ``DIR/trace.json``: the program's ``mmduet.*`` spans
+(`mmduet_tpu_torch.trace`: rounds, admissions and the tower, dispatches,
+forwards, decodes and their steps and flag reads) and, with ``--device
+cuda``, the card's kernels and copies on the same clock; it opens in
+Perfetto or ``chrome://tracing``. ``--is_online_model false`` runs the offline whole-video baseline
 (`eval.offline_baseline`), one row per sample with the JAX CLI's schema
 ``{question_id, model_response, question, video_duration}``. An HF
 checkpoint becomes a ``--checkpoint`` directory through
@@ -305,6 +308,11 @@ def _samples(args, dataset, mesh) -> Iterator[Any]:
 def build_argparser() -> argparse.ArgumentParser:
     p = _argparser()
     p.description = "MMDuet streaming inference (PyTorch port)"
+    # the copied parser's text names the JAX package's profiler
+    p._option_string_actions["--profile_dir"].help = (
+        "write a torch.profiler Chrome trace of the run to DIR/trace.json: the "
+        "program's mmduet.* spans and, on a card, its kernels and copies (open it "
+        "in Perfetto or chrome://tracing)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; on a mesh, "
                         "cuda:LOCAL_RANK)")

@@ -70,6 +70,7 @@ from ..models.qwen2 import embed_tokens, ints_to, zero_kv_cache
 from ..ops import _build
 from ..parallel import lane_block, serving_shard_ctx
 from ..parallel.collectives import gather_data
+from ..trace import span
 from .state import (
     DEFAULT_BUCKETS,
     ThresholdPolicy,
@@ -86,6 +87,21 @@ from .state import (
 )
 
 VISION_BATCH = 32
+
+# `BatchedStreamEngine`'s counters, zeroed by its `reset()` and read
+# through `counters()`: batched dispatches and the decoder forwards this
+# process ran (dispatches that fed one of its lanes, each batched decode's
+# prefill and steps on its lanes); frames fed (rolled-back ones each time)
+# and rolled back; each dispatch that feeds a lane here runs lanes x bucket
+# rows, of which each fed lane's real tokens are live; batched decodes,
+# their lanes, steps and done-flag reads; a decode's rows are its lanes
+# here x (1 + steps), of which each active lane's tokens are live; tokens
+# over every response; sessions admitted, their frames, and the tower's
+# batches that encoded them here
+COUNTERS = ("dispatches", "forwards", "frames_fed", "frames_rolled_back", "dispatch_rows_run",
+            "dispatch_rows_live", "decodes", "decode_lanes", "decode_steps", "flag_reads",
+            "decode_rows_run", "decode_rows_live", "tokens_generated", "admissions",
+            "frames_admitted", "vision_batches")
 
 
 def chunk_buckets(block_frames: int, frame_num_tokens: int) -> tuple:
@@ -477,14 +493,19 @@ class BatchedStreamEngine(BatchedStreamScorer):
         self._lengths = np.zeros((B,), np.int64)
         self._lane_sess: List[Optional[int]] = [None] * B
         self._responses: List[List[Dict[str, Any]]] = [[] for _ in range(B)]
-        # counts since the reset: batched dispatches, tokens over every
-        # response, the lanes of each batched decode, and the decoder
-        # forwards this process ran (dispatches that fed one of its lanes,
-        # each batched decode's prefill and steps on its lanes)
-        self.dispatches = 0
-        self.tokens_generated = 0
-        self.gen_lanes: List[int] = []
-        self.forwards = 0
+        for name in COUNTERS:  # counts since the reset
+            setattr(self, name, 0)
+
+    def counters(self) -> Dict[str, int]:
+        """One flat dict: the engine's `COUNTERS` since its last `reset()`;
+        ``graph_replays`` and ``graph_captures`` since the engine was made
+        (`mmduet.EngineGraphs.counts`, zeros off the graph route); and
+        ``kernel_builds``, this process's ``nvcc`` runs (`_build.BUILDS`)."""
+        out = {name: getattr(self, name) for name in COUNTERS}
+        out.update(self._graphs.counts() if self._graphs is not None
+                   else {"graph_replays": 0, "graph_captures": 0})
+        out["kernel_builds"] = _build.BUILDS
+        return out
 
     def start_sessions(self, queries):  # pragma: no cover - guard
         raise NotImplementedError(
@@ -551,41 +572,47 @@ class BatchedStreamEngine(BatchedStreamScorer):
         what they held and are never read). Other lanes are untouched —
         their caches/cursors never see the admission. A lane another
         process holds records only the session's length: its frames are
-        encoded and kept where the lane lives."""
-        frames = sess.get("frame_embeds")
-        local = self._lo <= lane < self._hi
-        T = len(frames if frames is not None else sess["frames"])
-        if local and frames is None:
-            frames = staged_visual_encode(
-                self._visual, sess["frames"], self.device, VISION_BATCH
+        encoded and kept where the lane lives. In the span ``engine.admit``
+        (``engine.frames_write`` the frames' write)."""
+        with span("engine.admit", session=self._lane_sess[lane], lane=lane):
+            frames = sess.get("frame_embeds")
+            local = self._lo <= lane < self._hi
+            T = len(frames if frames is not None else sess["frames"])
+            if local and frames is None:
+                frames = staged_visual_encode(
+                    self._visual, sess["frames"], self.device, VISION_BATCH
+                )
+                self.vision_batches += -(-T // VISION_BATCH)
+            cap = self.args.max_num_frames
+            if T > cap:
+                raise ValueError(f"session has {T} frames > max_num_frames {cap}")
+            if local:
+                with span("engine.frames_write", lane=lane):
+                    frames = torch.as_tensor(frames).to(device=self.device, dtype=self.dtype)
+                    self._ensure_frame_buffer(frames.shape[-1])
+                    self._frame_embeds[lane - self._lo, :T] = frames
+                    # fresh repetition-penalty token set for the new session
+                    self._pen_mask[lane - self._lo] = False
+            self.admissions += 1
+            self.frames_admitted += T
+            self._lengths[lane] = T
+            self._cur[lane] = 0
+            self._next_b[lane] = 0
+            self._vt[lane] = 0.0
+            self._last_role[lane] = "system"
+            self._pending_ids[lane] = []
+            self._fps[lane] = float(sess.get("fps") or self.frame_fps)
+            self._queues[lane] = collections.deque(
+                (t["time"], t["content"])
+                for t in sess.get("conversation") or ()
+                if t["role"] == "user"
             )
-        cap = self.args.max_num_frames
-        if T > cap:
-            raise ValueError(f"session has {T} frames > max_num_frames {cap}")
-        if local:
-            frames = torch.as_tensor(frames).to(device=self.device, dtype=self.dtype)
-            self._ensure_frame_buffer(frames.shape[-1])
-            self._frame_embeds[lane - self._lo, :T] = frames
-            # fresh repetition-penalty token set for the new session
-            self._pen_mask[lane - self._lo] = False
-        self._lengths[lane] = T
-        self._cur[lane] = 0
-        self._next_b[lane] = 0
-        self._vt[lane] = 0.0
-        self._last_role[lane] = "system"
-        self._pending_ids[lane] = []
-        self._fps[lane] = float(sess.get("fps") or self.frame_fps)
-        self._queues[lane] = collections.deque(
-            (t["time"], t["content"])
-            for t in sess.get("conversation") or ()
-            if t["role"] == "user"
-        )
-        self._policies[lane] = ThresholdPolicy(self.args)
-        self.debug_data_lists[lane] = []
-        self._responses[lane] = [
-            {"time": t, "content": q, "role": "user"}
-            for t, q in self._queues[lane]
-        ]
+            self._policies[lane] = ThresholdPolicy(self.args)
+            self.debug_data_lists[lane] = []
+            self._responses[lane] = [
+                {"time": t, "content": q, "role": "user"}
+                for t, q in self._queues[lane]
+            ]
 
     @torch.inference_mode()
     def serve(self, sessions):
@@ -619,8 +646,8 @@ class BatchedStreamEngine(BatchedStreamScorer):
                     exhausted = True
                     break
                 idx, sess = nxt
-                self._admit(idle[0], sess)
                 self._lane_sess[idle[0]] = idx
+                self._admit(idle[0], sess)
             # a zero-frame session (nothing to stream, no pending
             # generation) never enters `live` — retire it NOW, not when
             # every other lane drains: under continuous admission a
@@ -730,53 +757,70 @@ class BatchedStreamEngine(BatchedStreamScorer):
         or unfed lanes) are garbage the caller must ignore. Unfed lanes
         run a 1-token dummy chunk and commit nothing. The chunk width is
         picked over all B lanes; the forward runs on this process's lanes,
-        and not at all when none of them is fed (its rows are then zeros)."""
+        and not at all when none of them is fed (its rows are then zeros).
+        In the span ``engine.dispatch``: ``engine.assemble`` builds the
+        chunk, ``engine.scores_read`` fetches the probabilities."""
+        with span("engine.dispatch"):
+            ft = self.cfg.frame_num_tokens
+            K = self.block_frames
+            t_real = [len(chunks[b][0]) + chunks[b][2] * ft if b in chunks else 1
+                      for b in range(self.B)]
+            bucket = pick_bucket(max(t_real), self._buckets)
+            for b in chunks:
+                self._check_fits(b, bucket)
+            self._guard_frozen_writes(bucket, chunks)
+            lo, hi = self._lo, self._hi
+            lanes = range(lo, hi)
+            fed = [b in chunks for b in lanes]
+            if any(fed):
+                with span("engine.assemble", bucket=bucket):
+                    embeds, score_pos = self._assemble(chunks, bucket)
+                probs, _ = mmduet.chunk_scores_forward(
+                    self.params, self.cfg, embeds, self._cache, self._cur[lo:hi].tolist(),
+                    t_real[lo:hi], score_pos, lora=self.lora,
+                    lora_scale=self.lora_scale, shard_ctx=self._shard_ctx, commit=fed,
+                    graphs=self._graphs,
+                )
+                self.forwards += 1
+                self.dispatch_rows_run += (hi - lo) * bucket
+                self.dispatch_rows_live += sum(t_real[b] for b in lanes if b in chunks)
+            else:  # the lanes here sit this dispatch out: their zero rows join the gather
+                probs = torch.zeros((len(lanes), 2, K), dtype=torch.float32, device=self.device)
+            self.dispatches += 1
+            self.frames_fed += sum(nf for _, _, nf in chunks.values())
+            for b in chunks:
+                self._cur[b] += t_real[b]
+            with span("engine.scores_read"):
+                return self._all_lanes(probs)  # ONE host fetch for all (B, 2, K) scores
+
+    def _assemble(self, chunks: Dict[int, Tuple[List[int], int, int]],
+                  bucket: int) -> Tuple[torch.Tensor, List[List[int]]]:
+        """A dispatch's (lanes, bucket, H) chunk of this process's lanes,
+        each fed lane's ``[ids + frames]`` padded to ``bucket`` and each
+        unfed lane a 1-token dummy, and each lane's K score positions."""
         ft = self.cfg.frame_num_tokens
         K = self.block_frames
         H = self.params["decoder"]["final_norm"].shape[-1]
-        t_real = [len(chunks[b][0]) + chunks[b][2] * ft if b in chunks else 1
-                  for b in range(self.B)]
-        bucket = pick_bucket(max(t_real), self._buckets)
-        for b in chunks:
-            self._check_fits(b, bucket)
-        self._guard_frozen_writes(bucket, chunks)
-        lo, hi = self._lo, self._hi
-        lanes = range(lo, hi)
-        fed = [b in chunks for b in lanes]
-        if any(fed):
-            embeds_l, score_pos = [], []
-            for b in lanes:
-                if b in chunks:
-                    ids, fstart, nf = chunks[b]
-                    parts = []
-                    if ids:
-                        parts.append(self._embed_ids(ids))
-                    if nf:
-                        parts.append(
-                            self._frame_embeds[b - lo, fstart : fstart + nf]
-                            .reshape(nf * ft, -1)
-                        )
-                    emb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
-                    pos = [len(ids) + (j + 1) * ft - 1 for j in range(nf)]
-                    score_pos.append(pos + [0] * (K - nf))
-                else:  # unfed lane: 1-token dummy, scores ignored by caller
-                    emb = torch.zeros((1, H), dtype=self.dtype, device=self.device)
-                    score_pos.append([0] * K)
-                embeds_l.append(emb)
-            embeds = torch.stack([pad_chunk(c, bucket) for c in embeds_l])
-            probs, _ = mmduet.chunk_scores_forward(
-                self.params, self.cfg, embeds, self._cache, self._cur[lo:hi].tolist(),
-                t_real[lo:hi], score_pos, lora=self.lora,
-                lora_scale=self.lora_scale, shard_ctx=self._shard_ctx, commit=fed,
-                graphs=self._graphs,
-            )
-            self.forwards += 1
-        else:  # the lanes here sit this dispatch out: their zero rows join the gather
-            probs = torch.zeros((len(lanes), 2, K), dtype=torch.float32, device=self.device)
-        self.dispatches += 1
-        for b in chunks:
-            self._cur[b] += t_real[b]
-        return self._all_lanes(probs)  # ONE host fetch for all (B, 2, K) scores
+        embeds_l, score_pos = [], []
+        for b in range(self._lo, self._hi):
+            if b in chunks:
+                ids, fstart, nf = chunks[b]
+                parts = []
+                if ids:
+                    parts.append(self._embed_ids(ids))
+                if nf:
+                    parts.append(
+                        self._frame_embeds[b - self._lo, fstart : fstart + nf]
+                        .reshape(nf * ft, -1)
+                    )
+                emb = parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+                pos = [len(ids) + (j + 1) * ft - 1 for j in range(nf)]
+                score_pos.append(pos + [0] * (K - nf))
+            else:  # unfed lane: 1-token dummy, scores ignored by caller
+                emb = torch.zeros((1, H), dtype=self.dtype, device=self.device)
+                score_pos.append([0] * K)
+            embeds_l.append(emb)
+        return torch.stack([pad_chunk(c, bucket) for c in embeds_l]), score_pos
 
     @torch.inference_mode()
     def _generate_batch(self, lanes: Sequence[int],
@@ -788,49 +832,61 @@ class BatchedStreamEngine(BatchedStreamScorer):
         is shared; lanes outside ``lanes`` are frozen throughout
         (`mmduet.decode_loop`, on the engine's decode route). ``eos_id``:
         the id that ends an answer (None: the tokenizer's; -1: none, for
-        `prewarm`)."""
-        t = len(self._gen_prompt_ids)
-        W = max(self.args.max_new_tokens - 1, 1)
-        for b in lanes:
-            self._check_fits(b, t + W)
-        # the JAX engine's frozen lanes receive BOTH the prompt-width
-        # prefill write and the W-wide scratch commit at their cursor
-        self._guard_frozen_writes(max(t, W), set(lanes))
-        here = range(self._lo, self._hi)
-        active = [b in lanes for b in here]
-        pre = self._cur.copy()
-        if any(active):
-            gen_embeds = self._embed_ids(self._gen_prompt_ids)
-            packed, _, self._pen_mask = mmduet.decode_loop(
-                self.params, self.cfg, gen_embeds[None].expand(len(here), -1, -1),
-                self._cache, self._cur[self._lo:self._hi].tolist(), t, self._pen_mask, active,
-                max_new=self.args.max_new_tokens,
-                eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
-                rep=self.args.repetition_penalty, lora=self.lora, lora_scale=self.lora_scale,
-                shard_ctx=self._shard_ctx, graphs=self._graphs,
-            )
-        else:  # no lane here decodes: zero rows join the gather
-            packed = torch.zeros((len(here), self.args.max_new_tokens + 2), dtype=torch.int32,
-                                 device=self.device)
-        packed = self._all_lanes(packed)  # ONE fetch: tokens + n + cursor
-        if any(active):  # the prefill and one step per token of the longest answer here
-            self.forwards += int(packed[self._lo:self._hi, -2].max())
-        buf = packed[:, :-2]
-        self.gen_lanes.append(len(lanes))
-        out: Dict[int, str] = {}
-        for b in lanes:
-            n, cursor = int(packed[b, -2]), int(packed[b, -1])
-            self.tokens_generated += n
-            token_ids = buf[b, :n]
-            if self.args.remove_assistant_turns:
-                self._cur[b] = pre[b]  # rewind: keep pre-response context
-                self._pending_ids[b] = []
-            else:
-                self._cur[b] = cursor
-                self._pending_ids[b] = [int(token_ids[-1])] if n else []
-            out[b] = self.tokenizer.decode(token_ids, skip_special_tokens=True)
-            self._last_role[b] = "assistant"
-        return out
+        `prewarm`). In the span ``engine.generate``: `decode_loop`'s spans,
+        ``engine.tokens_read`` (the fetch of the packed tokens) and
+        ``engine.detokenize``."""
+        with span("engine.generate", lanes=lanes):
+            t = len(self._gen_prompt_ids)
+            W = max(self.args.max_new_tokens - 1, 1)
+            for b in lanes:
+                self._check_fits(b, t + W)
+            # the JAX engine's frozen lanes receive BOTH the prompt-width
+            # prefill write and the W-wide scratch commit at their cursor
+            self._guard_frozen_writes(max(t, W), set(lanes))
+            here = range(self._lo, self._hi)
+            active = [b in lanes for b in here]
+            pre = self._cur.copy()
+            steps = {}
+            if any(active):
+                gen_embeds = self._embed_ids(self._gen_prompt_ids)
+                packed, _, self._pen_mask = mmduet.decode_loop(
+                    self.params, self.cfg, gen_embeds[None].expand(len(here), -1, -1),
+                    self._cache, self._cur[self._lo:self._hi].tolist(), t, self._pen_mask,
+                    active, max_new=self.args.max_new_tokens,
+                    eos_id=self.tokenizer.eos_token_id if eos_id is None else eos_id,
+                    rep=self.args.repetition_penalty, lora=self.lora,
+                    lora_scale=self.lora_scale, shard_ctx=self._shard_ctx, graphs=self._graphs,
+                    counts=steps,
+                )
+            else:  # no lane here decodes: zero rows join the gather
+                packed = torch.zeros((len(here), self.args.max_new_tokens + 2),
+                                     dtype=torch.int32, device=self.device)
+            with span("engine.tokens_read"):
+                packed = self._all_lanes(packed)  # ONE fetch: tokens + n + cursor
+            if any(active):  # the prefill and the steps
+                self.forwards += 1 + steps["decode_steps"]
+                self.decode_steps += steps["decode_steps"]
+                self.flag_reads += steps["flag_reads"]
+                self.decode_rows_run += len(here) * (1 + steps["decode_steps"])
+                self.decode_rows_live += int(packed[self._lo:self._hi, -2][active].sum())
+            self.decodes += 1
+            self.decode_lanes += len(lanes)
+            buf = packed[:, :-2]
+            out: Dict[int, str] = {}
+            with span("engine.detokenize"):
+                for b in lanes:
+                    n, cursor = int(packed[b, -2]), int(packed[b, -1])
+                    self.tokens_generated += n
+                    token_ids = buf[b, :n]
+                    if self.args.remove_assistant_turns:
+                        self._cur[b] = pre[b]  # rewind: keep pre-response context
+                        self._pending_ids[b] = []
+                    else:
+                        self._cur[b] = cursor
+                        self._pending_ids[b] = [int(token_ids[-1])] if n else []
+                    out[b] = self.tokenizer.decode(token_ids, skip_special_tokens=True)
+                    self._last_role[b] = "assistant"
+            return out
 
     # ------------------------------------------------------------------
 
@@ -852,32 +908,33 @@ class BatchedStreamEngine(BatchedStreamScorer):
         decode of every lane (the group's first gathers; on the graph route
         with no end of sequence, so that a step runs and is captured) and,
         with ``vision``, one VISION_BATCH encode. Resets the engine
-        afterwards."""
-        if self.device.type == "cuda":
-            _build.build()
-        H = self.params["decoder"]["final_norm"].shape[-1]
-        n = self._hi - self._lo
-        zeros = [0] * n
-        for b in buckets if buckets is not None else self._buckets:
-            if b > self._cache_size:
-                continue
-            mmduet.chunk_scores_forward(
-                self.params, self.cfg,
-                torch.zeros((n, b, H), dtype=self.dtype, device=self.device),
-                self._cache, zeros, [b] * n, [[0] * self.block_frames] * n,
-                lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
-                commit=[True] * n, graphs=self._graphs,
-            )
-        if generate:
-            self._cur[:] = 0
-            self._generate_batch(list(range(self.B)),
-                                 -1 if self._graphs is not None else None)
-        if vision:
-            r = self.cfg.frame_resolution
-            staged_visual_encode(self._visual, np.zeros((VISION_BATCH, r, r, 3), np.uint8),
-                                 self.device, VISION_BATCH)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        afterwards. In the span ``engine.prewarm``."""
+        with span("engine.prewarm"):
+            if self.device.type == "cuda":
+                _build.build()
+            H = self.params["decoder"]["final_norm"].shape[-1]
+            n = self._hi - self._lo
+            zeros = [0] * n
+            for b in buckets if buckets is not None else self._buckets:
+                if b > self._cache_size:
+                    continue
+                mmduet.chunk_scores_forward(
+                    self.params, self.cfg,
+                    torch.zeros((n, b, H), dtype=self.dtype, device=self.device),
+                    self._cache, zeros, [b] * n, [[0] * self.block_frames] * n,
+                    lora=self.lora, lora_scale=self.lora_scale, shard_ctx=self._shard_ctx,
+                    commit=[True] * n, graphs=self._graphs,
+                )
+            if generate:
+                self._cur[:] = 0
+                self._generate_batch(list(range(self.B)),
+                                     -1 if self._graphs is not None else None)
+            if vision:
+                r = self.cfg.frame_resolution
+                staged_visual_encode(self._visual, np.zeros((VISION_BATCH, r, r, 3), np.uint8),
+                                     self.device, VISION_BATCH)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.reset()
 
     def _remaining(self, b: int) -> int:
@@ -901,97 +958,100 @@ class BatchedStreamEngine(BatchedStreamScorer):
         schedule INDEPENDENTLY: a lane at a query boundary or needing a
         joiner feeds a short chunk while clean lanes run their full
         K-frame block in the same dispatch — no lane waits for the whole
-        group."""
-        # lanes with a deferred (coalescing) generation are stalled at
-        # their trigger point: no queries, no frames this round
-        for b in self._pending_gen:
-            self._pending_gen[b] += 1
-        sched = [b for b in live if b not in self._pending_gen]
+        group. In the span ``engine.round``; step (3) in ``engine.policy``."""
+        with span("engine.round", lanes=live):
+            # lanes with a deferred (coalescing) generation are stalled at
+            # their trigger point: no queries, no frames this round
+            for b in self._pending_gen:
+                self._pending_gen[b] += 1
+            sched = [b for b in live if b not in self._pending_gen]
 
-        # (1) one due query per live stream (engine loop head)
-        due = {
-            b: self._queues[b][0]
-            for b in sched
-            if self._queues[b] and self._vt[b] >= self._queues[b][0][0]
-        }
-        if due:
-            qchunks = {}
-            for b, (_, query) in due.items():
-                self._queues[b].popleft()
-                qchunks[b] = (
-                    self.tokenizer.apply_chat_template(
-                        [{"role": "user", "content": query}],
-                        tokenize=True,
-                        add_stream_query_prompt=self._last_role[b] == "stream",
-                        add_stream_prompt=True,
-                    ),
-                    0, 0,
-                )
-            self._dispatch_sched(qchunks)
-            for b in due:
-                self._last_role[b] = "user"
-
-        # (2) per-lane frame chunks in ONE dispatch
-        ft = self.cfg.frame_num_tokens
-        chunks = {}
-        for b in sched:
-            n = min(max(self._budget(b), 1), self._remaining(b))
-            chunks[b] = (self._frame_joiner_ids(b), int(self._next_b[b]), n)
-        if chunks:
-            probs = self._dispatch_sched(chunks)
-
-        # (3) per-stream host policy + rollback (engine loop body)
-        to_gen = []
-        for b in sched:
-            nf = chunks[b][2]
-            self._next_b[b] += nf
-            self._last_role[b] = "stream"
-            interval = 1.0 / self._fps[b]
-            for i in range(nf):
-                scores = {
-                    "informative_score": float(probs[b, 0, i]),
-                    "relevance_score": float(probs[b, 1, i]),
-                }
-                self.debug_data_lists[b].append(
-                    dict(time=self._vt[b], **scores)
-                )
-                stream_end_score = sum(
-                    v for k_, v in scores.items() if k_ in self.score_heads
-                )
-                need = self._policies[b].triggered(stream_end_score)
-                if need and not self.grounding_mode:
-                    # roll back not-yet-evaluated chunk frames
-                    k_back = nf - 1 - i
-                    if k_back > 0:
-                        self._cur[b] -= k_back * ft
-                        self._next_b[b] -= k_back
-                    to_gen.append(b)
-                    break
-                self._vt[b] += interval
-
-        # (4) batched generation — newly triggered lanes join the
-        # pending set; flush when any lane has waited out the coalesce
-        # window or no other lane has frames to stream meanwhile
-        for b in to_gen:
-            self._pending_gen[b] = 0
-        if self._pending_gen:
-            others = any(
-                self._remaining(b) > 0
-                for b in live if b not in self._pending_gen
-            )
-            if (
-                max(self._pending_gen.values()) >= self.gen_coalesce_rounds
-                or not others
-            ):
-                lanes = sorted(self._pending_gen)
-                texts = self._generate_batch(lanes)
-                for b in lanes:
-                    self._responses[b].append(
-                        {"time": self._vt[b], "content": texts[b],
-                         "role": "assistant"}
+            # (1) one due query per live stream (engine loop head)
+            due = {
+                b: self._queues[b][0]
+                for b in sched
+                if self._queues[b] and self._vt[b] >= self._queues[b][0][0]
+            }
+            if due:
+                qchunks = {}
+                for b, (_, query) in due.items():
+                    self._queues[b].popleft()
+                    qchunks[b] = (
+                        self.tokenizer.apply_chat_template(
+                            [{"role": "user", "content": query}],
+                            tokenize=True,
+                            add_stream_query_prompt=self._last_role[b] == "stream",
+                            add_stream_prompt=True,
+                        ),
+                        0, 0,
                     )
-                    self._vt[b] += 1.0 / self._fps[b]
-                self._pending_gen.clear()
+                self._dispatch_sched(qchunks)
+                for b in due:
+                    self._last_role[b] = "user"
+
+            # (2) per-lane frame chunks in ONE dispatch
+            ft = self.cfg.frame_num_tokens
+            chunks = {}
+            for b in sched:
+                n = min(max(self._budget(b), 1), self._remaining(b))
+                chunks[b] = (self._frame_joiner_ids(b), int(self._next_b[b]), n)
+            if chunks:
+                probs = self._dispatch_sched(chunks)
+
+            # (3) per-stream host policy + rollback (engine loop body)
+            with span("engine.policy"):
+                to_gen = []
+                for b in sched:
+                    nf = chunks[b][2]
+                    self._next_b[b] += nf
+                    self._last_role[b] = "stream"
+                    interval = 1.0 / self._fps[b]
+                    for i in range(nf):
+                        scores = {
+                            "informative_score": float(probs[b, 0, i]),
+                            "relevance_score": float(probs[b, 1, i]),
+                        }
+                        self.debug_data_lists[b].append(
+                            dict(time=self._vt[b], **scores)
+                        )
+                        stream_end_score = sum(
+                            v for k_, v in scores.items() if k_ in self.score_heads
+                        )
+                        need = self._policies[b].triggered(stream_end_score)
+                        if need and not self.grounding_mode:
+                            # roll back not-yet-evaluated chunk frames
+                            k_back = nf - 1 - i
+                            if k_back > 0:
+                                self._cur[b] -= k_back * ft
+                                self._next_b[b] -= k_back
+                                self.frames_rolled_back += k_back
+                            to_gen.append(b)
+                            break
+                        self._vt[b] += interval
+
+            # (4) batched generation — newly triggered lanes join the
+            # pending set; flush when any lane has waited out the coalesce
+            # window or no other lane has frames to stream meanwhile
+            for b in to_gen:
+                self._pending_gen[b] = 0
+            if self._pending_gen:
+                others = any(
+                    self._remaining(b) > 0
+                    for b in live if b not in self._pending_gen
+                )
+                if (
+                    max(self._pending_gen.values()) >= self.gen_coalesce_rounds
+                    or not others
+                ):
+                    lanes = sorted(self._pending_gen)
+                    texts = self._generate_batch(lanes)
+                    for b in lanes:
+                        self._responses[b].append(
+                            {"time": self._vt[b], "content": texts[b],
+                             "role": "assistant"}
+                        )
+                        self._vt[b] += 1.0 / self._fps[b]
+                    self._pending_gen.clear()
 
     @torch.inference_mode()
     def stream_all(self) -> List[List[Dict[str, Any]]]:

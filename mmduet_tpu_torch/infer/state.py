@@ -30,6 +30,7 @@ from ..models.quant import out_width
 from ..models.qwen2 import KVCache, init_kv_cache
 from ..ops import attention, quant_matmul
 from ..parallel import ProcessMesh
+from ..trace import span
 
 # Default prefill bucket widths. Frame steps are 49(+small joiner) tokens;
 # query turns vary; the system-prompt opener can be larger.
@@ -209,14 +210,18 @@ def staged_visual_encode(visual_fn: Callable[[torch.Tensor], torch.Tensor],
     (T, ft, H). Each batch is uploaded just before its encode, so one
     batch of pixels is resident; a ragged tail runs at its own length
     (frames are independent in the tower, and nothing is compiled per
-    shape)."""
+    shape). Each batch's upload and encode are the spans ``vision.upload``
+    and ``vision.encode``."""
     video_frames = _frames_array(video_frames)
     if video_frames.shape[0] == 0:
         raise ValueError("staged_visual_encode: no frames to encode")
-    outs = [
-        visual_fn(torch.from_numpy(np.ascontiguousarray(video_frames[i : i + batch])).to(device))
-        for i in range(0, video_frames.shape[0], batch)
-    ]
+    outs = []
+    for i in range(0, video_frames.shape[0], batch):
+        n = min(batch, video_frames.shape[0] - i)
+        with span("vision.upload", frames=n):
+            px = torch.from_numpy(np.ascontiguousarray(video_frames[i: i + n])).to(device)
+        with span("vision.encode", frames=n):
+            outs.append(visual_fn(px))
     return torch.cat(outs, dim=0)
 
 

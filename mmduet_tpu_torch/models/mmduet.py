@@ -38,6 +38,7 @@ from ..parallel.collectives import (copy_to_model, cut, gather_vocab, max_model,
                                     reduce_model, sum_data, whole_over_data)
 from ..ops import attention as attention_ops
 from ..ops import quant_matmul
+from ..trace import span
 from . import clip, qwen2, siglip
 from .quant import matmul_f32, out_width
 from .qwen2 import KVCache, Lanes, ints_to, kv_arr, lane_list
@@ -395,14 +396,16 @@ def _run_entry(graphs: Optional["EngineGraphs"], name: str, body, params: Params
                cfg: MMDuetConfig, kv_cache: KVCache, x: Dict[str, torch.Tensor],
                lora: Optional[Params], lora_scale: float, shard_ctx, *baked):
     """``body(params, cfg, kv_cache, x, lora, lora_scale, *baked, shard_ctx)``
-    eagerly, or through ``graphs``' captured graph of this entry's shapes."""
+    eagerly, or through ``graphs``' captured graph of this entry's shapes,
+    in the span ``model.forward``."""
     def run(inputs):
         return body(params, cfg, kv_cache, inputs, lora, lora_scale, *baked, shard_ctx=shard_ctx)
 
-    if graphs is None:
-        return run(x)
-    return graphs.run(graphs.key(name, params, cfg, kv_cache, lora, lora_scale, shard_ctx,
-                                 x, *baked), x, run)
+    with span("model.forward", entry=name):
+        if graphs is None:
+            return run(x)
+        return graphs.run(graphs.key(name, params, cfg, kv_cache, lora, lora_scale, shard_ctx,
+                                     x, *baked), x, run)
 
 
 def step_forward(
@@ -647,10 +650,11 @@ class Captured:
     grows the scratch (and drops the old tensors from `ops.attention` /
     `ops.quant_matmul`) leaves them valid. The capture launches nothing,
     so the launch counts it added are taken back, and each replay adds
-    them. A capture that fails raises."""
+    them, and to ``replays``. A capture that fails raises."""
 
     def __init__(self, run: Callable, pool, state=None):
         self.state = state
+        self.replays = 0
         self._run, self._pool = run, pool
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._static: Optional[Dict[str, torch.Tensor]] = None
@@ -666,6 +670,7 @@ class Captured:
         for name, x in (inputs or {}).items():
             self._static[name].copy_(x)
         self._graph.replay()
+        self.replays += 1
         for (module, name), n in zip(_STEP_COUNTS, self._launches):
             setattr(module, name, getattr(module, name) + n)
         return _tree_clone(self._out)
@@ -675,7 +680,8 @@ class Captured:
         graph = torch.cuda.CUDAGraph()
         # thread_local: another thread's allocations (a demo's server) do
         # not break this capture
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+        with span("graphs.capture"), torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
             # allocated in the pool; filled before each replay
             self._static = (None if inputs is None
                             else {name: torch.empty_like(x) for name, x in inputs.items()})
@@ -717,6 +723,13 @@ class EngineGraphs:
         for key in self._entries:
             out[key[0]] = out.get(key[0], 0) + 1
         return out
+
+    def counts(self) -> Dict[str, int]:
+        """``graph_replays``, over every graph, and ``graph_captures``,
+        since the graphs were made."""
+        got = self._entries.values()
+        return {"graph_replays": sum(c.replays for c in got),
+                "graph_captures": sum(c._graph is not None for c in got)}
 
     def key(self, name: str, params: Params, cfg: MMDuetConfig, kv_cache: KVCache,
             lora: Optional[Params], lora_scale: float, shard_ctx,
@@ -791,6 +804,7 @@ def decode_loop(
     lora_scale: float = 0.0,
     shard_ctx=None,
     graphs: Optional[EngineGraphs] = None,  # the graph route (CUDA tensors)
+    counts: Optional[Dict[str, int]] = None,
 ) -> Tuple[torch.Tensor, KVCache, torch.Tensor]:
     """Prompt prefill + greedy decode (with the repetition penalty as a
     token bitmask), with the loop state on the device as the JAX package's
@@ -823,6 +837,12 @@ def decode_loop(
     the batched engine also holds a frozen lane to the JAX package's
     ``cache_len[b] + max(t, W) <= S``, so both raise at the same point.
 
+    ``counts``: a dict to which the call adds the steps it ran
+    (``decode_steps``) and the flag reads it made (``flag_reads``), which
+    the host knows without reading the device. The spans ``decode.prefill``,
+    ``decode.start``, ``decode.flag_read`` and ``decode.step`` (each read
+    and step) and ``decode.commit`` time its parts.
+
     Returns ``(packed (B, max_new+2) int32 [tokens | n | final cursor],
     cache, updated pen_mask)``, new tensors (not the graph's state)."""
     B, _, _ = embeds.shape
@@ -832,9 +852,10 @@ def decode_loop(
     tr = lane_list(t_real, B)
 
     # the prompt's prefill, on the same route as the steps
-    out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
-                       lora_scale=lora_scale, compute_lm_logits=True,
-                       shard_ctx=shard_ctx, commit=None if all(act) else act, graphs=graphs)
+    with span("decode.prefill"):
+        out = step_forward(params, cfg, embeds, kv_cache, cl, tr, lora=lora,
+                           lora_scale=lora_scale, compute_lm_logits=True,
+                           shard_ctx=shard_ctx, commit=None if all(act) else act, graphs=graphs)
     cache = out.kv_cache  # prompt committed; read-only until the commit
     base = [c + t if a else c for c, t, a in zip(cl, tr, act)]
 
@@ -849,19 +870,30 @@ def decode_loop(
         step = graphs.decode_step(params, cfg, cache, B, max_new, embeds.dtype, rep, lora,
                                   lora_scale, shard_ctx)
         state = step.state
-    # the response's inputs, the only host-to-device copies of the call
-    state.base.copy_(ints_to(base, dev))
-    state.active.copy_(ints_to(act, dev))
-    state.eos.fill_(eos_id)
-    state.pen_mask.copy_(pen_mask)
-    start_decode(state, out.last_logits, rep)
+    with span("decode.start"):
+        # the response's inputs, the only host-to-device copies of the call
+        state.base.copy_(ints_to(base, dev))
+        state.active.copy_(ints_to(act, dev))
+        state.eos.fill_(eos_id)
+        state.pen_mask.copy_(pen_mask)
+        start_decode(state, out.last_logits, rep)
 
-    i = 1
-    while i < max_new and not bool(state.done.all()):
-        step()
+    i, reads = 1, 0
+    while i < max_new:
+        reads += 1
+        with span("decode.flag_read"):
+            done = bool(state.done.all())
+        if done:
+            break
+        with span("decode.step", step=i):
+            step()
         i += 1
-    # ONE commit of the scratch at each active lane's post-prompt cursor;
-    # rows past a lane's fed count land in its garbage zone
-    cache = qwen2.commit_lanes(cache, state.scratch.k, state.scratch.v, base, act)
-    packed, pen_mask = decode_outputs(state)
+    if counts is not None:
+        counts["decode_steps"] = counts.get("decode_steps", 0) + i - 1
+        counts["flag_reads"] = counts.get("flag_reads", 0) + reads
+    with span("decode.commit"):
+        # ONE commit of the scratch at each active lane's post-prompt cursor;
+        # rows past a lane's fed count land in its garbage zone
+        cache = qwen2.commit_lanes(cache, state.scratch.k, state.scratch.v, base, act)
+        packed, pen_mask = decode_outputs(state)
     return packed, cache, pen_mask

@@ -18,12 +18,15 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..trace import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+BUILDS = 0  # nvcc runs of this process (`BatchedStreamEngine.counters()`'s kernel_builds)
 
 
 def _nvcc() -> str:
@@ -66,7 +69,8 @@ def library_path(name: str) -> Path:
 def build(*names: str) -> None:
     """Build the libraries of ``csrc/<name>.cu`` that are missing, one
     ``nvcc`` per source, all started together (every source when no name
-    is given).
+    is given), in the span ``ops.build``; each ``nvcc`` run adds one to
+    `BUILDS`.
 
     Raises ``RuntimeError`` with the compiler's output if a build fails."""
     names = names or tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
@@ -80,13 +84,18 @@ def build(*names: str) -> None:
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         jobs.append((name, cmd, proc, tmp, lib_path))
+    if not jobs:
+        return
+    global BUILDS
+    BUILDS += len(jobs)
     failed = []
-    for name, cmd, proc, tmp, lib_path in jobs:
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"building {name}.cu failed ({' '.join(cmd)}):\n{out}")
-        else:
-            os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
+    with span("ops.build", sources=",".join(job[0] for job in jobs)):
+        for name, cmd, proc, tmp, lib_path in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"building {name}.cu failed ({' '.join(cmd)}):\n{out}")
+            else:
+                os.replace(tmp, lib_path)  # atomic: a concurrent build sees all or nothing
     if failed:
         raise RuntimeError("\n".join(failed))
 

@@ -156,7 +156,7 @@ def test_batched_engine_matches_jax(name):
     n = stream_both(je, te, embeds_for(lengths, seed=len(name)), convs, fps)
     assert n >= 2 or name == "threshold_z", f"too few triggers ({n}) to test"
     if name == "gen_coalesce_rounds":
-        assert any(k > 1 for k in te.gen_lanes), te.gen_lanes  # triggers did merge
+        assert te.decode_lanes > te.decodes, te.counters()  # triggers did merge
     assert te.tokens_generated > 0 or name == "threshold_z"
 
 

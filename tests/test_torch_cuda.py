@@ -1375,6 +1375,51 @@ def test_batched_graph_route_equals_the_eager_route(dev, mesh, empty_split_scrat
     assert set(scorer._graphs.kinds()) == {"chunk_scores", "step"}
 
 
+def test_batched_graph_route_spans_and_counters(dev, tmp_path):
+    """`serve()` on the graph route under `torch.profiler` with CUDA
+    activity, cold and then warm: each first call of a shape captures its
+    graph inside ``graphs.capture`` (``graph_captures``), every later one
+    replays it (``graph_replays``), one a ``model.forward`` or
+    ``decode.step`` span; and the card's kernels and the runtime's graph
+    launches carry the correlation ids that put each kernel down to its
+    launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmduet_tpu_torch.infer import BatchedStreamEngine
+
+    cfg, params, tok = _small_card_model(dev)
+    args = TestArgs(frame_fps=2.0, max_new_tokens=4, max_num_frames=16,
+                    stream_end_score_sum_threshold=0.6)
+    engine = BatchedStreamEngine(params, cfg, tok, args, n_streams=4, block_frames=4)
+    r = np.random.RandomState(4)
+    sessions = [{"frame_embeds": (r.randn(n, cfg.frame_num_tokens, cfg.text.hidden_size)
+                                  * 0.05).astype(np.float32), "fps": 2.0,
+                 "conversation": [{"role": "user", "content": "what now?", "time": 0.0}]}
+                for n in (12, 7, 10, 3, 9)]
+    for run in ("cold", "warm"):
+        engine.reset()
+        before = engine.counters()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            served = list(engine.serve(sessions))
+            torch.cuda.synchronize()
+        path = tmp_path / f"{run}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        c = engine.counters()
+        names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+        calls = names.count("mmduet.model.forward") + names.count("mmduet.decode.step")
+        captures = c["graph_captures"] - before["graph_captures"]
+        assert len(served) == len(sessions) and c["decodes"] > 0, run
+        assert names.count("mmduet.graphs.capture") == captures, run
+        assert calls == c["graph_replays"] - before["graph_replays"] + captures, run
+        assert (captures > 0) == (run == "cold"), (run, captures)
+        launches = {e["args"]["correlation"] for e in events
+                    if e.get("name") == "cudaGraphLaunch" and "correlation" in e.get("args", {})}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        assert kernels and launches, run
+        assert any(e["args"].get("correlation") in launches for e in kernels), run
+
+
 def test_converter_needs_no_safetensors_and_loads_onto_the_card(dev, tmp_path, monkeypatch):
     """The GPU machine has no ``safetensors``: the converter reads the
     format itself. `chip_smoke.write_hf_dir` writes an HF directory of a
