@@ -26,7 +26,11 @@ Phases (any failure ends the run with a nonzero exit):
    `scaled_dot_product_attention` a shard) and kernel D (the ViT tower's attention at 32 frames x 729
    patches x 16 heads of 72, at CLIP-L/14-336's 32 x 577 x 16 heads of 64,
    both timed beside `scaled_dot_product_attention`, and at small ragged
-   shapes). Plain versions with one fault (a lost
+   shapes), and the tower's fused passes (`ops.vision_fused`: bias_add3
+   and bias_act bit-equal to their eager chains, the LayerNorm pass within
+   one ulp, at a 32-frame batch of SigLIP, of CLIP-L/14-336 and a rank's
+   MLP half; each timed at the SigLIP shape beside its plain version and
+   its byte bound). Plain versions with one fault (a lost
    tile for kernels C and D, a lost split or key tile for kernel A with
    either cache; a
    dropped group scale or swapped nibble halves for kernel B) must fail the
@@ -111,7 +115,8 @@ Phases (any failure ends the run with a nonzero exit):
    four backward kernels);
 6. the vision tower with kernel D (asked for and by auto) and, for the
    comparison, with the plain version put in the kernel's place from here
-   (frames/s each; the package refuses that route for CUDA tensors), then
+   (frames/s each; the package refuses that route for CUDA tensors) and with
+   the eager chains in the fused passes' place, then
    the batched serving path at the same width:
    `BatchedStreamEngine.serve()` streams 12 sessions of 40-64 frames
    through 8 lanes (generation mode, 8-frame blocks, lanes retiring and
@@ -119,8 +124,9 @@ Phases (any failure ends the run with a nonzero exit):
    in lockstep 32-frame blocks; once without a mesh, once under a (2, 2)
    mesh laid on the one card, whose responses, times and scores must equal
    the first run's exactly, and once (generation mode) with an int8 cache.
-   The launches of kernels A, A' and D must equal what the layers, the
-   mesh's shards, the decoder forwards and the vision batches predict;
+   The launches of kernels A, A' and D and of the fused passes must equal
+   what the layers, the mesh's shards, the decoder forwards and the vision
+   batches predict;
 7. the quantized serving path at the same width: the decoder, embedding
    and LM head quantized to group-128 int4 on the card
    (`quantize_params(bits=4)`), `LiveInferEngine(kv_cache_quant="int8")`,
@@ -265,7 +271,7 @@ from mmduet_tpu_torch.models import (clip, init_clip_params, init_lora, init_mmd
                                      mmduet, quant, qwen2, siglip)
 from mmduet_tpu_torch.models.io import load_config
 from mmduet_tpu_torch.models.qwen2 import kv_arr, kv_quantized, quantize_kv_rows
-from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul
+from mmduet_tpu_torch.ops import _build, attention, bounds, quant_matmul, vision_fused
 from mmduet_tpu_torch.parallel import DATA_AXIS, MODEL_AXIS, ProcessMesh, lane_block, make_mesh
 from mmduet_tpu_torch.train import init_train_state, make_optimizer, make_train_step
 from mmduet_tpu_torch.train.duet import QUERY, duet_batches
@@ -873,6 +879,84 @@ def check_vision_shapes(log, shapes, timed_prefixes: dict, seed: int):
         del q, k, v, got, rms
         torch.cuda.empty_cache()
     return worst, worst_ratio, timed
+
+
+# The tower's fused passes (`ops.vision_fused`): (rows, hidden, MLP width) of a
+# 32-frame SigLIP batch, the timed shape, and of CLIP-L/14-336 and a (1, 2)
+# rank's MLP half, held only
+FUSED_SHAPES = ((32 * 729, 1152, 4304), (32 * 577, 1024, 4096), (4 * 729, 1152, 2152))
+
+
+def check_vision_fused_kernels(log) -> dict:
+    """The three passes of `ops.vision_fused` against their plain versions
+    on the same CUDA tensors at ``FUSED_SHAPES``: `bias_add3` and `bias_act`
+    (both activations) bit-equal, `bias_residual_layernorm` in its four
+    forms with h_new bit-equal and y within `bounds.layernorm_ratio`; at the
+    first shape each pass timed (device ms by graph replay) beside its
+    plain version and its byte bound. Returns the passes' JSON entry
+    (without launches)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    timed, worst, worst_ratio, same = {}, 0.0, 0.0, 0.0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    for n, (rows, C, inter) in enumerate(FUSED_SHAPES):
+        p3 = [randn(rows, C) for _ in range(3)]
+        b3 = [randn(C) for _ in range(3)]
+        got = vision_fused.bias_add3(*p3, *b3)
+        want = vision_fused.bias_add3_ref(*p3, *b3)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"bias_add3 at ({rows}, {C}) is not bit-equal to its plain "
+                                 "version")
+        h, scale, shift = randn(rows, C), 1 + 0.1 * randn(C), randn(C)
+        forms = {"o_proj": (p3[0], b3[0], h, scale, shift), "ln1": (p3[0], None, None, scale, shift),
+                 "last": (p3[0], b3[0], h, None, None)}
+        for form, args in forms.items():
+            (gh, gy), (wh, wy) = (vision_fused.bias_residual_layernorm(*args, 1e-6),
+                                  vision_fused.bias_residual_layernorm_ref(*args, 1e-6))
+            ratio = 0.0 if gy is None else bounds.layernorm_ratio(
+                gy, wy, bounds.layernorm_terms(wh, scale, shift, 1e-6))
+            if not torch.equal(gh, wh) or not ratio <= 1.0:
+                raise AssertionError(f"bias_residual_layernorm ({form}) at ({rows}, {C}): h_new "
+                                     f"equal {torch.equal(gh, wh)}, y at {ratio} of its bound")
+            if gy is not None:
+                worst = max(worst, (gy.float() - wy.float()).abs().max().item())
+                worst_ratio = max(worst_ratio, ratio)
+                same = max(same, (gy != wy).float().mean().item())
+        fc1, b1 = randn(rows, inter), randn(inter)
+        for act in (vision_fused.gelu_tanh, vision_fused.quick_gelu):
+            if not torch.equal(vision_fused.bias_act(fc1, b1, act),
+                               vision_fused.bias_act_ref(fc1, b1, act)):
+                raise AssertionError(f"bias_act ({act.__name__}) at ({rows}, {inter}) is not "
+                                     "bit-equal to its plain version")
+        if n == 0:
+            rows_ = (
+                ("bias_add3", lambda: vision_fused.bias_add3(*p3, *b3),
+                 lambda: vision_fused.bias_add3_ref(*p3, *b3), bounds.bias_add3_bound(rows, C)),
+                ("bias_residual_layernorm",
+                 lambda: vision_fused.bias_residual_layernorm(*forms["o_proj"], 1e-6),
+                 lambda: vision_fused.bias_residual_layernorm_ref(*forms["o_proj"], 1e-6),
+                 bounds.residual_layernorm_bound(rows, C)),
+                ("bias_act", lambda: vision_fused.bias_act(fc1, b1, vision_fused.gelu_tanh),
+                 lambda: vision_fused.bias_act_ref(fc1, b1, vision_fused.gelu_tanh),
+                 bounds.bias_act_bound(rows, inter)))
+            for name, fused, plain, (bound_ms, bound_by) in rows_:
+                ms, plain_ms = _graph_ms(fused), _graph_ms(plain)
+                log(f"{name} at {rows} rows x {C} (MLP {inter}): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}, "
+                    f"{100 * bound_ms / ms:.1f} % of it)")
+                timed[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                               "bound_by": bound_by}
+        del p3, b3, got, want, h, fc1
+        torch.cuda.empty_cache()
+    log(f"vision_fused: {len(FUSED_SHAPES)} shapes, bias_add3 and bias_act bit-equal, the "
+        f"LayerNorm pass's y max|diff| {worst} at most {worst_ratio:.3f} of its bound, "
+        f"at most {100 * same:.4f} % of its values not bit-equal")
+    return {"name": "vision_fused", "route": "cuda",
+            "source": "mmduet_tpu_torch/ops/csrc/vision_fused.cu", "replaces": None,
+            "shape": list(FUSED_SHAPES[0]), "max_abs_err": worst, **timed}
 
 
 # Kernel B at the 7B decoder's weight shapes (H, O): q/o projections, k/v
@@ -2085,12 +2169,12 @@ def _timed(engine, name: str, acc: dict, sync: bool = False) -> None:
 def _kernel_counts() -> dict:
     return dict(attention=attention.LAUNCHES, attention_int8=attention.INT8_LAUNCHES,
                 attention_sharded=attention.SHARDED_LAUNCHES, vision=attention.VISION_LAUNCHES,
-                int4_matmul=quant_matmul.B_LAUNCHES)
+                vision_fused=vision_fused.LAUNCHES, int4_matmul=quant_matmul.B_LAUNCHES)
 
 
 def _zero_counts() -> None:
     attention.LAUNCHES = attention.INT8_LAUNCHES = attention.SHARDED_LAUNCHES = 0
-    attention.VISION_LAUNCHES = quant_matmul.B_LAUNCHES = 0
+    attention.VISION_LAUNCHES = quant_matmul.B_LAUNCHES = vision_fused.LAUNCHES = 0
 
 
 def _session_rows(results: dict, rec) -> dict:
@@ -2231,17 +2315,19 @@ def run_batched_path(cfg, tok, params, log, mesh=None, kv_cache_quant=None,
     sharded = mesh is not None and not rank_mesh
     local = [n for lane, n in admitted if lo <= lane < hi]
     want_vision = v_layers * sum(_vision_batches(n) for n in local)
+    want_fused = (4 * v_layers + 1) * sum(_vision_batches(n) for n in local)
     if (n_answers < 1 or counts["attention"] != layers * shards * engine.forwards
             or counts["attention_int8"] != (counts["attention"] if kv_cache_quant else 0)
             or counts["attention_sharded"] != (counts["attention"] if sharded else 0)
-            or counts["vision"] != want_vision):
+            or counts["vision"] != want_vision or counts["vision_fused"] != want_fused):
         raise AssertionError(
             f"batched serve ({what}): {n_answers} answers, launches {counts}; want the "
             f"attention = {layers} layers x {shards} shards x {engine.forwards} decoder "
             f"forwards (of {engine.dispatches} dispatches and {gens} batched decodes), all of "
             f"them int8 / sharded under an int8 cache / a one-device mesh, and the vision "
             f"attention {want_vision} = {v_layers} layers x the vision batches of the "
-            f"{len(local)} sessions in lanes {lo}-{hi - 1}")
+            f"{len(local)} sessions in lanes {lo}-{hi - 1}, and the fused passes {want_fused} "
+            f"= (4 x {v_layers} + 1) x those batches")
     t_sched, t_gen = acc["_dispatch_sched"], acc["_generate_batch"]
     frames_fed = sum(fed)  # frames rolled back by a trigger are fed again
     log(f"batched generation pass ({what}): {BATCH_SESSIONS} sessions, {n_frames} frames "
@@ -2335,7 +2421,8 @@ def time_vision_routes(cfg, params, log) -> None:
     """The vision tower on 64 frames with kernel D (True and auto, which
     must take kernel D on the card) and, for the comparison only, with the
     plain version put in the kernel's place from here: the package itself
-    refuses the matmul route for CUDA tensors (False)."""
+    refuses the matmul route for CUDA tensors (False); then with the eager
+    chains (`vision_fused`'s plain versions) in the fused passes' place."""
     px = torch.from_numpy(np.random.RandomState(0).randint(
         0, 256, (64, cfg.frame_resolution, cfg.frame_resolution, 3), dtype=np.uint8)).cuda()
     px = mmduet.normalize_pixels(cfg, px).to(torch.bfloat16)
@@ -2371,17 +2458,34 @@ def time_vision_routes(cfg, params, log) -> None:
             siglip.flash_vision_attention = kernel
         if attention.VISION_LAUNCHES != before:
             raise AssertionError("the refused and the plain tower launched kernel D")
+        passes = {name: getattr(siglip, name)
+                  for name in ("bias_add3", "bias_residual_layernorm", "bias_act")}
+        for name in passes:  # the eager chains the passes replaced
+            setattr(siglip, name, getattr(vision_fused, name + "_ref"))
+        fused_before = vision_fused.LAUNCHES
+        try:
+            outs["eager"] = tower(True)()
+            rates["eager"] = 64 / (_time_ms(tower(True), 2, warmup=1) / 1e3)
+        finally:
+            for name, fn in passes.items():
+                setattr(siglip, name, fn)
+        if vision_fused.LAUNCHES != fused_before:
+            raise AssertionError("the tower with the eager chains launched a fused pass")
+    eager = (outs[True].float() - outs["eager"].float()).abs().max().item()
     diff = (outs[True].float() - outs["plain"].float()).abs().max().item()
     scale = outs["plain"].float().abs().max().item()
-    if not torch.equal(outs[None], outs[True]) or not diff <= 0.05 * scale:
+    if (not torch.equal(outs[None], outs[True]) or not diff <= 0.05 * scale
+            or not eager <= 0.05 * scale):
         raise AssertionError(f"vision routes: kernel D vs its plain version max|diff| {diff} "
                              f"(max|embedding| {scale}); auto equals kernel D: "
-                             f"{torch.equal(outs[None], outs[True])}")
+                             f"{torch.equal(outs[None], outs[True])}; the fused passes vs "
+                             f"the eager chains max|diff| {eager}")
     log(f"vision tower + projector + pooling, 64 frames in batches of 32: "
         f"{rates[True]:.2f} frames/s with vision_use_flash=True (kernel D), {rates[None]:.2f} "
         f"with None (auto = kernel D), {rates['plain']:.2f} with the plain version in the "
         f"kernel's place (the matmul route; vision_use_flash=False is refused on the card); "
-        f"embeddings max|diff| {diff:.4f} of max {scale:.2f}")
+        f"embeddings max|diff| {diff:.4f} of max {scale:.2f}; {rates['eager']:.2f} frames/s "
+        f"with the eager chains in the fused passes' place (max|diff| {eager:.4f})")
 
 
 def check_small_batched(log) -> float:
@@ -4591,6 +4695,7 @@ def main(argv=None) -> int:
     full_fwd, full_bwd = check_full_attention_kernel(log)
     sharded = check_sharded_attention_kernel(log)
     vision = check_vision_attention_kernel(log)
+    fused = check_vision_fused_kernels(log)
     tp_kernels = check_tp_kernels(log)
     if opts.kernels_only:
         log(f"kernels checked in {time.perf_counter() - t_start:.1f} s")
@@ -4622,6 +4727,7 @@ def main(argv=None) -> int:
                                     grounding=False)
     sharded["launches"] = meshed["counts"]["attention_sharded"]
     vision["launches"] = batched["counts"]["vision"]
+    fused["launches"] = batched["counts"]["vision_fused"]
     for key, what_ in (("frames_per_s", "generation pass aggregate frames/s"),
                        ("dispatch_ms_per_frame", "frame dispatches, ms per frame fed"),
                        ("decode_tokens_per_s", "decode tokens/s"),
@@ -4699,7 +4805,8 @@ def main(argv=None) -> int:
     check_small_cli_profile(log)
     check_small_train(log)
     log(f"all phases in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [dec, dec_int8, sharded, int4, full_fwd, full_bwd, vision]}))
+    print(json.dumps({"kernels": [dec, dec_int8, sharded, int4, full_fwd, full_bwd, vision,
+                                  fused]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

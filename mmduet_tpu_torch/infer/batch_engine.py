@@ -67,7 +67,7 @@ import torch
 from ..config import DEFAULT_SYSTEM_PROMPT, MMDuetConfig
 from ..models import mmduet
 from ..models.qwen2 import embed_tokens, ints_to, zero_kv_cache
-from ..ops import _build
+from ..ops import _build, vision_fused
 from ..parallel import lane_block, serving_shard_ctx
 from ..parallel.collectives import gather_data
 from ..trace import span
@@ -495,13 +495,18 @@ class BatchedStreamEngine(BatchedStreamScorer):
         self._responses: List[List[Dict[str, Any]]] = [[] for _ in range(B)]
         for name in COUNTERS:  # counts since the reset
             setattr(self, name, 0)
+        self._fused_at_reset = vision_fused.LAUNCHES
 
     def counters(self) -> Dict[str, int]:
         """One flat dict: the engine's `COUNTERS` since its last `reset()`;
         ``graph_replays`` and ``graph_captures`` since the engine was made
-        (`mmduet.EngineGraphs.counts`, zeros off the graph route); and
-        ``kernel_builds``, this process's ``nvcc`` runs (`_build.BUILDS`)."""
+        (`mmduet.EngineGraphs.counts`, zeros off the graph route);
+        ``kernel_builds``, this process's ``nvcc`` runs (`_build.BUILDS`);
+        and ``vision_fused_launches``, the launches of the tower's fused
+        passes in this process since the reset (`vision_fused.LAUNCHES`: 4
+        a layer and 1 a tower call on a CUDA device, 0 on the CPU)."""
         out = {name: getattr(self, name) for name in COUNTERS}
+        out["vision_fused_launches"] = vision_fused.LAUNCHES - self._fused_at_reset
         out.update(self._graphs.counts() if self._graphs is not None
                    else {"graph_replays": 0, "graph_captures": 0})
         out["kernel_builds"] = _build.BUILDS

@@ -16,7 +16,8 @@ tower:
 - spatial tokens pooled at the tower with torch's adaptive average pooling,
   before the projector (no post-projector `spatial_pool`).
 
-The layers are `siglip.encoder_layer` with `quick_gelu`; the attention is
+The layers are `siglip.encoder_layers` with `quick_gelu`, the
+``pre_layrnorm`` the LayerNorm pass of `ops.vision_fused`; the attention is
 `siglip._attend`, i.e. kernel D (`ops.attention.flash_vision_attention`)
 on CUDA tensors, at CLIP-L's 16 heads of 64 over 1 + 576 tokens (336 px).
 """
@@ -28,8 +29,8 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .quant import layer_view
-from .siglip import _layer_norm, _linear, encoder_layer, patchify
+from ..ops.vision_fused import bias_residual_layernorm, quick_gelu
+from .siglip import _linear, encoder_layers, patchify
 
 Params = Dict[str, Any]
 
@@ -54,10 +55,6 @@ def normalize_pixels(frames_uint8: torch.Tensor) -> torch.Tensor:
     return (frames_uint8.float() / 255.0 - mean) / std
 
 
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
 def clip_encode(params: Params, cfg, images: torch.Tensor,
                 use_flash: Optional[bool] = None) -> torch.Tensor:
     """Images (N, H, W, 3), already CLIP-normalized -> last_hidden_state
@@ -68,11 +65,9 @@ def clip_encode(params: Params, cfg, images: torch.Tensor,
     x = _linear(patchify(images, cfg.patch_size), params["patch_embed"], None)  # no bias
     cls = params["class_embed"].to(x.dtype)[None, None].expand(N, 1, x.shape[-1])
     x = torch.cat([cls, x], dim=1) + params["pos_embed"].to(x.dtype)[None]
-    x = _layer_norm(x, params["pre_ln_scale"], params["pre_ln_bias"], cfg.layer_norm_eps)
-    layers = params["layers"]
-    for i in range(cfg.num_layers):
-        x = encoder_layer(x, layer_view(layers, i), cfg, quick_gelu, use_flash)
-    return x
+    _, x = bias_residual_layernorm(x, None, None, params["pre_ln_scale"], params["pre_ln_bias"],
+                                   cfg.layer_norm_eps)
+    return encoder_layers(x, params["layers"], cfg.num_layers, cfg, quick_gelu, use_flash)
 
 
 def adaptive_avg_pool_grid(grid: torch.Tensor, out_hw: Sequence[int]) -> torch.Tensor:

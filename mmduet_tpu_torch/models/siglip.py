@@ -6,7 +6,11 @@ as a loop, features taken at layer -2 by running only the first
 ``num_layers - 1`` layers. Vision attention is
 `ops.attention.flash_vision_attention` (kernel D on CUDA tensors); the
 matmul + softmax + matmul route is its plain version, for CPU tensors
-(`_attend`).
+(`_attend`). The elementwise chains between a layer's products (biases,
+residuals, LayerNorms, the MLP's activation) are the passes of
+`ops.vision_fused`: fused kernels on CUDA tensors, the eager chains on CPU
+tensors. A layer hands the next one its residual stream and the next LN1's
+output (`encoder_layers`).
 
 On a rank of a process mesh the layers are the rank's local leaves
 (`parallel.sharding.shard_params`): its heads and its part of the MLP's
@@ -21,14 +25,14 @@ layer runs (`collectives.data_gatherer`).
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..config import SiglipConfig
 from ..ops.attention import (KernelRefused, flash_vision_attention,
                              flash_vision_attention_ref)
+from ..ops.vision_fused import bias_act, bias_add3, bias_residual_layernorm, gelu_tanh
 from ..parallel.collectives import (copy_to_model, cut, data_gatherer, reduce_model,
                                     whole_over_data)
 from .quant import is_quantized, layer_view, out_width, quantized_matmul
@@ -36,29 +40,24 @@ from .quant import is_quantized, layer_view, out_width, quantized_matmul
 Params = Dict[str, Any]
 
 
-def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    dt = x.dtype
-    x = x.float()
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    out = (x - mu) * torch.rsqrt(var + eps)
-    return (out * scale.float() + bias.float()).to(dt)
+def _product(y: torch.Tensor, w: Any, partial: bool = False) -> torch.Tensor:
+    """``y @ w`` in the activation dtype: f32 accumulation, one rounding, as
+    the JAX einsum + astype. An int8 leaf ``{"qw", "qs"}``
+    (`quant.quantize_vision`) is the product with the int8 values cast to
+    the activation dtype, scaled per output channel in f32 before the
+    rounding. ``partial``: ``y`` and ``w`` are a rank's slice of the input
+    dim; the f32 product is summed over the model axis before the
+    rounding."""
+    if partial:
+        return reduce_model(quantized_matmul(y, w)).to(y.dtype)
+    return quantized_matmul(y, w).to(y.dtype) if is_quantized(w) else torch.matmul(y, w)
 
 
 def _linear(y: torch.Tensor, w: Any, bias: Optional[torch.Tensor],
             partial: bool = False) -> torch.Tensor:
-    """``y @ w + bias`` in the activation dtype (f32 accumulation, one
-    rounding, then the bias, if any), as the JAX einsum + astype + bias. An
-    int8 leaf ``{"qw", "qs"}`` (`quant.quantize_vision`) is the product
-    with the int8 values cast to the activation dtype, scaled per output
-    channel in f32 before the rounding. ``partial``: ``y`` and ``w`` are a
-    rank's slice of the input dim; the f32 product is summed over the model
-    axis before the rounding and the bias."""
-    if partial:
-        out = reduce_model(quantized_matmul(y, w)).to(y.dtype)
-    else:
-        out = quantized_matmul(y, w).to(y.dtype) if is_quantized(w) else torch.matmul(y, w)
+    """`_product`, then the bias, if any, added in the activation dtype
+    (after the sum over the model axis when ``partial``)."""
+    out = _product(y, w, partial)
     return out if bias is None else out + bias.to(y.dtype)
 
 
@@ -96,35 +95,66 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, hd: int,
     return flash_vision_attention_ref(q, k, v)
 
 
-def encoder_layer(h: torch.Tensor, p: Params, cfg,
+def encoder_layer(h: torch.Tensor, y: torch.Tensor, p: Params, cfg,
                   act: Callable[[torch.Tensor], torch.Tensor],
-                  use_flash: Optional[bool] = None) -> torch.Tensor:
-    """One pre-LN ViT encoder layer: LN -> MHA -> residual -> LN -> MLP ->
-    residual. Shared by the SigLIP and CLIP towers, which differ only in
-    the MLP activation ``act`` (tanh-GELU vs quick_gelu), applied in f32
-    and cast back. ``cfg`` needs num_heads / hidden_size /
-    intermediate_size / layer_norm_eps; the leaves' head count may be a
-    rank's own (their products then partial, summed over the model axis)."""
+                  use_flash: Optional[bool] = None,
+                  next_p: Optional[Params] = None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-LN ViT encoder layer, MHA -> residual -> LN -> MLP ->
+    residual, on the residual stream ``h`` and its LN1 output ``y``.
+    Returns (the new h, the next layer's LN1 output of it, from the
+    ``ln1_*`` leaves of ``next_p``; None when ``next_p`` is None).
+
+    Shared by the SigLIP and CLIP towers, which differ only in the MLP
+    activation ``act`` (`vision_fused.gelu_tanh` vs `quick_gelu`), applied
+    in f32 and cast back. The elementwise steps between the products are
+    the passes of `ops.vision_fused` (kernels on CUDA tensors, the eager
+    chains on CPU tensors): q/k/v biases; o bias, residual and LN2; fc1
+    bias and ``act``; fc2 bias, residual and the next LN1. ``cfg`` needs
+    num_heads / hidden_size / intermediate_size / layer_norm_eps; the
+    leaves' head count may be a rank's own (their products then partial,
+    summed over the model axis before the bias)."""
     N, T, C = h.shape
     hd = cfg.hidden_size // cfg.num_heads
+    eps = cfg.layer_norm_eps
 
-    heads_cut = cut(out_width(p["q_proj"]), C, "vision q_proj")
-    y = _layer_norm(h, p["ln1_scale"], p["ln1_bias"], cfg.layer_norm_eps)
-    y = copy_to_model(y) if heads_cut else y
-    q = _linear(y, p["q_proj"], p["q_bias"]).reshape(N, T, -1, hd)
-    k = _linear(y, p["k_proj"], p["k_bias"]).reshape(N, T, -1, hd)
-    v = _linear(y, p["v_proj"], p["v_bias"]).reshape(N, T, -1, hd)
-    attn = _attend(q, k, v, hd, use_flash).reshape(N, T, -1)
-    h = h + _linear(attn, p["o_proj"], p["o_bias"],
-                    partial=cut(attn.shape[-1], C, "vision o_proj"))
+    if cut(out_width(p["q_proj"]), C, "vision q_proj"):
+        y = copy_to_model(y)
+    q, k, v = bias_add3(_product(y, p["q_proj"]), _product(y, p["k_proj"]),
+                        _product(y, p["v_proj"]), p["q_bias"], p["k_bias"], p["v_bias"])
+    attn = _attend(q.reshape(N, T, -1, hd), k.reshape(N, T, -1, hd), v.reshape(N, T, -1, hd),
+                   hd, use_flash).reshape(N, T, -1)
+    o = _product(attn, p["o_proj"], partial=cut(attn.shape[-1], C, "vision o_proj"))
+    h, y = bias_residual_layernorm(o, p["o_bias"], h, p["ln2_scale"], p["ln2_bias"], eps)
 
-    y = _layer_norm(h, p["ln2_scale"], p["ln2_bias"], cfg.layer_norm_eps)
     if cut(out_width(p["fc1"]), cfg.intermediate_size, "vision fc1"):
         y = copy_to_model(y)
-    y = _linear(y, p["fc1"], p["fc1_bias"])
-    y = act(y.float()).to(h.dtype)
-    return h + _linear(y, p["fc2"], p["fc2_bias"],
-                       partial=cut(y.shape[-1], cfg.intermediate_size, "vision fc2"))
+    y = bias_act(_product(y, p["fc1"]), p["fc1_bias"], act)
+    out = _product(y, p["fc2"], partial=cut(y.shape[-1], cfg.intermediate_size, "vision fc2"))
+    ln = (None, None) if next_p is None else (next_p["ln1_scale"], next_p["ln1_bias"])
+    return bias_residual_layernorm(out, p["fc2_bias"], h, *ln, eps)
+
+
+def encoder_layers(x: torch.Tensor, layers: Params, num_layers: int, cfg,
+                   act: Callable[[torch.Tensor], torch.Tensor],
+                   use_flash: Optional[bool] = None) -> torch.Tensor:
+    """The first ``num_layers`` layers of a stack on ``x``: the first
+    layer's LN1 as a pass of its own (`vision_fused.bias_residual_layernorm`
+    with no bias and no residual), then each `encoder_layer`, which hands
+    the next one its residual stream and LN1 output; the last one returns
+    the stream alone. Leaves cut over the data axis are gathered one layer
+    ahead (`collectives.data_gatherer`), as the layer before needs the next
+    one's LN1."""
+    if num_layers == 0:
+        return x
+    whole = data_gatherer(layers)
+    p = whole(layer_view(layers, 0))
+    _, y = bias_residual_layernorm(x, None, None, p["ln1_scale"], p["ln1_bias"],
+                                   cfg.layer_norm_eps)
+    for i in range(num_layers):
+        next_p = whole(layer_view(layers, i + 1)) if i + 1 < num_layers else None
+        x, y = encoder_layer(x, y, p, cfg, act, use_flash, next_p)
+        p = next_p
+    return x
 
 
 def siglip_encode(
@@ -142,15 +172,7 @@ def siglip_encode(
         cfg.num_layers + feature_layer + 1 if feature_layer < 0
         else feature_layer + 1
     )
-    layers = params["layers"]
-    whole = data_gatherer(layers)
-    for i in range(num_layers):
-        x = encoder_layer(x, whole(layer_view(layers, i)), cfg, _tanh_gelu, use_flash)
-    return x
-
-
-def _tanh_gelu(x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x, approximate="tanh")
+    return encoder_layers(x, params["layers"], num_layers, cfg, gelu_tanh, use_flash)
 
 
 def normalize_pixels(frames_uint8: torch.Tensor) -> torch.Tensor:

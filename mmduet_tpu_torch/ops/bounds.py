@@ -65,6 +65,21 @@ practice (n 2^-24 at worst). B_REL = 2^-18 leaves that room, and a plain
 version that drops one group's scale or swaps the nibble halves misses it
 by orders of magnitude (`int4_matmul_mutated`).
 
+**The tower's fused passes** (`ops.vision_fused`): `bias_add3` and
+`bias_act` are bit-equal to their plain versions on the same CUDA tensors
+(the same f32 operations, each rounded where the eager chain rounds);
+`bias_residual_layernorm`'s h_new is bit-equal, and its y, per element:
+``|kernel - plain| <= ulp(plain) + LN_ABS_REL * (|xhat * scale| + |shift|)``
+(`layernorm_ratio`). The LayerNorm's f32 sums run in another order than
+the eager reductions', which moves the mean and 1/std by a few f32 ulps:
+the f32 value before the rounding then differs by some 2^-22 of the
+terms |xhat * scale| + |shift|, so the two bf16 roundings land at most one
+bf16 ulp apart, except where xhat * scale + shift cancels to a value whose
+bf16 ulp is below that f32 error (there an output near zero can be tens of
+its own ulps off, at an absolute error of 2^-22 of the terms). LN_ABS_REL =
+2^-16 gives that term 64 times room; a pass that lost its shift, its scale
+or the residual misses the bound by far more.
+
 The second half of the module computes each kernel's roofline bound: the
 least time an H100 could take for the call, the larger of the bytes it
 must move (each input read once, each output written once) over 3.35
@@ -83,6 +98,7 @@ from .quant_matmul import grouped_product, unpack_groups
 ROW_REL, ROW_ABS = 2.0**-8, 1e-5
 SIGMAS, FULL_ABS = 8.0, 1e-5
 B_REL, B_ABS = 2.0**-18, 1e-6
+LN_ABS_REL = 2.0**-16
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOP_PER_S = 989e12   # dense tensor-core peak, published
@@ -305,6 +321,39 @@ def int4_matmul_ratio(got: torch.Tensor, want: torch.Tensor, magnitude: torch.Te
 
 
 # ---------------------------------------------------------------------------
+# The tower's fused passes
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each value of ``t`` (f32): 2^(e - 8) for |t| = m
+    2^e, m in [0.5, 1); the subnormal step at zero and below."""
+    t = t.float()
+    _, e = torch.frexp(t)
+    e = torch.where(t == 0, torch.full_like(e, -125), e)
+    return torch.ldexp(torch.ones_like(t), (e - 8).clamp(min=-133))
+
+
+@torch.no_grad()
+def layernorm_terms(h: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """``|xhat * scale| + |shift|`` in f32 for every element of the
+    LayerNorm of ``h``, xhat = (h - mean) / std: the magnitude of the sum
+    that the pass rounds."""
+    x = h.float()
+    mu = x.mean(-1, keepdim=True)
+    xhat = (x - mu) * torch.rsqrt((x - mu).square().mean(-1, keepdim=True) + eps)
+    return (xhat * scale.float()).abs() + shift.float().abs()
+
+
+def layernorm_ratio(got: torch.Tensor, want: torch.Tensor, terms: torch.Tensor) -> float:
+    """`vision_fused.bias_residual_layernorm`'s y: the largest ``|got -
+    want|`` over ``ulp(want) + LN_ABS_REL * terms`` (<= 1 passes)."""
+    bound = bf16_ulp(want) + LN_ABS_REL * terms
+    return ((got.float() - want.float()).abs() / bound).max().item()
+
+
+# ---------------------------------------------------------------------------
 # Roofline bounds, from shapes: (milliseconds, "bytes" or "operations")
 # ---------------------------------------------------------------------------
 
@@ -356,3 +405,24 @@ def vision_attention_bound(N: int, T: int, nh: int, hd: int) -> Tuple[float, str
     """Kernel D: q, k, v read and o written once (bf16); two products over
     all T x T (query, key) pairs of every head."""
     return _bound(4 * N * T * nh * hd * 2, 2 * 2.0 * hd * N * nh * T * T)
+
+
+def bias_add3_bound(rows: int, width: int) -> Tuple[float, str]:
+    """`vision_fused.bias_add3`: q, k, v (rows, width) read and written once,
+    their three biases read once (bf16)."""
+    return _bound(3 * (2 * rows * width + width) * 2, 0.0)
+
+
+def residual_layernorm_bound(rows: int, width: int, bias: bool = True, residual: bool = True,
+                             norm: bool = True) -> Tuple[float, str]:
+    """`vision_fused.bias_residual_layernorm`: p (and h) read, h_new (when
+    a bias or a residual makes it new) and y (with the LayerNorm) written,
+    the bias and the LayerNorm's scale and shift read once (bf16)."""
+    rows_io = 1 + residual + (bias or residual) + norm
+    return _bound((rows_io * rows * width + (bias + 2 * norm) * width) * 2, 0.0)
+
+
+def bias_act_bound(rows: int, width: int) -> Tuple[float, str]:
+    """`vision_fused.bias_act`: fc1's product read and the activation
+    written once, the bias read once (bf16)."""
+    return _bound((2 * rows * width + width) * 2, 0.0)

@@ -300,8 +300,9 @@ class Serving:
 
 def _vision_moments(cfg: MMDuetConfig, N: int, M: int, clip: bool) -> Dict[str, List]:
     """The tower's call on N frames (`mmduet.visual_embed`): at its MLP's
-    GELU (`siglip.encoder_layer`), and at the projector and the bilinear
-    pooling (`mmduet.project`, `spatial_pool`); a rank of a model axis of
+    activation (`siglip.encoder_layer`'s fused pass on the card), and at
+    the projector and the bilinear pooling (`mmduet.project`,
+    `spatial_pool`); a rank of a model axis of
     M holds its 1/M of the heads, the MLP units and the projector's fc1."""
     v, H = cfg.vision, cfg.text.hidden_size
     C, Iv = v.hidden_size, v.intermediate_size // M
@@ -312,8 +313,8 @@ def _vision_moments(cfg: MMDuetConfig, N: int, M: int, clip: bool) -> Dict[str, 
         pixels,
         ("tower rows", N * P * (2 * C + 4 * (C // M)) * BF16,
          f"bf16 layer input and output ({N}, {P}, {C}), q/k/v and attention ({N}, {P}, {C // M})"),
-        ("tower MLP", N * P * Iv * (BF16 + 2 * F32),
-         f"fc1 out bf16, its f32 copy and the f32 GELU ({N}, {P}, {Iv})"),
+        ("tower MLP", N * P * Iv * 2 * BF16,
+         f"fc1 out and its activation, bf16 ({N}, {P}, {Iv}; `vision_fused.bias_act`)"),
     ]}
     if clip:  # CLS + adaptive-pooled patches go to the projector: small
         return out
@@ -551,8 +552,9 @@ def training_budget(c: Training) -> Budget:
         "vision": [("pixels", n * px * px * 3 * (F32 + BF16), f"f32 and bf16 ({n}, {px}, {px}, 3)"),
                    ("tower rows", n * P * (2 * C + 4 * (C // M)) * BF16,
                     f"bf16 ({n}, {P}, {C}) x 2 and ({n}, {P}, {C // M}) x 4"),
-                   ("tower MLP", n * P * Iv * (BF16 + 2 * F32),
-                    f"bf16 fc1 out, f32 copy and GELU ({n}, {P}, {Iv})")],
+                   ("tower MLP", n * P * Iv * 2 * BF16,
+                    f"fc1 out and its activation, bf16 ({n}, {P}, {Iv}; "
+                    "`vision_fused.bias_act`)")],
     }
     if c.param_mode == "fsdp" and D > 1:
         # leaves cut over data are gathered where they are used: one layer

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: `flash_decode_attention` (kernel A,
 with a bf16 and with an int8 cache), `flash_decode_attention_sharded`
 (kernel A', A per mesh shard), `int4_matmul` (kernel B),
-`flash_full_attention` (kernel C, forward and backward) and
-`flash_vision_attention` (kernel D) against their plain PyTorch versions,
-their refusals, and the CLIs' use of them.
+`flash_full_attention` (kernel C, forward and backward),
+`flash_vision_attention` (kernel D) and the tower's fused passes
+(`ops.vision_fused`) against their plain PyTorch versions, their
+refusals, and the CLIs' use of them.
 
 Every test needs an NVIDIA GPU (`cuda` marker) and skips without one. The
 file imports no jax, so it also runs where JAX is not installed:
@@ -25,7 +26,7 @@ from mmduet_tpu_torch.eval.inference import main as cli_main
 from mmduet_tpu_torch.infer import LiveInferEngine
 from mmduet_tpu_torch.infer.state import DEFAULT_BUCKETS
 from mmduet_tpu_torch.models import init_lora, init_mmduet_params, mmduet, quant, qwen2
-from mmduet_tpu_torch.ops import attention, bounds, quant_matmul
+from mmduet_tpu_torch.ops import attention, bounds, quant_matmul, vision_fused
 from mmduet_tpu_torch.parallel import make_mesh
 from mmduet_tpu_torch.stream import CharTokenizer
 from mmduet_tpu_torch.train.loop import main as train_cli_main
@@ -1023,6 +1024,128 @@ def test_encode_frames_on_the_card_runs_the_tower_in_bf16(dev):
     with torch.inference_mode():
         want = torch.cat([siglip.siglip_encode(bf16, cfg.vision, px[i:i + 4]) for i in (0, 4)])
     np.testing.assert_array_equal(got, want[:6].float().cpu().numpy())
+
+
+# The tower's fused passes: (hidden, MLP) widths of SigLIP-so400m, CLIP-L, a
+# (1, 2) rank's halves, and a tiny tower; rows of a 32-frame SigLIP batch, a
+# 4-frame tail and one frame
+FUSED_WIDTHS = [(1152, 4304), (1024, 4096), (576, 2152), (64, 128)]
+FUSED_ROWS = [32 * 729, 4 * 729, 729]
+
+
+def _fused_operands(rows, width, dev, seed, n_rows=3, n_vectors=3):
+    """``n_rows`` (rows, width) operands, then ``n_vectors`` (width,) ones."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+            for shape in ((rows, width),) * n_rows + ((width,),) * n_vectors]
+
+
+@pytest.mark.parametrize("rows", FUSED_ROWS)
+@pytest.mark.parametrize("widths", FUSED_WIDTHS, ids=lambda w: f"{w[0]}_{w[1]}")
+def test_vision_fused_passes_match_their_plain_versions(widths, rows, dev):
+    """`bias_add3` and `bias_act` (both activations) bit-equal to their
+    eager chains on the same CUDA tensors; the LayerNorm pass in each of its
+    forms with h_new bit-equal and y within one bf16 ulp, or the f32 error
+    of a sum that cancels (`bounds.layernorm_ratio`); one launch a call."""
+    C, inter = widths
+    q, k, v, bq, bk, bv = _fused_operands(rows, C, dev, rows + C)
+    before = vision_fused.LAUNCHES
+    got = vision_fused.bias_add3(q, k, v, bq, bk, bv)
+    assert vision_fused.LAUNCHES == before + 1
+    assert all(g.is_contiguous() for g in got)
+    for g, w in zip(got, vision_fused.bias_add3_ref(q, k, v, bq, bk, bv)):
+        assert torch.equal(g, w)
+    scale = 1 + 0.1 * bk
+    for args in ((q, bq, k, scale, bv), (q, None, None, scale, bv), (q, bq, k, None, None),
+                 (q, None, k, scale, bv)):
+        before = vision_fused.LAUNCHES
+        h_new, y = vision_fused.bias_residual_layernorm(*args, 1e-6)
+        assert vision_fused.LAUNCHES == before + 1
+        want_h, want_y = vision_fused.bias_residual_layernorm_ref(*args, 1e-6)
+        assert torch.equal(h_new, want_h)
+        assert (y is None) == (want_y is None)
+        if y is not None:
+            terms = bounds.layernorm_terms(want_h, args[3], args[4], 1e-6)
+            assert bounds.layernorm_ratio(y, want_y, terms) <= 1.0
+    fc1, b1 = _fused_operands(rows, inter, dev, inter, n_rows=1, n_vectors=1)
+    for act in (vision_fused.gelu_tanh, vision_fused.quick_gelu):
+        before = vision_fused.LAUNCHES
+        out = vision_fused.bias_act(fc1, b1, act)
+        assert vision_fused.LAUNCHES == before + 1
+        assert torch.equal(out, vision_fused.bias_act_ref(fc1, b1, act)), act.__name__
+
+
+def test_vision_fused_ln_bound_is_tight(dev):
+    """A plain LayerNorm pass that lost its shift or its scale, or normed
+    without the residual, misses the bound by far."""
+    q, k, _, bq, bk, bv = _fused_operands(729, 1152, dev, 3)
+    h, y = vision_fused.bias_residual_layernorm(q, bq, k, 1 + 0.1 * bk, bv, 1e-6)
+    terms = bounds.layernorm_terms(h, 1 + 0.1 * bk, bv, 1e-6)
+    for args in ((q, bq, k, 1 + 0.1 * bk, torch.zeros_like(bv)),
+                 (q, bq, k, torch.ones_like(bk), bv), (q, bq, None, 1 + 0.1 * bk, bv)):
+        wrong = vision_fused.bias_residual_layernorm_ref(*args, 1e-6)[1]
+        assert bounds.layernorm_ratio(y, wrong, terms) > 10.0
+
+
+def test_vision_fused_passes_refuse_what_they_do_not_take(dev):
+    q, k, v, bq, bk, bv = _fused_operands(10, 64, dev, 0)
+    passes = {
+        "bias_add3": lambda p, b: vision_fused.bias_add3(p, k, v, b, bk, bv),
+        "bias_residual_layernorm": lambda p, b: vision_fused.bias_residual_layernorm(
+            p, b, k, bk, bv, 1e-6),
+        "bias_act": lambda p, b: vision_fused.bias_act(p, b, vision_fused.gelu_tanh),
+    }
+    strided = torch.zeros((10, 128), device=dev, dtype=torch.bfloat16)[:, :64]
+    grad = q.clone().requires_grad_(True)
+    before = vision_fused.LAUNCHES
+    for name, call in passes.items():
+        with pytest.raises(attention.KernelRefused, match="bfloat16"):
+            call(q.float(), bq)
+        with pytest.raises(attention.KernelRefused, match="bfloat16"):
+            call(q, bq.float())
+        with pytest.raises(attention.KernelRefused, match="contiguous"):
+            call(strided, bq)
+        with pytest.raises(attention.KernelRefused, match="backward"):
+            call(grad, bq)
+        with pytest.raises(attention.KernelRefused, match="multiple of 8"):
+            call(q[:, :60].contiguous(), bq[:60].contiguous())
+        with pytest.raises(attention.KernelRefused, match="on cpu"):
+            call(q, bq.cpu())
+        with torch.no_grad():  # the gradient flag does not matter under no_grad
+            call(grad, bq)
+    assert vision_fused.LAUNCHES == before + 3
+    with pytest.raises(attention.KernelRefused, match="against rows"):
+        vision_fused.bias_residual_layernorm(q, bq, k[:5], bk, bv, 1e-6)
+    wide = torch.zeros((2, 4616), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(attention.KernelRefused, match="at most 4608"):
+        vision_fused.bias_residual_layernorm(wide, None, None, wide[0], wide[0], 1e-6)
+    with pytest.raises(attention.KernelRefused, match="activation"):
+        vision_fused.bias_act(q, bq, torch.nn.functional.silu)
+    assert vision_fused.LAUNCHES == before + 3
+
+
+def test_siglip_tower_on_the_card_runs_the_fused_passes(dev):
+    """`siglip_encode` at SigLIP-so400m's widths (2 of its layers run, 2
+    frames of 384 px) on the card: 4 fused launches a layer and the first
+    LN1, features within the tower tests' 0.05 x max of the eager CPU
+    tower's in f32."""
+    from mmduet_tpu_torch.config import SiglipConfig
+    from mmduet_tpu_torch.models import siglip
+
+    vcfg = SiglipConfig(num_layers=3)
+    cfg = tiny_config().replace(vision=vcfg, frame_resolution=384)
+    vision = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(2), dev,
+                                torch.bfloat16)["vision"]
+    px = torch.rand((2, 384, 384, 3), device=dev).mul(2).sub(1).to(torch.bfloat16)
+    before, d_before = vision_fused.LAUNCHES, attention.VISION_LAUNCHES
+    with torch.inference_mode():
+        got = siglip.siglip_encode(vision, vcfg, px)
+    assert vision_fused.LAUNCHES - before == 4 * 2 + 1
+    assert attention.VISION_LAUNCHES - d_before == 2
+    want = siglip.siglip_encode(_map(lambda t: t.float().cpu(), vision), vcfg, px.float().cpu())
+    scale = want.abs().max().item()
+    assert got.shape == want.shape == (2, 729, 1152)
+    assert (got.float().cpu() - want).abs().max().item() <= 0.05 * scale
 
 
 def test_cli_batch_streams_runs_on_the_card_through_the_kernels(dev, tmp_path, monkeypatch):

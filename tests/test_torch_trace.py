@@ -7,7 +7,10 @@ every span of the engine, the tower and the decode loop in the exported
 Chrome trace, each inside the span that calls it; the span counts equal
 the counters, and the counters add up to what `serve()` returned. With
 no profiler running no span enters `record_function`. The graph route's
-``graphs.capture`` and the kernels' ``ops.build`` run on a card only."""
+``graphs.capture`` and the kernels' ``ops.build`` run on a card only, as
+do the tower's fused passes that ``vision_fused_launches`` counts (the
+`cuda`-marked test, which runs on the card with
+``python -m pytest --noconftest tests/test_torch_trace.py -m cuda``)."""
 
 import json
 
@@ -19,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 from mmduet_tpu_torch.config import TestArgs as ServeArgs, tiny_config
 from mmduet_tpu_torch.infer import BatchedStreamEngine
 from mmduet_tpu_torch.models.params import init_mmduet_params
+from mmduet_tpu_torch.ops import vision_fused
 from mmduet_tpu_torch.stream import CharTokenizer
 
 TOK = CharTokenizer(frame_num_tokens=4)
@@ -145,3 +149,44 @@ def test_no_record_function_without_a_profiler(engine, monkeypatch):
     engine.reset()
     served = list(engine.serve(sessions()))
     assert len(served) == len(LENGTHS) and engine.counters()["decodes"] > 0
+
+
+def test_vision_fused_launches_is_zero_on_the_cpu(engine):
+    engine.reset()
+    before = vision_fused.LAUNCHES
+    served = list(engine.serve(sessions()))
+    c = engine.counters()
+    assert len(served) == len(LENGTHS) and c["vision_batches"] == len(LENGTHS)
+    assert c["vision_fused_launches"] == 0 == vision_fused.LAUNCHES - before
+
+
+@pytest.mark.cuda
+def test_vision_fused_launches_counts_every_pass_of_a_served_run_on_the_card():
+    """On the card every tower batch of `_admit` runs the fused passes: 4 a
+    layer and the first layer's LN1, so the counter is ``vision_batches x
+    (4 x layers + 1)`` (a layer that fell back to the eager chain would
+    leave it short), counted since the engine's `reset()`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the fused passes have no CPU mode")
+    dev = torch.device("cuda")
+    cfg = tiny_config(hidden_size=512).replace(v_placeholder_id=511, eos_token_id=257)
+    params = init_mmduet_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                                torch.bfloat16)
+    args = ServeArgs(frame_fps=1.0, max_num_frames=40, max_new_tokens=4,
+                     stream_end_score_sum_threshold=1.2)
+    engine = BatchedStreamEngine(params, cfg, CharTokenizer(frame_num_tokens=cfg.frame_num_tokens),
+                                 args, n_streams=2, block_frames=4)
+    engine.prewarm(vision=True)  # the tower's launches here come before the reset
+    engine.reset()
+    r = np.random.RandomState(1)
+    runs = [{"frames": r.randint(0, 256, (n, 32, 32, 3), dtype=np.uint8), "fps": 1.0,
+             "conversation": [{"role": "user", "content": "what?", "time": 0.0}]}
+            for n in (9, 40, 33)]  # one batch, two full batches of 32 and a tail
+    served = list(engine.serve(runs))
+    torch.cuda.synchronize()
+    c = engine.counters()
+    layers = cfg.vision.num_layers - 1  # features at layer -2
+    assert len(served) == len(runs) and c["vision_batches"] == 1 + 2 + 2
+    assert c["vision_fused_launches"] == c["vision_batches"] * (4 * layers + 1)
+    engine.reset()
+    assert engine.counters()["vision_fused_launches"] == 0
