@@ -55,10 +55,10 @@ def main(argv=None) -> int:
 
     for k, seed in enumerate(int(x) for x in args.seeds.split(",")):
         t0 = time.perf_counter()
-        served = harness.serve_window(cfg_file, mix, seed, args.seconds, False, dev, t0)
+        served = harness.serve_window(cfg_file, mix, seed, args.seconds, False, dev, t0, ROOT)
         t1 = time.perf_counter()
-        numbers, control = harness.reference_check(served["served"], served["shapes"], seed,
-                                                   dev, with_control=k < args.control)
+        numbers, control = harness.reference_check(served, seed, dev,
+                                                   with_control=k < args.control)
         row = dict(workload=args.workload, seed=seed, **numbers, correct=passes(numbers),
                    answers=len(served["answers"]), frames=served["run"].frames_scored,
                    window_s=served["window_s"], setup_s=served["setup_s"],

@@ -2,11 +2,13 @@
 `BatchedStreamEngine.serve()`, the check against the reference, the
 result line.
 
-Set-up makes the weights on the device from the configuration's seed
-(int4-quantized on the device where the configuration says so), the
-traffic's videos, the engine as the serving CLI makes
-it for ``--batch_streams`` (the graph route), and warms every shape the
-traffic uses: `prewarm(vision=True, generate=True)`, and what it leaves
+Set-up finds the configuration's decoder architecture and its reference
+by name (`benchmark.spec.architecture`, `benchmark.spec.reference`), makes
+the weights of the architecture's leaves on the device from the
+configuration's seed (int4-quantized on the device where the configuration
+says so), the traffic's videos, the engine as the serving CLI makes it for
+``--batch_streams`` (the graph route), and warms every shape the traffic
+uses: `prewarm(vision=True, generate=True)`, and what it leaves
 cold (a decode of fewer than all lanes, whose prompt's graph takes a
 commit mask; the tower's batch at each session length's remainder). The
 window then serves sessions from an endless generator, with continuous
@@ -42,9 +44,9 @@ import torch
 
 from . import spec as specs
 from . import traffic, weights
-from .model_shapes import Shapes, shapes
+from .model_shapes import Shapes
 from .record import Call, Run
-from .reference import check, model
+from .reference import check
 from .trace import WINDOW_SPAN, breakdown, kernel_intervals
 
 SLICE_SHARE = 0.25  # the traced slice: the window's last rounds, from this share of it before
@@ -61,26 +63,6 @@ class WindowClosed(Exception):
 
 class HookError(RuntimeError):
     """The harness's spans did not see the work: the run has no result."""
-
-
-def port_config(s: Shapes):
-    """The port's configuration of a file that `model_shapes.shapes` has
-    accepted: LLaVA-OneVision's Qwen2 decoder (q/k/v bias, an untied head),
-    the tower, MMDuet's bilinear pooling; nothing else is served."""
-    from mmduet_tpu_torch.config import MMDuetConfig, Qwen2Config, SiglipConfig
-
-    return MMDuetConfig(
-        text=Qwen2Config(vocab_size=s.vocab, hidden_size=s.hidden,
-                         intermediate_size=s.intermediate, num_layers=s.layers,
-                         num_heads=s.heads, num_kv_heads=s.kv_heads, head_dim=s.head_dim,
-                         rope_theta=s.rope_theta, rms_norm_eps=s.rms_eps,
-                         tie_word_embeddings=s.tie, qkv_bias=s.qkv_bias),
-        vision=SiglipConfig(image_size=s.v_image, patch_size=s.patch, hidden_size=s.v_hidden,
-                            intermediate_size=s.v_intermediate, num_layers=s.v_layers,
-                            num_heads=s.v_heads, layer_norm_eps=s.v_eps),
-        frame_resolution=s.v_image, frame_num_tokens=s.frame_tokens,
-        video_pooling_stride=s.pool_stride, spatial_pool_mode=s.pool_mode,
-    )
 
 
 def serving_args(mix: dict):
@@ -107,10 +89,11 @@ class Recorder:
     """The harness's spans and counts around the engine's calls (instance
     attributes that wrap its bound methods)."""
 
-    def __init__(self, engine, tok, s: Shapes, seconds: float, trace: bool, sync: Callable):
+    def __init__(self, engine, tok, s: Shapes, arch, seconds: float, trace: bool,
+                 sync: Callable):
         self.engine, self.tok, self.s = engine, tok, s
         self.seconds, self.trace, self.sync = seconds, trace, sync
-        self.run = Run(s)
+        self.run = Run(s, arch)
         self.answers: List[check.Answer] = []
         self.lanes: Dict[int, int] = {}  # session -> lane
         self.profiling = False
@@ -280,34 +263,37 @@ def warm_cold_shapes(engine, mix: dict, device) -> None:
                              VISION_BATCH)
 
 
-def build(s: Shapes, device):
-    """(port config, served weights, tokenizer)."""
+def build(arch, s: Shapes, device):
+    """(port config, served weights, tokenizer) of architecture ``arch``."""
     from mmduet_tpu_torch.models.quant import quantize_params
     from mmduet_tpu_torch.stream import CharTokenizer
 
-    params = weights.make(s, s.weights_seed, device)
+    params = weights.make(arch.leaves(s), s.weights_seed, device)
     if s.weight_bits == 4:
         params = quantize_params(params, bits=4, donate=True)
     elif s.weight_bits is not None:
         raise ValueError(f"weight_bits {s.weight_bits}: the benchmark serves bf16 or int4")
     tok = CharTokenizer(frame_num_tokens=s.frame_tokens, vocab_size=s.vocab)
-    cfg = port_config(s).replace(v_placeholder_id=tok.v_placeholder_id,
-                                 eos_token_id=tok.eos_token_id)
+    cfg = arch.port_config(s).replace(v_placeholder_id=tok.v_placeholder_id,
+                                      eos_token_id=tok.eos_token_id)
     return cfg, params, tok
 
 
 def serve_window(cfg_file: dict, mix: dict, seed: int, seconds: float, trace: bool,
-                 device, t_start: float, faults: Optional[Callable] = None) -> dict:
+                 device, t_start: float, root=specs.ROOT,
+                 faults: Optional[Callable] = None) -> dict:
     """Set-up and the window. Returns what the check and the result need;
     ``faults`` (tests only) breaks the engine before the window."""
     from mmduet_tpu_torch.infer import BatchedStreamEngine
 
     check.supported(mix)
+    arch = specs.architecture(cfg_file, root)
+    ref = specs.reference(cfg_file, root)
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    s = shapes(cfg_file)
-    cfg, params, tok = build(s, dev)
+    s = arch.shapes(cfg_file)
+    cfg, params, tok = build(arch, s, dev)
     pixels = traffic.pixel_pool(mix, dev)
     sync()
     if cuda:  # the peak from here on: the weights as served, and the engine
@@ -324,7 +310,7 @@ def serve_window(cfg_file: dict, mix: dict, seed: int, seconds: float, trace: bo
     if faults is not None:
         faults(engine)
     graphs_before = len(engine._graphs) if engine._graphs is not None else 0
-    rec = Recorder(engine, tok, s, seconds, trace, sync)
+    rec = Recorder(engine, tok, s, arch, seconds, trace, sync)
     rec.install()
     sessions: Dict[int, traffic.Session] = {}
 
@@ -353,7 +339,8 @@ def serve_window(cfg_file: dict, mix: dict, seed: int, seconds: float, trace: bo
         if idx is not None:
             scores[idx] = list(engine.debug_data_lists[b])
     out = dict(
-        shapes=s, run=rec.run, answers=rec.answers, setup_s=rec.t0 - t_start,
+        shapes=s, arch=arch, reference=ref, run=rec.run, answers=rec.answers,
+        setup_s=rec.t0 - t_start,
         window_s=window_s, peak=torch.cuda.max_memory_allocated(dev) if cuda else 0,
         captures=(len(engine._graphs) - graphs_before) if engine._graphs is not None else 0,
         served=check.Served(sessions={i: sessions[i] for i in scores}, scores=scores,
@@ -369,17 +356,18 @@ def serve_window(cfg_file: dict, mix: dict, seed: int, seconds: float, trace: bo
     return out
 
 
-def reference_check(served: check.Served, s: Shapes, seed: int, device,
-                    with_control: bool = False):
-    """(the check's numbers, the control's or None): protocol errors, the
-    program's score and token gaps against the reference; the control's are
-    those of the reference in the nearest lower precision put in the
-    program's place, which keeps the program's protocol."""
+def reference_check(out: dict, seed: int, device, with_control: bool = False):
+    """(the check's numbers, the control's or None) of `serve_window`'s
+    ``out``: protocol errors, the program's score and token gaps against the
+    configuration's reference; the control's are those of the reference in
+    the nearest lower precision put in the program's place, which keeps the
+    program's protocol."""
+    served, s, ref = out["served"], out["shapes"], out["reference"]
     numbers = {"protocol_errors": float(check.protocol_errors(served))}
     picked = check.pick(served, seed)
-    w = weights.make(s, s.weights_seed, device)
-    precisions = [model.served(s)] + ([model.control(s)] if with_control else [])
-    readings = check.reference_readings(served, s, w, precisions, picked, device)
+    w = weights.make(out["arch"].leaves(s), s.weights_seed, device)
+    precisions = [ref.served(s)] + ([ref.control(s)] if with_control else [])
+    readings = check.reference_readings(ref, served, s, w, precisions, picked, device)
     del w
     numbers.update(readings[0])
     numbers["sessions_checked"] = float(len(picked))
@@ -431,10 +419,9 @@ def run_cell(spec: dict, cell: dict, seed: int, seconds: float, trace: bool, dev
     numbers and whether they pass the same limits, under "window"."""
     cfg_file = specs.config_of(spec, cell["config"], root)
     mix = specs.traffic_of(cell["traffic"], root)
-    out = serve_window(cfg_file, mix, seed, seconds, trace, device, t_start, faults)
-    s = out["shapes"]
+    out = serve_window(cfg_file, mix, seed, seconds, trace, device, t_start, root, faults)
     served = out["served"]
-    numbers, control = reference_check(served, s, seed, device, with_control)
+    numbers, control = reference_check(out, seed, device, with_control)
     limits = cfg_file["limits"]
     checks = judge(numbers, limits)
     checked = numbers["sessions_checked"] > 0 and (served.grounding

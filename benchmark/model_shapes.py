@@ -1,14 +1,18 @@
-"""The sizes of a configuration file (``benchmark/configs/<config>.json``),
-as the harness, the reference and the arithmetic read them.
+"""The sizes of a configuration file (``benchmark/configs/<config>.json``)
+that every decoder architecture shares, as the harness, the reference and
+the arithmetic read them.
 
-A file holds the published keys of its sources at the top level (the
-LLaVA-OneVision Qwen2 decoder's ``config.json``), the vision tower's
-under ``vision_config`` (SigLIP-so400m's ``config.json``), MMDuet's
-streaming additions under ``mmduet``, and how the benchmark serves it
-under ``serving``. `shapes` raises `UnsupportedConfig` on a key or a value
-that the harness and the reference cannot honour (another architecture, a
-tied head, another pooling, an unknown key), so that no file is served as
-something it does not describe.
+A file holds its decoder's published keys at the top level (its
+``config.json``), which its architecture reads
+(``benchmark/arch/<architecture>.py``, found from ``architectures[0]``:
+`benchmark.spec.architecture`); the vision tower's under ``vision_config``
+(SigLIP-so400m's ``config.json``), the LLaVA projector's ``mm_*`` keys,
+MMDuet's streaming additions under ``mmduet``, how the benchmark serves it
+under ``serving``, and the keys that describe the file and its check.
+`common` reads these and raises `UnsupportedConfig` on a key or a value
+that neither it nor the architecture honours (a tied head where the
+architecture has none, another pooling, an unknown key), so that no file is
+served as something it does not describe.
 """
 
 from __future__ import annotations
@@ -16,20 +20,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
-# the one architecture both sides build: LLaVA-OneVision's Qwen2 decoder
-# (q/k/v bias, an untied LM head), a SigLIP tower, MMDuet's two heads
-ARCHITECTURE = "LlavaQwenForCausalLM"
-# key -> the values the harness honours (None: read, any value); keys not
-# listed here are refused
-TOP_KEYS = {
-    "vocab_size": None, "hidden_size": None, "intermediate_size": None,
-    "num_hidden_layers": None, "num_attention_heads": None, "num_key_value_heads": None,
-    "rope_theta": None, "rms_norm_eps": None, "mm_vision_select_layer": None,
-    "vision_config": None, "mmduet": None, "serving": None,
-    "tie_word_embeddings": (False,), "architectures": ([ARCHITECTURE],),
+from .spec import UnsupportedConfig
+
+# key -> the values the harness honours (None: read, any value); a key that
+# neither this nor the architecture's DECODER_KEYS lists is refused
+SHARED_KEYS = {
+    "mm_vision_select_layer": None, "vision_config": None, "mmduet": None, "serving": None,
     "mm_projector_type": ("mlp2x_gelu",), "mm_vision_tower": None, "mm_hidden_size": None,
-    # what describes the file and the check, and serves nothing
-    "name": None, "source": None, "reference": None, "assumed": None, "limits": None,
+    # what describes the file and the check, and serves nothing (`architectures` and
+    # `reference` find files: `benchmark.spec`)
+    "name": None, "source": None, "architectures": None, "reference": None, "assumed": None,
+    "limits": None,
 }
 VISION_KEYS = {"image_size", "patch_size", "hidden_size", "intermediate_size",
                "num_hidden_layers", "num_attention_heads", "layer_norm_eps", "source"}
@@ -41,10 +42,6 @@ SERVING_KEYS = {"weights_seed": None, "weights_dtype": ("bfloat16",), "weight_bi
                 "weights": None, "quantization": None}
 
 
-class UnsupportedConfig(ValueError):
-    pass
-
-
 def _honoured(group: dict, allowed: dict, where: str) -> None:
     for key, value in group.items():
         if key not in allowed:
@@ -54,16 +51,13 @@ def _honoured(group: dict, allowed: dict, where: str) -> None:
                                     f"{' or '.join(map(repr, allowed[key]))}")
 
 
-@dataclass(frozen=True)
+@dataclass(frozen=True, kw_only=True)
 class Shapes:
-    vocab: int
-    hidden: int
-    intermediate: int
-    layers: int
-    heads: int
-    kv_heads: int
-    rope_theta: float
-    rms_eps: float
+    """What every architecture shares; an architecture's ``Shapes`` adds its
+    decoder's sizes."""
+
+    vocab: int  # the decoder's vocabulary: the LM head's columns, the tokenizer's ids
+    hidden: int  # the decoder's width: the projector's output, the score heads' input
     v_image: int
     patch: int
     v_hidden: int
@@ -78,21 +72,7 @@ class Shapes:
     weight_bits: Optional[int]  # None: bf16 weights; 4: group-wise int4
     group: int
     kv_quant: Optional[str]  # None or "int8"
-    tie: bool = False  # the LM head tied to the embedding
-    qkv_bias: bool = True  # the decoder's q/k/v projections carry a bias (Qwen2)
     pool_mode: str = "bilinear"  # how a frame's patch grid pools to its tokens
-
-    @property
-    def head_dim(self) -> int:
-        return self.hidden // self.heads
-
-    @property
-    def q_dim(self) -> int:
-        return self.heads * self.head_dim
-
-    @property
-    def kv_dim(self) -> int:
-        return self.kv_heads * self.head_dim
 
     @property
     def v_head_dim(self) -> int:
@@ -113,25 +93,24 @@ class Shapes:
         return self.v_layers + sl + 1 if sl < 0 else sl + 1
 
 
-def shapes(cfg: dict) -> Shapes:
+def common(cfg: dict, decoder_keys: dict) -> dict:
+    """The fields of `Shapes` but ``vocab`` and ``hidden`` (the
+    architecture's to read), once every top-level key is one of
+    ``decoder_keys`` (the architecture's, in the form of `SHARED_KEYS`) or
+    `SHARED_KEYS`, and every value one they honour."""
     v, m, s = cfg["vision_config"], cfg["mmduet"], cfg["serving"]
-    _honoured(cfg, TOP_KEYS, "")
+    _honoured(cfg, {**SHARED_KEYS, **decoder_keys}, "")
     _honoured(v, dict.fromkeys(VISION_KEYS), "vision_config.")
     _honoured(m, MMDUET_KEYS, "mmduet.")
     _honoured(s, SERVING_KEYS, "serving.")
     if cfg.get("mm_hidden_size", v["hidden_size"]) != v["hidden_size"]:
         raise UnsupportedConfig("mm_hidden_size is not the tower's hidden_size")
-    return Shapes(
-        vocab=cfg["vocab_size"], hidden=cfg["hidden_size"],
-        intermediate=cfg["intermediate_size"], layers=cfg["num_hidden_layers"],
-        heads=cfg["num_attention_heads"], kv_heads=cfg["num_key_value_heads"],
-        rope_theta=float(cfg["rope_theta"]), rms_eps=float(cfg["rms_norm_eps"]),
+    return dict(
         v_image=v["image_size"], patch=v["patch_size"], v_hidden=v["hidden_size"],
         v_intermediate=v["intermediate_size"], v_layers=v["num_hidden_layers"],
         v_heads=v["num_attention_heads"], v_eps=float(v["layer_norm_eps"]),
         select_layer=cfg["mm_vision_select_layer"], frame_tokens=m["frame_num_tokens"],
         pool_stride=m["video_pooling_stride"], weights_seed=s["weights_seed"],
         weight_bits=s.get("weight_bits"), group=s.get("group_size", 128),
-        kv_quant=s.get("kv_cache_quant"), tie=cfg.get("tie_word_embeddings", False),
-        qkv_bias=True, pool_mode=m.get("spatial_pool_mode", "bilinear"),
+        kv_quant=s.get("kv_cache_quant"), pool_mode=m.get("spatial_pool_mode", "bilinear"),
     )

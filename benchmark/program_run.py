@@ -62,7 +62,8 @@ def one_seed(spec, cell, seed: int, seconds: float, device, root=ROOT) -> dict:
     mix = specs.traffic_of(cell["traffic"], root)
     counts = Counts()
     t0 = time.perf_counter()
-    out = harness.serve_window(cfg_file, mix, seed, seconds, True, device, t0, faults=counts)
+    out = harness.serve_window(cfg_file, mix, seed, seconds, True, device, t0, root,
+                               faults=counts)
     end = counts.engine.counters()
     counts.engine = None  # the harness's hooks hold the engine in a cycle
     gc.collect()

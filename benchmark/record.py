@@ -12,6 +12,7 @@ launches that carried them.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from types import ModuleType
 from typing import List, Optional, Tuple
 
 from .model_shapes import Shapes
@@ -42,11 +43,14 @@ class Call:
 
 @dataclass
 class Run:
-    """What a run recorded. In a traced run the profiler starts
-    ``slice_start_s`` into the window; the calls before it ran as in an
-    untraced run, with no sync and no profiler."""
+    """What a run recorded. ``arch``: the configuration's architecture
+    (`benchmark.spec.architecture`), whose operation counts read ``shapes``.
+    In a traced run the profiler starts ``slice_start_s`` into the window;
+    the calls before it ran as in an untraced run, with no sync and no
+    profiler."""
 
     shapes: Shapes
+    arch: ModuleType
     window_s: float = 0.0
     frames_scored: int = 0  # frames whose scores the engine returned
     frames_fed: int = 0  # frames fed to the decoder, rolled-back ones each time

@@ -21,10 +21,12 @@ program's state is freed:
 The sessions checked (`pick`): the deepest one (the longest answer
 context, or in grounding mode the most frames scored), and one more drawn
 from the seed from the other half of the lanes, with every answer they
-finished in the window and every frame they scored. The reference
-(`model`) works from the benchmark's weights made again from the seed, the
-pixels and the token ids; a control (`model.control`) is the same
-reference in the nearest lower precision, read at the same positions.
+finished in the window and every frame they scored. The reference (the
+module that the configuration's ``reference`` names,
+`benchmark.spec.reference`) works from the benchmark's weights made again
+from the seed, the pixels and the token ids; a control (its ``control``
+precision) is the same reference in the nearest lower precision, read at
+the same positions.
 
 The reference's stream is [a query at time 0, the frames], with answers
 removed from the context (`supported` refuses a traffic mix it does not
@@ -40,7 +42,6 @@ import numpy as np
 import torch
 
 from ..model_shapes import Shapes
-from . import model
 from .template import answer_prompt_ids, query_ids
 
 
@@ -188,14 +189,15 @@ def pick(served: Served, seed: int) -> List[int]:
 
 
 @torch.no_grad()
-def reference_readings(served: Served, s: Shapes, w: Dict, precisions: Sequence,
+def reference_readings(ref, served: Served, s: Shapes, w: Dict, precisions: Sequence,
                        session_ids: Sequence[int], device) -> List[Dict[str, float]]:
     """For each precision: the widest and the mean score gap and the widest
-    token gap of the program against the reference (the first precision,
-    the configuration's own); for each later one (a control), the same of
-    what that precision computes against the reference: its scores, and the
-    reference's gap of the token it would put first at each position."""
-    model.no_tf32()
+    token gap of the program against the reference ``ref`` (the first
+    precision, the configuration's own); for each later one (a control), the
+    same of what that precision computes against the reference: its scores,
+    and the reference's gap of the token it would put first at each
+    position."""
+    ref.no_tf32()
     ft = s.frame_tokens
     out = [dict(score_gap=0.0, token_gap=0.0) for _ in precisions]
     gap_sum, gap_n = [0.0] * len(precisions), 0
@@ -209,8 +211,8 @@ def reference_readings(served: Served, s: Shapes, w: Dict, precisions: Sequence,
         n = len(rows)
         q = query_ids(sess.query)
         answers = by_session.get(idx, [])
-        branches = [model.Branch(len(q) + (a.frame + 1) * ft, prompt + a.tokens[:-1],
-                                 len(prompt) - 1) for a in answers]
+        branches = [ref.Branch(len(q) + (a.frame + 1) * ft, prompt + a.tokens[:-1],
+                               len(prompt) - 1) for a in answers]
         pixels = torch.from_numpy(np.ascontiguousarray(served.pixels[sess.video, :n])).to(device)
         score_rows = torch.tensor([len(q) + (j + 1) * ft - 1 for j in range(n)], device=device)
         prog = torch.tensor([[r["informative_score"], r["relevance_score"]] for r in rows],
@@ -218,10 +220,10 @@ def reference_readings(served: Served, s: Shapes, w: Dict, precisions: Sequence,
         ref_logits = None
         ref_probs = None
         for k, p in enumerate(precisions):
-            frames = model.frame_embeds(w, s, p, pixels)
-            stream = torch.cat([model.embed_rows(w, s, p, q, device),
+            frames = ref.frame_embeds(w, s, p, pixels)
+            stream = torch.cat([ref.embed_rows(w, s, p, q, device),
                                 frames.reshape(-1, frames.shape[-1])])
-            probs, logits = model.decoder(w, s, p, stream, branches, score_rows)
+            probs, logits = ref.decoder(w, s, p, stream, branches, score_rows)
             del frames, stream
             if k == 0:
                 ref_probs, ref_logits = probs, logits

@@ -1,5 +1,10 @@
 """The plain reference of MMDuet-7B: plain PyTorch in float32, TF32 off.
 
+The reference of configurations of the ``LlavaQwenForCausalLM``
+architecture, whose ``reference`` key names this file: the harness loads it
+by path (`benchmark.spec.reference`), so it imports the benchmark's own
+modules as ``benchmark.*``.
+
 It follows the published description (LLaVA-OneVision: SigLIP-so400m's
 first 26 layers, a two-layer GELU projector, bilinear pooling of the
 27 x 27 patch grid to 7 x 7; the Qwen2 decoder; MMDuet's two score heads
@@ -35,8 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..model_shapes import Shapes
-from . import quant
+from benchmark.model_shapes import Shapes
+from benchmark.reference import quant
 
 QUERY_BLOCK = 512  # stream rows a block of the causal attention
 VISION_BLOCK = 8  # frames a block of the tower

@@ -1,15 +1,16 @@
 """The benchmark's arithmetic against hand-worked shapes: the tail, the
-rates, the operations, the rooflines and the idle share."""
+rates, the operations (through the committed configurations' architecture),
+the rooflines and the idle share."""
 
 
 import pytest
 
-from benchmark import flops, harness, roofline, spec as specs
-from benchmark.model_shapes import Shapes
+from benchmark import harness, roofline, spec as specs
 from benchmark.record import Call, Run
 from benchmark.trace import Trace, breakdown, idle_gaps
 
-S = Shapes(vocab=10, hidden=4, intermediate=8, layers=1, heads=2, kv_heads=1,
+QWEN = specs.architecture({"architectures": ["LlavaQwenForCausalLM"]})
+S = QWEN.Shapes(vocab=10, hidden=4, intermediate=8, layers=1, heads=2, kv_heads=1,
            rope_theta=1e6, rms_eps=1e-6, v_image=4, patch=2, v_hidden=2,
            v_intermediate=4, v_layers=2, v_heads=1, v_eps=1e-6, select_layer=-2,
            frame_tokens=1, pool_stride=2, weights_seed=0, weight_bits=4, group=2,
@@ -49,17 +50,18 @@ def test_vision_attention_work():
 
 def test_model_operations():
     # a layer: q 4*4, k and v 2*4*2, o 4*4, MLP 3*4*8 = 144; twice for a multiply-add
-    assert flops.decoder_token(S) == 288
-    assert flops.attention(S, 3, 2) == 4 * 2 * 2 * (2 * 3 + 3)
-    assert flops.chunk(S, 3, 2) == 2 * 288 + 144
-    assert flops.lm_head_row(S) == 80
+    assert QWEN.decoder_token(S) == 288
+    assert QWEN.attention(S, 3, 2) == 4 * 2 * 2 * (2 * 3 + 3)
+    assert QWEN.chunk(S, 3, 2) == 2 * 288 + 144
+    assert QWEN.lm_head_row(S) == 80
+    assert QWEN.score_heads_frame(S) == 32
     # tower: 4 patches of width 2, one layer runs; projector 2->4->4
     layer = 2 * 4 * (4 * 4 + 2 * 2 * 4) + 4 * 4 * 4 * 2
-    assert flops.vision_frame(S) == layer + 2 * 4 * 12 * 2 + 2 * 4 * (8 + 16)
+    assert QWEN.vision_frame(S) == layer + 2 * 4 * 12 * 2 + 2 * 4 * (8 + 16)
 
 
 def _run(**kw):
-    r = Run(S, **kw)
+    r = Run(S, QWEN, **kw)
     r.trace = Trace(kernels=[("flash_decode_tc_kernel<1>", 10, 20), ("int4_gemv_kernel", 15, 30),
                              ("flash_vision_kernel", 50, 60), ("other", 200, 300)],
                     spans=[("bench.slice", 0, 100), ("bench.round", 0, 100),
@@ -113,8 +115,8 @@ def test_host_rates_leave_out_the_traced_slice():
     assert specs.reader("dispatch_ms_per_frame")(r) == pytest.approx(5.0)
     assert specs.reader("decode_tok_s")(r) == pytest.approx(2.0)
     assert specs.reader("admit_ms_per_frame")(r) == pytest.approx(0.5)
-    total = (flops.chunk(S, 0, 2) + flops.score_heads_frame(S) * 2 + flops.chunk(S, 2, 1)
-             + flops.lm_head_row(S) + 2 * flops.vision_frame(S))
+    total = (QWEN.chunk(S, 0, 2) + QWEN.score_heads_frame(S) * 2 + QWEN.chunk(S, 2, 1)
+             + QWEN.lm_head_row(S) + 2 * QWEN.vision_frame(S))
     assert specs.reader("mfu")(r) == pytest.approx(100 * total / 3.0 / 989e12)
 
 
@@ -122,8 +124,8 @@ def test_mfu_counts_the_calls():
     r = _run(window_s=1e-9)
     r.calls = [Call("dispatch", [(3, 2)], scored=1), Call("step", [(5, 1)], lm_rows=1),
                Call("encode", frames=2)]
-    total = (flops.chunk(S, 3, 2) + flops.score_heads_frame(S) + flops.chunk(S, 5, 1)
-             + flops.lm_head_row(S) + 2 * flops.vision_frame(S))
+    total = (QWEN.chunk(S, 3, 2) + QWEN.score_heads_frame(S) + QWEN.chunk(S, 5, 1)
+             + QWEN.lm_head_row(S) + 2 * QWEN.vision_frame(S))
     assert specs.reader("mfu")(r) == pytest.approx(100 * total / 1e-9 / 989e12)
 
 
@@ -146,12 +148,12 @@ def test_rooflines_read_the_slice():
 
 
 def test_readers_find_nothing_where_nothing_ran():
-    r = Run(S)
+    r = Run(S, QWEN)
     for name in ("dispatch_ms_per_frame", "frames_kept_pct", "decode_tok_s",
                  "admit_ms_per_frame", "mfu", "decode_attention_roofline",
                  "vision_attention_roofline", "int4_matmul_roofline", "idle_pct"):
         assert specs.reader(name)(r) is None, name
-    dense = Run(Shapes(**{**S.__dict__, "weight_bits": None}))
+    dense = Run(QWEN.Shapes(**{**S.__dict__, "weight_bits": None}), QWEN)
     dense.trace = _run().trace
     assert specs.reader("int4_matmul_roofline")(dense) is None
 

@@ -1,5 +1,6 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the program."""
+reference, with each configuration's architecture, imports nothing of the
+program."""
 
 import json
 import subprocess
@@ -12,8 +13,13 @@ import json, sys
 sys.path.insert(0, {root!r})
 import benchmark.run as run
 from benchmark import harness, spec
-for m in spec.load()["per_layer"]:
+s = spec.load()
+for m in s["per_layer"]:
     spec.reader(m["name"])
+for c in s["configs"]:
+    cfg = spec.config_of(s, c["name"])
+    spec.architecture(cfg).port_config(spec.architecture(cfg).shapes(cfg))
+    spec.reference(cfg)
 import mmduet_tpu_torch.infer.batch_engine, mmduet_tpu_torch.models.quant
 import mmduet_tpu_torch.stream, mmduet_tpu_torch.infer.state
 print(json.dumps(run.forbidden_modules()))
@@ -23,6 +29,12 @@ REFERENCE = """
 import json, sys
 sys.path.insert(0, {root!r})
 import benchmark.reference.check, benchmark.reference.model, benchmark.weights
+from benchmark import spec
+s = spec.load()
+for c in s["configs"]:
+    cfg = spec.config_of(s, c["name"])
+    spec.architecture(cfg).leaves(spec.architecture(cfg).shapes(cfg))
+    spec.reference(cfg)
 print(json.dumps(sorted(m for m in sys.modules if m.split(".")[0] in
                         ("mmduet_tpu_torch", "mmduet_tpu", "jax", "jaxlib", "flax"))))
 """

@@ -13,7 +13,7 @@ import pytest
 
 from benchmark import program_trace, spec as specs
 from benchmark.record import Call, Run
-from benchmark.tests.test_bench_arith import S
+from benchmark.tests.test_bench_arith import QWEN, S
 from benchmark.trace import breakdown, kernel_intervals
 
 
@@ -150,7 +150,7 @@ def test_program_events_move_no_existing_reading(tmp_path):
     assert breakdown(full) == breakdown(bare)
     readings = {}
     for trace in (bare, full):
-        run = Run(S, window_s=2.0, frames_scored=9, frames_fed=10, slice_start_s=1.0,
+        run = Run(S, QWEN, window_s=2.0, frames_scored=9, frames_fed=10, slice_start_s=1.0,
                   trace=trace)
         run.calls = [Call("dispatch", [(10, 2)], scored=2, seconds=0.1, in_slice=True),
                      Call("step", [(4, 1)], lm_rows=1, in_slice=True),

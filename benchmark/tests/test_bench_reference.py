@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.reference import model
+from benchmark.reference import quant
 from benchmark.tests import tiny
 
 SEED = 2 ** 31 + 101
@@ -20,7 +20,7 @@ def _window(tmp_path, quant):
     from benchmark import spec as specs
     cfg = specs.config_of(spec, cell["config"], root)
     mix = specs.traffic_of(cell["traffic"], root)
-    out = harness.serve_window(cfg, mix, SEED, 2.0, False, "cpu", time.perf_counter())
+    out = harness.serve_window(cfg, mix, SEED, 2.0, False, "cpu", time.perf_counter(), root)
     return cfg, out
 
 
@@ -34,10 +34,11 @@ def _check(served, precision=None, layers_left_out=0, sessions=None):
     s = out["shapes"]
     if layers_left_out:
         s = dataclasses.replace(s, layers=s.layers - layers_left_out)
-    w = harness.weights.make(out["shapes"], s.weights_seed, "cpu")
+    ref = out["reference"]
+    w = harness.weights.make(out["arch"].leaves(out["shapes"]), s.weights_seed, "cpu")
     picked = sessions if sessions is not None else harness.check.pick(out["served"], SEED)
-    return harness.check.reference_readings(out["served"], s, w, [precision or model.served(s)],
-                                            picked, "cpu")[0]
+    return harness.check.reference_readings(ref, out["served"], s, w,
+                                            [precision or ref.served(s)], picked, "cpu")[0]
 
 
 def test_the_window_served_answers(served):
@@ -73,7 +74,7 @@ def test_reference_without_the_quantization_fails(served):
     s = out["shapes"]
     if s.weight_bits != 4:
         pytest.skip("bf16 weights: nothing quantized to leave out")
-    got = _check(served, precision=model.Precision("bf16", s.kv_quant))
+    got = _check(served, precision=out["reference"].Precision("bf16", s.kv_quant))
     assert max(got["score_gap"] / cfg["limits"]["score_gap"],
                got["token_gap"] / cfg["limits"]["token_gap"]) > 1
 
@@ -84,7 +85,7 @@ def test_reference_without_the_int8_scales_fails(served, monkeypatch):
     if s.kv_quant != "int8":
         pytest.skip("no int8 cache")
     # the cache read back as its int8 codes, its per-token scales left out
-    monkeypatch.setattr(harness.check.model.quant, "int8_kv_round_trip",
+    monkeypatch.setattr(quant, "int8_kv_round_trip",
                         lambda x: torch.round(x / (x.abs().amax(-1, keepdim=True) / 127)))
     got = _check(served)
     assert got["score_gap"] > cfg["limits"]["score_gap"]

@@ -1,15 +1,15 @@
 """BENCHMARK.json against the rules it keeps, the validator against specs
-that break it, and the configurations and traffic mixes that the harness
-refuses to serve."""
+that break it (on a tiny benchmark under a temporary root), and the
+configurations and traffic mixes that the harness refuses to serve."""
 
-import copy
 import json
 
 import pytest
 
-from benchmark import harness, spec as specs
-from benchmark.model_shapes import UnsupportedConfig, shapes
+from benchmark import spec as specs
+from benchmark.model_shapes import UnsupportedConfig
 from benchmark.reference import check
+from benchmark.tests import tiny
 from benchmark.tests.conftest import ROOT
 
 
@@ -51,32 +51,43 @@ def test_int4_roofline_only_in_the_quantized_cell(spec):
                                                           "per_layer")
 
 
-def _broken(spec, edit):
-    s = copy.deepcopy(spec)
-    edit(s)
-    with pytest.raises(specs.SpecError):
-        specs.validate(s)
-
-
-def _answers_in_no_cell(s):
+def _answers_in_no_cell(s, root):
     next(m for m in s["end_to_end"] if m["name"] == "answer_ms_p95")["workloads"] = []
     next(m for m in s["per_layer"] if m["name"] == "decode_tok_s")["workloads"] = [
         s["workloads"][0]["name"]]
 
 
+def _config_names(key, value):
+    """An edit of the configuration file: ``key`` names ``value``."""
+    def edit(s, root):
+        path = root / s["configs"][0]["file"]
+        path.write_text(json.dumps(dict(json.loads(path.read_text()), **{key: value})))
+    return edit
+
+
 @pytest.mark.parametrize("edit", [
-    pytest.param(lambda s: s["end_to_end"][0].update(unit="frames per s"), id="unit-space"),
-    pytest.param(lambda s: s["end_to_end"][0].update(unit="x" * 17), id="unit-long"),
-    pytest.param(lambda s: s["per_layer"][0].update(name="a/b"), id="name-slash"),
-    pytest.param(lambda s: s["per_layer"][0].update(moves="nothing"), id="moves-unknown"),
+    pytest.param(lambda s, root: s["end_to_end"][0].update(unit="frames per s"),
+                 id="unit-space"),
+    pytest.param(lambda s, root: s["end_to_end"][0].update(unit="x" * 17), id="unit-long"),
+    pytest.param(lambda s, root: s["per_layer"][0].update(name="a/b"), id="name-slash"),
+    pytest.param(lambda s, root: s["per_layer"][0].update(moves="nothing"), id="moves-unknown"),
     pytest.param(_answers_in_no_cell, id="moves-unreported"),
-    pytest.param(lambda s: s["workloads"].pop(0), id="config-without-cell"),
-    pytest.param(lambda s: s["workloads"][0].update(traffic="nothing"), id="no-traffic-file"),
-    pytest.param(lambda s: s["per_layer"][0].update(name="nothing"), id="no-reader"),
-    pytest.param(lambda s: s["end_to_end"].append(dict(s["end_to_end"][0])), id="name-twice"),
+    pytest.param(lambda s, root: s["workloads"].pop(0), id="config-without-cell"),
+    pytest.param(lambda s, root: s["workloads"][0].update(traffic="nothing"),
+                 id="no-traffic-file"),
+    pytest.param(lambda s, root: s["per_layer"][0].update(name="nothing"), id="no-reader"),
+    pytest.param(lambda s, root: s["end_to_end"].append(dict(s["end_to_end"][0])),
+                 id="name-twice"),
+    pytest.param(_config_names("architectures", ["NoSuchForCausalLM"]),
+                 id="no-architecture-file"),
+    pytest.param(_config_names("reference", "benchmark/reference/nothing.py"),
+                 id="no-reference-file"),
 ])
-def test_validator_refuses(spec, edit):
-    _broken(spec, edit)
+def test_validator_refuses(tmp_path, edit):
+    root, s, _ = tiny.make_root(tmp_path)
+    edit(s, root)
+    with pytest.raises(specs.SpecError):
+        specs.validate(s, root)
 
 
 def test_readers_load(spec):
@@ -100,13 +111,17 @@ def _config(edit):
     pytest.param(lambda c: c["vision_config"].update(vision_use_head=True), id="vision-key"),
 ])
 def test_a_config_the_harness_cannot_serve_is_refused(edit):
+    """Refused by its architecture's ``shapes``, or where no file serves its
+    architecture, before set-up."""
+    cfg = _config(edit)
     with pytest.raises(UnsupportedConfig):
-        shapes(_config(edit))
+        specs.architecture(cfg).shapes(cfg)
 
 
 def test_the_port_config_follows_the_file():
-    s = shapes(_config(lambda c: None))
-    cfg = harness.port_config(s)
+    file = _config(lambda c: None)
+    arch = specs.architecture(file)
+    cfg = arch.port_config(arch.shapes(file))
     assert (cfg.text.tie_word_embeddings, cfg.text.qkv_bias, cfg.spatial_pool_mode) == (
         False, True, "bilinear")
     assert cfg.text.num_layers == 28 and cfg.vision.num_layers == 27

@@ -1,6 +1,6 @@
 """A tiny copy of the benchmark for the CPU tests: the same harness, traffic
-generator, reference and metric readers under a temporary root, with a
-configuration and a mix small enough for a test run."""
+generator, architectures, reference and metric readers under a temporary
+root, with a configuration and a mix small enough for a test run."""
 
 from __future__ import annotations
 
@@ -17,6 +17,8 @@ BENCH = HERE.parent
 CONFIG = {
     "name": "tiny",
     "source": "a tiny MMDuet for the CPU tests",
+    "architectures": ["LlavaQwenForCausalLM"],
+    "reference": "benchmark/reference/model.py",
     "hidden_size": 128, "intermediate_size": 256, "num_hidden_layers": 2,
     "num_attention_heads": 4, "num_key_value_heads": 2, "vocab_size": 512,
     "rope_theta": 1000000.0, "rms_norm_eps": 1e-06, "tie_word_embeddings": False,
@@ -43,12 +45,19 @@ GROUNDING = dict(MIX, mode="grounding", block_frames=8, frame_fps=2.0, max_num_f
                  stream_end_score_sum_threshold=None, stream_end_prob_threshold=1.0)
 
 
-def make_root(tmp: Path, quant: bool = False, config=None, mix=None) -> tuple:
-    """(root, spec, cell) of a one-cell benchmark under ``tmp``."""
+def make_root(tmp: Path, quant: bool = False, config=None, mix=None, files=None) -> tuple:
+    """(root, spec, cell) of a one-cell benchmark under ``tmp``; ``files``:
+    {path under the root: text} written there too."""
     bench = tmp / "benchmark"
     (bench / "configs").mkdir(parents=True)
     (bench / "traffic").mkdir()
+    (bench / "reference").mkdir()
     shutil.copytree(BENCH / "metrics", bench / "metrics")
+    shutil.copytree(BENCH / "arch", bench / "arch")
+    shutil.copy(BENCH / "reference" / "model.py", bench / "reference" / "model.py")
+    for path, text in (files or {}).items():
+        (tmp / path).parent.mkdir(parents=True, exist_ok=True)
+        (tmp / path).write_text(text)
     cfg = copy.deepcopy(config or CONFIG)
     if quant:
         cfg["name"] = "tiny-w4kv8"

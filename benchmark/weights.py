@@ -1,20 +1,22 @@
 """Seeded random weights, made by the benchmark and handed to both sides.
 
 The tree has the layout the port takes (`mmduet_tpu_torch.models.params`:
-layer-stacked leaves, matmul weights as (in, out)). Its numbers are the
-benchmark's own: two `torch.randn` calls from one generator on the device,
-in the served dtype, each filling one flat buffer whose views are the
-leaves, then scaled in place. The first buffer holds what quantization
-replaces (the decoder's projections, the embedding, the LM head), so that
-it is freed once those are quantized; the second holds the rest. The same
-seed gives the same bits, so the reference makes them again after the
-window instead of reading anything from the program.
+layer-stacked leaves, matmul weights as (in, out)); its leaves are the
+architecture's (``leaves(s)`` of ``benchmark/arch/<architecture>.py``),
+which ends with the `shared` ones. Its numbers are the benchmark's own: two
+`torch.randn` calls from one generator on the device, in the served dtype,
+each filling one flat buffer whose views are the leaves, then scaled in
+place. The first buffer holds what quantization replaces (the decoder's
+projections, the embedding, the LM head), so that it is freed once those
+are quantized; the second holds the rest. The same seed gives the same
+bits, so the reference makes them again after the window instead of
+reading anything from the program.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -25,28 +27,12 @@ from .model_shapes import Shapes
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str]
 
 
-def leaves(s: Shapes) -> Tuple[List[Leaf], List[Leaf]]:
-    """(what quantization replaces, the rest), each in a fixed order."""
-    L, h, q, kv, mi, V = s.layers, s.hidden, s.q_dim, s.kv_dim, s.intermediate, s.vocab
-    quantized = [
-        (("decoder", "layers", "q_proj"), (L, h, q), "dense"),
-        (("decoder", "layers", "k_proj"), (L, h, kv), "dense"),
-        (("decoder", "layers", "v_proj"), (L, h, kv), "dense"),
-        (("decoder", "layers", "o_proj"), (L, q, h), "dense"),
-        (("decoder", "layers", "gate_proj"), (L, h, mi), "dense"),
-        (("decoder", "layers", "up_proj"), (L, h, mi), "dense"),
-        (("decoder", "layers", "down_proj"), (L, mi, h), "dense"),
-        (("decoder", "embed"), (V, h), "small"),
-        (("lm_head",), (h, V), "dense"),
-    ]
-    vl, vh, vi, P = s.v_layers, s.v_hidden, s.v_intermediate, s.v_patches
-    rest = [
-        (("decoder", "layers", "input_norm"), (L, h), "norm"),
-        (("decoder", "layers", "post_attn_norm"), (L, h), "norm"),
-        (("decoder", "layers", "q_bias"), (L, q), "small"),
-        (("decoder", "layers", "k_bias"), (L, kv), "small"),
-        (("decoder", "layers", "v_bias"), (L, kv), "small"),
-        (("decoder", "final_norm"), (h,), "norm"),
+def shared(s: Shapes) -> List[Leaf]:
+    """The leaves that every architecture shares, in a fixed order: the
+    score heads, the projector, the tower. An architecture's ``leaves(s)``
+    ends its second group with them."""
+    h, vl, vh, vi, P = s.hidden, s.v_layers, s.v_hidden, s.v_intermediate, s.v_patches
+    out = [
         (("informative_head",), (h, 2), "dense"),
         (("relevance_head",), (h, 2), "dense"),
         (("projector", "fc1"), (vh, h), "dense"),
@@ -66,8 +52,8 @@ def leaves(s: Shapes) -> Tuple[List[Leaf], List[Leaf]]:
             ("o_proj", (vl, vh, vh), "dense"), ("o_bias", (vl, vh), "small"),
             ("fc1", (vl, vh, vi), "dense"), ("fc1_bias", (vl, vi), "small"),
             ("fc2", (vl, vi, vh), "dense"), ("fc2_bias", (vl, vh), "small")):
-        rest.append((("vision", "layers", name), shape, init))
-    return quantized, rest
+        out.append((("vision", "layers", name), shape, init))
+    return out
 
 
 def _fill(tree: Dict, group: List[Leaf], gen: torch.Generator, device,
@@ -90,10 +76,13 @@ def _fill(tree: Dict, group: List[Leaf], gen: torch.Generator, device,
         node[path[-1]] = view
 
 
-def make(s: Shapes, seed: int, device, dtype: torch.dtype = torch.bfloat16) -> Dict:
-    """The weight tree of ``s`` from ``seed``, on ``device`` in ``dtype``."""
+def make(groups: Sequence[List[Leaf]], seed: int, device,
+         dtype: torch.dtype = torch.bfloat16) -> Dict:
+    """The weight tree of ``groups`` (an architecture's ``leaves(s)``: what
+    quantization replaces, the rest) from ``seed``, on ``device`` in
+    ``dtype``."""
     gen = torch.Generator(device=torch.device(device)).manual_seed(seed % (1 << 63))
     tree: Dict = {}
-    for group in leaves(s):
+    for group in groups:
         _fill(tree, group, gen, device, dtype)
     return tree
